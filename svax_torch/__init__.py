@@ -1,0 +1,14 @@
+"""svax_torch — the PyTorch/CUDA port of svax.
+
+Mirrors ``svax/`` module by module (same paths, same names, same array
+layouts at the public functions) so each port module can be held against
+its JAX counterpart. Imports ``torch`` and numpy only; the JAX package is
+the reference and is never imported here.
+
+Ported so far: the pinwheel-SVAE training path — ``data.pinwheel``,
+``expfam``, ``ops.batched_linalg``, ``pgm``, ``nets.mlp``,
+``models.svae``, ``train``, the whole-train-step CUDA kernel
+``ops.tinystep`` and the entry point ``svax_torch.train_svae``.
+"""
+
+__version__ = "0.1.0"

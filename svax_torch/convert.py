@@ -1,0 +1,91 @@
+"""Training state between the JAX package (as numpy arrays) and the port.
+
+The JAX package's ``SvaeTrainState`` holds ``nn_params`` (a list of
+``{"w", "b"}`` per side), optax's Adam state in ``opt_state[0]`` (``count``,
+``mu``, ``nu``), ``pgm_nat = GmmNat(dir_nat, NiwNat(eta1..eta4))`` and
+``step``. ``state_from_numpy`` takes that structure with numpy leaves (for
+example ``jax.tree.map(np.asarray, state)``; only attribute and index
+access is used, so neither JAX nor optax is imported) and builds the
+port's ``SvaeTrainState``. ``state_to_numpy`` goes back to a plain nested
+dict of numpy arrays with the same field names. Layouts are identical on
+both sides, so both directions are exact copies.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from svax_torch.expfam.niw import NiwNat
+from svax_torch.pgm.gmm import GmmNat
+from svax_torch.train.svae_step import AdamState, SvaeTrainState
+
+
+def _tensor(a, device, dtype):
+    t = torch.from_numpy(np.array(a))  # a writable copy
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _params_from(tree, device, dtype) -> dict:
+    return {
+        side: [{name: _tensor(ly[name], device, dtype) for name in ("w", "b")}
+               for ly in tree[side]]
+        for side in ("encoder", "decoder")
+    }
+
+
+def _params_to(tree: dict) -> dict:
+    return {
+        side: [{name: t.detach().cpu().numpy() for name, t in ly.items()}
+               for ly in layers]
+        for side, layers in tree.items()
+    }
+
+
+def gmm_nat_from_numpy(nat, *, device="cpu", dtype=None) -> GmmNat:
+    """GmmNat with numpy leaves (attribute access) → the port's GmmNat."""
+    niw = nat.niw_nat
+    return GmmNat(
+        dir_nat=_tensor(nat.dir_nat, device, dtype),
+        niw_nat=NiwNat(*(_tensor(getattr(niw, f), device, dtype)
+                         for f in ("eta1", "eta2", "eta3", "eta4"))),
+    )
+
+
+def gmm_nat_to_numpy(nat: GmmNat) -> dict:
+    out = {"dir_nat": nat.dir_nat.detach().cpu().numpy()}
+    for f in ("eta1", "eta2", "eta3", "eta4"):
+        out[f] = getattr(nat.niw_nat, f).detach().cpu().numpy()
+    return out
+
+
+def state_from_numpy(state, *, device="cpu", dtype=None) -> SvaeTrainState:
+    """The JAX package's SvaeTrainState with numpy leaves → the port's.
+
+    ``dtype=None`` keeps each array's own float dtype."""
+    adam = state.opt_state[0]
+    return SvaeTrainState(
+        nn_params=_params_from(state.nn_params, device, dtype),
+        opt_state=AdamState(
+            count=int(np.asarray(adam.count)),
+            mu=_params_from(adam.mu, device, dtype),
+            nu=_params_from(adam.nu, device, dtype),
+        ),
+        pgm_nat=gmm_nat_from_numpy(state.pgm_nat, device=device, dtype=dtype),
+        step=int(np.asarray(state.step)),
+    )
+
+
+def state_to_numpy(state: SvaeTrainState) -> dict:
+    """The port's state → {"nn_params", "adam": {"count", "mu", "nu"},
+    "pgm_nat": {"dir_nat", "eta1".."eta4"}, "step"} of numpy arrays."""
+    return {
+        "nn_params": _params_to(state.nn_params),
+        "adam": {
+            "count": np.asarray(state.opt_state.count, np.int32),
+            "mu": _params_to(state.opt_state.mu),
+            "nu": _params_to(state.opt_state.nu),
+        },
+        "pgm_nat": gmm_nat_to_numpy(state.pgm_nat),
+        "step": np.asarray(state.step, np.int32),
+    }

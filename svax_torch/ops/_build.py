@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, under ``build/svax_torch/`` at the root
+of the checkout, at first use, and loaded with ``ctypes``. The library's
+name carries a hash of the sources, so an edited source is rebuilt. A
+failed build raises with nvcc's output. Nothing happens at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svax_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (register and shared-memory use per kernel)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build "
+                       "the svax_torch CUDA kernels")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tinystep_scratch_floats.argtypes = [i, i, i, i, i]
+    lib.tinystep_scratch_floats.restype = ctypes.c_longlong
+    lib.tinystep_train_chunk.argtypes = [
+        p, i, i, i, i, i,  # x, n, k, s, h1, h2
+        p, p, p, p, p,  # prior, nat, params, m, v
+        p, p, p, p,  # metrics, scratch, eps, aug_eps
+        i, i, ctypes.c_ulonglong, f, f, f,  # t_steps, count, seed, lr, rho, aug
+        p,  # stream
+    ]
+    lib.tinystep_train_chunk.restype = i
+    lib.philox_normals.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, p, i, p]
+    lib.philox_normals.restype = i
+    lib.svax_cuda_error_string.argtypes = [i]
+    lib.svax_cuda_error_string.restype = ctypes.c_char_p
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; returns the CDLL."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sorted(_CSRC.glob("*.cu*")):
+        digest.update(src.name.encode() + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = _BUILD_DIR / f"libsvax_kernels-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    _lib = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code (launch refused, bad
+    configuration); faults during the run surface at the next synchronise."""
+    if err != 0:
+        msg = lib.svax_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

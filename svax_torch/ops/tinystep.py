@@ -1,0 +1,460 @@
+"""Whole-train-step kernel for the pinwheel SVAE: wrapper, plain version,
+hand-derived backward.
+
+Port of ``svax/ops/tinystep_pallas.py`` (GMM prior, in-kernel input-noise
+augmentation). ``train_chunk`` runs T complete training steps —
+encoder, closed-form 2×2 SIN combine, reparameterised sampling, Gaussian
+decoder over S·N·K rows, local KL, sufficient statistics, backward,
+Adam, CVI — in ONE launch of the CUDA kernel in ``csrc/tinystep.cu``.
+
+* On CUDA tensors it launches the kernel, or raises; there is no fallback.
+* On CPU tensors it runs ``train_chunk_plain``: T iterations of
+  ``svae_step.make_train_step`` wrapped in ``loop.augment_step``.
+* ``step_grads_manual`` is the backward written out by hand in plain
+  PyTorch — the formulas the kernel transcribes, tested on the CPU
+  against autograd.
+
+Noise: ``eps`` (T, S, N, K, 2) and ``aug_eps`` (T, N, 2) inject it (the
+parity mode); otherwise the kernel draws it from an in-kernel
+Philox4x32-10 + Box–Muller keyed by ``seed + state.step`` (so
+consecutive chunks differ), ε on stream t and ξ on stream t + 2³⁰.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from svax_torch.models.svae import SvaeConfig
+from svax_torch.pgm.gmm import GmmNat
+from svax_torch.expfam.niw import NiwNat
+from svax_torch.train import svae_step
+from svax_torch.train.svae_step import AdamState, SvaeTrainState
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_LOG_2 = math.log(2.0)
+_VAR_FLOOR = 1e-6
+
+# Hidden widths the kernel is instantiated for (encoder == decoder).
+SUPPORTED_HIDDEN = ((16, 16), (50, 50))
+# The kernel's shared memory holds K-sized blocks; it is sized for K <= 32.
+MAX_COMPONENTS = 32
+
+launches = 0  # kernel launches made by train_chunk (plain int)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def train_chunk_plain(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
+                      *, lr: float, rho: float, t_steps: int,
+                      num_samples: int = 4, seed: int = 0,
+                      aug_noise: float = 0.0,
+                      eps: torch.Tensor | None = None,
+                      aug_eps: torch.Tensor | None = None):
+    """T iterations of make_train_step + augment_step in plain PyTorch.
+
+    Returns (state, {"recon", "local_kl", "neg_loss"} of shape (T,)).
+    Without injected noise it draws from a ``torch.Generator`` on
+    ``x.device`` seeded ``seed + state.step``: the same distribution as
+    the kernel's Philox stream, not the same numbers.
+    """
+    from svax_torch.train.loop import augment_step
+
+    if aug_noise > 0.0 and (eps is None) != (aug_eps is None):
+        raise ValueError("aug_noise > 0 with injected noise needs both eps "
+                         "and aug_eps (or neither)")
+    n = x.shape[0]
+    k = prior.dir_nat.shape[0]
+    s = eps.shape[1] if eps is not None else num_samples
+    config = SvaeConfig(latent_dim=2, num_components=k, num_samples=s,
+                        num_total=n)
+    step = augment_step(svae_step.make_train_step(config, prior, lr, rho),
+                        aug_noise)
+    gen = None
+    if eps is None:
+        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+    mets = {"recon": [], "local_kl": [], "neg_loss": []}
+    for t in range(t_steps):
+        kw = {"generator": gen}
+        if eps is not None:
+            kw["eps"] = eps[t]
+            if aug_noise > 0.0:
+                kw["aug_eps"] = aug_eps[t]
+        state, m = step(state, x, **kw)
+        for name in mets:
+            mets[name].append(m[name])
+    return state, {name: torch.stack(v) for name, v in mets.items()}
+
+
+# ------------------------------------------------------ hand-written backward
+
+
+def digamma(x: torch.Tensor) -> torch.Tensor:
+    """ψ(x) for x > 0: 8-step recurrence into the asymptotic series (the
+    kernel's recurrence; ~1e-9 accurate)."""
+    acc = torch.zeros_like(x)
+    for i in range(8):
+        acc = acc + 1.0 / (x + float(i))
+    y = x + 8.0
+    inv = 1.0 / y
+    inv2 = inv * inv
+    series = torch.log(y) - 0.5 * inv - inv2 * (
+        1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)
+    )
+    return series - acc
+
+
+def expected_cols(nat: GmmNat) -> dict:
+    """Expected GMM params for d=2 in closed form, each (K,): the kernel's
+    map (mirrors gmm.expected_params / niw.expected_stats)."""
+    alpha = nat.dir_nat + 1.0
+    e_log_pi = digamma(alpha) - digamma(alpha.sum())
+    eta1, kappa, eta3, eta4 = nat.niw_nat
+    m1 = eta1[:, 0] / kappa
+    m2 = eta1[:, 1] / kappa
+    phi11 = eta3[:, 0, 0] - kappa * m1 * m1
+    phi12 = eta3[:, 0, 1] - kappa * m1 * m2
+    phi22 = eta3[:, 1, 1] - kappa * m2 * m2
+    nu = eta4 - 4.0  # η₄ = ν + d + 2, d = 2
+    det = phi11 * phi22 - phi12 * phi12
+    i11, i12, i22 = phi22 / det, -phi12 / det, phi11 / det
+    pim1 = i11 * m1 + i12 * m2
+    pim2 = i12 * m1 + i22 * m2
+    return dict(
+        log_pi=e_log_pi,
+        prec11=nu * i11, prec12=nu * i12, prec22=nu * i22,
+        pm1=nu * pim1, pm2=nu * pim2,
+        quad=2.0 / kappa + nu * (m1 * pim1 + m2 * pim2),
+        logdet=digamma(nu / 2.0) + digamma((nu - 1.0) / 2.0) + 2.0 * _LOG_2
+        - torch.log(det),
+    )
+
+
+def _mlp3_fwd(layers, x):
+    a1 = torch.tanh(x @ layers[0]["w"] + layers[0]["b"])
+    a2 = torch.tanh(a1 @ layers[1]["w"] + layers[1]["b"])
+    return a1, a2, a2 @ layers[2]["w"] + layers[2]["b"]
+
+
+def _mlp3_bwd(layers, x, a1, a2, obar):
+    """Cotangent of a tanh-tanh-linear MLP's output → (layer grads, x̄)."""
+    rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    x, a1, a2, obar = rows(x), rows(a1), rows(a2), rows(obar)
+    g2 = (obar @ layers[2]["w"].T) * (1.0 - a2 * a2)
+    g1 = (g2 @ layers[1]["w"].T) * (1.0 - a1 * a1)
+    grads = [
+        {"w": x.T @ g1, "b": g1.sum(0)},
+        {"w": a1.T @ g2, "b": g2.sum(0)},
+        {"w": a2.T @ obar, "b": obar.sum(0)},
+    ]
+    return grads, g1 @ layers[0]["w"].T
+
+
+def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
+                      eps: torch.Tensor):
+    """One step's forward and its backward, written out by hand.
+
+    x (N, 2) is the (already augmented) batch, eps (S, N, K, 2). Returns
+    (grads of neg_loss in the nn_params layout, aux dict with recon,
+    local_kl, neg_loss and the (K,) statistics counts, s1_1, s1_2, s2_11,
+    s2_12, s2_22). Full batch: num_total = N.
+    """
+    enc, dec = nn_params["encoder"], nn_params["decoder"]
+    s, n, _, _ = eps.shape
+    e = expected_cols(nat)
+
+    # Encoder → diagonal potential.
+    a1e, a2e, out = _mlp3_fwd(enc, x)
+    mean, raw = out[:, :2], out[:, 2:]
+    var = F.softplus(raw) + _VAR_FLOOR
+    p = 1.0 / var
+    h = mean * p
+
+    # Closed-form 2×2 combine on (N, K) planes.
+    j11 = e["prec11"] + p[:, 0:1]
+    j12 = e["prec12"].expand_as(j11)
+    j22 = e["prec22"] + p[:, 1:2]
+    ht1 = e["pm1"] + h[:, 0:1]
+    ht2 = e["pm2"] + h[:, 1:2]
+    det = j11 * j22 - j12 * j12
+    s11, s12, s22 = j22 / det, -j12 / det, j11 / det
+    mu1 = s11 * ht1 + s12 * ht2
+    mu2 = s12 * ht1 + s22 * ht2
+    logdet_j = torch.log(det)
+    log_rho = (e["log_pi"] + 0.5 * e["logdet"] - 0.5 * e["quad"]
+               + 0.5 * (mu1 * ht1 + mu2 * ht2) - 0.5 * logdet_j)
+    log_resp = log_rho - torch.logsumexp(log_rho, dim=1, keepdim=True)
+    resp = torch.exp(log_resp)
+
+    # z = μ̃ + L̃⁻ᵀε, L̃ = chol(J̃).
+    l11 = torch.sqrt(j11)
+    l21 = j12 / l11
+    l22 = torch.sqrt(j22 - l21 * l21)
+    u2 = eps[..., 1] / l22
+    u1 = (eps[..., 0] - l21 * u2) / l11
+    z = torch.stack([mu1 + u1, mu2 + u2], dim=-1)  # (S, N, K, 2)
+
+    # Gaussian decoder over S·N·K rows.
+    a1, a2, o = _mlp3_fwd(dec, z)
+    va = F.softplus(o[..., 2]) + _VAR_FLOOR
+    vb = F.softplus(o[..., 3]) + _VAR_FLOOR
+    da = x[None, :, None, 0] - o[..., 0]
+    db = x[None, :, None, 1] - o[..., 1]
+    ll = -0.5 * (torch.log(va) + da * da / va + torch.log(vb) + db * db / vb
+                 + 2.0 * _LOG_2PI)
+    recon = (resp * ll.sum(0)).sum() / s
+
+    # Local KL, closed form.
+    g_k = 0.5 * e["logdet"] - _LOG_2PI - 0.5 * e["quad"]
+    cross = e["pm1"] * mu1 + e["pm2"] * mu2
+    tr = e["prec11"] * s11 + 2.0 * e["prec12"] * s12 + e["prec22"] * s22
+    qmu = (e["prec11"] * mu1 * mu1 + 2.0 * e["prec12"] * mu1 * mu2
+           + e["prec22"] * mu2 * mu2)
+    e_log_pbar = e["log_pi"] + g_k + cross - 0.5 * (tr + qmu)
+    a_nk = log_resp - (1.0 + _LOG_2PI) + 0.5 * logdet_j - e_log_pbar
+    local = (resp * a_nk).sum()
+    neg_loss = -(recon - local) / n
+
+    # ---- backward: neg_loss = −(recon − local)/N
+    rbar, lbar = -1.0 / n, 1.0 / n
+    llbar = rbar * resp / s  # (N, K), broadcast over S
+    obar = torch.stack([
+        llbar * da / va,
+        llbar * db / vb,
+        llbar * (-0.5) * (1.0 / va - da * da / (va * va)) * torch.sigmoid(o[..., 2]),
+        llbar * (-0.5) * (1.0 / vb - db * db / (vb * vb)) * torch.sigmoid(o[..., 3]),
+    ], dim=-1)
+    dec_grads, zbar = _mlp3_bwd(dec, z, a1, a2, obar)
+    zbar = zbar.reshape(z.shape)
+
+    # Sampling backward through u = L̃⁻ᵀε and the 2×2 Cholesky.
+    u1bar = zbar[..., 0]
+    u2bar = zbar[..., 1] - u1bar * l21 / l11
+    mu1bar = zbar[..., 0].sum(0)
+    mu2bar = zbar[..., 1].sum(0)
+    l11bar = -(u1bar * u1).sum(0) / l11
+    l21bar = -(u1bar * u2).sum(0) / l11
+    l22bar = -(u2bar * u2).sum(0) / l22
+    j22bar = l22bar / (2.0 * l22)
+    l21bar = l21bar - l22bar * l21 / l22
+    l11bar = l11bar - l21bar * l21 / l11
+    j11bar = l11bar / (2.0 * l11)
+
+    # Softmax: r̃ feeds the recon weights and the local KL.
+    respbar = rbar * ll.sum(0) / s + lbar * a_nk
+    lrbar = lbar * resp + respbar * resp
+    rhobar = lrbar - resp * lrbar.sum(1, keepdim=True)
+
+    # Local KL and log ρ through μ̃, Σ̃, log|J̃|.
+    w = lbar * resp
+    mu1bar = mu1bar + w * (-e["pm1"] + e["prec11"] * mu1 + e["prec12"] * mu2)
+    mu2bar = mu2bar + w * (-e["pm2"] + e["prec12"] * mu1 + e["prec22"] * mu2)
+    s11bar = 0.5 * w * e["prec11"]
+    s12bar = w * e["prec12"]
+    s22bar = 0.5 * w * e["prec22"]
+    logdetbar = 0.5 * w - 0.5 * rhobar
+    mu1bar = mu1bar + 0.5 * rhobar * ht1
+    mu2bar = mu2bar + 0.5 * rhobar * ht2
+    ht1bar = 0.5 * rhobar * mu1 + s11 * mu1bar + s12 * mu2bar
+    ht2bar = 0.5 * rhobar * mu2 + s12 * mu1bar + s22 * mu2bar
+    s11bar = s11bar + mu1bar * ht1
+    s12bar = s12bar + mu1bar * ht2 + mu2bar * ht1
+    s22bar = s22bar + mu2bar * ht2
+    detbar = (logdetbar - (s11bar * s11 + s12bar * s12 + s22bar * s22)) / det
+    j11bar = j11bar + s22bar / det + detbar * j22
+    j22bar = j22bar + s11bar / det + detbar * j11
+
+    # Encoder head, then the encoder MLP.
+    pbar = torch.stack([j11bar.sum(1), j22bar.sum(1)], dim=-1)
+    hbar = torch.stack([ht1bar.sum(1), ht2bar.sum(1)], dim=-1)
+    meanbar = hbar * p
+    varbar = -(pbar + hbar * mean) * p * p
+    rawbar = varbar * torch.sigmoid(raw)
+    enc_grads, _ = _mlp3_bwd(enc, x, a1e, a2e, torch.cat([meanbar, rawbar], -1))
+
+    aux = dict(
+        recon=recon, local_kl=local, neg_loss=neg_loss,
+        counts=resp.sum(0),
+        s1_1=(resp * mu1).sum(0), s1_2=(resp * mu2).sum(0),
+        s2_11=(resp * (s11 + mu1 * mu1)).sum(0),
+        s2_12=(resp * (s12 + mu1 * mu2)).sum(0),
+        s2_22=(resp * (s22 + mu2 * mu2)).sum(0),
+    )
+    return {"encoder": enc_grads, "decoder": dec_grads}, aux
+
+
+# ------------------------------------------------------------- the wrapper
+
+
+_LAYER_ORDER = ("encoder", "decoder")
+
+
+def _flat(tree: dict) -> torch.Tensor:
+    """nn_params-layout tree → the kernel's flat f32 buffer (per side, per
+    layer: w (in, out) row-major, then b)."""
+    return torch.cat([
+        t.reshape(-1) for side in _LAYER_ORDER for ly in tree[side]
+        for t in (ly["w"], ly["b"])
+    ])
+
+
+def _unflat(buf: torch.Tensor, like: dict) -> dict:
+    out, off = {}, 0
+    for side in _LAYER_ORDER:
+        out[side] = []
+        for ly in like[side]:
+            new = {}
+            for name in ("w", "b"):
+                size = ly[name].numel()
+                new[name] = buf[off:off + size].view(ly[name].shape)
+                off += size
+            out[side].append(new)
+    return out
+
+
+def pack_nat(nat: GmmNat) -> torch.Tensor:
+    """GmmNat → (K, 9) block: dir, η₁(2), η₂, η₃(2×2 row-major), η₄."""
+    k = nat.dir_nat.shape[0]
+    eta1, eta2, eta3, eta4 = nat.niw_nat
+    return torch.cat([nat.dir_nat[:, None], eta1, eta2[:, None],
+                      eta3.reshape(k, 4), eta4[:, None]], dim=1).contiguous()
+
+
+def unpack_nat(block: torch.Tensor) -> GmmNat:
+    k = block.shape[0]
+    return GmmNat(
+        dir_nat=block[:, 0],
+        niw_nat=NiwNat(eta1=block[:, 1:3], eta2=block[:, 3],
+                       eta3=block[:, 4:8].reshape(k, 2, 2), eta4=block[:, 8]),
+    )
+
+
+def shape_class_reason(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
+                       num_samples: int) -> str | None:
+    """Why the CUDA kernel cannot take these shapes (None = it can)."""
+    enc, dec = state.nn_params["encoder"], state.nn_params["decoder"]
+    if len(enc) != 3 or len(dec) != 3:
+        return "the kernel runs two-hidden-layer MLPs only"
+    hid_e = (enc[0]["w"].shape[1], enc[1]["w"].shape[1])
+    hid_d = (dec[0]["w"].shape[1], dec[1]["w"].shape[1])
+    if hid_e != hid_d or hid_e not in SUPPORTED_HIDDEN:
+        return (f"hidden widths enc {hid_e} / dec {hid_d}: the kernel is "
+                f"built for matched widths in {SUPPORTED_HIDDEN}")
+    if x.ndim != 2 or x.shape[1] != 2 or enc[0]["w"].shape[0] != 2:
+        return "the kernel takes 2-D data"
+    if dec[0]["w"].shape[0] != 2 or enc[2]["w"].shape[1] != 4:
+        return "the kernel takes latent d = 2 with a diagonal head"
+    if dec[2]["w"].shape[1] != 4:
+        return "the kernel takes a Gaussian decoder head"
+    k = prior.dir_nat.shape[0]
+    if not 1 <= k <= MAX_COMPONENTS:
+        return f"K = {k} outside 1..{MAX_COMPONENTS}"
+    if num_samples < 1:
+        return "num_samples must be >= 1"
+    if 2 * num_samples * x.shape[0] * k >= 2**32:
+        return "S·N·K·2 normals per step overflow the Philox counter"
+    return None
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p | None:
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
+                lr: float, rho: float, t_steps: int, seed: int = 0,
+                aug_noise: float = 0.0, num_samples: int = 4,
+                eps: torch.Tensor | None = None,
+                aug_eps: torch.Tensor | None = None):
+    """Run T complete train steps; returns (state, {"recon", "local_kl",
+    "neg_loss"} of shape (T,)).
+
+    Semantics of T iterations of ``svae_step.make_train_step`` (GMM prior,
+    full batch, constant ρ) with ``augment_step(σ=aug_noise)``. ``elbo``
+    needs the global KL, added outside (``loop.make_runner``).
+
+    CUDA tensors: one launch of the CUDA kernel; f32, contiguous, one
+    device, the kernel's shape class — anything else raises. The state is
+    packed into fresh flat device buffers that the kernel updates in
+    place; the returned state's tensors are views of those buffers, and
+    the input state is not modified. CPU tensors: ``train_chunk_plain``.
+    """
+    global launches
+    if x.device.type == "cpu":
+        return train_chunk_plain(
+            state, prior, x, lr=lr, rho=rho, t_steps=t_steps,
+            num_samples=num_samples, seed=seed, aug_noise=aug_noise, eps=eps,
+            aug_eps=aug_eps,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"tinystep.train_chunk: no kernel for device {x.device}")
+    if aug_noise > 0.0 and (eps is None) != (aug_eps is None):
+        raise ValueError("aug_noise > 0 with injected noise needs both eps "
+                         "and aug_eps (or neither)")
+    s = eps.shape[1] if eps is not None else num_samples
+    reason = shape_class_reason(state, prior, x, s)
+    if reason is not None:
+        raise ValueError(f"tinystep.train_chunk: {reason}")
+    n, k = x.shape[0], prior.dir_nat.shape[0]
+    h1, h2 = state.nn_params["encoder"][0]["w"].shape[1], (
+        state.nn_params["encoder"][1]["w"].shape[1])
+    tensors = [x, *prior.niw_nat, prior.dir_nat, *state.pgm_nat.niw_nat,
+               state.pgm_nat.dir_nat]
+    for tree in (state.nn_params, state.opt_state.mu, state.opt_state.nu):
+        tensors += [t for side in tree.values() for ly in side for t in ly.values()]
+    if eps is not None:
+        tensors.append(eps)
+        if eps.shape != (t_steps, s, n, k, 2):
+            raise ValueError(f"eps shape {tuple(eps.shape)} != "
+                             f"{(t_steps, s, n, k, 2)}")
+    if aug_eps is not None and aug_noise > 0.0:
+        tensors.append(aug_eps)
+        if aug_eps.shape != (t_steps, n, 2):
+            raise ValueError(f"aug_eps shape {tuple(aug_eps.shape)} != "
+                             f"{(t_steps, n, 2)}")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError("tinystep.train_chunk: every tensor must be "
+                             f"float32 on {x.device} (got {t.dtype} on {t.device})")
+    for t in (x, eps, aug_eps):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("tinystep.train_chunk: x, eps and aug_eps must "
+                             "be contiguous")
+
+    from svax_torch.ops import _build
+
+    lib = _build.load()
+    params = _flat(state.nn_params)
+    m = _flat(state.opt_state.mu)
+    v = _flat(state.opt_state.nu)
+    nat = pack_nat(state.pgm_nat)
+    prior_b = pack_nat(prior)
+    metrics = torch.empty((t_steps, 3), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(lib.tinystep_scratch_floats(n, k, s, h1, h2),
+                          device=x.device, dtype=torch.float32)
+    aug_in = aug_eps if aug_noise > 0.0 else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.tinystep_train_chunk(
+            _ptr(x), n, k, s, h1, h2,
+            _ptr(prior_b), _ptr(nat), _ptr(params), _ptr(m), _ptr(v),
+            _ptr(metrics), _ptr(scratch), _ptr(eps), _ptr(aug_in),
+            t_steps, state.opt_state.count,
+            (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
+            float(lr), float(rho), float(aug_noise), ctypes.c_void_p(stream),
+        )
+    _build.check(lib, err, "tinystep_train_chunk")
+    launches += 1
+    new_state = SvaeTrainState(
+        nn_params=_unflat(params, state.nn_params),
+        opt_state=AdamState(count=state.opt_state.count + t_steps,
+                            mu=_unflat(m, state.nn_params),
+                            nu=_unflat(v, state.nn_params)),
+        pgm_nat=unpack_nat(nat),
+        step=state.step + t_steps,
+    )
+    return new_state, {"recon": metrics[:, 0], "local_kl": metrics[:, 1],
+                       "neg_loss": metrics[:, 2]}

@@ -1,0 +1,164 @@
+"""Gaussian-mixture PGM: expected parameters and sufficient statistics
+(``svax/pgm/gmm.py``, the subset the SVAE training path uses).
+
+A Dirichlet(α) prior over mixing weights and one NIW prior per component,
+batched over K along the leading axis.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from svax_torch.expfam import dirichlet, niw
+from svax_torch.expfam.niw import NiwNat, NiwStandard
+
+
+class GmmNat(NamedTuple):
+    """Global PGM natural parameters: q(π) Dirichlet and q(μ_k, Λ_k) NIW."""
+
+    dir_nat: torch.Tensor  # (K,) Dirichlet natural α − 1
+    niw_nat: NiwNat  # component-batched NIW naturals, leading axis K
+
+
+class GmmExpected(NamedTuple):
+    """Expected natural parameters — the VMP messages."""
+
+    log_pi: torch.Tensor  # (K,)      E[log π]
+    prec: torch.Tensor  # (K, d, d)   E[Λ]
+    prec_mean: torch.Tensor  # (K, d) E[Λμ]
+    quad: torch.Tensor  # (K,)        E[μᵀΛμ]
+    logdet: torch.Tensor  # (K,)      E[log|Λ|]
+
+
+class GmmSuffStats(NamedTuple):
+    """Weighted sufficient statistics (SURVEY.md §9.5)."""
+
+    counts: torch.Tensor  # (K,)      N_k = Σ_n r_nk
+    mean_stat: torch.Tensor  # (K, d) s₁ = Σ_n r_nk E[z_n]
+    scatter_stat: torch.Tensor  # (K, d, d) S₂ = Σ_n r_nk E[z_n z_nᵀ]
+
+
+def expected_params(nat: GmmNat) -> GmmExpected:
+    """Expected-parameter messages from the global naturals."""
+    alpha = dirichlet.natural_to_standard(nat.dir_nat)
+    stats = niw.expected_stats_nat(nat.niw_nat)
+    return GmmExpected(
+        log_pi=dirichlet.expected_log_pi(alpha),
+        prec=stats.prec,
+        prec_mean=stats.prec_mean,
+        quad=stats.quad,
+        logdet=stats.logdet,
+    )
+
+
+def make_prior(
+    num_components: int,
+    latent_dim: int,
+    alpha: float = 1.0,
+    mean: float = 0.0,
+    kappa: float = 0.05,
+    psi_scale: float = 1.0,
+    nu: float | None = None,
+    *,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+) -> GmmNat:
+    """Conjugate prior naturals (paper-typical defaults, SURVEY.md §4.5)."""
+    k, d = num_components, latent_dim
+    if nu is None:
+        nu = d + 1.0
+    kw = dict(device=device, dtype=dtype)
+    std = NiwStandard(
+        m=torch.full((k, d), mean, **kw),
+        kappa=torch.full((k,), kappa, **kw),
+        phi=(psi_scale * torch.eye(d, **kw)).expand(k, d, d).clone(),
+        nu=torch.full((k,), nu, **kw),
+    )
+    return GmmNat(
+        dir_nat=torch.full((k,), alpha - 1.0, **kw),
+        niw_nat=niw.standard_to_natural(std),
+    )
+
+
+def init_variational(
+    generator: torch.Generator,
+    prior: GmmNat,
+    data: torch.Tensor | None = None,
+    mean_scale: float = 1.0,
+    pseudo_counts: float = 1.0,
+) -> GmmNat:
+    """q's naturals as the prior plus ``pseudo_counts`` pseudo-observations
+    per component, at a random data point (if ``data`` is given, drawn
+    without replacement) or at N(0, mean_scale²). The increment is a valid
+    sufficient-statistic bundle, so the result is a valid NIW natural.
+
+    ``generator`` must live on the prior's device."""
+    k = prior.dir_nat.shape[0]
+    d = prior.niw_nat.eta1.shape[-1]
+    ref = prior.niw_nat.eta1
+    if data is None:
+        locs = mean_scale * torch.randn(
+            (k, d), generator=generator, device=ref.device, dtype=ref.dtype
+        )
+    else:
+        idx = torch.randperm(
+            data.shape[0], generator=generator, device=ref.device
+        )[:k]
+        locs = data[idx].to(ref.dtype)
+    c = pseudo_counts
+    outer = locs[:, :, None] * locs[:, None, :]
+    eye = torch.eye(d, dtype=ref.dtype, device=ref.device)
+    inc = NiwNat(
+        eta1=c * locs,
+        eta2=torch.full((k,), c, dtype=ref.dtype, device=ref.device),
+        eta3=c * (outer + eye),
+        eta4=torch.full((k,), c, dtype=ref.dtype, device=ref.device),
+    )
+    return GmmNat(
+        dir_nat=prior.dir_nat + c,
+        niw_nat=NiwNat(*(a + b for a, b in zip(prior.niw_nat, inc))),
+    )
+
+
+def suff_stats_from_moments(
+    resp: torch.Tensor,
+    ez: torch.Tensor,
+    ezz: torch.Tensor,
+    scale: float = 1.0,
+) -> GmmSuffStats:
+    """Weighted stats from per-(n,k) posterior moments (SVAE path, §9.5).
+
+    resp (N, K); ez (N, K, d) = μ̃; ezz (N, K, d, d) = Σ̃ + μ̃μ̃ᵀ.
+    """
+    counts = resp.sum(dim=0)
+    mean_stat = torch.einsum("nk,nki->ki", resp, ez)
+    scatter_stat = torch.einsum("nk,nkij->kij", resp, ezz)
+    return GmmSuffStats(
+        counts=scale * counts,
+        mean_stat=scale * mean_stat,
+        scatter_stat=scale * scatter_stat,
+    )
+
+
+def stats_to_nat(stats: GmmSuffStats) -> GmmNat:
+    """Map sufficient statistics onto natural-parameter increments (§9.5)."""
+    return GmmNat(
+        dir_nat=stats.counts,
+        niw_nat=NiwNat(
+            eta1=stats.mean_stat,
+            eta2=stats.counts,
+            eta3=stats.scatter_stat,
+            eta4=stats.counts,
+        ),
+    )
+
+
+def kl_global(nat: GmmNat, prior: GmmNat) -> torch.Tensor:
+    """KL(q(π)‖p(π)) + Σ_k KL(q(μ_k,Λ_k)‖p(μ_k,Λ_k)) (§9.6 global term)."""
+    alpha_q = dirichlet.natural_to_standard(nat.dir_nat)
+    alpha_p = dirichlet.natural_to_standard(prior.dir_nat)
+    kl_dir = dirichlet.kl(alpha_q, alpha_p)
+    kl_niw = niw.kl_nat(nat.niw_nat, prior.niw_nat).sum()
+    return kl_dir + kl_niw
