@@ -20,7 +20,21 @@ else. Phases (any failure raises and the exit code is non-zero):
    2 chunks of 1000 steps on the kernel with in-kernel noise, twice: every
    value finite, the kernel launched, the training ELBO improved, the two
    runs bit-equal; then 50 steps on the plain engine for its rate;
-6. prints the kernels line, the card line, and last
+6. the mixstep kernel against its plain version at full pinwheel-gmm
+   width (N=400, K=10, d=2), GMM and SMM (dof 4), T=20, ρ=0.3 from a
+   k-means++ state, at tests/test_mixstep_kernel.py's tolerances; then
+   both timed per step (the kernel in chunks of 10,000 steps, the plain
+   version in chunks of 100);
+7. the estep kernel against its plain version at N=400, K=10, d=2 and at
+   N=65,536, K=128, d=10 (seeded numpy data as in
+   benchmarks/bench_estep.py), at bench_estep.py's bars; then both timed;
+8. the mixture main paths: ``svax_torch.train_gmm --config pinwheel-gmm
+   --init kmeanspp`` on the kernel engine twice (mixstep launched, every
+   value finite, the elbo not falling across the rows, the runs
+   bit-equal); on the plain engine with ``--fused-kernel`` (estep launched
+   once per step, final naturals within 1e-4 of the kernel run's); and
+   ``svax_torch.train_smm --engine kernel``;
+9. prints the kernels line, the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -86,6 +100,154 @@ def time_per_step(fn, steps: int, repeats: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def nat_leaves(nat) -> list:
+    return [nat.dir_nat, *nat.niw_nat]
+
+
+def to_device(nat, dev):
+    return type(nat)(nat.dir_nat.to(dev), type(nat.niw_nat)(*(t.to(dev) for t in nat.niw_nat)))
+
+
+def rel_err(got, ref) -> float:
+    """max |got − ref| / max |ref| (benchmarks/bench_estep.py's measure)."""
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def mixture_phases(card: str) -> list:
+    """Phases 6–8; returns the mixstep and estep entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from svax_torch import train_gmm, train_smm
+    from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.models.gmm_baseline import GmmTrainState
+    from svax_torch.models.smm_baseline import SmmTrainState
+    from svax_torch.ops import estep, mixstep
+    from svax_torch.pgm import gmm
+    from svax_torch.pgm.init import init_variational_kmeanspp
+
+    dev = torch.device("cuda", 0)
+
+    # 6. mixstep against plain at full pinwheel-gmm width
+    train, _ = load_pinwheel(seed=0)
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+    prior_cpu = gmm.make_prior(10, 2, alpha=1.0, kappa=0.05)
+    nat0 = to_device(init_variational_kmeanspp(prior_cpu, train, seed=0), dev)
+    prior = to_device(prior_cpu, dev)
+    errs, times = {}, {}
+    for name, dof, cls in (("gmm", 0.0, GmmTrainState), ("smm", 4.0, SmmTrainState)):
+        state = cls(nat=nat0, step=0)
+        kw = dict(rho=0.3, dof=dof)
+        st_k, met_k = mixstep.train_chunk(state, prior, x, t_steps=20, **kw)
+        torch.cuda.synchronize()
+        st_p, met_p = mixstep.train_chunk_plain(state, prior, x, t_steps=20, **kw)
+        nat_err = max(close(f"mixstep {name} naturals", a_, b_, 3e-4, 3e-4)
+                      for a_, b_ in zip(nat_leaves(st_k.nat), nat_leaves(st_p.nat)))
+        ev_err = close(f"mixstep {name} local evidence", met_k["local_evidence"],
+                       met_p["local_evidence"], 2e-4, 2e-3)
+        errs[name] = nat_err
+        t_kernel, t_plain = 10_000, 100
+        times[name] = (
+            time_per_step(lambda: mixstep.train_chunk(state, prior, x, t_steps=t_kernel,
+                                                      **kw), t_kernel),
+            time_per_step(lambda: mixstep.train_chunk_plain(state, prior, x,
+                                                            t_steps=t_plain, **kw),
+                          t_plain))
+        print(f"phase 6: mixstep {name} vs plain, T=20 rho=0.3 at N=400 K=10 d=2: "
+              f"naturals max abs err {nat_err:.3e} (rtol 3e-4 atol 3e-4), local "
+              f"evidence {ev_err:.3e} (rtol 2e-4 atol 2e-3); per step: kernel "
+              f"{times[name][0] * 1e3:.3f} us (chunks of {t_kernel}), plain "
+              f"{times[name][1]:.4f} ms (chunks of {t_plain}); {card}")
+
+    # 7. estep against plain, pinwheel shape and the design shape
+    est = {}
+    for n, k, d in ((400, 10, 2), (65536, 128, 10)):
+        rng = np.random.default_rng(0)
+        xe = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pe = gmm.make_prior(k, d, device=dev)
+        exp = gmm.expected_params(gmm.init_variational(gen, pe, xe))
+        stats, ev = estep.e_step_stats_fused(xe, exp)
+        torch.cuda.synchronize()
+        ref, ref_ev = estep.e_step_stats_reference(xe, exp)
+        rel = max(rel_err(a_, b_) for a_, b_ in zip(stats, ref))
+        ev_err = float((ev.double() - ref_ev.double()).abs().max())
+        abs_err = max(float((a_.double() - b_.double()).abs().max())
+                      for a_, b_ in zip(stats, ref))
+        if not (rel < 5e-5 and ev_err < 1e-3):
+            raise AssertionError(f"estep at N={n} K={k} d={d}: stats rel err {rel:.3e} "
+                                 f"(bar 5e-5), evidence abs err {ev_err:.3e} (bar 1e-3)")
+        again, ev2 = estep.e_step_stats_fused(xe, exp)
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(stats, again)) and \
+            torch.equal(ev, ev2), "two estep calls differ"
+        reps = 20
+        w = estep.pack_coeffs(exp, dtype=torch.float32).contiguous()
+        raw_ms = time_per_step(lambda: [estep.stats_kernel(xe, w) for _ in range(reps)],
+                               reps)
+        k_ms = time_per_step(lambda: [estep.e_step_stats_fused(xe, exp)
+                                      for _ in range(reps)], reps)
+        p_ms = time_per_step(lambda: [estep.e_step_stats_reference(xe, exp)
+                                      for _ in range(reps)], reps)
+        est[(n, k, d)] = (abs_err, k_ms, p_ms)
+        print(f"phase 7: estep vs plain at N={n} K={k} d={d}: stats max err / max|ref| "
+              f"{rel:.3e} (bar 5e-5), max abs err {abs_err:.3e}, evidence max abs err "
+              f"{ev_err:.3e} (bar 1e-3), reruns bit-equal; per call: kernel "
+              f"{k_ms:.4f} ms (the kernel call alone {raw_ms:.4f} ms), plain "
+              f"{p_ms:.4f} ms; {card}")
+
+    # 8. the mixture main paths
+    argv = ["--config", "pinwheel-gmm", "--init", "kmeanspp", "--device", "cuda"]
+    mixstep.launches = 0
+    run1 = train_gmm.main(argv)
+    mix_launches = mixstep.launches
+    assert mix_launches >= 1, f"mixstep launched {mix_launches} times on the main path"
+    rows = run1["rows"]
+    assert rows and all(math.isfinite(v) for r in rows for v in r.values()), rows
+    assert all(bool(torch.isfinite(t).all()) for t in nat_leaves(run1["state"].nat))
+    assert math.isfinite(run1["test_predictive_loglik_per_point"])
+    elbos = [r["elbo"] for r in rows]
+    # VBEM at rho = 1 raises the bound each step; at convergence float32
+    # rounding moves it by ~1e-7 relative either way.
+    assert all(b >= a - 1e-5 * abs(a) for a, b in zip(elbos, elbos[1:])), elbos
+    run2 = train_gmm.main(argv)
+    assert all(torch.equal(p, q) for p, q in
+               zip(nat_leaves(run1["state"].nat), nat_leaves(run2["state"].nat))), \
+        "two train_gmm runs at one seed differ"
+    estep.launches = 0
+    fused = train_gmm.main([*argv, "--engine", "plain", "--fused-kernel"])
+    est_launches = estep.launches
+    assert est_launches == 300, f"estep launched {est_launches} times in 300 steps"
+    for p, q in zip(nat_leaves(fused["state"].nat), nat_leaves(run1["state"].nat)):
+        err = rel_err(p, q)
+        assert err < 1e-4, f"plain+fused vs kernel final naturals: rel err {err:.3e}"
+    mixstep.launches = 0
+    smm_run = train_smm.main(["--init", "kmeanspp", "--device", "cuda",
+                              "--engine", "kernel"])
+    smm_launches = mixstep.launches
+    assert smm_launches >= 1 and all(math.isfinite(r["elbo"]) for r in smm_run["rows"])
+    print(f"phase 8: train_gmm (kernel): {mix_launches} mixstep launches, "
+          f"{run1['steps_per_s']:.1f} steps/s, predictive "
+          f"{run1['test_predictive_loglik_per_point']:.5f}, purity "
+          f"{run1['train_cluster_purity']}, runs bit-equal; train_gmm (plain, "
+          f"--fused-kernel): {est_launches} estep launches, "
+          f"{fused['steps_per_s']:.1f} steps/s, predictive "
+          f"{fused['test_predictive_loglik_per_point']:.5f}; train_smm (kernel): "
+          f"{smm_launches} mixstep launches, {smm_run['steps_per_s']:.1f} steps/s, "
+          f"final elbo {smm_run['rows'][-1]['elbo']:.4f}; {card}")
+
+    abs_err, k_ms, p_ms = est[(400, 10, 2)]
+    return [
+        {"name": "mixstep", "route": "cuda", "source": "svax_torch/ops/csrc/mixstep.cu",
+         "replaces": "svax/ops/mixstep_pallas.py:163", "launches": mix_launches,
+         "max_abs_err": max(errs.values()), "ms": times["gmm"][0],
+         "plain_ms": times["gmm"][1]},
+        {"name": "estep", "route": "cuda", "source": "svax_torch/ops/csrc/estep.cu",
+         "replaces": "svax/ops/estep_pallas.py:161", "launches": est_launches,
+         "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -117,7 +279,7 @@ def main() -> int:
     lib = _build.load()
     print(f"phase 2: built the kernels in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"phase 2: ptxas: {line.strip()}")
 
     # 3. Philox normals
@@ -221,14 +383,17 @@ def main() -> int:
           f"{run1['steps_per_s']:.1f} steps/s, plain {plain['steps_per_s']:.1f} "
           f"steps/s (50 steps), runs bit-equal; {card}")
 
-    # 6. result
+    # 6–8. the mixtures
+    mixture_kernels = mixture_phases(card)
+
+    # 9. result
     print(json.dumps({"kernels": [{
         "name": "tinystep", "route": "cuda",
         "source": "svax_torch/ops/csrc/tinystep.cu",
         "replaces": "svax/ops/tinystep_pallas.py:621",
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    }, *mixture_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

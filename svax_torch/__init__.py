@@ -8,7 +8,12 @@ the reference and is never imported here.
 Ported so far: the pinwheel-SVAE training path — ``data.pinwheel``,
 ``expfam``, ``ops.batched_linalg``, ``pgm``, ``nets.mlp``,
 ``models.svae``, ``train``, the whole-train-step CUDA kernel
-``ops.tinystep`` and the entry point ``svax_torch.train_svae``.
+``ops.tinystep`` and the entry point ``svax_torch.train_svae``; and the
+pure-mixture path — ``pgm.smm``, ``pgm.init``, ``models.gmm_baseline``,
+``models.smm_baseline``, ``models.evaluation``, the CUDA kernels
+``ops.mixstep`` (whole GMM/SMM steps) and ``ops.estep`` (the fused
+E-step), and the entry points ``svax_torch.train_gmm`` and
+``svax_torch.train_smm``.
 """
 
 __version__ = "0.1.0"

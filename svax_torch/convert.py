@@ -8,7 +8,9 @@ example ``jax.tree.map(np.asarray, state)``; only attribute and index
 access is used, so neither JAX nor optax is imported) and builds the
 port's ``SvaeTrainState``. ``state_to_numpy`` goes back to a plain nested
 dict of numpy arrays with the same field names. Layouts are identical on
-both sides, so both directions are exact copies.
+both sides, so both directions are exact copies. ``mixture_state_from_numpy``
+and ``mixture_state_to_numpy`` do the same for the pure mixtures'
+``GmmTrainState``/``SmmTrainState`` (``nat``, ``step``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from svax_torch.expfam.niw import NiwNat
+from svax_torch.models.gmm_baseline import GmmTrainState
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train.svae_step import AdamState, SvaeTrainState
 
@@ -89,3 +92,15 @@ def state_to_numpy(state: SvaeTrainState) -> dict:
         "pgm_nat": gmm_nat_to_numpy(state.pgm_nat),
         "step": np.asarray(state.step, np.int32),
     }
+
+
+def mixture_state_from_numpy(state, *, device="cpu", dtype=None, cls=GmmTrainState):
+    """The JAX package's GmmTrainState or SmmTrainState with numpy leaves
+    → the port's ``cls`` (GmmTrainState or SmmTrainState)."""
+    return cls(nat=gmm_nat_from_numpy(state.nat, device=device, dtype=dtype),
+               step=int(np.asarray(state.step)))
+
+
+def mixture_state_to_numpy(state) -> dict:
+    """The port's mixture state → {"nat": {"dir_nat", "eta1".."eta4"}, "step"}."""
+    return {"nat": gmm_nat_to_numpy(state.nat), "step": np.asarray(state.step, np.int32)}

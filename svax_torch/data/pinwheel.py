@@ -48,6 +48,30 @@ def make_pinwheel_data(
     return 10.0 * data[perm]
 
 
+def make_pinwheel_with_outliers(
+    outlier_fraction: float = 0.1,
+    outlier_scale: float = 15.0,
+    num_classes: int = 5,
+    num_per_class: int = 100,
+    seed: int = 0,
+):
+    """Pinwheel plus a uniform-box outlier contamination (robustness demo).
+
+    Returns (data, labels) where outliers carry label −1.
+    """
+    rng = np.random.default_rng(seed + 1000)
+    clean, labels = make_pinwheel_data(
+        num_classes=num_classes, num_per_class=num_per_class, seed=seed,
+        return_labels=True,
+    )
+    n_out = int(round(len(clean) * outlier_fraction))
+    outliers = rng.uniform(-outlier_scale, outlier_scale, size=(n_out, 2))
+    data = np.concatenate([clean, outliers], axis=0)
+    labels = np.concatenate([labels, -np.ones(n_out, dtype=labels.dtype)])
+    perm = rng.permutation(len(data))
+    return data[perm], labels[perm]
+
+
 def load_pinwheel(
     num_classes: int = 5,
     num_per_class: int = 100,

@@ -1,1 +1,1 @@
-"""Models (the GMM-prior structured VAE)."""
+"""Models: the GMM-prior structured VAE and the pure-mixture baselines."""

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` — one nvcc
+process per source, all started together — and linked into one shared
 library with a plain C interface, under ``build/svax_torch/`` at the root
 of the checkout, at first use, and loaded with ``ctypes``. The library's
 name carries a hash of the sources, so an edited source is rebuilt. A
@@ -20,7 +21,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svax_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: ctypes.CDLL | None = None
@@ -52,6 +53,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tinystep_train_chunk.restype = i
     lib.philox_normals.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, p, i, p]
     lib.philox_normals.restype = i
+    lib.mixstep_train_chunk.argtypes = [
+        p, i, i, p, p, p,  # x, n, k, prior, nat, metrics
+        i, f, f, f, f, i,  # t_steps, rho, scale, dof, smm_const, unroll
+        p,  # stream
+    ]
+    lib.mixstep_train_chunk.restype = i
+    lib.estep_blocks.argtypes = [i]
+    lib.estep_blocks.restype = i
+    lib.estep_stats.argtypes = [
+        p, i, i, i, p,  # x, n, d, k, w
+        p, p, p,  # partial, stats, evidence
+        p,  # stream
+    ]
+    lib.estep_stats.restype = i
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 
@@ -70,13 +85,26 @@ def load() -> ctypes.CDLL:
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-            )
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        jobs.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in jobs[:-1]]
+        logs = []
+        for cmd, proc in zip(jobs, procs):
+            output, _ = proc.communicate()
+            logs.append((cmd, proc.returncode, output))
+        if all(rc == 0 for _, rc, _ in logs):
+            link = subprocess.run(jobs[-1], capture_output=True, text=True)
+            logs.append((jobs[-1], link.returncode, link.stdout + link.stderr))
+        build_log = "".join(output for _, _, output in logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, rc, output in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     _declare(lib)

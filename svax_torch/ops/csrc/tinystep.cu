@@ -36,14 +36,16 @@
 
 #include <cstdint>
 
+#include "gmm_d2.cuh"
 #include "philox.cuh"
 
 namespace {
 
+using namespace svax;  // gmm_d2.cuh: ExpSlot, digammaf, expected_d2
+
 constexpr int NT = 512;  // threads in the one block
 constexpr int TR = 32;   // rows per weight-gradient tile
 constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr float kLog2 = 0.6931471805599453f;
 constexpr float kVarFloor = 1e-6f;
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kAdamEps = 1e-8f;
 
@@ -52,9 +54,6 @@ enum Plane {
   J11, J12, J22, DET, S11, S12, S22, MU1, MU2, HT1, HT2, L11, L21, L22,
   RESP, LRESP, ANK, SUMLL, MUB1, MUB2, JB11, JB22, NUM_PLANES
 };
-
-// Expected-parameter slots per component in shared memory.
-enum ExpSlot { E_LOGPI, E_P11, E_P12, E_P22, E_PM1, E_PM2, E_QUAD, E_LOGDET, NUM_EXP };
 
 // Statistic slots per component.
 enum StatSlot { ST_N, ST_S1, ST_S2, ST_S11, ST_S12, ST_S22, NUM_STATS };
@@ -126,19 +125,6 @@ __device__ __forceinline__ float softplusf(float x) {
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// ψ(x), x > 0: 8-step recurrence into the asymptotic series (CUDA has no
-// digamma; tinystep_pallas._digamma's recipe, ~1e-9 accurate).
-__device__ float digammaf(float x) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc += 1.0f / (x + static_cast<float>(i));
-  const float y = x + 8.0f;
-  const float inv = 1.0f / y;
-  const float inv2 = inv * inv;
-  return logf(y) - 0.5f * inv -
-         inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 / 252.0f)) - acc;
-}
 
 // Row r of an F-feature row-blocked block (see ScratchOff); its feature f
 // is at [f·32].
@@ -538,31 +524,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       sw2te[i] = c < H1 ? encp[off.w2 + c * H2 + r] : 0.0f;
       sw2td[i] = c < H1 ? decp[off.w2 + c * H2 + r] : 0.0f;
     }
-    if (tid < K) {
-      const float* nt = snat + tid * 9;
-      float sum_alpha = 0.0f;
-      for (int j = 0; j < K; ++j) sum_alpha += snat[j * 9] + 1.0f;
-      const float alpha = nt[0] + 1.0f;
-      const float kappa = nt[3];
-      const float m1 = nt[1] / kappa, m2 = nt[2] / kappa;
-      const float phi11 = nt[4] - kappa * m1 * m1;
-      const float phi12 = nt[5] - kappa * m1 * m2;
-      const float phi22 = nt[7] - kappa * m2 * m2;
-      const float nu = nt[8] - 4.0f;  // η₄ = ν + d + 2
-      const float det = phi11 * phi22 - phi12 * phi12;
-      const float i11 = phi22 / det, i12 = -phi12 / det, i22 = phi11 / det;
-      const float pim1 = i11 * m1 + i12 * m2, pim2 = i12 * m1 + i22 * m2;
-      float* e = sexp + tid * NUM_EXP;
-      e[E_LOGPI] = digammaf(alpha) - digammaf(sum_alpha);
-      e[E_P11] = nu * i11;
-      e[E_P12] = nu * i12;
-      e[E_P22] = nu * i22;
-      e[E_PM1] = nu * pim1;
-      e[E_PM2] = nu * pim2;
-      e[E_QUAD] = 2.0f / kappa + nu * (m1 * pim1 + m2 * pim2);
-      e[E_LOGDET] = digammaf(nu / 2.0f) + digammaf((nu - 1.0f) / 2.0f) +
-                    2.0f * kLog2 - logf(det);
-    }
+    if (tid < K) expected_d2(snat, K, tid, sexp + tid * NUM_EXP);
     __syncthreads();
 
     // ---- B: augmentation, encoder, combine, softmax, local-KL terms (per n).

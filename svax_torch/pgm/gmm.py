@@ -1,5 +1,6 @@
-"""Gaussian-mixture PGM: expected parameters and sufficient statistics
-(``svax/pgm/gmm.py``, the subset the SVAE training path uses).
+"""Gaussian-mixture PGM: expected parameters, the observed-data E-step and
+sufficient statistics (``svax/pgm/gmm.py``, the subset the SVAE and the
+pure-mixture training paths use).
 
 A Dirichlet(α) prior over mixing weights and one NIW prior per component,
 batched over K along the leading axis.
@@ -7,12 +8,15 @@ batched over K along the leading axis.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from svax_torch.expfam import dirichlet, niw
 from svax_torch.expfam.niw import NiwNat, NiwStandard
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 class GmmNat(NamedTuple):
@@ -122,6 +126,35 @@ def init_variational(
     )
 
 
+def log_responsibilities_obs(x: torch.Tensor, exp: GmmExpected) -> torch.Tensor:
+    """Unnormalised log responsibilities for observed data, x (N, d) → (N, K):
+
+    log ρ_nk = E[logπ_k] + ½E[log|Λ_k|] − ½(xᵀE[Λ]x − 2xᵀE[Λμ] + E[μᵀΛμ])
+               − (d/2) log 2π.
+    """
+    d = x.shape[-1]
+    quad_x = torch.einsum("ni,kij,nj->nk", x, exp.prec, x)
+    cross = x @ exp.prec_mean.T
+    return (exp.log_pi + 0.5 * exp.logdet
+            - 0.5 * (quad_x - 2.0 * cross + exp.quad) - 0.5 * d * _LOG_2PI)
+
+
+def e_step_obs(x: torch.Tensor, exp: GmmExpected) -> tuple[torch.Tensor, torch.Tensor]:
+    """Responsibilities r (N, K) and per-point evidence lse_k log ρ (N,)."""
+    log_rho = log_responsibilities_obs(x, exp)
+    evidence = torch.logsumexp(log_rho, dim=-1)
+    return torch.exp(log_rho - evidence[:, None]), evidence
+
+
+def suff_stats_obs(x: torch.Tensor, resp: torch.Tensor, scale: float = 1.0) -> GmmSuffStats:
+    """Weighted stats (N_k, Σ r x, Σ r xxᵀ) for observed data, × N/M scale."""
+    return GmmSuffStats(
+        counts=scale * resp.sum(dim=0),
+        mean_stat=scale * (resp.T @ x),
+        scatter_stat=scale * torch.einsum("nk,ni,nj->kij", resp, x, x),
+    )
+
+
 def suff_stats_from_moments(
     resp: torch.Tensor,
     ez: torch.Tensor,
@@ -162,3 +195,13 @@ def kl_global(nat: GmmNat, prior: GmmNat) -> torch.Tensor:
     kl_dir = dirichlet.kl(alpha_q, alpha_p)
     kl_niw = niw.kl_nat(nat.niw_nat, prior.niw_nat).sum()
     return kl_dir + kl_niw
+
+
+def elbo_obs(x: torch.Tensor, nat: GmmNat, prior: GmmNat,
+             scale: float = 1.0) -> tuple[torch.Tensor, dict]:
+    """VB-GMM evidence lower bound on observed data (Bishop §10.2):
+    ELBO = scale · Σ_n lse_k log ρ_nk − KL_global."""
+    _, evidence = e_step_obs(x, expected_params(nat))
+    local = scale * evidence.sum()
+    klg = kl_global(nat, prior)
+    return local - klg, {"local": local, "kl_global": klg}

@@ -1,19 +1,23 @@
-"""Training loops (``svax/train/loop.py``, the pinwheel-SVAE subset).
+"""Training loops (``svax/train/loop.py``, the pinwheel-SVAE and
+pure-mixture subset).
 
 ``augment_step`` wraps a step with input-noise augmentation;
 ``make_runner`` is the chunk runner that drives T full-batch steps per
 call through the tinystep CUDA kernel (or its plain version), taking the
 place of the reference's ``make_scan_runner`` and of the tinystep branch
-of ``make_megakernel_runner``.
+of ``make_megakernel_runner``; ``make_mixture_runner`` does the same for
+the GMM/SMM through the mixstep kernel (the reference's
+``make_mixture_megakernel_runner``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
-from svax_torch.ops import tinystep
+from svax_torch.ops import mixstep, tinystep
 from svax_torch.pgm import gmm
 
 
@@ -98,3 +102,61 @@ def make_runner(config, prior, *, lr: float, rho: float,
         return finish(state, mets, t_steps)
 
     return runner
+
+
+def make_mixture_runner(prior, *, rho: float, dof: float = 0.0,
+                        unroll: int = 1) -> Callable:
+    """Chunk runner ``runner(state, x, t_steps) → (state, metrics)``: T
+    full-batch GMM (dof = 0) or SMM steps per call through
+    ``mixstep.train_chunk`` (the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors).
+
+    Metrics: the (T,) tensors local_evidence (exact per step), elbo =
+    local_evidence − KL_global at the POST-chunk naturals (the per-step
+    engine logs its KL at each step's pre-update naturals; the two agree on
+    the last row's global term at convergence) and rho, and the int
+    ``unroll``, the U the chunk ran with. ``unroll`` must be in
+    ``mixstep.UNROLLS`` and divide every chunk's T: anything else raises.
+    """
+    mixstep.check_unroll(unroll)
+
+    def runner(state, x, t_steps: int):
+        state, mets = mixstep.train_chunk(state, prior, x, rho=rho, t_steps=t_steps,
+                                          dof=dof, unroll=unroll)
+        gkl = gmm.kl_global(state.nat, prior)
+        local = mets["local_evidence"]
+        return state, {
+            "local_evidence": local,
+            "elbo": local - gkl,
+            "rho": torch.full((t_steps,), rho, device=local.device),
+            "unroll": unroll,
+        }
+
+    return runner
+
+
+def run_mixture(state, x, *, steps: int, eval_every: int, emit: Callable,
+                step: Callable | None = None, runner: Callable | None = None):
+    """Train a pure mixture for ``steps`` full-batch steps.
+
+    With ``step`` (one step per call, the plain engine) ``emit(t, state,
+    elbo)`` follows step 1 and every ``eval_every``-th step, ``elbo`` being
+    that step's bound at its pre-update naturals; with ``runner`` (chunks
+    of ``eval_every`` steps) it follows every chunk, with the chunk's last
+    ``elbo``. Returns (state, seconds), timed to a device synchronise."""
+    t0 = time.perf_counter()
+    t = 0
+    while t < steps:
+        if runner is not None:
+            todo = min(eval_every, steps - t)
+            state, mets = runner(state, x, todo)
+            t += todo
+            emit(t, state, float(mets["elbo"][-1]))
+        else:
+            state, mets = step(state, x)
+            t += 1
+            if t % eval_every == 0 or t == 1:
+                emit(t, state, float(mets["elbo"]))
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    return state, time.perf_counter() - t0

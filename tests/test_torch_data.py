@@ -42,6 +42,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import svax_torch, svax_torch.train_svae, svax_torch.ops.tinystep\n"
         "import svax_torch.convert, svax_torch.train.loop\n"
+        "import svax_torch.train_gmm, svax_torch.train_smm, svax_torch.ops.mixstep\n"
+        "import svax_torch.ops.estep, svax_torch.models.evaluation, svax_torch.pgm.init\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'svax' or m.startswith('svax.'))\n"
         "assert not bad, bad\n"
