@@ -13,7 +13,11 @@ pure-mixture path — ``pgm.smm``, ``pgm.init``, ``models.gmm_baseline``,
 ``models.smm_baseline``, ``models.evaluation``, the CUDA kernels
 ``ops.mixstep`` (whole GMM/SMM steps) and ``ops.estep`` (the fused
 E-step), and the entry points ``svax_torch.train_gmm`` and
-``svax_torch.train_smm``.
+``svax_torch.train_smm``; and the auto-svae minibatch path —
+``data.auto``, ``data.load_dataset``, the ρ schedule and minibatch runner
+in ``train``, ``models.evaluation.svae_iw_loglik`` and the CUDA kernel
+``ops.flexstep`` (whole minibatch SVAE steps, general latent d ≤ 6),
+through ``svax_torch.train_svae --config auto-svae``.
 """
 
 __version__ = "0.1.0"

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 
-def _ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20) -> float:
     """Median device ms per call of fn() over 3 timed runs of ``reps``."""
     fn()
     times = []
@@ -47,7 +47,7 @@ def _ms(fn, reps: int = 20) -> float:
     return sorted(times)[1]
 
 
-def _device_us(prof, name: str = "") -> float:
+def device_us(prof, name: str = "") -> float:
     """Total device µs of the card's kernels in a profile (those whose name
     holds ``name``)."""
     total = 0.0
@@ -57,7 +57,7 @@ def _device_us(prof, name: str = "") -> float:
     return total
 
 
-def _profiled(fn) -> tuple[float, torch.profiler.profile]:
+def profiled(fn) -> tuple[float, torch.profiler.profile]:
     """Wall ms of one fn() under the profiler (to a synchronise), and the profile."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -96,13 +96,13 @@ def measure_estep(dev) -> None:
                           ("e_step_stats_fused", lambda: estep.e_step_stats_fused(x, exp)),
                           ("plain", lambda: estep.e_step_stats_reference(x, exp))):
             print(f"estep N={n} K={k} d={d}: {label} ms/call "
-                  f"{[round(_ms(fn), 5) for _ in range(2)]}", flush=True)
+                  f"{[round(device_ms(fn), 5) for _ in range(2)]}", flush=True)
         reps = 10
-        _, prof = _profiled(lambda: [estep.e_step_stats_reference(x, exp)
+        _, prof = profiled(lambda: [estep.e_step_stats_reference(x, exp)
                                      for _ in range(reps)])
         flops = 2 * 2 * n * f * k
         print(f"estep N={n} K={k} d={d}: plain version's kernels "
-              f"{_device_us(prof) / reps / 1e3:.4f} ms/call of device time; "
+              f"{device_us(prof) / reps / 1e3:.4f} ms/call of device time; "
               f"{flops / 1e9:.3f} GFLOP per call (both products)", flush=True)
 
 
@@ -123,7 +123,7 @@ def measure_unroll(dev) -> None:
                             type(prior_cpu.niw_nat)(*map(to, prior_cpu.niw_nat)))
     state, t_steps = GmmTrainState(nat=nat, step=0), 10_000
     for dof in (0.0, 4.0):
-        out = [(u, round(_ms(lambda: mixstep.train_chunk(
+        out = [(u, round(device_ms(lambda: mixstep.train_chunk(
                     state, prior, x, rho=0.3, t_steps=t_steps, dof=dof, unroll=u),
                     reps=1) / t_steps * 1e3, 4))
                for u in (1, 2, 4, 8, 8, 4, 2, 1)]
@@ -143,12 +143,12 @@ def measure_entries() -> None:
              ["--init", "kmeanspp", "--device", "cuda", "--engine", "kernel"])]
     for label, main, argv in runs:
         main(argv)  # warm: build, caches
-        wall, prof = _profiled(lambda: main(argv))
-        busy = _device_us(prof) / 1e3
+        wall, prof = profiled(lambda: main(argv))
+        busy = device_us(prof) / 1e3
         print(f"== {label}: wall {wall:.1f} ms under the profiler, device time "
               f"{busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f}%, mixstep "
-              f"{_device_us(prof, 'mixstep_kernel') / 1e3:.3f} ms, estep "
-              f"{_device_us(prof, 'estep') / 1e3:.3f} ms", flush=True)
+              f"{device_us(prof, 'mixstep_kernel') / 1e3:.3f} ms, estep "
+              f"{device_us(prof, 'estep') / 1e3:.3f} ms", flush=True)
         print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=8),
               flush=True)
 

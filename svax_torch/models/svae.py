@@ -25,7 +25,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 class SvaeConfig(NamedTuple):
-    """The SVAE configuration fields the pinwheel training path reads.
+    """The SVAE configuration fields the pinwheel and auto training paths read.
 
     The port implements the Gaussian likelihood, the diagonal recognition
     head, weighted reconstruction and zero jitter; the reference's other

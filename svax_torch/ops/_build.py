@@ -67,6 +67,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.estep_stats.restype = i
+    lib.flexstep_scratch_floats.argtypes = [i] * 9
+    lib.flexstep_scratch_floats.restype = ctypes.c_longlong
+    lib.flexstep_train_chunk.argtypes = [
+        p, i, i, i, i, i, i, i, i, i,  # batches, m, d_in, d, k, s, h1e, h2e, h1d, h2d
+        p, p, p, p, p,  # prior, nat, params, m1, m2
+        p, p, p,  # metrics, scratch, eps
+        i, i, i, ctypes.c_ulonglong,  # t_steps, adam count, step0, seed
+        f, ctypes.c_double, ctypes.c_double, f,  # lr, rho0, rho_decay, num_total
+        p,  # stream
+    ]
+    lib.flexstep_train_chunk.restype = i
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 

@@ -134,13 +134,13 @@ def expected_cols(nat: GmmNat) -> dict:
     )
 
 
-def _mlp3_fwd(layers, x):
+def mlp3_fwd(layers, x):
     a1 = torch.tanh(x @ layers[0]["w"] + layers[0]["b"])
     a2 = torch.tanh(a1 @ layers[1]["w"] + layers[1]["b"])
     return a1, a2, a2 @ layers[2]["w"] + layers[2]["b"]
 
 
-def _mlp3_bwd(layers, x, a1, a2, obar):
+def mlp3_bwd(layers, x, a1, a2, obar):
     """Cotangent of a tanh-tanh-linear MLP's output → (layer grads, x̄)."""
     rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
     x, a1, a2, obar = rows(x), rows(a1), rows(a2), rows(obar)
@@ -168,7 +168,7 @@ def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
     e = expected_cols(nat)
 
     # Encoder → diagonal potential.
-    a1e, a2e, out = _mlp3_fwd(enc, x)
+    a1e, a2e, out = mlp3_fwd(enc, x)
     mean, raw = out[:, :2], out[:, 2:]
     var = F.softplus(raw) + _VAR_FLOOR
     p = 1.0 / var
@@ -199,7 +199,7 @@ def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
     z = torch.stack([mu1 + u1, mu2 + u2], dim=-1)  # (S, N, K, 2)
 
     # Gaussian decoder over S·N·K rows.
-    a1, a2, o = _mlp3_fwd(dec, z)
+    a1, a2, o = mlp3_fwd(dec, z)
     va = F.softplus(o[..., 2]) + _VAR_FLOOR
     vb = F.softplus(o[..., 3]) + _VAR_FLOOR
     da = x[None, :, None, 0] - o[..., 0]
@@ -228,7 +228,7 @@ def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
         llbar * (-0.5) * (1.0 / va - da * da / (va * va)) * torch.sigmoid(o[..., 2]),
         llbar * (-0.5) * (1.0 / vb - db * db / (vb * vb)) * torch.sigmoid(o[..., 3]),
     ], dim=-1)
-    dec_grads, zbar = _mlp3_bwd(dec, z, a1, a2, obar)
+    dec_grads, zbar = mlp3_bwd(dec, z, a1, a2, obar)
     zbar = zbar.reshape(z.shape)
 
     # Sampling backward through u = L̃⁻ᵀε and the 2×2 Cholesky.
@@ -274,7 +274,7 @@ def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
     meanbar = hbar * p
     varbar = -(pbar + hbar * mean) * p * p
     rawbar = varbar * torch.sigmoid(raw)
-    enc_grads, _ = _mlp3_bwd(enc, x, a1e, a2e, torch.cat([meanbar, rawbar], -1))
+    enc_grads, _ = mlp3_bwd(enc, x, a1e, a2e, torch.cat([meanbar, rawbar], -1))
 
     aux = dict(
         recon=recon, local_kl=local, neg_loss=neg_loss,
@@ -293,7 +293,7 @@ def step_grads_manual(nn_params: dict, nat: GmmNat, x: torch.Tensor,
 _LAYER_ORDER = ("encoder", "decoder")
 
 
-def _flat(tree: dict) -> torch.Tensor:
+def flat_params(tree: dict) -> torch.Tensor:
     """nn_params-layout tree → the kernel's flat f32 buffer (per side, per
     layer: w (in, out) row-major, then b)."""
     return torch.cat([
@@ -302,7 +302,7 @@ def _flat(tree: dict) -> torch.Tensor:
     ])
 
 
-def _unflat(buf: torch.Tensor, like: dict) -> dict:
+def unflat_params(buf: torch.Tensor, like: dict) -> dict:
     out, off = {}, 0
     for side in _LAYER_ORDER:
         out[side] = []
@@ -427,9 +427,9 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     from svax_torch.ops import _build
 
     lib = _build.load()
-    params = _flat(state.nn_params)
-    m = _flat(state.opt_state.mu)
-    v = _flat(state.opt_state.nu)
+    params = flat_params(state.nn_params)
+    m = flat_params(state.opt_state.mu)
+    v = flat_params(state.opt_state.nu)
     nat = pack_nat(state.pgm_nat)
     prior_b = pack_nat(prior)
     metrics = torch.empty((t_steps, 3), device=x.device, dtype=torch.float32)
@@ -449,10 +449,10 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     _build.check(lib, err, "tinystep_train_chunk")
     launches += 1
     new_state = SvaeTrainState(
-        nn_params=_unflat(params, state.nn_params),
+        nn_params=unflat_params(params, state.nn_params),
         opt_state=AdamState(count=state.opt_state.count + t_steps,
-                            mu=_unflat(m, state.nn_params),
-                            nu=_unflat(v, state.nn_params)),
+                            mu=unflat_params(m, state.nn_params),
+                            nu=unflat_params(v, state.nn_params)),
         pgm_nat=unpack_nat(nat),
         step=state.step + t_steps,
     )

@@ -1,13 +1,15 @@
-"""Training loops (``svax/train/loop.py``, the pinwheel-SVAE and
-pure-mixture subset).
+"""Training loops (``svax/train/loop.py``, the SVAE and pure-mixture
+subset).
 
 ``augment_step`` wraps a step with input-noise augmentation;
-``make_runner`` is the chunk runner that drives T full-batch steps per
-call through the tinystep CUDA kernel (or its plain version), taking the
-place of the reference's ``make_scan_runner`` and of the tinystep branch
-of ``make_megakernel_runner``; ``make_mixture_runner`` does the same for
-the GMM/SMM through the mixstep kernel (the reference's
-``make_mixture_megakernel_runner``).
+``choose_kernel`` is the gate between the two whole-train-step kernels
+(the reference's ``megakernel_unsupported_reason``); ``make_runner`` is
+the chunk runner that drives T steps per call through the tinystep kernel
+(full batch) or the flexstep kernel (a minibatch stack), or their plain
+versions, taking the place of the reference's ``make_scan_runner``,
+``make_minibatch_scan_runner`` and ``make_megakernel_runner``;
+``make_mixture_runner`` does the same for the GMM/SMM through the mixstep
+kernel (the reference's ``make_mixture_megakernel_runner``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from svax_torch.ops import mixstep, tinystep
+from svax_torch.ops import flexstep, mixstep, tinystep
 from svax_torch.pgm import gmm
 
 
@@ -40,15 +42,14 @@ def augment_step(step: Callable, sigma: float) -> Callable:
     return wrapped
 
 
-def kernel_unsupported_reason(config, *, batch_full: bool, encoder_hidden,
-                              decoder_hidden, rho, rho_decay: float = 0.0,
-                              likelihood: str = "gaussian") -> str | None:
+def tinystep_unsupported_reason(config, *, batch_full: bool, encoder_hidden,
+                                decoder_hidden, rho, rho_decay: float = 0.0,
+                                likelihood: str = "gaussian") -> str | None:
     """Why the tinystep kernel cannot run this workload (None = it can).
 
     The shape class: latent d = 2, Gaussian likelihood, two matched
     hidden layers of a width the kernel is built for, full batch,
-    constant ρ, K up to tinystep.MAX_COMPONENTS. A workload outside it is
-    rejected with this reason; nothing changes semantics quietly."""
+    constant ρ, K up to tinystep.MAX_COMPONENTS."""
     encoder_hidden, decoder_hidden = tuple(encoder_hidden), tuple(decoder_hidden)
     if config.latent_dim != 2:
         return f"the tinystep kernel needs latent d = 2 (got {config.latent_dim})"
@@ -67,38 +68,141 @@ def kernel_unsupported_reason(config, *, batch_full: bool, encoder_hidden,
     return None
 
 
-def make_runner(config, prior, *, lr: float, rho: float,
-                aug_noise: float = 0.0, engine: str = "kernel") -> Callable:
-    """Chunk runner ``runner(state, x, t_steps, seed, eps=None,
-    aug_eps=None) → (state, metrics)``: T full-batch steps per call.
+def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
+                                decoder_hidden, rho, likelihood: str = "gaussian"
+                                ) -> str | None:
+    """Why the flexstep kernel cannot run this workload (None = it can).
 
-    ``engine="kernel"`` goes through ``tinystep.train_chunk`` (the CUDA
-    kernel on CUDA tensors, its plain version on CPU tensors);
-    ``engine="plain"`` runs ``tinystep.train_chunk_plain`` on any device.
+    The shape class (flexstep_pallas.supported): Gaussian likelihood, two
+    tanh hidden layers a side of width 1..flexstep.MAX_HIDDEN, d_in ≤ 8,
+    2 ≤ d ≤ 6, K up to flexstep.MAX_COMPONENTS, a constant ρ or the
+    Trainer's ρ₀/(1 + decay·t) (given as ``rho_decay``, not a callable);
+    minibatch or full batch."""
+    widths = tuple(encoder_hidden) + tuple(decoder_hidden)
+    if config.latent_dim not in flexstep.LATENT_DIMS:
+        return (f"the flexstep kernel needs 2 <= latent d <= 6 "
+                f"(got {config.latent_dim})")
+    if not 1 <= input_dim <= flexstep.MAX_INPUT:
+        return (f"the flexstep kernel needs 1 <= d_in <= {flexstep.MAX_INPUT} "
+                f"(got {input_dim})")
+    if likelihood != "gaussian":
+        return f"the flexstep kernel needs a Gaussian likelihood (got {likelihood})"
+    if len(encoder_hidden) != 2 or len(decoder_hidden) != 2:
+        return (f"the flexstep kernel needs two hidden layers a side (got "
+                f"{tuple(encoder_hidden)} / {tuple(decoder_hidden)})")
+    if not all(1 <= w <= flexstep.MAX_HIDDEN for w in widths):
+        return f"the flexstep kernel takes hidden widths 1..{flexstep.MAX_HIDDEN}"
+    if callable(rho):
+        return "the flexstep kernel takes rho as a float and its decay as rho_decay"
+    if not 1 <= config.num_components <= flexstep.MAX_COMPONENTS:
+        return f"the flexstep kernel takes K <= {flexstep.MAX_COMPONENTS}"
+    return None
+
+
+def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
+                  rho, rho_decay: float = 0.0, likelihood: str = "gaussian",
+                  input_dim: int = 0) -> str:
+    """The whole-train-step kernel for this workload, as the reference's
+    ``make_megakernel_runner`` picks it (svax/train/loop.py:218-232):
+    "tinystep" for full-batch d = 2 constant-ρ work in its shape class, else
+    "flexstep". Raises with both kernels' reasons when neither fits."""
+    kw = dict(encoder_hidden=encoder_hidden, decoder_hidden=decoder_hidden, rho=rho,
+              likelihood=likelihood)
+    tiny = tinystep_unsupported_reason(config, batch_full=batch_full,
+                                       rho_decay=rho_decay, **kw)
+    if tiny is None:
+        return "tinystep"
+    flex = (flexstep_unsupported_reason(config, input_dim=input_dim, **kw)
+            if input_dim > 0 else "the flexstep kernel needs the data width d_in")
+    if flex is None:
+        return "flexstep"
+    raise ValueError(f"fits neither kernel: {tiny}; {flex}")
+
+
+def kernel_unsupported_reason(config, **kw) -> str | None:
+    """Why no whole-train-step kernel can run this workload (None = one can);
+    the arguments of ``choose_kernel``."""
+    try:
+        choose_kernel(config, **kw)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
+                batch_size: int = 0, aug_noise: float = 0.0, engine: str = "kernel",
+                kernel: str = "tinystep") -> Callable:
+    """Chunk runner ``runner(state, x, t_steps, seed, eps=None,
+    aug_eps=None) → (state, metrics)``: T steps per call.
+
+    ``kernel="tinystep"`` (``choose_kernel`` picks it) trains on the full
+    batch through ``tinystep.train_chunk``. ``kernel="flexstep"`` draws the
+    (T, M, d_in) minibatch stack first — indices with replacement, then the
+    augmentation noise, then the seed of the chunk's ε, all from one
+    ``torch.Generator`` on x's device keyed ``seed + state.step`` (the
+    reference's fold_in(seed, step) → split discipline, ``loop.py:286-303``)
+    — and runs ``flexstep.train_chunk``; ``batch_size`` 0 or ≥ N is the full
+    batch. Either kernel runs its CUDA kernel on CUDA tensors and its plain
+    version on CPU tensors; ``engine="plain"`` runs the plain version on any
+    device. ``eps`` injects the ε noise, ``aug_eps`` tinystep's augmentation
+    noise (flexstep: ``eps`` only).
+
     Metrics are (T,) tensors: recon, local_kl, global_kl, elbo, rho. The
-    global KL is evaluated once, at the post-chunk naturals, and
-    broadcast, so ``elbo`` is exact on the last row and one chunk stale
-    in its global term on earlier rows.
+    global KL is evaluated once, at the post-chunk naturals, and broadcast,
+    so ``elbo`` is exact on the last row and one chunk stale in its global
+    term on earlier rows.
     """
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
-    chunk = tinystep.train_chunk if engine == "kernel" else tinystep.train_chunk_plain
+    if kernel not in ("tinystep", "flexstep"):
+        raise ValueError(f"unknown kernel {kernel!r} (tinystep|flexstep)")
 
     def finish(state, mets, t_steps):
         gkl = gmm.kl_global(state.pgm_nat, prior)
         mets = dict(mets)
         mets["global_kl"] = gkl.expand(t_steps)
         mets["elbo"] = mets["recon"] - mets["local_kl"] - mets["global_kl"]
-        mets["rho"] = torch.full((t_steps,), rho, device=gkl.device)
+        mets.setdefault("rho", torch.full((t_steps,), rho, device=gkl.device))
         del mets["neg_loss"]
         return state, mets
 
+    if kernel == "tinystep":
+        if rho_decay != 0.0:
+            raise ValueError("the tinystep kernel needs a constant rho")
+        chunk = tinystep.train_chunk if engine == "kernel" else tinystep.train_chunk_plain
+
+        def runner(state, x, t_steps: int, seed: int = 0, eps=None, aug_eps=None):
+            state, mets = chunk(
+                state, prior, x, lr=lr, rho=rho, t_steps=t_steps, seed=seed,
+                aug_noise=aug_noise, num_samples=config.num_samples, eps=eps,
+                aug_eps=aug_eps,
+            )
+            return finish(state, mets, t_steps)
+
+        return runner
+
     def runner(state, x, t_steps: int, seed: int = 0, eps=None, aug_eps=None):
-        state, mets = chunk(
-            state, prior, x, lr=lr, rho=rho, t_steps=t_steps, seed=seed,
-            aug_noise=aug_noise, num_samples=config.num_samples, eps=eps,
-            aug_eps=aug_eps,
-        )
+        if aug_eps is not None:
+            raise ValueError("flexstep draws its augmentation noise on the batch "
+                             "stack; aug_eps is tinystep's")
+        n = x.shape[0]
+        m = min(batch_size or n, n)
+        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+        if m >= n:
+            batches = x.expand((t_steps,) + tuple(x.shape)).contiguous()
+        else:
+            idx = torch.randint(0, n, (t_steps, m), generator=gen, device=x.device)
+            batches = x[idx]
+        if aug_noise > 0.0:
+            batches = batches + aug_noise * torch.randn(
+                batches.shape, generator=gen, device=x.device, dtype=batches.dtype)
+        chunk_seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
+        kw = dict(lr=lr, rho=rho, rho_decay=rho_decay, num_total=n,
+                  num_samples=config.num_samples, seed=chunk_seed, eps=eps)
+        if engine == "kernel":
+            state, mets = flexstep.train_chunk(state, prior, batches, **kw)
+        else:
+            state, mets = flexstep.train_chunk_plain(state, prior, batches, **kw)
         return finish(state, mets, t_steps)
 
     return runner

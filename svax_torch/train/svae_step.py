@@ -118,12 +118,15 @@ def init_state(
 
 
 def make_train_step(
-    config: SvaeConfig, prior: GmmNat, lr: float, rho: float
+    config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable
 ) -> Callable:
     """Build step(state, batch, eps=None, generator=None) → (state, metrics).
 
     Adam first, from the gradient of −ELBO/num_total; then CVI from the
-    sufficient statistics of the pre-update naturals."""
+    sufficient statistics of the pre-update naturals. ``rho`` is a float or
+    a schedule ``rho(step)`` evaluated at the pre-update ``state.step``
+    (``rho_schedule`` builds the Trainer's inverse decay); the ``rho``
+    metric reports the value used."""
 
     def step(state: SvaeTrainState, batch: torch.Tensor,
              eps: torch.Tensor | None = None,
@@ -147,13 +150,15 @@ def make_train_step(
             inc = gmm.stats_to_nat(
                 gmm.GmmSuffStats(*(s.detach() for s in out.suff_stats))
             )
-            pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho)
+            rho_t = float(rho(state.step)) if callable(rho) else float(rho)
+            pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho_t)
         metrics = {
             "elbo": -loss.detach() * config.num_total,
             "recon": out.recon.detach(),
             "local_kl": out.local_kl.detach(),
             "global_kl": out.global_kl.detach(),
             "neg_loss": (-(out.recon - out.local_kl) / config.num_total).detach(),
+            "rho": torch.tensor(rho_t, dtype=loss.dtype, device=loss.device),
         }
         new_state = SvaeTrainState(
             nn_params=nn_params, opt_state=opt_state, pgm_nat=pgm_nat,
@@ -162,6 +167,14 @@ def make_train_step(
         return new_state, metrics
 
     return step
+
+
+def rho_schedule(rho0: float, decay: float = 0.0) -> float | Callable:
+    """The Trainer's CVI step size (``svax/train/trainer.py: _rho_schedule``):
+    the constant ρ₀ when ``decay`` is 0, else ρ_t = ρ₀/(1 + decay·t)."""
+    if decay == 0.0:
+        return rho0
+    return lambda t: rho0 / (1.0 + decay * t)
 
 
 def make_eval_fn(config: SvaeConfig, prior: GmmNat) -> Callable:
