@@ -47,6 +47,28 @@ B. the auto-svae main path: ``svax_torch.train_svae --config auto-svae
    more than 4 nats, the best of seeds 0–3 above −12.3
    (tests/test_auto_quality_pin.py's bar); then 50 steps on the plain
    engine for its rate;
+C. the combine kernels against their plain version at the mnist shape
+   (N=256, K=10, d=8, S=1) and the bigk shape (N=1024, K=100, d=10, S=1):
+   values at tests/test_combine_kernel.py's bars (2e-5 for z, log r̃, μ̃;
+   2e-4 for the local row and the statistics), the gradients to the
+   potentials and every expected-parameter field through each of the five
+   cotangent paths alone and all together (5e-4 of each gradient's largest
+   entry), bit-equal reruns of forward and backward; the in-kernel ε
+   recovered as L̃ᵀ(z − μ̃): |mean| < 0.005 and |var − 1| < 0.01 at bigk,
+   the same seed and step bit-equal, another step or seed different, and
+   the seeded gradients equal to those with the recovered ε injected; then
+   forward, backward and both timed against the plain version;
+D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
+   --steps 2000`` (the config's 1000 warmup steps, then chunks of 200 on
+   the per-step engine with the combine kernels) for seeds 0 and 1, each
+   twice: the combine kernels launched, the runs bit-equal, and each seed
+   held to tests/test_mnist_quality_pin.py's floors — test ELBO/pt up by
+   more than 100 nats, cluster purity of the test set above 0.7, at least
+   6 of 10 components in use (computed here from the returned state; the
+   entry prints none); then 40 steps on the plain engine for its rate, and
+   50 steps of the kernel engine and 10 of the plain one, without the
+   warmup, under ``torch.profiler`` for the device's idle share and the
+   combine's share of device time;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -431,6 +453,196 @@ def auto_phases(card: str) -> dict:
             "bound_ms": flex_bound[0], "bound_by": flex_bound[1], "library_ms": None}
 
 
+def combine_phase(card: str) -> list:
+    """Phase C; returns the combine_forward and combine_backward entries of
+    the kernels line (at the mnist shape, without launches)."""
+    import numpy as np
+    import torch
+
+    from svax_torch.measure_mnist import combine_bound, combine_inputs, time_combine
+    from svax_torch.models import svae
+    from svax_torch.ops import combine
+    from svax_torch.pgm import gmm
+
+    dev = torch.device("cuda", 0)
+    value_tol = {"z": 2e-5, "log_resp": 2e-5, "mean": 2e-5, "local": 2e-4, "stats": 2e-4}
+    fields = ["pot_h", "pot_p", *gmm.GmmExpected._fields]
+
+    def outputs(out):
+        z, lr, mean, local, st = out
+        return {"z": z, "log_resp": lr, "mean": mean, "local": local,
+                "stats": torch.cat([st.counts[:, None], st.mean_stat,
+                                    st.scatter_stat.flatten(1)], dim=1)}
+
+    def grads(fn, pot_h, pot_p, exp, cts):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (pot_h, pot_p, *exp)]
+        outs = outputs(fn(leaves[0], leaves[1], gmm.GmmExpected(*leaves[2:])))
+        loss = sum((outs[name] * ct).sum() for name, ct in cts.items())
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    entries = []
+    for label, (n, k, d, s) in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1))):
+        pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
+        got = outputs(combine.combine_fused(pot_h, pot_p, exp, eps, s, scale=2.5))
+        torch.cuda.synchronize()
+        want = outputs(combine.combine_fused_plain(pot_h, pot_p, exp, eps, s, scale=2.5))
+        e_val = {name: close(f"combine {label} {name}", got[name], want[name], tol, tol)
+                 for name, tol in value_tol.items()}
+        rng = np.random.default_rng(1)
+        cts = {name: torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32,
+                                  device=dev) for name, t in want.items()}
+        kern = lambda a, b, e: combine.combine_fused(a, b, e, eps, s)  # noqa: E731
+        plain = lambda a, b, e: combine.combine_fused_plain(a, b, e, eps, s)  # noqa: E731
+        e_grad = e_grad_abs = 0.0
+        for paths in [list(cts)] + [[name] for name in cts]:
+            sub = {name: cts[name] for name in paths}
+            for g, w, what in zip(grads(kern, pot_h, pot_p, exp, sub),
+                                  grads(plain, pot_h, pot_p, exp, sub), fields):
+                if w is None:
+                    assert g is None or float(g.abs().max()) == 0.0, (label, what, paths)
+                    continue
+                # A field the path does not reach gets exact zeros on both sides.
+                scale = float(w.abs().max())
+                err = close(f"combine {label} d{what} via {paths}", g, w, 5e-4, 5e-4 * scale)
+                e_grad = max(e_grad, err / scale) if scale > 0 else e_grad
+                e_grad_abs = max(e_grad_abs, err)
+        twice = [grads(lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=7,
+                                                             step=3), pot_h, pot_p, exp, cts)
+                 for _ in range(2)]
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(*twice)), f"{label}: reruns differ"
+        again = outputs(combine.combine_fused(pot_h, pot_p, exp, eps, s, scale=2.5))
+        assert all(torch.equal(got[name], again[name]) for name in got), label
+
+        # The in-kernel ε, recovered as L̃ᵀ(z − μ̃).
+        z = combine.combine_fused(pot_h, pot_p, exp, None, s, seed=11, step=5)[0]
+        post = svae.sin_combine(pot_h.double(), pot_p.double(),
+                                gmm.GmmExpected(*(t.double() for t in exp)))
+        rec = (post.prec_chol.mT @ (z[0].double() - post.mean)[..., None])[..., 0]
+        mean, var = float(rec.mean()), float(rec.var())
+        if label == "bigk":  # 1,024,000 draws (mnist: 20,480)
+            assert abs(mean) < 0.005 and abs(var - 1.0) < 0.01, (label, mean, var)
+        assert torch.equal(z, combine.combine_fused(pot_h, pot_p, exp, None, s, seed=11,
+                                                    step=5)[0])
+        assert not torch.equal(z, combine.combine_fused(pot_h, pot_p, exp, None, s,
+                                                        seed=11, step=6)[0])
+        assert not torch.equal(z, combine.combine_fused(pot_h, pot_p, exp, None, s,
+                                                        seed=12, step=5)[0])
+        sub = {"z": cts["z"], "log_resp": cts["log_resp"], "local": cts["local"]}
+        e_rng = 0.0
+        for g, w, what in zip(
+                grads(lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=11, step=5),
+                      pot_h, pot_p, exp, sub),
+                grads(lambda a, b, e: combine.combine_fused(a, b, e, rec[None].float(), s),
+                      pot_h, pot_p, exp, sub), fields):
+            scale = float(w.abs().max())
+            err = close(f"combine {label} seeded d{what}", g, w, 5e-4, 5e-4 * scale)
+            e_rng = max(e_rng, err / scale) if scale > 0 else e_rng
+
+        t = time_combine(dev, n, k, d, s)
+        fb, bb = combine_bound(n, k, d, s, False), combine_bound(n, k, d, s, True)
+        print(f"phase C: combine vs plain at {label} N={n} K={k} d={d} S={s}: "
+              + ", ".join(f"{name} max abs err {v:.3e}" for name, v in e_val.items())
+              + f" (bars {value_tol}); gradients, 5 paths alone and together, max abs err "
+              f"{e_grad_abs:.3e}, / max|grad| {e_grad:.3e} (bar 5e-4); reruns bit-equal; in-kernel eps "
+              f"recovered: mean {mean:.5f} var {var:.5f}, same seed bit-equal, seeded vs "
+              f"injected gradients {e_rng:.3e}; device ms per call: forward "
+              f"{t['kernel_fwd_device']:.4f} (plain {t['plain_fwd_device']:.4f}), backward "
+              f"{t['kernel_bwd_device']:.4f} (plain {t['plain_bwd_device']:.4f}); CUDA-event "
+              f"ms per call: forward {t['kernel_fwd_call']:.4f} (plain "
+              f"{t['plain_fwd_call']:.4f}), backward {t['kernel_bwd_call']:.4f} (plain "
+              f"{t['plain_bwd_call']:.4f}); bound forward {fb[0] * 1e3:.3f} us ({fb[1]}), "
+              f"backward {bb[0] * 1e3:.3f} us ({bb[1]}); {card}", flush=True)
+        if label == "mnist":
+            max_abs = max(e_val.values())
+            entries = [
+                {"name": "combine_forward", "route": "cuda",
+                 "source": "svax_torch/ops/csrc/combine.cu",
+                 "replaces": "svax/ops/combine_pallas.py:431", "max_abs_err": max_abs,
+                 "ms": t["kernel_fwd_device"], "plain_ms": t["plain_fwd_device"],
+                 "bound_ms": fb[0],
+                 "bound_by": fb[1], "library_ms": None},
+                {"name": "combine_backward", "route": "cuda",
+                 "source": "svax_torch/ops/csrc/combine.cu",
+                 "replaces": "svax/ops/combine_pallas.py:588", "max_abs_err": e_grad_abs,
+                 "ms": t["kernel_bwd_device"], "plain_ms": t["plain_bwd_device"],
+                 "bound_ms": bb[0],
+                 "bound_by": bb[1], "library_ms": None},
+            ]
+    return entries
+
+
+def mnist_phase(card: str) -> tuple[int, int]:
+    """Phase D; returns the combine forward and backward launches of the
+    main path's first run (seed 0)."""
+    import torch
+
+    from svax_torch import train_svae
+    from svax_torch.data import load_mnist
+    from svax_torch.measure_mnist import profile_entry
+    from svax_torch.models import evaluation
+    from svax_torch.models.svae import sin_combine
+    from svax_torch.nets import mlp as nets
+    from svax_torch.ops import combine
+    from svax_torch.pgm import gmm
+
+    def quality(out, seed):
+        labels = load_mnist(seed=seed, return_labels=True)[4]
+        state, x_test = out["state"], out["x_test"]
+        with torch.no_grad():
+            pot_h, pot_p = nets.encoder_apply(state.nn_params["encoder"], x_test)
+            post = sin_combine(pot_h, pot_p, gmm.expected_params(state.pgm_nat))
+        purity = evaluation.cluster_purity(torch.exp(post.log_resp), labels)
+        used = int(torch.unique(post.log_resp.argmax(-1)).numel())
+        return purity, used
+
+    launches, lines = None, []
+    for seed in (0, 1):
+        argv = ["--config", "mnist-svae", "--steps", "2000", "--device", "cuda",
+                "--seed", str(seed), "--iw-samples", "100" if seed == 0 else "0"]
+        combine.launches = combine.backward_launches = 0
+        run1 = train_svae.main(argv)
+        fwd, bwd = combine.launches, combine.backward_launches
+        assert run1["kernel"] == "per-step" and fwd > 0 and bwd > 0, \
+            f"combine launched {fwd} / {bwd} times on the mnist-svae main path"
+        if launches is None:
+            launches = (fwd, bwd)
+        rows = run1["rows"]
+        assert len(rows) == 10 and all(math.isfinite(v) for r in rows for v in r.values())
+        assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
+        run2 = train_svae.main(argv)
+        assert all(torch.equal(p, q) for p, q in
+                   zip(leaves(run1["state"]), leaves(run2["state"]))), \
+            f"two mnist-svae runs at seed {seed} differ"
+        start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+        purity, used = quality(run1, seed)
+        lines.append(f"seed {seed}: {fwd} forward / {bwd} backward combine launches, "
+                     f"warmup {run1['warmup']['seconds']:.1f} s (seed occupancy "
+                     f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} "
+                     f"steps/s, test ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, "
+                     f"{used} of 10 components in use"
+                     + (f", IW/pt {run1['final_test_iw_loglik_per_point']:.4f}"
+                        if seed == 0 else "") + ", runs bit-equal")
+        assert end > start + 100.0, f"seed {seed}: test ELBO/pt {start} -> {end}"
+        assert purity > 0.7, f"seed {seed}: cluster purity {purity}"
+        assert used >= 6, f"seed {seed}: only {used} of 10 components in use"
+    print(f"phase D: mnist-svae main path (synthetic data "
+          f"{run1['meta']['synthetic']}): " + "; ".join(lines) + f"; {card}", flush=True)
+    plain = train_svae.main(["--config", "mnist-svae", "--steps", "40", "--warmup-steps",
+                             "0", "--device", "cuda", "--engine", "plain",
+                             "--iw-samples", "0"])
+    print(f"phase D: mnist-svae plain engine: {plain['steps_per_s']:.1f} steps/s (40 steps, "
+          f"no warmup); {card}", flush=True)
+    for engine, steps in (("kernel", 50), ("plain", 10)):
+        r = profile_entry(["--config", "mnist-svae", "--steps", str(steps), "--warmup-steps",
+                           "0", "--device", "cuda", "--engine", engine, "--iw-samples", "0"])
+        print(f"phase D: mnist-svae {engine} engine, {steps} steps under torch.profiler: "
+              f"{r['steps_per_s']:.1f} steps/s, wall {r['wall_ms']:.1f} ms, device "
+              f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, combine "
+              f"kernels {r['combine_ms']:.3f} ms ({100 * r['combine_ms'] / r['device_ms']:.1f}%"
+              f" of device time); {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -451,6 +663,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    t_start = time.perf_counter()
 
     # 1. the card
     print(f"phase 1: {card}")
@@ -577,11 +790,25 @@ def main() -> int:
              + mlp_fmas([2, *cfg["hidden"], 4], n, False)),
         4 * (6 * p_tiny + 2 * n + 3 * cfg["k"] * 9) / t_kernel + 12)
 
+    elapsed = lambda: f"{time.perf_counter() - t_start:.0f} s"  # noqa: E731
+    print(f"phases 1-5 done at {elapsed()}", flush=True)
+
     # 6–8. the mixtures
     mixture_kernels = mixture_phases(card)
+    print(f"phases 6-8 done at {elapsed()}", flush=True)
 
     # A–B. auto-svae
     flex_kernel = auto_phases(card)
+    print(f"phases A-B done at {elapsed()}", flush=True)
+
+    # C–D. the combine kernels and mnist-svae
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    combine_kernels = combine_phase(card)
+    print(f"phase C done at {elapsed()}", flush=True)
+    fwd_launches, bwd_launches = mnist_phase(card)
+    print(f"phase D done at {elapsed()}", flush=True)
+    combine_kernels[0]["launches"] = fwd_launches
+    combine_kernels[1]["launches"] = bwd_launches
 
     # 9. result
     print(json.dumps({"kernels": [{
@@ -591,7 +818,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None,
-    }, *mixture_kernels, flex_kernel]}))
+    }, *mixture_kernels, flex_kernel, *combine_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

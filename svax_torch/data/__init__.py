@@ -1,11 +1,13 @@
-"""Datasets (numpy only): numpy copies of ``svax/data``'s pinwheel and UCI
-Auto loaders, and ``load_dataset`` over the workloads the port runs."""
+"""Datasets (numpy only): numpy copies of ``svax/data``'s pinwheel, UCI
+Auto and MNIST loaders, and ``load_dataset`` over the workloads the port
+runs."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from svax_torch.data.auto import load_auto
+from svax_torch.data.mnist import load_mnist
 from svax_torch.data.pinwheel import load_pinwheel
 
 
@@ -17,6 +19,5 @@ def load_dataset(name: str, seed: int = 0) -> tuple[np.ndarray, np.ndarray, dict
     if name == "auto":
         return load_auto(seed=seed)
     if name == "mnist":
-        raise NotImplementedError(
-            "dataset 'mnist' is not ported to svax_torch yet (ROADMAP.md, slice F)")
+        return load_mnist(seed=seed)
     raise ValueError(f"unknown dataset {name!r}")

@@ -7,7 +7,8 @@ conjugate GMM (a mixture of Student-t, Bishop PRML eq. 10.81): the
 exact-GMM bar the SVAE is judged against. ``svae_iw_loglik`` is the
 SVAE's importance-weighted bound (Burda et al.): proposal the structured
 mixture posterior q(z|x), target the expected-parameter GMM prior p̄(z)
-times the Gaussian decoder.
+times the decoder (Gaussian or Bernoulli, in f32 as the reference
+evaluates it).
 """
 
 from __future__ import annotations
@@ -94,12 +95,14 @@ def _expected_gmm_log_prob(z: torch.Tensor, exp: gmm.GmmExpected) -> torch.Tenso
 def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
                    num_samples: int = 100, *, generator: torch.Generator | None = None,
                    gumbel: torch.Tensor | None = None,
-                   eps: torch.Tensor | None = None) -> torch.Tensor:
+                   eps: torch.Tensor | None = None,
+                   likelihood: str = "gaussian") -> torch.Tensor:
     """Per-point IW bound: lse_s[log p(x|z)p̄(z)/q(z|x)] − log S; (N,).
 
     Per (s, n) a component is drawn by Gumbel-max on log r̃ and z from its
     Gaussian, z = μ̃ + L̃⁻ᵀε. ``gumbel`` (S, N, K) and ``eps`` (S, N, K, d)
-    inject the draws; otherwise they come from ``generator``."""
+    inject the draws; otherwise they come from ``generator``. The decoder
+    runs in the parameters' dtype with the ``likelihood`` head."""
     exp = gmm.expected_params(pgm_nat)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
     post = svae_mod.sin_combine(pot_h, pot_p, exp)
@@ -113,7 +116,6 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
     z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (S, N, d)
     log_q = _mixture_log_q(z, post)
     log_prior = _expected_gmm_log_prob(z, exp)
-    mean, var = nets.decoder_apply(nn_params["decoder"], z)
-    loglik = nets.gaussian_loglik(x[None], mean, var)  # (S, N)
+    loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)  # (S, N)
     log_w = loglik + log_prior - log_q
     return torch.logsumexp(log_w, dim=0) - math.log(float(num_samples))

@@ -1,5 +1,6 @@
 """Structured VAE: SIN combine, mixture reparam sampling, structured ELBO
-(``svax/models/svae.py``, the weighted-recon Gaussian subset).
+(``svax/models/svae.py``, the weighted-recon diagonal-head subset:
+Gaussian and Bernoulli likelihoods, the fused combine).
 
 One forward pass computes, in closed form except the reconstruction Monte
 Carlo: encoder potentials (h, P); the SIN combine with the expected GMM
@@ -25,16 +26,47 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 class SvaeConfig(NamedTuple):
-    """The SVAE configuration fields the pinwheel and auto training paths read.
+    """The SVAE configuration fields the pinwheel, auto and mnist training
+    paths read, with the reference's defaults.
 
-    The port implements the Gaussian likelihood, the diagonal recognition
-    head, weighted reconstruction and zero jitter; the reference's other
-    switches are not ported yet (ROADMAP.md)."""
+    The port implements the Gaussian and Bernoulli likelihoods, the diagonal
+    recognition head, weighted reconstruction and zero jitter; the
+    reference's other switches (fused_mlp_decoder, remat, the full head,
+    sampled recon) are not ported yet (ROADMAP.md)."""
 
     latent_dim: int
     num_components: int
     num_samples: int = 1
     num_total: int = 1  # dataset size N for minibatch scaling
+    likelihood: str = "gaussian"  # or "bernoulli"
+    # "bfloat16" runs the Bernoulli decoder body in bf16 with f32
+    # accumulation of every (n, k) reduction (nets.bernoulli_loglik_decomposed).
+    nn_compute_dtype: str = "float32"
+    # Route the combine, local KL, sampling and statistics through
+    # ops.combine.combine_fused: the CUDA kernels on CUDA tensors, their
+    # plain version on CPU tensors.
+    fused_combine: bool = False
+    # With fused_combine and a seed (no injected eps): ε is drawn inside the
+    # kernel from Philox keyed (seed, step) instead of torch.randn.
+    kernel_rng: bool = False
+
+    @property
+    def decoder_compute_dtype(self) -> torch.dtype | None:
+        return None if self.nn_compute_dtype == "float32" else getattr(
+            torch, self.nn_compute_dtype)
+
+
+_FUSED_OMITTED_MSG = (
+    "this SinPosterior came from the fused combine kernel "
+    "(SvaeConfig.fused_combine=True), which keeps prec_chol/cov/logdet_prec "
+    "inside the kernel and does not return them (they are None); rerun with "
+    "fused_combine=False (the sin_combine path) to get them."
+)
+
+
+def _require_full_posterior(post: "SinPosterior", caller: str) -> None:
+    if post.prec_chol is None or post.cov is None or post.logdet_prec is None:
+        raise ValueError(f"{caller}: {_FUSED_OMITTED_MSG}")
 
 
 class SinPosterior(NamedTuple):
@@ -93,6 +125,7 @@ def sample_posterior(
     """S reparameterised draws z = μ̃ + L̃⁻ᵀε per (n, k): (S, N, K, d).
 
     ``eps`` (S, N, K, d) overrides the draw from ``generator``."""
+    _require_full_posterior(post, "sample_posterior")
     shape = (num_samples,) + tuple(post.mean.shape)
     if eps is None:
         eps = torch.randn(
@@ -105,8 +138,13 @@ def sample_posterior(
     return post.mean[None] + bl.solve_triu_vec(chol, eps)
 
 
-def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor):
-    """Gaussian decoder log-likelihood batched over (S, N, K)."""
+def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor,
+                     config: SvaeConfig) -> torch.Tensor:
+    """Decoder log-likelihood batched over (S, N, K): the Bernoulli head in
+    its x-free decomposed form (in ``nn_compute_dtype``), else Gaussian."""
+    if config.likelihood == "bernoulli":
+        return nets.bernoulli_loglik_decomposed(
+            dec_params, z, x, compute_dtype=config.decoder_compute_dtype)
     mean, var = nets.decoder_apply(dec_params, z)
     return nets.gaussian_loglik(x[None, :, None, :], mean, var)
 
@@ -118,6 +156,7 @@ def local_kl_term(post: SinPosterior, exp: GmmExpected) -> torch.Tensor:
       E_q[log p̄(z,k)] = E[logπ_k] + ḡ_k + h̄_kᵀμ̃ − ½(tr(J̄Σ̃) + μ̃ᵀJ̄μ̃)
       E_q[log q(z|n,k)] = −(d/2)(1+log2π) + ½log|J̃|
     """
+    _require_full_posterior(post, "local_kl_term")
     d = post.mean.shape[-1]
     resp = torch.exp(post.log_resp)
     g_k = 0.5 * exp.logdet - 0.5 * d * _LOG_2PI - 0.5 * exp.quad
@@ -137,26 +176,50 @@ def forward(
     config: SvaeConfig,
     eps: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    *,
+    seed: int | None = None,
+    step: int = 0,
 ) -> SvaeOutputs:
     """Full SVAE forward pass → structured ELBO + CVI payload.
 
     ``eps`` (S, N, K, d) injects the reparameterisation noise; otherwise
-    it is drawn from ``generator``."""
+    it is drawn from ``generator``, or — with ``fused_combine`` and
+    ``kernel_rng`` — inside the combine kernel from Philox keyed (``seed``,
+    ``step``) when a seed is given.
+
+    With ``config.fused_combine`` the combine, local KL, sampling and
+    statistics run in ``ops.combine.combine_fused`` (its CUDA kernels on
+    CUDA tensors, the plain composition on CPU tensors), and the returned
+    posterior carries ``mean`` and ``log_resp`` only (the reference's fused
+    branch, svax/models/svae.py:412-480)."""
     n = x.shape[0]
     scale = config.num_total / n
     exp = gmm.expected_params(pgm_nat)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
-    post = sin_combine(pot_h, pot_p, exp)
+    if config.fused_combine:
+        from svax_torch.ops import combine
+
+        k, d = exp.prec_mean.shape
+        if eps is None and not (config.kernel_rng and seed is not None):
+            eps = torch.randn((config.num_samples, n, k, d), generator=generator,
+                              device=x.device, dtype=pot_h.dtype)
+        z, log_resp, mean, local_n, stats = combine.combine_fused(
+            pot_h, pot_p, exp, eps, config.num_samples, scale=scale,
+            seed=None if eps is not None else seed, step=step)
+        post = SinPosterior(mean=mean, prec_chol=None, cov=None, log_resp=log_resp,
+                            logdet_prec=None)
+        local = scale * local_n.sum()
+    else:
+        post = sin_combine(pot_h, pot_p, exp)
+        z = sample_posterior(post, config.num_samples, eps=eps, generator=generator)
+        local = scale * local_kl_term(post, exp).sum()
+        ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
+        stats = gmm.suff_stats_from_moments(torch.exp(post.log_resp), post.mean, ezz,
+                                            scale=scale)
     resp = torch.exp(post.log_resp)
-
-    z = sample_posterior(post, config.num_samples, eps=eps, generator=generator)
-    loglik = _weighted_loglik(nn_params["decoder"], z, x)  # (S, N, K)
+    loglik = _weighted_loglik(nn_params["decoder"], z, x, config)  # (S, N, K)
     recon = scale * (resp * loglik.mean(dim=0)).sum()
-    local = scale * local_kl_term(post, exp).sum()
     global_kl = gmm.kl_global(pgm_nat, prior_nat)
-
-    ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
-    stats = gmm.suff_stats_from_moments(resp, post.mean, ezz, scale=scale)
     return SvaeOutputs(
         elbo=recon - local - global_kl,
         recon=recon,
@@ -177,14 +240,14 @@ def init_params(
     device: torch.device | str = "cpu",
     dtype: torch.dtype = torch.float32,
 ) -> dict:
-    """Encoder (input → 2d) and Gaussian decoder (d → 2·input) MLPs."""
+    """Encoder (input → 2d) and a decoder for ``config.likelihood``:
+    Gaussian (d → 2·input) or Bernoulli (d → input logits)."""
     kw = dict(device=device, dtype=dtype)
     d = config.latent_dim
     return {
         "encoder": nets.mlp_init(
             generator, [input_dim, *encoder_hidden, 2 * d], **kw
         ),
-        "decoder": nets.mlp_init(
-            generator, [d, *decoder_hidden, 2 * input_dim], **kw
-        ),
+        "decoder": nets.decoder_init(generator, d, decoder_hidden, input_dim,
+                                     config.likelihood, **kw),
     }

@@ -78,6 +78,23 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.flexstep_train_chunk.restype = i
+    lib.combine_blocks.argtypes = [i, i]
+    lib.combine_blocks.restype = i
+    lib.combine_forward.argtypes = [
+        p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, n, k, d, s
+        ctypes.c_ulonglong, ctypes.c_uint,  # seed, step (the Philox stream)
+        p, p, p, p, p, p,  # z, log_resp, mean, local, partial, stats
+        p,  # stream
+    ]
+    lib.combine_forward.restype = i
+    lib.combine_backward.argtypes = [
+        p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, n, k, d, s
+        ctypes.c_ulonglong, ctypes.c_uint,  # seed, step
+        p, p, p, p, p,  # dz, dlr, dmu, dlocal, dstats (each may be null)
+        p, p, p, p,  # dph, dpp, partial, dw (partial and dw null: no dw)
+        p,  # stream
+    ]
+    lib.combine_backward.restype = i
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 
@@ -121,6 +138,11 @@ def load() -> ctypes.CDLL:
     _declare(lib)
     _lib = lib
     return lib
+
+
+def ptr(t) -> ctypes.c_void_p | None:
+    """A tensor's device pointer for a C entry (None for an absent tensor)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

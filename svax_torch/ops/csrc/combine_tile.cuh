@@ -20,8 +20,10 @@
 // w block): [log π, E[log|Λ|], E[μᵀΛμ], E[Λμ] (D), E[Λ] (D×D row-major)].
 // Matrices are [D][D] arrays of which only the lower triangle is used where
 // the comment says so; D is a template parameter so everything unrolls
-// into registers. Shared by flexstep.cu; the combine_fused and
-// log_rho_fused ports take the same functions.
+// into registers. Shared by flexstep.cu and combine.cu (the combine_fused
+// port, whose kernel writes out the full backward, including J̄'s off-
+// diagonal, the statistics' cotangent and dw, on top of these functions);
+// the log_rho_fused port can take the same functions.
 #pragma once
 
 namespace svax {

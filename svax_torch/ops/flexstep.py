@@ -279,10 +279,6 @@ def unsupported_reason(nn_params: dict, prior: GmmNat, batch_shape,
     return None
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p | None:
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
 def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
                 lr: float, rho: float, rho_decay: float = 0.0, num_total: int,
                 num_samples: int = 4, seed: int = 0,
@@ -335,6 +331,8 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
 
     from svax_torch.ops import _build
 
+    ptr = _build.ptr
+
     lib = _build.load()
     enc, dec = state.nn_params["encoder"], state.nn_params["decoder"]
     h1e, h2e = enc[0]["w"].shape[1], enc[1]["w"].shape[1]
@@ -351,9 +349,9 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     stream = torch.cuda.current_stream(batches.device).cuda_stream
     with torch.cuda.device(batches.device):
         err = lib.flexstep_train_chunk(
-            _ptr(batches), *dims,
-            _ptr(prior_b), _ptr(nat), _ptr(params), _ptr(m1), _ptr(v1),
-            _ptr(metrics), _ptr(scratch), _ptr(eps),
+            ptr(batches), *dims,
+            ptr(prior_b), ptr(nat), ptr(params), ptr(m1), ptr(v1),
+            ptr(metrics), ptr(scratch), ptr(eps),
             t_steps, state.opt_state.count, state.step,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(rho_decay), float(num_total),

@@ -360,10 +360,6 @@ def shape_class_reason(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
     return None
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p | None:
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
 def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
                 lr: float, rho: float, t_steps: int, seed: int = 0,
                 aug_noise: float = 0.0, num_samples: int = 4,
@@ -426,6 +422,8 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
 
     from svax_torch.ops import _build
 
+    ptr = _build.ptr
+
     lib = _build.load()
     params = flat_params(state.nn_params)
     m = flat_params(state.opt_state.mu)
@@ -439,9 +437,9 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.tinystep_train_chunk(
-            _ptr(x), n, k, s, h1, h2,
-            _ptr(prior_b), _ptr(nat), _ptr(params), _ptr(m), _ptr(v),
-            _ptr(metrics), _ptr(scratch), _ptr(eps), _ptr(aug_in),
+            ptr(x), n, k, s, h1, h2,
+            ptr(prior_b), ptr(nat), ptr(params), ptr(m), ptr(v),
+            ptr(metrics), ptr(scratch), ptr(eps), ptr(aug_in),
             t_steps, state.opt_state.count,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(aug_noise), ctypes.c_void_p(stream),

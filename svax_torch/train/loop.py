@@ -3,13 +3,17 @@ subset).
 
 ``augment_step`` wraps a step with input-noise augmentation;
 ``choose_kernel`` is the gate between the two whole-train-step kernels
-(the reference's ``megakernel_unsupported_reason``); ``make_runner`` is
-the chunk runner that drives T steps per call through the tinystep kernel
-(full batch) or the flexstep kernel (a minibatch stack), or their plain
-versions, taking the place of the reference's ``make_scan_runner``,
-``make_minibatch_scan_runner`` and ``make_megakernel_runner``;
-``make_mixture_runner`` does the same for the GMM/SMM through the mixstep
-kernel (the reference's ``make_mixture_megakernel_runner``).
+and, with ``engine="auto"``, the per-step engine (the reference's
+``megakernel_unsupported_reason`` and its entry's auto rule);
+``make_runner`` is the chunk runner that drives T steps per call through
+the tinystep kernel (full batch) or the flexstep kernel (a minibatch
+stack), or their plain versions, taking the place of the reference's
+``make_scan_runner`` and ``make_megakernel_runner``; ``make_step_runner``
+runs T calls of the per-step train step over a minibatch stack (the
+reference's ``make_minibatch_scan_runner``), the combine kernel inside
+when ``fused_combine`` is set; ``make_mixture_runner`` does the same for
+the GMM/SMM through the mixstep kernel (the reference's
+``make_mixture_megakernel_runner``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import torch
 
 from svax_torch.ops import flexstep, mixstep, tinystep
 from svax_torch.pgm import gmm
+from svax_torch.train import svae_step
+
+PER_STEP = "per-step"
 
 
 def augment_step(step: Callable, sigma: float) -> Callable:
@@ -101,11 +108,17 @@ def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
 
 def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
                   rho, rho_decay: float = 0.0, likelihood: str = "gaussian",
-                  input_dim: int = 0) -> str:
+                  input_dim: int = 0, engine: str = "megakernel") -> str:
     """The whole-train-step kernel for this workload, as the reference's
     ``make_megakernel_runner`` picks it (svax/train/loop.py:218-232):
     "tinystep" for full-batch d = 2 constant-ρ work in its shape class, else
-    "flexstep". Raises with both kernels' reasons when neither fits."""
+    "flexstep". When neither fits, ``engine="megakernel"`` raises with both
+    kernels' reasons and ``engine="auto"`` returns ``PER_STEP``, the
+    per-step engine (the reference entry's auto rule,
+    experiments/train_svae.py:251-271): a choice by shape, made before any
+    kernel runs."""
+    if engine not in ("megakernel", "auto"):
+        raise ValueError(f"unknown engine {engine!r} (megakernel|auto)")
     kw = dict(encoder_hidden=encoder_hidden, decoder_hidden=decoder_hidden, rho=rho,
               likelihood=likelihood)
     tiny = tinystep_unsupported_reason(config, batch_full=batch_full,
@@ -116,6 +129,8 @@ def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
             if input_dim > 0 else "the flexstep kernel needs the data width d_in")
     if flex is None:
         return "flexstep"
+    if engine == "auto":
+        return PER_STEP
     raise ValueError(f"fits neither kernel: {tiny}; {flex}")
 
 
@@ -204,6 +219,53 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
         else:
             state, mets = flexstep.train_chunk_plain(state, prior, batches, **kw)
         return finish(state, mets, t_steps)
+
+    return runner
+
+
+def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
+                     batch_size: int = 0, engine: str = "kernel") -> Callable:
+    """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
+    metrics)`` on the per-step engine: T calls of
+    ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
+    step) over a (T, M) index stack drawn with replacement.
+
+    One ``torch.Generator`` on x's device keyed ``seed + state.step`` draws
+    the index stack, then the chunk's seed, then (plain engine) every
+    step's ε (the reference's fold_in/split discipline, as ``make_runner``'s
+    flexstep branch). ``engine="kernel"`` keeps ``config``'s fused_combine
+    and kernel_rng: the combine kernel runs inside each step and draws ε
+    from Philox keyed (chunk seed, state.step), one host read of the seed
+    per chunk. ``engine="plain"`` turns both off: ``sin_combine`` and
+    ``torch.randn`` ε, the reference's path with fused_combine off.
+    ``batch_size`` 0 or ≥ N is the full batch; ``eps`` (T, S, M, K, d)
+    injects the noise.
+
+    Metrics are (T,) tensors of each step's elbo, recon, local_kl,
+    global_kl (at its pre-update naturals), neg_loss and rho."""
+    if engine not in ("kernel", "plain"):
+        raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
+    if engine == "plain":
+        config = config._replace(fused_combine=False, kernel_rng=False)
+    use_seed = config.fused_combine and config.kernel_rng
+    step = svae_step.make_train_step(config, prior, lr,
+                                     svae_step.rho_schedule(rho, rho_decay))
+
+    def runner(state, x, t_steps: int, seed: int = 0, eps=None):
+        n = x.shape[0]
+        m = min(batch_size or n, n)
+        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+        idx = (torch.randint(0, n, (t_steps, m), generator=gen, device=x.device)
+               if m < n else None)
+        chunk_seed = (int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
+                      if use_seed and eps is None else None)
+        rows = []
+        for t in range(t_steps):
+            xb = x if idx is None else x[idx[t]]
+            state, mets = step(state, xb, eps=None if eps is None else eps[t],
+                               generator=gen, seed=chunk_seed)
+            rows.append(mets)
+        return state, {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
 
     return runner
 

@@ -73,17 +73,29 @@ def adam_init(params: dict) -> AdamState:
 def adam_update(
     grads: dict, opt: AdamState, params: dict, lr: float
 ) -> tuple[dict, AdamState]:
-    """optax.adam(lr): moments, bias correction at count+1, then p − lr·m̂/(√v̂+ε)."""
+    """optax.adam(lr): moments, bias correction at count+1, then p − lr·m̂/(√v̂+ε).
+
+    The same elementwise operations, in the same order, as one ``_foreach``
+    call per operation over all the leaves (a dozen kernels a step, not a
+    hundred)."""
     count = opt.count + 1
-    mu = map_params(lambda g, m: (1.0 - B1) * g + B1 * m, grads, opt.mu)
-    nu = map_params(lambda g, v: (1.0 - B2) * g * g + B2 * v, grads, opt.nu)
+    flat = lambda tree: [t for side in tree.values() for ly in side for t in ly.values()]  # noqa: E731
+    g, m, v, p = flat(grads), flat(opt.mu), flat(opt.nu), flat(params)
+    mu = torch._foreach_add(torch._foreach_mul(g, 1.0 - B1), torch._foreach_mul(m, B1))
+    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, 1.0 - B2), g),
+                            torch._foreach_mul(v, B2))
     bc1 = 1.0 - B1**count
     bc2 = 1.0 - B2**count
-    new = map_params(
-        lambda p, m, v: p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)),
-        params, mu, nu,
-    )
-    return new, AdamState(count=count, mu=mu, nu=nu)
+    step = torch._foreach_div(mu, bc1)
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), ADAM_EPS)
+    step = torch._foreach_mul(torch._foreach_div(step, denom), lr)
+    new = torch._foreach_sub(p, step)
+
+    def tree(leaves):
+        it = iter(leaves)
+        return map_params(lambda _: next(it), params)
+
+    return tree(new), AdamState(count=count, mu=tree(mu), nu=tree(nu))
 
 
 def init_state(
@@ -120,9 +132,13 @@ def init_state(
 def make_train_step(
     config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable
 ) -> Callable:
-    """Build step(state, batch, eps=None, generator=None) → (state, metrics).
+    """Build step(state, batch, eps=None, generator=None, seed=None) →
+    (state, metrics).
 
-    Adam first, from the gradient of −ELBO/num_total; then CVI from the
+    The noise is ``eps`` when given, else drawn from ``generator`` — or,
+    with ``config.fused_combine`` and ``kernel_rng``, inside the combine
+    kernel from Philox keyed ``seed`` on stream ``state.step`` (no host
+    sync). Adam first, from the gradient of −ELBO/num_total; then CVI from the
     sufficient statistics of the pre-update naturals. ``rho`` is a float or
     a schedule ``rho(step)`` evaluated at the pre-update ``state.step``
     (``rho_schedule`` builds the Trainer's inverse decay); the ``rho``
@@ -130,13 +146,13 @@ def make_train_step(
 
     def step(state: SvaeTrainState, batch: torch.Tensor,
              eps: torch.Tensor | None = None,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, seed: int | None = None):
         params = map_params(
             lambda p: p.detach().requires_grad_(True), state.nn_params
         )
         out = svae.forward(
             params, state.pgm_nat, prior, batch, config, eps=eps,
-            generator=generator,
+            generator=generator, seed=seed, step=state.step,
         )
         loss = -out.elbo / config.num_total
         leaves = [t for side in params.values() for ly in side for t in ly.values()]
@@ -158,7 +174,8 @@ def make_train_step(
             "local_kl": out.local_kl.detach(),
             "global_kl": out.global_kl.detach(),
             "neg_loss": (-(out.recon - out.local_kl) / config.num_total).detach(),
-            "rho": torch.tensor(rho_t, dtype=loss.dtype, device=loss.device),
+            # A fill on the device: a tensor copied from the host would sync.
+            "rho": torch.full((), rho_t, dtype=loss.dtype, device=loss.device),
         }
         new_state = SvaeTrainState(
             nn_params=nn_params, opt_state=opt_state, pgm_nat=pgm_nat,
@@ -178,16 +195,18 @@ def rho_schedule(rho0: float, decay: float = 0.0) -> float | Callable:
 
 
 def make_eval_fn(config: SvaeConfig, prior: GmmNat) -> Callable:
-    """Held-out ELBO decomposition at fixed parameters (SURVEY.md §4.4)."""
+    """Held-out ELBO decomposition at fixed parameters (SURVEY.md §4.4);
+    ``evaluate(state, x, eps=None, generator=None, seed=None)`` takes its
+    noise as the train step does."""
 
     @torch.no_grad()
     def evaluate(state: SvaeTrainState, x: torch.Tensor,
                  eps: torch.Tensor | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, seed: int | None = None):
         cfg = config._replace(num_total=x.shape[0])
         out = svae.forward(
             state.nn_params, state.pgm_nat, prior, x, cfg, eps=eps,
-            generator=generator,
+            generator=generator, seed=seed, step=state.step,
         )
         n = x.shape[0]
         return {

@@ -69,14 +69,12 @@ def test_uci_file_is_bit_equal(monkeypatch, tmp_path):
 
 def test_load_dataset_routes(monkeypatch, tmp_path):
     monkeypatch.setenv("SVAX_DATA_DIR", str(tmp_path))
-    for name in ("pinwheel", "auto"):
+    for name in ("pinwheel", "auto", "mnist"):
         train, test, meta = load_dataset(name, seed=2)
         jtrain, jtest, jmeta = jload_dataset(name, seed=2)
         np.testing.assert_array_equal(train, jtrain)
         np.testing.assert_array_equal(test, jtest)
         assert meta == jmeta
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_dataset("mnist")
     with pytest.raises(ValueError, match="unknown dataset"):
         load_dataset("cifar")
 
@@ -299,9 +297,10 @@ def test_train_svae_auto_cpu_runs(capsys):
 
 
 def test_train_svae_refuses_unported_configs(capsys):
-    for name in ("mnist-svae", "bigk-dp"):
+    for argv in (["--config", "bigk-dp"], ["--config", "pinwheel-gmm"],
+                 ["--config", "mnist-svae", "--fused-mlp-decoder"]):
         with pytest.raises(SystemExit):
-            train_svae.main(["--config", name, "--device", "cpu"])
+            train_svae.main([*argv, "--device", "cpu"])
         assert "ROADMAP.md" in capsys.readouterr().err
 
 
