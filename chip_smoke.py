@@ -69,12 +69,29 @@ D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    50 steps of the kernel engine and 10 of the plain one, without the
    warmup, under ``torch.profiler`` for the device's idle share and the
    combine's share of device time;
+E. the fused MLP-decoder kernels against their plain version at the bigk
+   (S=1, N=1024, K=100, d=10, 200-200, D=784), mnist (N=256, K=10, d=8)
+   and a ragged shape (N=37, K=7, d=3, 24-40, D=50): ll and every gradient
+   (dz, dW1..3, db1..3, dy, dc) at measure_mnist.DECODER_TOL, reruns of
+   forward and backward bit-equal; then both timed at bigk and mnist
+   against the plain version and the unfused bf16 decoder they replace
+   (``nets.bernoulli_loglik_decomposed(compute_dtype=bfloat16)``), with
+   their bound (bf16 tensor-core products, special functions at the card's
+   maximum SM clock, bytes: the largest of the three);
+F. the bigk-dp main path: ``svax_torch.train_svae --config bigk-dp`` cut to
+   300 warmup and 600 joint steps at seed 0, twice: the decoder and
+   combine kernels launched, the runs bit-equal, test ELBO/pt up by more
+   than 100 nats, purity above 0.7, at least 6 components in use; then 10
+   steps on the plain engine for its rate, and 50 steps of the kernel
+   engine under ``torch.profiler`` for the idle share and the decoder's
+   and combine's shares of device time;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the 67
-   TFLOP/s f32 peak, counted from this run's shapes) — the card line, and
-   last {"ok": true, "device": {...}}.
+   TFLOP/s f32 peak — for the decoder kernels, the bf16 tensor-core peak
+   and the special-function rate — counted from this run's shapes) — the
+   card line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -577,23 +594,8 @@ def mnist_phase(card: str) -> tuple[int, int]:
     import torch
 
     from svax_torch import train_svae
-    from svax_torch.data import load_mnist
-    from svax_torch.measure_mnist import profile_entry
-    from svax_torch.models import evaluation
-    from svax_torch.models.svae import sin_combine
-    from svax_torch.nets import mlp as nets
+    from svax_torch.measure_mnist import profile_entry, quality
     from svax_torch.ops import combine
-    from svax_torch.pgm import gmm
-
-    def quality(out, seed):
-        labels = load_mnist(seed=seed, return_labels=True)[4]
-        state, x_test = out["state"], out["x_test"]
-        with torch.no_grad():
-            pot_h, pot_p = nets.encoder_apply(state.nn_params["encoder"], x_test)
-            post = sin_combine(pot_h, pot_p, gmm.expected_params(state.pgm_nat))
-        purity = evaluation.cluster_purity(torch.exp(post.log_resp), labels)
-        used = int(torch.unique(post.log_resp.argmax(-1)).numel())
-        return purity, used
 
     launches, lines = None, []
     for seed in (0, 1):
@@ -640,6 +642,124 @@ def mnist_phase(card: str) -> tuple[int, int]:
               f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, combine "
               f"kernels {r['combine_ms']:.3f} ms ({100 * r['combine_ms'] / r['device_ms']:.1f}%"
               f" of device time); {card}", flush=True)
+    return launches
+
+
+def decoder_phase(card: str) -> list:
+    """Phase E; returns the decoder_mlp_forward and decoder_mlp_backward
+    entries of the kernels line (at the bigk shape, without launches)."""
+    import torch
+
+    from svax_torch.measure_mnist import (DECODER_FIELDS, DECODER_TOL, decoder_bound,
+                                          decoder_errors, decoder_grads, decoder_inputs,
+                                          sm_clock_hz, time_decoder)
+    from svax_torch.ops import decoder_mlp
+
+    dev = torch.device("cuda", 0)
+    clock = sm_clock_hz()
+    shapes = {"bigk": (1, 1024, 100, 10, 200, 200, 784), "mnist": (1, 256, 10, 8, 200, 200, 784),
+              "ragged": (1, 37, 7, 3, 24, 40, 50)}
+    entries = []
+    for label, shape in shapes.items():
+        params, z, x, dll = decoder_inputs(dev, *shape)
+        e = decoder_errors(params, z, x, dll)
+        bars = [("ll", DECODER_TOL["ll"]), ("ll share > 1e-5", DECODER_TOL["ll share > 1e-5"]),
+                ("dz max", DECODER_TOL["dz max"]),
+                ("dz share > 1e-5", DECODER_TOL["dz share > 1e-5"])] + [
+                    (name, DECODER_TOL["grad"]) for name in DECODER_FIELDS[1:]]
+        bad = [(name, e[name], bar) for name, bar in bars if not e[name] < bar]
+        assert e["finite"] and not bad, f"decoder_mlp {label} {shape}: {bad} ({e})"
+        twice = [decoder_grads(decoder_mlp.core_fused, params, z, x, dll) for _ in range(2)]
+        assert torch.equal(twice[0][0], twice[1][0]), f"decoder_mlp {label}: forward reruns differ"
+        assert all(torch.equal(twice[0][1][n], twice[1][1][n]) for n in DECODER_FIELDS), \
+            f"decoder_mlp {label}: backward reruns differ"
+        line = (f"phase E: decoder_mlp vs plain at {label} S,N,K,d,H1,H2,D={shape}: "
+                + ", ".join(f"{k_} {v:.3e}" for k_, v in e.items() if k_ != "finite")
+                + f" (bars {DECODER_TOL}); reruns bit-equal")
+        if label != "ragged":
+            t = time_decoder(dev, *shape)
+            fb, bb = (decoder_bound(*shape, backward=b, sm_clock_hz=clock) for b in (False, True))
+            line += (f"; device ms per call: forward {t['kernel_fwd_device']:.4f} (plain "
+                     f"{t['plain_fwd_device']:.4f}, unfused bf16 {t['unfused_fwd_device']:.4f}), "
+                     f"backward {t['kernel_bwd_device']:.4f} (plain {t['plain_bwd_device']:.4f}), "
+                     f"forward + backward {t['kernel_fwd_device'] + t['kernel_bwd_device']:.4f} "
+                     f"(unfused bf16 {t['unfused_fwdbwd_device']:.4f}); CUDA-event ms per call: "
+                     f"forward {t['kernel_fwd_call']:.4f}, backward {t['kernel_bwd_call']:.4f}; "
+                     f"bound forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
+                     f"{fb['products_ms'] * 1e3:.2f}, special functions "
+                     f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
+                     f"{fb['bytes_ms'] * 1e3:.2f}), backward {bb['ms'] * 1e3:.2f} us "
+                     f"({bb['by']}: products {bb['products_ms'] * 1e3:.2f}, special functions "
+                     f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f})")
+        print(line + f"; {card}", flush=True)
+        if label == "bigk":
+            common = {"route": "cuda", "source": "svax_torch/ops/csrc/decoder_mlp.cu",
+                      "library_ms": None}
+            entries = [
+                {"name": "decoder_mlp_forward", **common,
+                 "replaces": "svax/ops/decoder_mlp_pallas.py:99", "max_abs_err": e["ll max abs"],
+                 "ms": t["kernel_fwd_device"], "plain_ms": t["plain_fwd_device"],
+                 "bound_ms": fb["ms"], "bound_by": fb["by"], "special_ms": fb["special_ms"],
+                 "unfused_bf16_ms": t["unfused_fwd_device"]},
+                {"name": "decoder_mlp_backward", **common,
+                 "replaces": "svax/ops/decoder_mlp_pallas.py:205",
+                 "max_abs_err": e["grad max abs"], "ms": t["kernel_bwd_device"],
+                 "plain_ms": t["plain_bwd_device"], "bound_ms": bb["ms"], "bound_by": bb["by"],
+                 "special_ms": bb["special_ms"],
+                 "unfused_bf16_ms": t["unfused_fwdbwd_device"] - t["unfused_fwd_device"]},
+            ]
+    return entries
+
+
+def bigk_phase(card: str) -> tuple[int, int]:
+    """Phase F; returns the decoder forward and backward launches of the
+    bigk-dp main path's first run."""
+    import torch
+
+    from svax_torch import train_svae
+    from svax_torch.measure_mnist import profile_entry, quality
+    from svax_torch.ops import combine, decoder_mlp
+
+    argv = ["--config", "bigk-dp", "--warmup-steps", "300", "--steps", "600", "--device",
+            "cuda", "--seed", "0", "--iw-samples", "0"]
+    decoder_mlp.launches = decoder_mlp.backward_launches = 0
+    combine.launches = combine.backward_launches = 0
+    run1 = train_svae.main(argv)
+    launches = (decoder_mlp.launches, decoder_mlp.backward_launches)
+    comb = (combine.launches, combine.backward_launches)
+    assert run1["kernel"] == "per-step" and min(launches) > 0 and min(comb) > 0, \
+        f"bigk-dp main path: decoder {launches}, combine {comb} launches"
+    rows = run1["rows"]
+    assert [r["step"] for r in rows] == [1, 200, 400, 600], [r["step"] for r in rows]
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
+    run2 = train_svae.main(argv)
+    assert all(torch.equal(p, q) for p, q in
+               zip(leaves(run1["state"]), leaves(run2["state"]))), "two bigk-dp runs differ"
+    start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    purity, used = quality(run1, 0)
+    print(f"phase F: bigk-dp main path (300 warmup + 600 joint steps of the config's 1000 + "
+          f"5000, seed 0; synthetic data {run1['meta']['synthetic']}): decoder "
+          f"{launches[0]} forward / {launches[1]} backward launches, combine {comb[0]} / "
+          f"{comb[1]}, warmup {run1['warmup']['seconds']:.1f} s (seed occupancy "
+          f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} steps/s, test "
+          f"ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 100 components "
+          f"in use, runs bit-equal; {card}", flush=True)
+    assert end > start + 100.0, f"bigk-dp: test ELBO/pt {start} -> {end}"
+    assert purity > 0.7, f"bigk-dp: cluster purity {purity}"
+    assert used >= 6, f"bigk-dp: only {used} of 100 components in use"
+    plain = train_svae.main(["--config", "bigk-dp", "--steps", "10", "--warmup-steps", "0",
+                             "--device", "cuda", "--engine", "plain", "--iw-samples", "0"])
+    print(f"phase F: bigk-dp plain engine: {plain['steps_per_s']:.1f} steps/s (10 steps, no "
+          f"warmup); {card}", flush=True)
+    r = profile_entry(["--config", "bigk-dp", "--steps", "50", "--warmup-steps", "0",
+                       "--device", "cuda", "--engine", "kernel", "--iw-samples", "0"])
+    print(f"phase F: bigk-dp kernel engine, 50 steps under torch.profiler: "
+          f"{r['steps_per_s']:.1f} steps/s, wall {r['wall_ms']:.1f} ms, device "
+          f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, decoder kernels "
+          f"{r['decoder_ms']:.3f} ms ({100 * r['decoder_ms'] / r['device_ms']:.1f}% of device "
+          f"time), combine kernels {r['combine_ms']:.3f} ms "
+          f"({100 * r['combine_ms'] / r['device_ms']:.1f}%); {card}", flush=True)
     return launches
 
 
@@ -810,6 +930,14 @@ def main() -> int:
     combine_kernels[0]["launches"] = fwd_launches
     combine_kernels[1]["launches"] = bwd_launches
 
+    # E–F. the decoder kernels and bigk-dp
+    decoder_kernels = decoder_phase(card)
+    print(f"phase E done at {elapsed()}", flush=True)
+    dec_fwd, dec_bwd = bigk_phase(card)
+    print(f"phase F done at {elapsed()}", flush=True)
+    decoder_kernels[0]["launches"] = dec_fwd
+    decoder_kernels[1]["launches"] = dec_bwd
+
     # 9. result
     print(json.dumps({"kernels": [{
         "name": "tinystep", "route": "cuda",
@@ -818,7 +946,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None,
-    }, *mixture_kernels, flex_kernel, *combine_kernels]}))
+    }, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

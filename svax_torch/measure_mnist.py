@@ -1,10 +1,12 @@
-"""Measure the mnist-svae path on one CUDA card: the numbers behind
-PERF.md's mnist-svae breakdown.
+"""Measure the mnist-svae and bigk-dp paths on one CUDA card: the numbers
+behind PERF.md's mnist-svae and bigk-dp breakdowns.
 
-    python -m svax_torch.measure_mnist > measure_mnist.txt
+    python -m svax_torch.measure_mnist [--config mnist-svae|bigk-dp] > measure.txt
 
-Run from the root of a checkout; needs one CUDA device and nvcc. Prints
-the card, then two parts (every time a median of 3):
+Run from the root of a checkout; needs one CUDA device and nvcc.
+``--config bigk-dp`` measures the decoder kernels and the bigk entry
+(``measure_bigk``). The default prints the card, then two parts (every
+time a median of 3):
 
 1. the combine kernels at the mnist shape (N=256, K=10, d=8, S=1) and the
    bigk shape (N=1024, K=100, d=10, S=1): ms per call of the forward (in-
@@ -114,6 +116,167 @@ def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
     return out
 
 
+# One H100 SXM (data sheet): dense bf16 tensor-core peak; special-function
+# units: 16 results per clock per SM on 132 SMs.
+BF16_FLOPS = 989e12
+SFU_PER_CLOCK = 16 * 132
+
+# The kernels against their plain version, from the reference kernel test's
+# bars (tests/test_decoder_mlp_kernel.py), carried to the mnist and bigk
+# widths. Both sides round the same operands to bf16 and sum in f32 in other
+# orders, so an activation or cotangent whose f32 value lies within an ulp
+# of a bf16 rounding tie rounds the other way on one side: its row's ll then
+# moves by up to ~2e-5 of it, a dz entry by one bf16 ulp (2⁻⁸..2⁻⁷ of it).
+# With H1·H2 = 40,000 such rounding points a row (the reference's test: 256)
+# that happens in a few rows in a thousand. So: ll at rtol = atol = 1e-5
+# (reported as |Δ| / (1 + |ref|)) in all but 0.5% of rows and at 1e-4 in
+# all; dz within 5e-3 of max(1, max |dz|) (one ulp of the largest entry is
+# 2⁻⁸..2⁻⁷ of it) with under 2% of entries beyond 1e-5 (measured: 0.34% at
+# the mnist shape, 0.71% at bigk; the port's plain version against the
+# reference kernel on the CPU at the mnist width: 0.37%); every other
+# gradient within 2e-2 of max(1, max |ref|) (sums over rows of bf16-valued
+# products, rounded to bf16 for the weights).
+DECODER_TOL = {"ll": 1e-4, "ll share > 1e-5": 5e-3, "dz max": 5e-3, "dz share > 1e-5": 2e-2,
+               "grad": 2e-2}
+DECODER_FIELDS = ("z", "w1", "b1", "w2", "b2", "w3", "b3", "y", "c")
+
+
+def decoder_inputs(dev, s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
+                   seed: int = 0):
+    """Seeded (params, z (S, N, K, d), binarised x (N, D), a cotangent dll
+    (S, N, K)) on ``dev``: Glorot-scaled weights, biases of scale 0.1."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = [{"w": torch.tensor(rng.standard_normal((a, b)) * np.sqrt(2.0 / (a + b)), **f32),
+               "b": torch.tensor(0.1 * rng.standard_normal(b), **f32)}
+              for a, b in ((d, h1), (h1, h2), (h2, dd))]
+    z = torch.tensor(rng.standard_normal((s, n, k, d)), **f32)
+    x = torch.tensor(rng.random((n, dd)) < 0.3, **f32)
+    dll = torch.tensor(rng.standard_normal((s, n, k)), **f32)
+    return params, z, x, dll
+
+
+def decoder_grads(core, params, z, x, dll):
+    """ll and the gradients of ⟨ll, dll⟩ through ``core`` (``core_fused`` or
+    ``core_plain``) w.r.t. DECODER_FIELDS; those of w3 and b3 include the
+    x-path through y and c."""
+    from svax_torch.ops import decoder_mlp
+
+    leaves = [z.detach().clone().requires_grad_(True)] + [
+        t.detach().clone().requires_grad_(True) for ly in params for t in (ly["w"], ly["b"])]
+    ps = [{"w": leaves[1 + 2 * i], "b": leaves[2 + 2 * i]} for i in range(3)]
+    y, c = decoder_mlp.x_terms(ps, x)
+    ll = core(*leaves, y, c)
+    grads = torch.autograd.grad((ll * dll).sum(), [*leaves, y, c])
+    return ll.detach(), dict(zip(DECODER_FIELDS, grads))
+
+
+def decoder_errors(params, z, x, dll) -> dict:
+    """The kernels against the plain version on the same inputs, in the
+    measures of DECODER_TOL (plus "ll max abs", the largest |Δll|)."""
+    from svax_torch.ops import decoder_mlp
+
+    ll_k, g_k = decoder_grads(decoder_mlp.core_fused, params, z, x, dll)
+    torch.cuda.synchronize()
+    ll_p, g_p = decoder_grads(decoder_mlp.core_plain, params, z, x, dll)
+    diff = (ll_k.double() - ll_p.double()).abs()
+    rel = diff / (1.0 + ll_p.double().abs())
+    errs = {"ll": float(rel.max()), "ll share > 1e-5": float((rel > 1e-5).double().mean()),
+            "ll max abs": float(diff.max())}
+    dz = (g_k["z"].double() - g_p["z"].double()).abs()
+    errs["dz max"] = float(dz.max()) / max(1.0, float(g_p["z"].abs().max()))
+    errs["dz share > 1e-5"] = float((dz > 1e-5).double().mean())
+    errs["grad max abs"] = max(float((g_k[name].double() - g_p[name].double()).abs().max())
+                               for name in DECODER_FIELDS)
+    for name in DECODER_FIELDS[1:]:
+        ref = g_p[name].double()
+        errs[name] = float((g_k[name].double() - ref).abs().max()
+                           / max(1.0, float(ref.abs().max())))
+    finite = all(bool(torch.isfinite(t).all()) for t in (ll_k, *g_k.values()))
+    errs["finite"] = finite
+    return errs
+
+
+def decoder_bound(s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
+                  backward: bool, sm_clock_hz: float) -> dict:
+    """The least time for the decoder forward (or its backward) at these
+    shapes, as the largest of three: its bf16 products (2 FLOP per
+    multiply-add) over the tensor-core peak; its special functions (tanh;
+    logσ as an exp and a log; σ as an exp and a reciprocal) over the
+    special-function units at ``sm_clock_hz``; its bytes (each input read
+    once, each output written once, f32) over the memory rate. The backward
+    recomputes the forward and adds the two transposed products of every
+    layer. Returns {"ms", "by", "products_ms", "special_ms", "bytes_ms"}."""
+    rows = s * n * k
+    macs = rows * (d * h1 + h1 * h2 + h2 * dd)
+    weights = d * h1 + h1 + h1 * h2 + h2 + h2 * dd + dd
+    if backward:
+        flops, special = 2 * 3 * macs, rows * (h1 + h2 + 2 * dd)
+        nbytes = 4 * (2 * rows * d + 2 * rows + 2 * n * h2 + n + 2 * weights)
+    else:
+        flops, special = 2 * macs, rows * (h1 + h2 + 2 * dd)
+        nbytes = 4 * (rows * d + n * h2 + n + rows + weights)
+    times = {"products_ms": flops / BF16_FLOPS * 1e3,
+             "special_ms": special / (SFU_PER_CLOCK * sm_clock_hz) * 1e3,
+             "bytes_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return {"ms": times[by], "by": "bytes" if by == "bytes_ms" else "operations", **times}
+
+
+def time_decoder(dev, s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
+                 reps: int = 10) -> dict:
+    """ms per call at these shapes: the kernels (forward; the backward alone,
+    autograd over a retained graph), the plain version, and the unfused
+    bf16 decoder the kernel replaces (``nets.bernoulli_loglik_decomposed``
+    with ``compute_dtype=torch.bfloat16``, cuBLAS products; forward, and
+    forward + backward). ``*_device`` is the card's kernel time per call
+    under ``torch.profiler`` (for the kernels, decoder_mlp.cu's own),
+    ``*_call`` the CUDA-event time per call."""
+    from svax_torch.nets import mlp as nets
+    from svax_torch.ops import decoder_mlp
+
+    params, z, x, dll = decoder_inputs(dev, s, n, k, d, h1, h2, dd)
+    leaves = [z.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for ly in params for t in (ly["w"], ly["b"])]
+    ps = [{"w": leaves[1 + 2 * i], "b": leaves[2 + 2 * i]} for i in range(3)]
+    out = {}
+    for name, fn, kernels in (
+            ("kernel", lambda: decoder_mlp.bernoulli_mlp_loglik_fused(ps, leaves[0], x),
+             ("decoder_fwd", "decoder_bwd", "reduce_partials")),
+            ("plain", lambda: decoder_mlp.bernoulli_mlp_loglik_plain(ps, leaves[0], x), ()),
+            ("unfused", lambda: nets.bernoulli_loglik_decomposed(
+                ps, leaves[0], x, compute_dtype=torch.bfloat16), ())):
+        loss = (fn() * dll).sum()
+
+        def forward():
+            with torch.no_grad():
+                fn()
+
+        def backward():
+            torch.autograd.grad(loss, leaves, retain_graph=True)
+
+        def both():
+            torch.autograd.grad((fn() * dll).sum(), leaves)
+
+        parts = [("fwd", forward), ("bwd", backward)] if name != "unfused" else [
+            ("fwd", forward), ("fwdbwd", both)]
+        for part, call in parts:
+            out[f"{name}_{part}_call"] = device_ms(call, reps)
+            _, prof = profiled(lambda: [call() for _ in range(reps)])
+            busy = (sum(device_us(prof, kn) for kn in kernels) if kernels
+                    else device_us(prof))
+            out[f"{name}_{part}_device"] = busy / 1e3 / reps
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def profile_entry(argv: list[str]) -> dict:
     """Run ``train_svae.main`` once to warm (5 steps), then ``argv`` once
     under the profiler: wall ms, device ms, idle share, the combine kernels'
@@ -130,13 +293,64 @@ def profile_entry(argv: list[str]) -> dict:
 
     wall, prof = profiled(run)
     busy = device_us(prof) / 1e3
-    # combine.cu's kernels: combine_fwd, combine_bwd and their reduce_blocks.
+    # combine.cu's kernels: combine_fwd, combine_bwd and their reduce_blocks;
+    # decoder_mlp.cu's: decoder_fwd, decoder_bwd and reduce_partials.
     comb = (device_us(prof, "combine_") + device_us(prof, "reduce_blocks")) / 1e3
+    dec = (device_us(prof, "decoder_") + device_us(prof, "reduce_partials")) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "idle": 1.0 - busy / wall,
-            "combine_ms": comb, "steps_per_s": result["out"]["steps_per_s"], "prof": prof}
+            "combine_ms": comb, "decoder_ms": dec,
+            "steps_per_s": result["out"]["steps_per_s"], "prof": prof}
 
 
-def main() -> int:
+def quality(out: dict, seed: int) -> tuple[float, int]:
+    """Cluster purity of the test set (argmax of r̃ under the trained
+    naturals against the labels) and the components in use by argmax, for
+    a ``train_svae.main`` result on the mnist data at ``seed``."""
+    from svax_torch.data import load_mnist
+    from svax_torch.models import evaluation
+    from svax_torch.models.svae import sin_combine
+    from svax_torch.nets import mlp as nets
+    from svax_torch.pgm import gmm
+
+    labels = load_mnist(seed=seed, return_labels=True)[4]
+    state, x_test = out["state"], out["x_test"]
+    with torch.no_grad():
+        pot_h, pot_p = nets.encoder_apply(state.nn_params["encoder"], x_test)
+        post = sin_combine(pot_h, pot_p, gmm.expected_params(state.pgm_nat))
+    purity = evaluation.cluster_purity(torch.exp(post.log_resp), labels)
+    return purity, int(torch.unique(post.log_resp.argmax(-1)).numel())
+
+
+def _entry_profiles(config: str, runs) -> None:
+    """Steps/s of ``train_svae --config config`` without the warmup, then the
+    profiled runs: (engine, steps, profiled steps) per entry of ``runs``."""
+    from svax_torch import train_svae
+
+    for engine, steps, profiled_steps in runs:
+        argv = ["--config", config, "--warmup-steps", "0", "--device", "cuda",
+                "--engine", engine, "--iw-samples", "0"]
+        rate = train_svae.main([*argv, "--steps", str(steps)])["steps_per_s"]
+        print(f"== train_svae {config} {engine}, {steps} steps: {rate:.1f} steps/s",
+              flush=True)
+        r = profile_entry([*argv, "--steps", str(profiled_steps)])
+        print(f"== train_svae {config} {engine}, {profiled_steps} steps: "
+              f"{r['steps_per_s']:.1f} "
+              f"steps/s under the profiler, wall {r['wall_ms']:.1f} ms, device "
+              f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, combine "
+              f"{r['combine_ms']:.3f} ms ({100 * r['combine_ms'] / r['device_ms']:.1f}% of "
+              f"device time), decoder kernels {r['decoder_ms']:.3f} ms "
+              f"({100 * r['decoder_ms'] / r['device_ms']:.1f}%)", flush=True)
+        print(r["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=12),
+              flush=True)
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", choices=["mnist-svae", "bigk-dp"], default="mnist-svae")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_mnist: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -147,6 +361,8 @@ def main() -> int:
                           timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
+    if args.config == "bigk-dp":
+        return measure_bigk(dev)
     for label, shape in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1)),
                          ("mnist again", (256, 10, 8, 1))):
         t = time_combine(dev, *shape)
@@ -155,23 +371,42 @@ def main() -> int:
             f"{key} {val:.4f} ms" for key, val in t.items())
             + f"; bound fwd {fb[0] * 1e3:.3f} us ({fb[1]}), bwd {bb[0] * 1e3:.3f} us "
             f"({bb[1]})", flush=True)
+    _entry_profiles("mnist-svae", (("kernel", 1000, 200), ("plain", 40, 10)))
+    return 0
+
+
+def measure_bigk(dev) -> int:
+    """``--config bigk-dp``: the decoder kernels at the bigk and mnist
+    shapes against their plain version, the unfused bf16 decoder and their
+    bound; the entry's steps/s and profile without the warmup (200 and 50
+    steps on the kernel engine, 10 and 5 on the plain one); then the full
+    horizon once at seed 0 (the config's 1000 warmup and 5000 joint steps,
+    the 100-sample IW bound) with its purity and components in use."""
     from svax_torch import train_svae
 
-    for engine, steps, profiled_steps in (("kernel", 1000, 200), ("plain", 40, 10)):
-        argv = ["--config", "mnist-svae", "--warmup-steps", "0", "--device", "cuda",
-                "--engine", engine, "--iw-samples", "0"]
-        rate = train_svae.main([*argv, "--steps", str(steps)])["steps_per_s"]
-        print(f"== train_svae mnist-svae {engine}, {steps} steps: {rate:.1f} steps/s",
-              flush=True)
-        r = profile_entry([*argv, "--steps", str(profiled_steps)])
-        print(f"== train_svae mnist-svae {engine}, {profiled_steps} steps: "
-              f"{r['steps_per_s']:.1f} "
-              f"steps/s under the profiler, wall {r['wall_ms']:.1f} ms, device "
-              f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, combine "
-              f"{r['combine_ms']:.3f} ms ({100 * r['combine_ms'] / r['device_ms']:.1f}% of "
-              f"device time)", flush=True)
-        print(r["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=10),
-              flush=True)
+    clock = sm_clock_hz()
+    for label, shape in (("bigk", (1, 1024, 100, 10, 200, 200, 784)),
+                         ("mnist", (1, 256, 10, 8, 200, 200, 784))):
+        t = time_decoder(dev, *shape)
+        fb, bb = (decoder_bound(*shape, backward=b, sm_clock_hz=clock) for b in (False, True))
+        print(f"decoder_mlp {label} S,N,K,d,H1,H2,D={shape}: " + ", ".join(
+            f"{key} {val:.4f} ms" for key, val in t.items())
+            + f"; bound fwd {fb['ms'] * 1e3:.2f} us ({fb['by']}; products "
+            f"{fb['products_ms'] * 1e3:.2f}, special functions {fb['special_ms'] * 1e3:.2f}, "
+            f"bytes {fb['bytes_ms'] * 1e3:.2f} us), bwd {bb['ms'] * 1e3:.2f} us ({bb['by']}; "
+            f"products {bb['products_ms'] * 1e3:.2f}, special functions "
+            f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f} us) at "
+            f"{clock / 1e6:.0f} MHz", flush=True)
+    _entry_profiles("bigk-dp", (("kernel", 200, 50), ("plain", 10, 5)))
+    out = train_svae.main(["--config", "bigk-dp", "--device", "cuda", "--seed", "0"])
+    purity, used = quality(out, 0)
+    rows = out["rows"]
+    print(f"== bigk-dp full horizon, seed 0: warmup {out['warmup']['seconds']:.1f} s (seed "
+          f"occupancy {out['warmup']['seed_occupancy']}), {len(rows)} rows, "
+          f"{out['steps_per_s']:.1f} steps/s, test ELBO/pt "
+          f"{out['init_test_elbo_per_point']:.4f} -> {rows[-1]['test_elbo_per_point']:.4f}, "
+          f"IW/pt {out['final_test_iw_loglik_per_point']:.4f}, purity {purity:.4f}, "
+          f"{used} of 100 components in use", flush=True)
     return 0
 
 

@@ -27,6 +27,10 @@ from svax_torch.pgm.gmm import GmmNat
 
 _LOG_PI = math.log(math.pi)
 _LOG_2PI = math.log(2.0 * math.pi)
+# Samples scored at once by svae_iw_loglik: at bigk-dp's K = 100, d = 10
+# and 1000 test points one sample's (N, K, d) block is 4 MB, and the
+# unrolled triangular solve makes a dozen such temporaries.
+_IW_CHUNK = 10
 
 
 def cluster_purity(resp, labels) -> float:
@@ -101,8 +105,10 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
 
     Per (s, n) a component is drawn by Gumbel-max on log r̃ and z from its
     Gaussian, z = μ̃ + L̃⁻ᵀε. ``gumbel`` (S, N, K) and ``eps`` (S, N, K, d)
-    inject the draws; otherwise they come from ``generator``. The decoder
-    runs in the parameters' dtype with the ``likelihood`` head."""
+    inject the draws; otherwise they come from ``generator``, all of them
+    first. The samples are then scored _IW_CHUNK at a time, which leaves
+    every value as it is. The decoder runs in the parameters' dtype with
+    the ``likelihood`` head."""
     exp = gmm.expected_params(pgm_nat)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
     post = svae_mod.sin_combine(pot_h, pot_p, exp)
@@ -110,12 +116,18 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
     if gumbel is None:
         u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(x.dtype).tiny)))
+    if eps is None:  # as sample_posterior draws it
+        eps = torch.randn(shape + (post.mean.shape[-1],), generator=generator,
+                          device=x.device, dtype=post.mean.dtype)
     choice = torch.argmax(post.log_resp[None] + gumbel.to(x.dtype), dim=-1)  # (S, N)
-    z_all = svae_mod.sample_posterior(post, num_samples, eps=eps, generator=generator)
-    idx = choice[..., None, None].expand(-1, -1, 1, z_all.shape[-1])
-    z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (S, N, d)
-    log_q = _mixture_log_q(z, post)
-    log_prior = _expected_gmm_log_prob(z, exp)
-    loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)  # (S, N)
-    log_w = loglik + log_prior - log_q
-    return torch.logsumexp(log_w, dim=0) - math.log(float(num_samples))
+    log_w = []
+    for lo in range(0, num_samples, _IW_CHUNK):
+        hi = min(lo + _IW_CHUNK, num_samples)
+        z_all = svae_mod.sample_posterior(post, hi - lo, eps=eps[lo:hi])
+        idx = choice[lo:hi, :, None, None].expand(-1, -1, 1, z_all.shape[-1])
+        z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (chunk, N, d)
+        log_q = _mixture_log_q(z, post)
+        log_prior = _expected_gmm_log_prob(z, exp)
+        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)
+        log_w.append(loglik + log_prior - log_q)
+    return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))

@@ -30,9 +30,10 @@ class SvaeConfig(NamedTuple):
     paths read, with the reference's defaults.
 
     The port implements the Gaussian and Bernoulli likelihoods, the diagonal
-    recognition head, weighted reconstruction and zero jitter; the
-    reference's other switches (fused_mlp_decoder, remat, the full head,
-    sampled recon) are not ported yet (ROADMAP.md)."""
+    recognition head, weighted reconstruction, zero jitter, the fused
+    combine and the fused MLP decoder; the reference's other switches
+    (fused_decoder, remat, the full head, sampled recon) are not ported yet
+    (ROADMAP.md)."""
 
     latent_dim: int
     num_components: int
@@ -49,6 +50,11 @@ class SvaeConfig(NamedTuple):
     # With fused_combine and a seed (no injected eps): ε is drawn inside the
     # kernel from Philox keyed (seed, step) instead of torch.randn.
     kernel_rng: bool = False
+    # Route a Bernoulli decoder with two tanh hidden layers through
+    # ops.decoder_mlp.bernoulli_mlp_loglik_fused: the CUDA kernels on CUDA
+    # tensors, their plain version on CPU tensors (bf16 products, f32
+    # activations, whatever nn_compute_dtype says).
+    fused_mlp_decoder: bool = False
 
     @property
     def decoder_compute_dtype(self) -> torch.dtype | None:
@@ -140,8 +146,16 @@ def sample_posterior(
 
 def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor,
                      config: SvaeConfig) -> torch.Tensor:
-    """Decoder log-likelihood batched over (S, N, K): the Bernoulli head in
-    its x-free decomposed form (in ``nn_compute_dtype``), else Gaussian."""
+    """Decoder log-likelihood batched over (S, N, K): the fused MLP decoder
+    under the reference's conditions (svax/models/svae.py:258-269: the
+    switch, a Bernoulli likelihood, three decoder layers; the port's hidden
+    layers are tanh), else the Bernoulli head in its x-free decomposed form
+    (in ``nn_compute_dtype``), else Gaussian."""
+    if (config.fused_mlp_decoder and config.likelihood == "bernoulli"
+            and len(dec_params) == 3):
+        from svax_torch.ops import decoder_mlp
+
+        return decoder_mlp.bernoulli_mlp_loglik_fused(dec_params, z, x)
     if config.likelihood == "bernoulli":
         return nets.bernoulli_loglik_decomposed(
             dec_params, z, x, compute_dtype=config.decoder_compute_dtype)

@@ -95,6 +95,23 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.combine_backward.restype = i
+    lib.decoder_mlp_partial_floats.argtypes = [i, i, i, i]  # n, h1, h2, D
+    lib.decoder_mlp_partial_floats.restype = ctypes.c_longlong
+    dims = [i] * 7  # n, k, s, d, h1, h2, D
+    weights = [p] * 9  # w1, w1t, w2, w2t, w3, w3t (bf16), b1, b2, b3
+    lib.decoder_mlp_forward.argtypes = [
+        p, *dims, *weights,  # z
+        p, p, p,  # y, c, ll
+        p,  # stream
+    ]
+    lib.decoder_mlp_forward.restype = i
+    lib.decoder_mlp_backward.argtypes = [
+        p, p, *dims, *weights,  # z, dll
+        p, p, p, p, p,  # y, dz, dy, dc, partial
+        p, p, p, p, p, p,  # dw1, db1, dw2, db2, dw3, db3
+        p,  # stream
+    ]
+    lib.decoder_mlp_backward.restype = i
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 

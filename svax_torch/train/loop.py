@@ -223,12 +223,28 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
     return runner
 
 
+def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
+                      replace: bool = True) -> torch.Tensor:
+    """A (T, M) stack of minibatch indices into N rows from ``gen`` (on its
+    device): uniform with replacement, or each row M distinct indices (the
+    first M of a random permutation: an argsort of uniform keys)."""
+    if replace:
+        return torch.randint(0, n, (t_steps, m), generator=gen, device=gen.device)
+    keys = torch.rand((t_steps, n), generator=gen, device=gen.device)
+    return torch.argsort(keys, dim=1, stable=True)[:, :m]
+
+
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
-                     batch_size: int = 0, engine: str = "kernel") -> Callable:
+                     batch_size: int = 0, engine: str = "kernel",
+                     replace: bool = True) -> Callable:
     """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
     metrics)`` on the per-step engine: T calls of
     ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
-    step) over a (T, M) index stack drawn with replacement.
+    step) over a (T, M) index stack drawn with replacement (the reference's
+    scan runner and warmup), or, with ``replace=False``, each step's M
+    indices distinct (the reference's data-parallel loop,
+    ``jax.random.choice(..., replace=False)``): the first M of a random
+    permutation per step.
 
     One ``torch.Generator`` on x's device keyed ``seed + state.step`` draws
     the index stack, then the chunk's seed, then (plain engine) every
@@ -237,7 +253,8 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     and kernel_rng: the combine kernel runs inside each step and draws ε
     from Philox keyed (chunk seed, state.step), one host read of the seed
     per chunk. ``engine="plain"`` turns both off: ``sin_combine`` and
-    ``torch.randn`` ε, the reference's path with fused_combine off.
+    ``torch.randn`` ε, the reference's path with fused_combine off; it turns
+    fused_mlp_decoder off with them (the bf16 or f32 decomposed decoder).
     ``batch_size`` 0 or ≥ N is the full batch; ``eps`` (T, S, M, K, d)
     injects the noise.
 
@@ -246,7 +263,8 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     if engine == "plain":
-        config = config._replace(fused_combine=False, kernel_rng=False)
+        config = config._replace(fused_combine=False, kernel_rng=False,
+                                 fused_mlp_decoder=False)
     use_seed = config.fused_combine and config.kernel_rng
     step = svae_step.make_train_step(config, prior, lr,
                                      svae_step.rho_schedule(rho, rho_decay))
@@ -255,8 +273,7 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
         n = x.shape[0]
         m = min(batch_size or n, n)
         gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
-        idx = (torch.randint(0, n, (t_steps, m), generator=gen, device=x.device)
-               if m < n else None)
+        idx = minibatch_indices(gen, n, m, t_steps, replace) if m < n else None
         chunk_seed = (int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
                       if use_seed and eps is None else None)
         rows = []

@@ -1,9 +1,10 @@
-"""Train an SVAE with the port (PyTorch + the tinystep, flexstep and
-combine CUDA kernels).
+"""Train an SVAE with the port (PyTorch + the tinystep, flexstep, combine
+and decoder_mlp CUDA kernels).
 
-    python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae
+    python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae|bigk-dp
         [--steps N] [--warmup-steps N] [--device cuda|cpu]
         [--engine kernel|plain] [--seed S] [--iw-samples S]
+        [--fused-mlp-decoder] [--eval-every N]
 
 Mirrors experiments/train_svae.py with its ``--engine auto`` rule
 (``loop.choose_kernel``): chunks of the config's ``scan_chunk`` steps.
@@ -14,21 +15,31 @@ replacement, latent d = 4, ρ₀/(1 + decay·t)) as one launch of flexstep;
 minibatches of 256) fits neither, so it runs on the per-step engine
 (``loop.make_step_runner``), each step's SIN combine in the combine kernel
 with in-kernel ε, after the config's ρ = 0 warmup and k-means++ reseed
-(``train.warmup``). ``--engine plain`` runs the plain PyTorch step instead
-(for mnist-svae: ``sin_combine`` and ``torch.randn`` ε); on the CPU every
-kernel runs its plain version. Prints one JSON line with the engine, its
-reason and the initial test ELBO, the warmup line, one JSON row per chunk
-— step, elbo, recon, local_kl, global_kl, test_elbo_per_point, wall_s —
-then steps/sec, then the importance-weighted test log-likelihood with
-``--iw-samples`` samples (0 = off). ``--device cuda`` without a CUDA device
-raises; nothing falls back. The configs the port runs are pinwheel-svae,
-auto-svae and mnist-svae; ROADMAP.md lists the rest.
+(``train.warmup``). ``bigk-dp`` (K = 100, latent d = 10, minibatches of
+1024) runs the same way on one card, with the decoder in the fused MLP
+decoder kernel (``fused_mlp_decoder``), each step's minibatch drawn
+without replacement, and a row after step 1 and every ``--eval-every``
+steps (and after the last), as the reference's data-parallel loop; its
+data-parallel wrapper is the identity on one card, and more than one
+process (``WORLD_SIZE`` > 1) is refused (slice G of ROADMAP.md). ``--fused-mlp-decoder`` turns the decoder
+kernel on for the other Bernoulli config, mnist-svae, and is refused for a
+Gaussian one. ``--engine plain`` runs the plain PyTorch step instead (for
+the Bernoulli configs: ``sin_combine``, ``torch.randn`` ε and the
+decomposed decoder); on the CPU every kernel runs its plain version.
+Prints one JSON line with the engine, its reason and the initial test
+ELBO, the warmup line, one JSON row per chunk — step, elbo, recon,
+local_kl, global_kl, test_elbo_per_point, wall_s — then steps/sec, then
+the importance-weighted test log-likelihood with ``--iw-samples`` samples
+(0 = off). ``--device cuda`` without a CUDA device raises; nothing falls
+back. The configs the port runs are pinwheel-svae, auto-svae, mnist-svae
+and bigk-dp; ROADMAP.md lists the rest.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -36,7 +47,7 @@ from pathlib import Path
 import torch
 
 _ROOT = Path(__file__).resolve().parents[1]
-PORTED = ("pinwheel-svae", "auto-svae", "mnist-svae")
+PORTED = ("pinwheel-svae", "auto-svae", "mnist-svae", "bigk-dp")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -57,17 +68,21 @@ def main(argv: list[str] | None = None) -> dict:
                    help="rho = 0 warmup steps before the k-means++ reseed "
                         "(default: the config's; 0 = none)")
     p.add_argument("--fused-mlp-decoder", action="store_true",
-                   help="not ported yet: refused")
+                   help="the Bernoulli decoder in the fused MLP decoder kernel "
+                        "(on in bigk-dp's config; refused for a Gaussian config)")
+    p.add_argument("--eval-every", type=int, default=200,
+                   help="data-parallel configs (bigk-dp): a row after step 1, every "
+                        "N steps and after the last")
     args = p.parse_args(argv)
-    if args.config == "bigk-dp":
-        p.error("--config bigk-dp is data-parallel (slice G of ROADMAP.md) and needs "
-                "the fused MLP decoder kernel; svax_torch does not run it yet")
     if args.config not in PORTED:
         p.error(f"--config {args.config}: svax_torch runs {', '.join(PORTED)} so far; "
                 "ROADMAP.md lists the remaining configs")
-    if args.fused_mlp_decoder:
-        p.error("--fused-mlp-decoder: svax/ops/decoder_mlp_pallas.py is not ported yet "
-                "(ROADMAP.md, the next slice)")
+    if args.eval_every < 1:
+        p.error("--eval-every must be >= 1")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise RuntimeError(f"WORLD_SIZE={world}: svax_torch trains on one process and one "
+                           "card; data parallelism across cards is slice G of ROADMAP.md")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain PyTorch path)")
@@ -85,6 +100,7 @@ def main(argv: list[str] | None = None) -> dict:
                                        make_runner, make_step_runner)
 
     cfg = CONFIGS[args.config]
+    data_parallel = bool(cfg.get("dp", False))
     steps = args.steps or cfg["steps"]
     warmup_steps = (cfg.get("warmup_steps", 0) if args.warmup_steps is None
                     else args.warmup_steps)
@@ -97,6 +113,9 @@ def main(argv: list[str] | None = None) -> dict:
     f32 = torch.float32
 
     train, test, meta = load_dataset(cfg["dataset"], seed=args.seed)
+    if args.fused_mlp_decoder and meta["likelihood"] != "bernoulli":
+        p.error(f"--fused-mlp-decoder: the fused MLP decoder is a Bernoulli head, and "
+                f"{args.config} has a {meta['likelihood']} likelihood")
     x_train = torch.tensor(train, dtype=f32, device=device)
     x_test = torch.tensor(test, dtype=f32, device=device)
     n, input_dim = x_train.shape
@@ -108,7 +127,9 @@ def main(argv: list[str] | None = None) -> dict:
                         likelihood=meta["likelihood"],
                         nn_compute_dtype=cfg.get("nn_compute_dtype", "float32"),
                         fused_combine=cfg.get("fused_combine", False),
-                        kernel_rng=cfg.get("kernel_rng", False))
+                        kernel_rng=cfg.get("kernel_rng", False),
+                        fused_mlp_decoder=(cfg.get("fused_mlp_decoder", False)
+                                           or args.fused_mlp_decoder))
     gate = dict(batch_full=batch >= n, encoder_hidden=cfg["encoder_hidden"],
                 decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
                 rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim)
@@ -126,16 +147,19 @@ def main(argv: list[str] | None = None) -> dict:
     )
     if kernel == PER_STEP:
         runner = make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
-                                  rho_decay=rho_decay, batch_size=batch, engine=args.engine)
+                                  rho_decay=rho_decay, batch_size=batch, engine=args.engine,
+                                  replace=not data_parallel)
     else:
         runner = make_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                              rho_decay=rho_decay, batch_size=batch,
                              aug_noise=cfg.get("aug_noise", 0.0), engine=args.engine,
                              kernel=kernel)
-    # The evaluation runs the training path's combine: on the plain engine
-    # with fused_combine off, on the kernel engine with its in-kernel ε.
+    # The evaluation runs the training path's combine and decoder: on the
+    # plain engine with fused_combine and fused_mlp_decoder off, on the
+    # kernel engine with the kernels and the in-kernel ε.
     eval_config = (config if args.engine == "kernel"
-                   else config._replace(fused_combine=False, kernel_rng=False))
+                   else config._replace(fused_combine=False, kernel_rng=False,
+                                        fused_mlp_decoder=False))
     evaluate = svae_step.make_eval_fn(eval_config, prior)
     if args.engine == "kernel" and device.type == "cuda":
         from svax_torch.ops import _build
@@ -154,7 +178,9 @@ def main(argv: list[str] | None = None) -> dict:
     print(json.dumps({"config": args.config, "kernel": kernel, "engine": args.engine,
                       "why": why, "fused_combine": kernel == PER_STEP and
                       args.engine == "kernel" and config.fused_combine,
-                      "n": n, "d_in": input_dim, "batch": batch,
+                      "fused_mlp_decoder": args.engine == "kernel" and
+                      config.fused_mlp_decoder and config.likelihood == "bernoulli",
+                      "world_size": world, "n": n, "d_in": input_dim, "batch": batch,
                       "synthetic": meta.get("synthetic", False),
                       "init_test_elbo_per_point": init_elbo}), flush=True)
     warm_info = None
@@ -188,7 +214,9 @@ def main(argv: list[str] | None = None) -> dict:
     t0 = time.perf_counter()
     t = 0
     while t < steps:
-        todo = min(chunk, steps - t)
+        # The data-parallel loop's rows: after step 1, then every eval_every.
+        todo = (min(1 if t == 0 else args.eval_every - t % args.eval_every, steps - t)
+                if data_parallel else min(chunk, steps - t))
         state, metrics = runner(state, x_train, todo, seed=args.seed)
         t += todo
         emit(t, {k: v[-1] for k, v in metrics.items()})

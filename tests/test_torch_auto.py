@@ -297,11 +297,14 @@ def test_train_svae_auto_cpu_runs(capsys):
 
 
 def test_train_svae_refuses_unported_configs(capsys):
-    for argv in (["--config", "bigk-dp"], ["--config", "pinwheel-gmm"],
-                 ["--config", "mnist-svae", "--fused-mlp-decoder"]):
+    for argv in (["--config", "pinwheel-gmm"], ["--config", "no-such-config"]):
         with pytest.raises(SystemExit):
             train_svae.main([*argv, "--device", "cpu"])
         assert "ROADMAP.md" in capsys.readouterr().err
+    # The fused MLP decoder is a Bernoulli head: refused for auto-svae.
+    with pytest.raises(SystemExit):
+        train_svae.main(["--config", "auto-svae", "--fused-mlp-decoder", "--device", "cpu"])
+    assert "Bernoulli head" in capsys.readouterr().err
 
 
 def test_train_svae_auto_cuda_without_a_card_raises(monkeypatch):

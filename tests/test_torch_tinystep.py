@@ -289,7 +289,7 @@ def test_train_svae_cpu_runs_and_refuses_other_configs(capsys):
     assert out["state"].step == 4
     assert np.isfinite(list(out["rows"][-1].values())).all()
     with pytest.raises(SystemExit):
-        train_svae.main(["--config", "bigk-dp", "--device", "cpu"])
+        train_svae.main(["--config", "pinwheel-gmm", "--device", "cpu"])
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
