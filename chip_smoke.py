@@ -85,6 +85,19 @@ F. the bigk-dp main path: ``svax_torch.train_svae --config bigk-dp`` cut to
    steps on the plain engine for its rate, and 50 steps of the kernel
    engine under ``torch.profiler`` for the idle share and the decoder's
    and combine's shares of device time;
+G. tinystep's SMM branch (dof > 0, the Student-t mixture prior) against
+   its plain version (``train_chunk_plain``, whose step is ``svae_smm``'s)
+   at full pinwheel width (N=400, K=10, S=4, 50-50, σ=0.4), T=3 from one seeded
+   state with injected numpy noise, at phase 4's tolerances: dof 4 with 2
+   u–z rounds and full-chain gradients, the same with envelope gradients,
+   and dof 2.5 with 1 round at 16-16 widths; then per step (T=200) the
+   full-chain and envelope kernels beside the GMM branch in the same call
+   and the plain SMM step; then the SMM main path, ``svax_torch.train_svae
+   --config pinwheel-svae --smm-dof 4`` for 2 chunks of 1000 steps with
+   in-kernel noise, twice (tinystep launched, every value finite, the runs
+   bit-equal, training ELBO and test ELBO/pt rising, the SMM IW line
+   printed), and ``--config auto-svae --smm-dof 4 --steps 200`` twice on
+   the per-step engine (finite, bit-equal);
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -763,6 +776,158 @@ def bigk_phase(card: str) -> tuple[int, int]:
     return launches
 
 
+def smm_combine_ops(rounds: int, envelope: bool) -> int:
+    """Operations of the SMM branch's u–z combine per (n, k) beyond the GMM
+    combine: ~30 per z-update with its Q_nk, R rounds and the Student-t
+    terms (~40) forward; backward ~40 a round plus R(R−1)/2 recomputed
+    z-updates in the full chain, none in the envelope mode."""
+    fwd = 30 * rounds + 40
+    bwd = 0 if envelope else 40 * rounds + 30 * rounds * (rounds - 1) // 2
+    return fwd + bwd
+
+
+def smm_phase(card: str) -> dict:
+    """Phase G; returns the tinystep_smm entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from svax_torch import train_svae
+    from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.measure_auto import mlp_fmas
+    from svax_torch.models.svae import SvaeConfig
+    from svax_torch.ops import tinystep
+    from svax_torch.pgm import gmm
+    from svax_torch.train import svae_step
+
+    dev = torch.device("cuda", 0)
+    train, _ = load_pinwheel(seed=0)
+    n, k, s, t = train.shape[0], 10, 4, 3
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+
+    def setup(hidden):
+        config = SvaeConfig(latent_dim=2, num_components=k, num_samples=s, num_total=n)
+        prior = gmm.make_prior(k, 2, kappa=0.05)
+        state = svae_step.init_state(torch.Generator().manual_seed(0), 2, config, prior,
+                                     hidden, hidden)
+        return svae_step.state_to(state, dev), svae_step.nat_to(prior, dev)
+
+    rng = np.random.default_rng(200)
+    eps = torch.tensor(rng.standard_normal((t, s, n, k, 2)), dtype=torch.float32,
+                       device=dev)
+    aug_eps = torch.tensor(rng.standard_normal((t, n, 2)), dtype=torch.float32, device=dev)
+    cases = [("dof 4, 2 rounds, full chain, 50-50", (50, 50),
+              dict(dof=4.0, smm_iters=2, smm_envelope_grads=False)),
+             ("dof 4, 2 rounds, envelope, 50-50", (50, 50),
+              dict(dof=4.0, smm_iters=2, smm_envelope_grads=True)),
+             ("dof 2.5, 1 round, full chain, 16-16", (16, 16),
+              dict(dof=2.5, smm_iters=1, smm_envelope_grads=False))]
+    errs = {}
+    for name, hidden, smm in cases:
+        state, prior = setup(hidden)
+        kw = dict(lr=1e-3, rho=0.05, t_steps=t, aug_noise=0.4, eps=eps, aug_eps=aug_eps,
+                  **smm)
+        st_k, met_k = tinystep.train_chunk(state, prior, x, **kw)
+        torch.cuda.synchronize()
+        st_p, met_p = tinystep.train_chunk_plain(state, prior, x, **kw)
+        e = {}
+        for group, tk, tp, rtol, atol in (
+                ("params", st_k.nn_params, st_p.nn_params, 5e-4, 5e-5),
+                ("adam m", st_k.opt_state.mu, st_p.opt_state.mu, 5e-4, 5e-6),
+                ("adam v", st_k.opt_state.nu, st_p.opt_state.nu, 5e-4, 1e-8)):
+            e[group] = max(close(f"tinystep smm {name} {group}", a_, b_, rtol, atol)
+                           for a_, b_ in zip(flat(tk), flat(tp)))
+        e["naturals"] = max(close(f"tinystep smm {name} naturals", a_, b_, 2e-5, 2e-5)
+                            for a_, b_ in zip(nat_leaves(st_k.pgm_nat),
+                                              nat_leaves(st_p.pgm_nat)))
+        e["recon"] = close(f"tinystep smm {name} recon", met_k["recon"], met_p["recon"],
+                           2e-4, 0.0)
+        e["local_kl"] = close(f"tinystep smm {name} local_kl", met_k["local_kl"],
+                              met_p["local_kl"], 2e-4, 2e-4)
+        assert st_k.step == st_p.step == t and st_k.opt_state.count == t
+        errs[name] = e
+        print(f"phase G: tinystep SMM vs plain, T={t} at N={n} K={k} S={s} sigma=0.4, "
+              f"{name}: " + ", ".join(f"{g} max abs err {v:.3e}" for g, v in e.items())
+              + " (phase 4's tolerances)", flush=True)
+    max_abs_err = max(e[g] for e in errs.values()
+                      for g in ("params", "adam m", "adam v", "naturals"))
+
+    # Per step at full width: both gradient modes and the GMM branch in one
+    # call, in turns, then the plain SMM step.
+    state, prior = setup((50, 50))
+    t_kernel, t_plain = 200, 20
+    base = dict(lr=1e-3, rho=0.05, aug_noise=0.4)
+    modes = {"gmm": {}, "smm full chain": dict(dof=4.0, smm_iters=2),
+             "smm envelope": dict(dof=4.0, smm_iters=2, smm_envelope_grads=True)}
+    times = {name: [] for name in modes}
+    for _ in range(2):
+        for name, smm in modes.items():
+            times[name].append(time_per_step(
+                lambda: tinystep.train_chunk(state, prior, x, t_steps=t_kernel, **base,
+                                             **smm), t_kernel))
+    plain_ms = time_per_step(
+        lambda: tinystep.train_chunk_plain(state, prior, x, t_steps=t_plain, dof=4.0,
+                                           smm_iters=2, **base), t_plain)
+    ms = {name: min(v) for name, v in times.items()}
+    p_tiny = n_params(state.nn_params)
+    mlp = 2 * (mlp_fmas([2, 50, 50, 4], s * n * k, True) + mlp_fmas([2, 50, 50, 4], n, False))
+    nbytes = 4 * (6 * p_tiny + 2 * n + 3 * k * 9) / t_kernel + 12
+    smm_bound = bound(mlp + n * k * smm_combine_ops(2, False), nbytes)
+    env_bound = bound(mlp + n * k * smm_combine_ops(2, True), nbytes)
+    print(f"phase G: per step on the card (chunks of {t_kernel}, best of 2 turns, each the "
+          f"median of 3): SMM full chain {ms['smm full chain']:.4f} ms "
+          f"{[round(v, 4) for v in times['smm full chain']]}, SMM envelope "
+          f"{ms['smm envelope']:.4f} ms {[round(v, 4) for v in times['smm envelope']]}, GMM "
+          f"{ms['gmm']:.4f} ms {[round(v, 4) for v in times['gmm']]}; plain SMM step "
+          f"{plain_ms:.4f} ms (chunks of {t_plain}); bound full chain "
+          f"{smm_bound[0] * 1e3:.3f} us, envelope {env_bound[0] * 1e3:.3f} us "
+          f"({smm_bound[1]}); {card}", flush=True)
+
+    # The SMM main path, then the per-step engine under --smm-dof.
+    argv = ["--config", "pinwheel-svae", "--smm-dof", "4", "--steps", "2000", "--device",
+            "cuda", "--seed", "0"]
+    tinystep.launches = 0
+    run1 = train_svae.main(argv)
+    launches = tinystep.launches
+    assert run1["kernel"] == "tinystep" and launches >= 2, \
+        f"tinystep launched {launches} times on the SMM main path"
+    rows = run1["rows"]
+    assert len(rows) == 2 and all(math.isfinite(v) for r in rows for v in r.values()), rows
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
+    assert rows[-1]["elbo"] > rows[0]["elbo"], "SMM training ELBO did not improve"
+    start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    assert end > start, f"SMM test ELBO/pt did not rise: {start} -> {end}"
+    iw = run1["final_test_iw_loglik_per_point"]
+    assert math.isfinite(iw)
+    run2 = train_svae.main(argv)
+    assert all(torch.equal(p, q) for p, q in
+               zip(leaves(run1["state"]), leaves(run2["state"]))), \
+        "two SMM pinwheel runs at one seed differ"
+    auto_argv = ["--config", "auto-svae", "--smm-dof", "4", "--steps", "200", "--device",
+                 "cuda", "--seed", "0", "--iw-samples", "0"]
+    auto1 = train_svae.main(auto_argv)
+    assert auto1["kernel"] == "per-step" and "GMM prior only" in auto1["why"], auto1["why"]
+    assert all(math.isfinite(v) for r in auto1["rows"] for v in r.values())
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(auto1["state"]))
+    auto2 = train_svae.main(auto_argv)
+    assert all(torch.equal(p, q) for p, q in
+               zip(leaves(auto1["state"]), leaves(auto2["state"]))), \
+        "two SMM auto-svae runs at one seed differ"
+    print(f"phase G: SMM main path (pinwheel-svae --smm-dof 4, 2000 steps): {launches} "
+          f"tinystep launches, {run1['steps_per_s']:.1f} steps/s, training ELBO "
+          f"{rows[0]['elbo']:.4f} -> {rows[-1]['elbo']:.4f}, test ELBO/pt {start:.4f} -> "
+          f"{end:.4f}, SMM IW/pt {iw:.4f}, runs bit-equal; auto-svae --smm-dof 4 (per-step "
+          f"engine, 200 steps): {auto1['steps_per_s']:.1f} steps/s, test ELBO/pt "
+          f"{auto1['init_test_elbo_per_point']:.4f} -> "
+          f"{auto1['rows'][-1]['test_elbo_per_point']:.4f}, runs bit-equal; {card}",
+          flush=True)
+    return {"name": "tinystep_smm", "route": "cuda",
+            "source": "svax_torch/ops/csrc/tinystep.cu",
+            "replaces": "svax/ops/tinystep_pallas.py:621", "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms["smm full chain"], "plain_ms": plain_ms,
+            "bound_ms": smm_bound[0], "bound_by": smm_bound[1], "library_ms": None,
+            "envelope_ms": ms["smm envelope"], "gmm_ms_same_call": ms["gmm"]}
+
+
 def main() -> int:
     import torch
 
@@ -938,6 +1103,10 @@ def main() -> int:
     decoder_kernels[0]["launches"] = dec_fwd
     decoder_kernels[1]["launches"] = dec_bwd
 
+    # G. tinystep's SMM branch and the SMM paths
+    smm_kernel = smm_phase(card)
+    print(f"phase G done at {elapsed()}", flush=True)
+
     # 9. result
     print(json.dumps({"kernels": [{
         "name": "tinystep", "route": "cuda",
@@ -946,7 +1115,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None,
-    }, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels]}))
+    }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,11 @@ E-step), and the entry points ``svax_torch.train_gmm`` and
 ``data.auto``, ``data.load_dataset``, the ρ schedule and minibatch runner
 in ``train``, ``models.evaluation.svae_iw_loglik`` and the CUDA kernel
 ``ops.flexstep`` (whole minibatch SVAE steps, general latent d ≤ 6),
-through ``svax_torch.train_svae --config auto-svae``.
+through ``svax_torch.train_svae --config auto-svae``; and the
+Student-t-prior SVAE — ``models.svae_smm``,
+``models.evaluation.svae_smm_iw_loglik`` and tinystep's SMM branch,
+through ``svax_torch.train_svae --smm-dof``. ``configs`` carries the
+named configs the entries read.
 """
 
 __version__ = "0.1.0"

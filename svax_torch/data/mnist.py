@@ -6,12 +6,12 @@ original on the surrogate.
 
 The loader looks for MNIST in the standard offline formats — ``mnist.npz``
 (keras layout) or the raw ``*-idx3-ubyte``/``*-idx1-ubyte`` files
-(optionally ``.gz``) — under ``$SVAX_DATA_DIR``, ``<repo>/data/`` or
-``./data/``; nothing is fetched. Absent those, it generates a seeded
-*synthetic surrogate*: 10 random 28×28 prototype patterns with Bernoulli
-pixel noise, binarized — same shapes, same likelihood head, flagged via
-``meta["synthetic"]``. (The original also looks under ``~/.keras/datasets``;
-the port reads nothing outside the checkout and ``$SVAX_DATA_DIR``.)
+(optionally ``.gz``) — under ``$SVAX_DATA_DIR``, ``<repo>/data/``,
+``./data/`` or ``~/.keras/datasets``, the original's search path in its
+order; nothing is fetched. Absent those, it generates a seeded *synthetic
+surrogate*: 10 random 28×28 prototype patterns with Bernoulli pixel noise,
+binarized — same shapes, same likelihood head, flagged via
+``meta["synthetic"]``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ def _candidate_dirs() -> list[Path]:
         dirs.append(Path(env))
     dirs.append(Path(__file__).resolve().parents[2] / "data")
     dirs.append(Path.cwd() / "data")
+    dirs.append(Path.home() / ".keras" / "datasets")
     return dirs
 
 

@@ -1,6 +1,6 @@
 """Held-out evaluation (``svax/models/evaluation.py``, the
-``cluster_purity``, ``gmm_predictive_log_prob`` and ``svae_iw_loglik``
-subset).
+``cluster_purity``, ``gmm_predictive_log_prob``, ``svae_iw_loglik`` and
+``svae_smm_iw_loglik`` subset).
 
 ``gmm_predictive_log_prob`` is the exact VB posterior predictive of the
 conjugate GMM (a mixture of Student-t, Bishop PRML eq. 10.81): the
@@ -8,7 +8,9 @@ exact-GMM bar the SVAE is judged against. ``svae_iw_loglik`` is the
 SVAE's importance-weighted bound (Burda et al.): proposal the structured
 mixture posterior q(z|x), target the expected-parameter GMM prior p̄(z)
 times the decoder (Gaussian or Bernoulli, in f32 as the reference
-evaluates it).
+evaluates it). ``svae_smm_iw_loglik`` is the same bound for the
+Student-t-prior SVAE: proposal the u–z posterior of ``svae_smm``, target
+the expected-parameter Student-t mixture (u integrated out in closed form).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from svax_torch.expfam import dirichlet, niw
 from svax_torch.models import svae as svae_mod
+from svax_torch.models import svae_smm
 from svax_torch.nets import mlp as nets
 from svax_torch.ops import batched_linalg as bl
 from svax_torch.pgm import gmm
@@ -95,6 +98,53 @@ def _expected_gmm_log_prob(z: torch.Tensor, exp: gmm.GmmExpected) -> torch.Tenso
     return torch.logsumexp(logp_k, dim=-1)
 
 
+def _expected_smm_log_prob(z: torch.Tensor, exp: gmm.GmmExpected,
+                           dof: float) -> torch.Tensor:
+    """log p̄(z) under the expected-parameter Student-t mixture; z (..., d).
+
+    u ~ Gamma(a₀, b₀) integrated out of exp(E[log p(z|u,θ,k)]):
+    p̄(z|k) = (2π)^{−d/2} e^{½E[log|Λ|]} b₀^{a₀} Γ(a₀+d/2)/Γ(a₀)
+             · (b₀ + Q(z)/2)^{−(a₀+d/2)},
+    Q(z) = zᵀE[Λ]z − 2zᵀE[Λμ] + E[μᵀΛμ]."""
+    d = z.shape[-1]
+    a0 = b0 = 0.5 * dof
+    a = a0 + 0.5 * d
+    quad = torch.einsum("...i,kij,...j->...k", z, exp.prec, z)
+    cross = torch.einsum("...i,ki->...k", z, exp.prec_mean)
+    q_z = quad - 2.0 * cross + exp.quad
+    logp_k = (exp.log_pi + 0.5 * exp.logdet - 0.5 * d * _LOG_2PI + a0 * math.log(b0)
+              + math.lgamma(a) - math.lgamma(a0) - a * torch.log(b0 + 0.5 * q_z))
+    return torch.logsumexp(logp_k, dim=-1)
+
+
+def _iw_draws(post, num_samples: int, x: torch.Tensor, generator, gumbel, eps):
+    """The Gumbel and ε draws of an IW bound (injected, or from
+    ``generator``, the Gumbel first) and the Gumbel-max choice (S, N)."""
+    shape = (num_samples,) + tuple(post.log_resp.shape)
+    if gumbel is None:
+        u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(x.dtype).tiny)))
+    if eps is None:  # as sample_posterior draws it
+        eps = torch.randn(shape + (post.mean.shape[-1],), generator=generator,
+                          device=x.device, dtype=post.mean.dtype)
+    return torch.argmax(post.log_resp[None] + gumbel.to(x.dtype), dim=-1), eps
+
+
+def _iw_bound(nn_params, post, x, choice, eps, log_prior, likelihood) -> torch.Tensor:
+    """lse_s[log p(x|z) + log_prior(z) − log q(z|x)] − log S over the chosen
+    components' draws, scored _IW_CHUNK samples at a time."""
+    num_samples = choice.shape[0]
+    log_w = []
+    for lo in range(0, num_samples, _IW_CHUNK):
+        hi = min(lo + _IW_CHUNK, num_samples)
+        z_all = svae_mod.sample_posterior(post, hi - lo, eps=eps[lo:hi])
+        idx = choice[lo:hi, :, None, None].expand(-1, -1, 1, z_all.shape[-1])
+        z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (chunk, N, d)
+        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)
+        log_w.append(loglik + log_prior(z) - _mixture_log_q(z, post))
+    return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))
+
+
 @torch.no_grad()
 def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
                    num_samples: int = 100, *, generator: torch.Generator | None = None,
@@ -112,22 +162,27 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
     exp = gmm.expected_params(pgm_nat)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
     post = svae_mod.sin_combine(pot_h, pot_p, exp)
-    shape = (num_samples,) + tuple(post.log_resp.shape)
-    if gumbel is None:
-        u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(x.dtype).tiny)))
-    if eps is None:  # as sample_posterior draws it
-        eps = torch.randn(shape + (post.mean.shape[-1],), generator=generator,
-                          device=x.device, dtype=post.mean.dtype)
-    choice = torch.argmax(post.log_resp[None] + gumbel.to(x.dtype), dim=-1)  # (S, N)
-    log_w = []
-    for lo in range(0, num_samples, _IW_CHUNK):
-        hi = min(lo + _IW_CHUNK, num_samples)
-        z_all = svae_mod.sample_posterior(post, hi - lo, eps=eps[lo:hi])
-        idx = choice[lo:hi, :, None, None].expand(-1, -1, 1, z_all.shape[-1])
-        z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (chunk, N, d)
-        log_q = _mixture_log_q(z, post)
-        log_prior = _expected_gmm_log_prob(z, exp)
-        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)
-        log_w.append(loglik + log_prior - log_q)
-    return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))
+    choice, eps = _iw_draws(post, num_samples, x, generator, gumbel, eps)
+    return _iw_bound(nn_params, post, x, choice, eps,
+                     lambda z: _expected_gmm_log_prob(z, exp), likelihood)
+
+
+@torch.no_grad()
+def svae_smm_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
+                       num_samples: int = 100, *, dof: float, smm_iters: int = 2,
+                       generator: torch.Generator | None = None,
+                       gumbel: torch.Tensor | None = None,
+                       eps: torch.Tensor | None = None,
+                       likelihood: str = "gaussian") -> torch.Tensor:
+    """Per-point IW bound of the SMM-prior SVAE; (N,). Proposal: the
+    structured mixture posterior of ``svae_smm.smm_combine`` (``smm_iters``
+    rounds); target: the expected-parameter Student-t mixture times the
+    decoder. Draws, their injection and chunking as ``svae_iw_loglik``."""
+    if dof <= 0.0:
+        raise ValueError("svae_smm_iw_loglik needs dof > 0")
+    exp = gmm.expected_params(pgm_nat)
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
+    post, _ = svae_smm.smm_combine(pot_h, pot_p, exp, dof, smm_iters)
+    choice, eps = _iw_draws(post, num_samples, x, generator, gumbel, eps)
+    return _iw_bound(nn_params, post, x, choice, eps,
+                     lambda z: _expected_smm_log_prob(z, exp, dof), likelihood)

@@ -31,9 +31,10 @@ class SvaeConfig(NamedTuple):
 
     The port implements the Gaussian and Bernoulli likelihoods, the diagonal
     recognition head, weighted reconstruction, zero jitter, the fused
-    combine and the fused MLP decoder; the reference's other switches
-    (fused_decoder, remat, the full head, sampled recon) are not ported yet
-    (ROADMAP.md)."""
+    combine, the fused MLP decoder and the Student-t mixture prior
+    (``dof`` > 0, ``models.svae_smm``); the reference's other switches
+    (fused_decoder, remat, the full head, sampled recon, component
+    sharding) are not ported yet (ROADMAP.md)."""
 
     latent_dim: int
     num_components: int
@@ -55,6 +56,12 @@ class SvaeConfig(NamedTuple):
     # tensors, their plain version on CPU tensors (bf16 products, f32
     # activations, whatever nn_compute_dtype says).
     fused_mlp_decoder: bool = False
+    # Student-t mixture (SMM) latent prior: dof > 0 selects models.svae_smm
+    # with smm_iters u–z coordinate rounds; smm_envelope_grads stops the
+    # gradient through the converged q(u) (the envelope theorem).
+    dof: float = 0.0
+    smm_iters: int = 2
+    smm_envelope_grads: bool = False
 
     @property
     def decoder_compute_dtype(self) -> torch.dtype | None:

@@ -115,12 +115,12 @@ def bernoulli_loglik_decomposed(params: list[dict], z: torch.Tensor, x: torch.Te
     bf16), and the logσ(−o) row sum accumulates in f32. The result is f32.
 
     ``fused=True`` is the reference's x-free row-sum kernel
-    (``svax/ops/decoder_pallas.py``), not ported yet (ROADMAP.md item 19):
+    (``svax/ops/decoder_pallas.py``), not ported yet (ROADMAP.md, kernel C):
     it raises."""
     if fused:
         raise NotImplementedError(
             "the fused Bernoulli row-sum kernel (svax/ops/decoder_pallas.py) is not "
-            "ported to svax_torch yet (ROADMAP.md, queue 1, item 19)")
+            "ported to svax_torch yet (ROADMAP.md, kernel C)")
     out_dtype = z.dtype
     if compute_dtype is not None:
         z = z.to(compute_dtype)

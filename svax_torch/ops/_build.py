@@ -48,6 +48,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p,  # prior, nat, params, m, v
         p, p, p, p,  # metrics, scratch, eps, aug_eps
         i, i, ctypes.c_ulonglong, f, f, f,  # t_steps, count, seed, lr, rho, aug
+        f, i, i, f, f,  # dof, smm_iters, smm_env, psi_a, k_u
         p,  # stream
     ]
     lib.tinystep_train_chunk.restype = i

@@ -1,13 +1,19 @@
 // tinystep: T complete pinwheel-SVAE training steps in one kernel launch.
 //
 // Replaces the TPU kernel svax/ops/tinystep_pallas.py (_chunk_call →
-// pallas_call, body _make_kernel/_step_math), for the GMM prior with
-// in-kernel input-noise augmentation. Each step, in order: encoder →
-// closed-form 2×2 SIN combine → reparameterised samples through the 2×2
-// Cholesky → Gaussian decoder over S·N·K rows and its log-likelihood →
-// closed-form local KL → CVI sufficient statistics → a backward pass
-// written by hand (svax_torch/ops/tinystep.py: step_grads_manual is the
-// same formulas in PyTorch, tested against autograd) → Adam → CVI.
+// pallas_call, body _make_kernel/_step_math), for the GMM prior and, with
+// dof > 0, the Student-t mixture (SMM) prior, with in-kernel input-noise
+// augmentation. Each step, in order: encoder → closed-form 2×2 SIN combine
+// (SMM: smm_iters u–z coordinate rounds from ū = 1, then a final z-update
+// at ū = a/b) → reparameterised samples through the 2×2 Cholesky →
+// Gaussian decoder over S·N·K rows and its log-likelihood → the local term
+// (GMM: the closed-form local KL; SMM: Σ r̃(log r̃ − A) with A the
+// per-component free energy) → CVI sufficient statistics (SMM: weighted by
+// r̃ū, the counts by r̃) → a backward pass written by hand
+// (svax_torch/ops/tinystep.py: step_grads_manual is the same formulas in
+// PyTorch, tested against autograd; the SMM's runs back through every
+// round, recomputing each round's z-update from ū = 1, unless the envelope
+// switch holds q(u) constant) → Adam → CVI.
 //
 // Bound: the decoder's forward and backward, about 135 M FMA per step at
 // the pinwheel shape (S·N·K = 16,000 rows through 2→50→50→4, activation
@@ -49,14 +55,18 @@ constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float kVarFloor = 1e-6f;
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kAdamEps = 1e-8f;
 
-// Fields of the per-(n,k) record in scratch (N·K records).
+// Fields of the per-(n,k) record in scratch (N·K records). The SMM adds
+// ū (UBAR), the Gamma rate b (GB), Q_nk of the final z-update (QF), the
+// free energy A (AFREE) and J̃12's cotangent from the sampling (JB12).
 enum Plane {
   J11, J12, J22, DET, S11, S12, S22, MU1, MU2, HT1, HT2, L11, L21, L22,
-  RESP, LRESP, ANK, SUMLL, MUB1, MUB2, JB11, JB22, NUM_PLANES
+  RESP, LRESP, ANK, SUMLL, MUB1, MUB2, JB11, JB22,
+  UBAR, GB, QF, AFREE, JB12, NUM_PLANES
 };
 
-// Statistic slots per component.
-enum StatSlot { ST_N, ST_S1, ST_S2, ST_S11, ST_S12, ST_S22, NUM_STATS };
+// Statistic slots per component: counts Σ r̃, u_counts Σ r̃ū (= counts for
+// the GMM), then the ū-weighted moments.
+enum StatSlot { ST_N, ST_U, ST_S1, ST_S2, ST_S11, ST_S12, ST_S22, NUM_STATS };
 
 __host__ __device__ constexpr int side_floats(int h1, int h2) {
   return 2 * h1 + h1 + h1 * h2 + h2 + h2 * 4 + 4;
@@ -118,7 +128,51 @@ struct Args {
   int adam_count;
   unsigned long long seed;
   float lr, rho, aug;
+  // SMM prior when dof > 0: a₀ = b₀ = dof/2, a = a₀ + 1; psi_a = ψ(a) and
+  // k_u = a₀ log b₀ − lnΓ(a₀) + a + lnΓ(a) + (1 − a)ψ(a), from the host.
+  float dof;
+  int smm_iters;  // u–z rounds (at least one is run)
+  int smm_env;    // envelope gradients: q(u) held constant in the backward
+  float psi_a, k_u;
 };
+
+// One z-update of the 2×2 combine at E[u] = u: J̃ = diag(p) + u·E[Λ],
+// h̃ = h + u·E[Λμ], Σ̃ = J̃⁻¹, μ̃ = Σ̃h̃.
+struct ZUp {
+  float j11, j12, j22, ht1, ht2, det, s11, s12, s22, mu1, mu2;
+};
+
+__device__ __forceinline__ ZUp z_update(const float* e, float p1, float p2, float h1,
+                                        float h2, float u) {
+  ZUp c;
+  c.j11 = u * e[E_P11] + p1;
+  c.j12 = u * e[E_P12];
+  c.j22 = u * e[E_P22] + p2;
+  c.ht1 = u * e[E_PM1] + h1;
+  c.ht2 = u * e[E_PM2] + h2;
+  c.det = c.j11 * c.j22 - c.j12 * c.j12;
+  c.s11 = c.j22 / c.det;
+  c.s12 = -c.j12 / c.det;
+  c.s22 = c.j11 / c.det;
+  c.mu1 = c.s11 * c.ht1 + c.s12 * c.ht2;
+  c.mu2 = c.s12 * c.ht1 + c.s22 * c.ht2;
+  return c;
+}
+
+// Q_nk = E[(z − μ_k)ᵀΛ_k(z − μ_k)] under q(z|n,k).
+__device__ __forceinline__ float quad_latent(const float* e, const ZUp& c) {
+  return e[E_P11] * (c.s11 + c.mu1 * c.mu1) + 2.0f * e[E_P12] * (c.s12 + c.mu1 * c.mu2) +
+         e[E_P22] * (c.s22 + c.mu2 * c.mu2) - 2.0f * (e[E_PM1] * c.mu1 + e[E_PM2] * c.mu2) +
+         e[E_QUAD];
+}
+
+// ū after r u-updates from ū = 1 (b₀, a as in Args).
+__device__ __forceinline__ float u_after(const float* e, float p1, float p2, float h1,
+                                         float h2, int r, float b0, float ga) {
+  float u = 1.0f;
+  for (int q = 0; q < r; ++q) u = ga / (b0 + 0.5f * quad_latent(e, z_update(e, p1, p2, h1, h2, u)));
+  return u;
+}
 
 __device__ __forceinline__ float softplusf(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
@@ -449,7 +503,7 @@ struct Shape {
   static constexpr int H1P = pad4(H1), H2P = pad4(H2);  // padded W2 / W2ᵀ rows
   static size_t smem_floats(int k) {
     return 4 * P + 2 * (H1 * H2P + H2 * H1P) + 2 * 9 * k + NUM_EXP * k +
-           NUM_STATS * k + 4 + Tile<H1, H2>::ROWS * Tile<H1, H2>::LD;
+           pad4(NUM_STATS * k) + 4 + Tile<H1, H2>::ROWS * Tile<H1, H2>::LD;
   }
 };
 
@@ -479,7 +533,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
   float* sprior = snat + K * 9;
   float* sexp = sprior + K * 9;         // (K, NUM_EXP)
   float* sstat = sexp + K * NUM_EXP;    // (K, NUM_STATS)
-  float* smet = sstat + K * NUM_STATS;  // recon, local
+  float* smet = sstat + pad4(K * NUM_STATS);  // recon, local
   float* tile = smet + 4;  // side_weight_grads' tile (16-byte aligned: every
                            // region before it is a multiple of 4 floats)
 
@@ -511,6 +565,9 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
   const float rbar = -1.0f / static_cast<float>(N);  // ∂neg_loss/∂recon
   const float lbar = 1.0f / static_cast<float>(N);   // ∂neg_loss/∂local
   const float inv_s = 1.0f / static_cast<float>(S);
+  const bool smm = a.dof > 0.0f;
+  const float a0 = 0.5f * a.dof, b0 = a0, ga = a0 + 1.0f;  // a = a₀ + d/2, d = 2
+  const int rounds = a.smm_iters > 1 ? a.smm_iters : 1;
 
   for (int t = 0; t < a.t_steps; ++t) {
     // ---- A: expected parameters from the pre-update naturals; W2 copies.
@@ -562,6 +619,33 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       for (int k = 0; k < K; ++k) {
         const float* e = sexp + k * NUM_EXP;
         float* rec = recs + k * NUM_PLANES;
+        if (smm) {
+          // u–z rounds, then the final z-update at ū = a/b.
+          float u = 1.0f, gb = b0;
+          for (int r = 0; r < rounds; ++r) {
+            gb = b0 + 0.5f * quad_latent(e, z_update(e, p1, p2, h1, h2, u));
+            u = ga / gb;
+          }
+          const ZUp c = z_update(e, p1, p2, h1, h2, u);
+          const float qf = quad_latent(e, c);
+          const float log_gb = logf(gb), logdet_j = logf(c.det);
+          const float e_log_u = a.psi_a - log_gb;
+          const float u_free = a.k_u + (a0 - 1.0f) * e_log_u - b0 * u - log_gb;
+          const float log_rho = e[E_LOGPI] + e_log_u - kLog2Pi + 0.5f * e[E_LOGDET] -
+                                0.5f * u * e[E_QUAD] + 0.5f * (c.mu1 * c.ht1 + c.mu2 * c.ht2) -
+                                0.5f * logdet_j + u_free;
+          const float l11 = sqrtf(c.j11), l21 = c.j12 / l11;
+          rec[J11] = c.j11; rec[J12] = c.j12; rec[J22] = c.j22; rec[DET] = c.det;
+          rec[S11] = c.s11; rec[S12] = c.s12; rec[S22] = c.s22;
+          rec[MU1] = c.mu1; rec[MU2] = c.mu2; rec[HT1] = c.ht1; rec[HT2] = c.ht2;
+          rec[L11] = l11; rec[L21] = l21; rec[L22] = sqrtf(c.j22 - l21 * l21);
+          rec[LRESP] = log_rho;
+          rec[UBAR] = u; rec[GB] = gb; rec[QF] = qf;
+          rec[AFREE] = e[E_LOGPI] + e_log_u - kLog2Pi + 0.5f * e[E_LOGDET] - 0.5f * u * qf +
+                       (1.0f + kLog2Pi) - 0.5f * logdet_j + u_free;
+          row_max = fmaxf(row_max, log_rho);
+          continue;
+        }
         const float j11 = e[E_P11] + p1, j12 = e[E_P12], j22 = e[E_P22] + p2;
         const float ht1 = e[E_PM1] + h1, ht2 = e[E_PM2] + h2;
         const float det = j11 * j22 - j12 * j12;
@@ -586,6 +670,14 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
         float* rec = recs + k * NUM_PLANES;
         const float log_resp = rec[LRESP] - lse;
         const float resp = expf(log_resp);
+        if (smm) {
+          const float ank = log_resp - rec[AFREE];
+          rec[LRESP] = log_resp;
+          rec[RESP] = resp;
+          rec[ANK] = ank;
+          local_n += resp * ank;
+          continue;
+        }
         const float mu1 = rec[MU1], mu2 = rec[MU2];
         const float g_k = 0.5f * e[E_LOGDET] - kLog2Pi - 0.5f * e[E_QUAD];
         const float cross = e[E_PM1] * mu1 + e[E_PM2] * mu2;
@@ -684,6 +776,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       // Through L̃ = chol(J̃): l22 = √(j22 − l21²), l21 = j12/l11, l11 = √j11.
       const float jb22 = l22b / (2.0f * l22);
       l21b -= l22b * l21 / l22;
+      if (smm) rec[JB12] = l21b / l11;  // J̃12 = ū·E[Λ]12 moves with ū
       l11b -= l21b * l21 / l11;
       rec[SUMLL] = sum_ll;
       rec[MUB1] = mub1;
@@ -708,11 +801,79 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       }
       recn[n] = recon_n * inv_s;
       float p1b = 0.0f, p2b = 0.0f, h1b = 0.0f, h2b = 0.0f;
+      float p1 = 0.0f, p2 = 0.0f, h1 = 0.0f, h2 = 0.0f;  // the potential (SMM rounds)
+      if (smm && !a.smm_env) {
+        const float4 o4 = eo[n];
+        p1 = 1.0f / (softplusf(o4.z) + kVarFloor);
+        p2 = 1.0f / (softplusf(o4.w) + kVarFloor);
+        h1 = o4.x * p1;
+        h2 = o4.y * p2;
+      }
       for (int k = 0; k < K; ++k) {
         const float* e = sexp + k * NUM_EXP;
         const float* rec = recs + k * NUM_PLANES;
         const float resp = rec[RESP];
         const float rhobar = rec[ANK] - resp * sum_lr;
+        if (smm) {
+          // The final z-update: the local term's −½ū·Q_f scales the GMM's
+          // μ̃/Σ̃ cotangents by ū; J̃12 = ū·E[Λ]12 now has one too.
+          const float u = rec[UBAR];
+          const float mu1 = rec[MU1], mu2 = rec[MU2];
+          const float ht1 = rec[HT1], ht2 = rec[HT2];
+          const float s11 = rec[S11], s12 = rec[S12], s22 = rec[S22];
+          const float j11 = rec[J11], j12 = rec[J12], j22 = rec[J22], det = rec[DET];
+          const float w = lbar * resp, uw = u * w;
+          float mu1b = rec[MUB1] + uw * (-e[E_PM1] + e[E_P11] * mu1 + e[E_P12] * mu2) +
+                       0.5f * rhobar * ht1;
+          float mu2b = rec[MUB2] + uw * (-e[E_PM2] + e[E_P12] * mu1 + e[E_P22] * mu2) +
+                       0.5f * rhobar * ht2;
+          float s11b = 0.5f * uw * e[E_P11] + mu1b * ht1;
+          float s12b = uw * e[E_P12] + mu1b * ht2 + mu2b * ht1;
+          float s22b = 0.5f * uw * e[E_P22] + mu2b * ht2;
+          const float ht1b = 0.5f * rhobar * mu1 + s11 * mu1b + s12 * mu2b;
+          const float ht2b = 0.5f * rhobar * mu2 + s12 * mu1b + s22 * mu2b;
+          const float detb =
+              (0.5f * w - 0.5f * rhobar - (s11b * s11 + s12b * s12 + s22b * s22)) / det;
+          const float j11b = rec[JB11] + s22b / det + detb * j22;
+          const float j22b = rec[JB22] + s11b / det + detb * j11;
+          const float j12b = rec[JB12] - s12b / det - 2.0f * detb * j12;
+          p1b += j11b;
+          p2b += j22b;
+          h1b += ht1b;
+          h2b += ht2b;
+          if (a.smm_env) continue;
+          // Full chain: ū and b of the final update (log ρ and A carry
+          // −(a/b)·log b, −½ū·E[μᵀΛμ] resp. −½ū·Q_f, and −b₀ū), then back
+          // through every round; ū_r = a/b_{r−1} hands −ū̄_r·ū_r²/a to the
+          // round before.
+          const float gb = rec[GB];
+          const float ub = -rhobar * (0.5f * e[E_QUAD] + b0) + w * (0.5f * rec[QF] + b0) +
+                           j11b * e[E_P11] + j12b * e[E_P12] + j22b * e[E_P22] +
+                           ht1b * e[E_PM1] + ht2b * e[E_PM2];
+          float bb = -(rhobar - w) * ga / gb - ub * ga / (gb * gb);
+          for (int r = rounds - 1; r >= 0; --r) {
+            const float ur = u_after(e, p1, p2, h1, h2, r, b0, ga);
+            const ZUp c = z_update(e, p1, p2, h1, h2, ur);
+            const float qb = 0.5f * bb;
+            const float m1 = 2.0f * qb * (e[E_P11] * c.mu1 + e[E_P12] * c.mu2 - e[E_PM1]);
+            const float m2 = 2.0f * qb * (e[E_P12] * c.mu1 + e[E_P22] * c.mu2 - e[E_PM2]);
+            const float sb11 = qb * e[E_P11] + m1 * c.ht1;
+            const float sb12 = 2.0f * qb * e[E_P12] + m1 * c.ht2 + m2 * c.ht1;
+            const float sb22 = qb * e[E_P22] + m2 * c.ht2;
+            const float hb1 = c.s11 * m1 + c.s12 * m2, hb2 = c.s12 * m1 + c.s22 * m2;
+            const float db = -(sb11 * c.s11 + sb12 * c.s12 + sb22 * c.s22) / c.det;
+            const float jb11 = sb22 / c.det + db * c.j22;
+            const float jb22 = sb11 / c.det + db * c.j11;
+            const float jb12 = -sb12 / c.det - 2.0f * db * c.j12;
+            p1b += jb11;
+            p2b += jb22;
+            h1b += hb1;
+            h2b += hb2;
+            bb = -(jb11 * e[E_P11] + jb12 * e[E_P12] + jb22 * e[E_P22] + hb1 * e[E_PM1] +
+                   hb2 * e[E_PM2]) * ur * ur / ga;
+          }
+          continue;
+        }
         const float mu1 = rec[MU1], mu2 = rec[MU2];
         const float ht1 = rec[HT1], ht2 = rec[HT2];
         const float s11 = rec[S11], s12 = rec[S12], s22 = rec[S22];
@@ -771,16 +932,18 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
 
     // ---- E: statistics, metrics, then every weight gradient.
     if (tid < K) {
-      float st[NUM_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float st[NUM_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       for (int n = 0; n < N; ++n) {
         const float* rec = pl + (static_cast<long long>(n) * K + tid) * NUM_PLANES;
         const float r = rec[RESP], mu1 = rec[MU1], mu2 = rec[MU2];
+        const float ru = smm ? r * rec[UBAR] : r;
         st[ST_N] += r;
-        st[ST_S1] += r * mu1;
-        st[ST_S2] += r * mu2;
-        st[ST_S11] += r * (rec[S11] + mu1 * mu1);
-        st[ST_S12] += r * (rec[S12] + mu1 * mu2);
-        st[ST_S22] += r * (rec[S22] + mu2 * mu2);
+        st[ST_U] += ru;
+        st[ST_S1] += ru * mu1;
+        st[ST_S2] += ru * mu2;
+        st[ST_S11] += ru * (rec[S11] + mu1 * mu1);
+        st[ST_S12] += ru * (rec[S12] + mu1 * mu2);
+        st[ST_S22] += ru * (rec[S22] + mu2 * mu2);
       }
 #pragma unroll
       for (int i = 0; i < NUM_STATS; ++i) sstat[tid * NUM_STATS + i] = st[i];
@@ -811,7 +974,8 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
     }
     if (tid < K) {
       const float* st = sstat + tid * NUM_STATS;
-      const float delta[9] = {st[ST_N], st[ST_S1], st[ST_S2], st[ST_N], st[ST_S11],
+      // Slot 3 (η₂) takes Σ r̃ū: the counts for the GMM.
+      const float delta[9] = {st[ST_N], st[ST_S1], st[ST_S2], st[ST_U], st[ST_S11],
                               st[ST_S12], st[ST_S12], st[ST_S22], st[ST_N]};
 #pragma unroll
       for (int c = 0; c < 9; ++c) {
@@ -865,9 +1029,10 @@ int tinystep_train_chunk(const float* x, int n, int k, int s, int h1, int h2,
                          float* v, float* metrics, float* scratch, const float* eps,
                          const float* aug_eps, int t_steps, int adam_count,
                          unsigned long long seed, float lr, float rho, float aug,
+                         float dof, int smm_iters, int smm_env, float psi_a, float k_u,
                          void* stream) {
   Args a{x, n, k, s, prior, nat, params, m, v, metrics, scratch, eps, aug_eps,
-         t_steps, adam_count, seed, lr, rho, aug};
+         t_steps, adam_count, seed, lr, rho, aug, dof, smm_iters, smm_env, psi_a, k_u};
   auto st = static_cast<cudaStream_t>(stream);
   if (h1 == 50 && h2 == 50) return launch<50, 50>(a, st);
   if (h1 == 16 && h2 == 16) return launch<16, 16>(a, st);

@@ -28,6 +28,8 @@ from svax_torch.pgm import gmm
 from svax_torch.train import svae_step
 
 PER_STEP = "per-step"
+FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
+                     "(dof > 0 is the Student-t mixture prior)")
 
 
 def augment_step(step: Callable, sigma: float) -> Callable:
@@ -56,7 +58,8 @@ def tinystep_unsupported_reason(config, *, batch_full: bool, encoder_hidden,
 
     The shape class: latent d = 2, Gaussian likelihood, two matched
     hidden layers of a width the kernel is built for, full batch,
-    constant ρ, K up to tinystep.MAX_COMPONENTS."""
+    constant ρ, K up to tinystep.MAX_COMPONENTS; the GMM or the SMM prior
+    (``config.dof``)."""
     encoder_hidden, decoder_hidden = tuple(encoder_hidden), tuple(decoder_hidden)
     if config.latent_dim != 2:
         return f"the tinystep kernel needs latent d = 2 (got {config.latent_dim})"
@@ -80,12 +83,16 @@ def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
                                 ) -> str | None:
     """Why the flexstep kernel cannot run this workload (None = it can).
 
-    The shape class (flexstep_pallas.supported): Gaussian likelihood, two
-    tanh hidden layers a side of width 1..flexstep.MAX_HIDDEN, d_in ≤ 8,
-    2 ≤ d ≤ 6, K up to flexstep.MAX_COMPONENTS, a constant ρ or the
-    Trainer's ρ₀/(1 + decay·t) (given as ``rho_decay``, not a callable);
-    minibatch or full batch."""
+    The shape class (flexstep_pallas.supported): the GMM prior, Gaussian
+    likelihood, two tanh hidden layers a side of width
+    1..flexstep.MAX_HIDDEN, d_in ≤ 8, 2 ≤ d ≤ 6, K up to
+    flexstep.MAX_COMPONENTS, a constant ρ or the Trainer's ρ₀/(1 + decay·t)
+    (given as ``rho_decay``, not a callable); minibatch or full batch."""
     widths = tuple(encoder_hidden) + tuple(decoder_hidden)
+    if config.dof > 0.0:
+        # tinystep owns the Student-t prior's u–z rounds; flexstep does not
+        # (svax/train/loop.py:129-141).
+        return FLEXSTEP_GMM_ONLY
     if config.latent_dim not in flexstep.LATENT_DIMS:
         return (f"the flexstep kernel needs 2 <= latent d <= 6 "
                 f"(got {config.latent_dim})")
@@ -160,7 +167,9 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
     batch. Either kernel runs its CUDA kernel on CUDA tensors and its plain
     version on CPU tensors; ``engine="plain"`` runs the plain version on any
     device. ``eps`` injects the ε noise, ``aug_eps`` tinystep's augmentation
-    noise (flexstep: ``eps`` only).
+    noise (flexstep: ``eps`` only). tinystep takes ``config``'s ``dof``,
+    ``smm_iters`` and ``smm_envelope_grads`` (the SMM prior when dof > 0);
+    flexstep refuses dof > 0.
 
     Metrics are (T,) tensors: recon, local_kl, global_kl, elbo, rho. The
     global KL is evaluated once, at the post-chunk naturals, and broadcast,
@@ -185,16 +194,21 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
         if rho_decay != 0.0:
             raise ValueError("the tinystep kernel needs a constant rho")
         chunk = tinystep.train_chunk if engine == "kernel" else tinystep.train_chunk_plain
+        smm = dict(dof=config.dof, smm_iters=config.smm_iters,
+                   smm_envelope_grads=config.smm_envelope_grads)
 
         def runner(state, x, t_steps: int, seed: int = 0, eps=None, aug_eps=None):
             state, mets = chunk(
                 state, prior, x, lr=lr, rho=rho, t_steps=t_steps, seed=seed,
                 aug_noise=aug_noise, num_samples=config.num_samples, eps=eps,
-                aug_eps=aug_eps,
+                aug_eps=aug_eps, **smm,
             )
             return finish(state, mets, t_steps)
 
         return runner
+
+    if config.dof > 0.0:
+        raise ValueError(FLEXSTEP_GMM_ONLY)
 
     def runner(state, x, t_steps: int, seed: int = 0, eps=None, aug_eps=None):
         if aug_eps is not None:
@@ -256,7 +270,8 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     ``torch.randn`` ε, the reference's path with fused_combine off; it turns
     fused_mlp_decoder off with them (the bf16 or f32 decomposed decoder).
     ``batch_size`` 0 or ≥ N is the full batch; ``eps`` (T, S, M, K, d)
-    injects the noise.
+    injects the noise. With ``config.dof`` > 0 the step is the Student-t
+    prior's (``svae_step.model_for``), whose forward runs no kernel.
 
     Metrics are (T,) tensors of each step's elbo, recon, local_kl,
     global_kl (at its pre-update naturals), neg_loss and rho."""

@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from svax_torch.models import svae
+from svax_torch.models import svae, svae_smm
 from svax_torch.models.svae import SvaeConfig
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
@@ -129,11 +129,23 @@ def init_state(
     )
 
 
+def model_for(config: SvaeConfig):
+    """The SVAE-variant module for ``config``: ``models.svae_smm`` when
+    ``config.dof`` > 0 (the Student-t mixture prior), else ``models.svae``
+    (the reference entry's ``svae_mod_select``)."""
+    return svae_smm if config.dof > 0.0 else svae
+
+
 def make_train_step(
     config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable
 ) -> Callable:
     """Build step(state, batch, eps=None, generator=None, seed=None) →
     (state, metrics).
+
+    The model is ``model_for(config)``: with ``config.dof`` > 0 the
+    Student-t prior's ``svae_smm.forward`` and its ``stats_to_nat`` (the
+    ``counts ≠ u_counts`` split), else ``svae.forward`` and
+    ``gmm.stats_to_nat``.
 
     The noise is ``eps`` when given, else drawn from ``generator`` — or,
     with ``config.fused_combine`` and ``kernel_rng``, inside the combine
@@ -143,6 +155,8 @@ def make_train_step(
     a schedule ``rho(step)`` evaluated at the pre-update ``state.step``
     (``rho_schedule`` builds the Trainer's inverse decay); the ``rho``
     metric reports the value used."""
+    model = model_for(config)
+    stats_to_nat = getattr(model, "stats_to_nat", gmm.stats_to_nat)
 
     def step(state: SvaeTrainState, batch: torch.Tensor,
              eps: torch.Tensor | None = None,
@@ -150,7 +164,7 @@ def make_train_step(
         params = map_params(
             lambda p: p.detach().requires_grad_(True), state.nn_params
         )
-        out = svae.forward(
+        out = model.forward(
             params, state.pgm_nat, prior, batch, config, eps=eps,
             generator=generator, seed=seed, step=state.step,
         )
@@ -163,9 +177,8 @@ def make_train_step(
             nn_params, opt_state = adam_update(
                 grads, state.opt_state, state.nn_params, lr
             )
-            inc = gmm.stats_to_nat(
-                gmm.GmmSuffStats(*(s.detach() for s in out.suff_stats))
-            )
+            stats = out.suff_stats
+            inc = stats_to_nat(type(stats)(*(s.detach() for s in stats)))
             rho_t = float(rho(state.step)) if callable(rho) else float(rho)
             pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho_t)
         metrics = {
@@ -197,14 +210,15 @@ def rho_schedule(rho0: float, decay: float = 0.0) -> float | Callable:
 def make_eval_fn(config: SvaeConfig, prior: GmmNat) -> Callable:
     """Held-out ELBO decomposition at fixed parameters (SURVEY.md §4.4);
     ``evaluate(state, x, eps=None, generator=None, seed=None)`` takes its
-    noise as the train step does."""
+    noise as the train step does, through ``model_for(config).forward``."""
+    model = model_for(config)
 
     @torch.no_grad()
     def evaluate(state: SvaeTrainState, x: torch.Tensor,
                  eps: torch.Tensor | None = None,
                  generator: torch.Generator | None = None, seed: int | None = None):
         cfg = config._replace(num_total=x.shape[0])
-        out = svae.forward(
+        out = model.forward(
             state.nn_params, state.pgm_nat, prior, x, cfg, eps=eps,
             generator=generator, seed=seed, step=state.step,
         )

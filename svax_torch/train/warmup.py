@@ -72,7 +72,8 @@ def vae_warmup_reseed(state, x: torch.Tensor, config, prior: GmmNat, *, lr: floa
     """Phase-1 warmup (ρ = 0) then the k-means++ reseed; returns (state, info).
 
     ``batch_size=0`` trains full-batch; ``engine`` is the per-step runner's
-    (``loop.make_step_runner``). The reseed's k-means++ is seeded ``seed``."""
+    (``loop.make_step_runner``), which trains the SMM prior when
+    ``config.dof`` > 0. The reseed's k-means++ is seeded ``seed``."""
     if steps > 0:
         runner = loop.make_step_runner(config, prior, lr=lr, rho=0.0,
                                        batch_size=batch_size, engine=engine)

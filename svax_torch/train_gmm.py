@@ -26,12 +26,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
-
-_ROOT = Path(__file__).resolve().parents[1]
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -108,9 +105,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--fused-kernel", action="store_true",
                    help="plain engine: the E-step through the estep kernel")
     args = p.parse_args(argv)
-    if str(_ROOT) not in sys.path:
-        sys.path.insert(0, str(_ROOT))
-    from configs import apply_config
+    from svax_torch.configs import apply_config
 
     apply_config(args, p, sys.argv[1:] if argv is None else argv)
 

@@ -5,6 +5,7 @@ and decoder_mlp CUDA kernels).
         [--steps N] [--warmup-steps N] [--device cuda|cpu]
         [--engine kernel|plain] [--seed S] [--iw-samples S]
         [--fused-mlp-decoder] [--eval-every N]
+        [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
 
 Mirrors experiments/train_svae.py with its ``--engine auto`` rule
 (``loop.choose_kernel``): chunks of the config's ``scan_chunk`` steps.
@@ -26,6 +27,14 @@ kernel on for the other Bernoulli config, mnist-svae, and is refused for a
 Gaussian one. ``--engine plain`` runs the plain PyTorch step instead (for
 the Bernoulli configs: ``sin_combine``, ``torch.randn`` ε and the
 decomposed decoder); on the CPU every kernel runs its plain version.
+``--smm-dof DOF`` (> 0) trains the Student-t mixture prior
+(``models.svae_smm``) with ``--smm-iters`` u–z rounds and, with
+``--smm-envelope-grads``, q(u) held constant in the backward: pinwheel-svae
+keeps tinystep (its SMM branch), the other configs run the per-step engine
+(flexstep takes the GMM prior only), and as in the reference the SMM
+forward runs the plain combine and decoder, so the first line reports
+``fused_combine`` and ``fused_mlp_decoder`` off; the IW line is the SMM
+bound (``evaluation.svae_smm_iw_loglik``).
 Prints one JSON line with the engine, its reason and the initial test
 ELBO, the warmup line, one JSON row per chunk — step, elbo, recon,
 local_kl, global_kl, test_elbo_per_point, wall_s — then steps/sec, then
@@ -40,13 +49,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
 import time
-from pathlib import Path
 
 import torch
 
-_ROOT = Path(__file__).resolve().parents[1]
 PORTED = ("pinwheel-svae", "auto-svae", "mnist-svae", "bigk-dp")
 
 
@@ -73,6 +79,14 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--eval-every", type=int, default=200,
                    help="data-parallel configs (bigk-dp): a row after step 1, every "
                         "N steps and after the last")
+    p.add_argument("--smm-dof", type=float, default=0.0,
+                   help="Student-t mixture latent prior with this many degrees of "
+                        "freedom (0 = Gaussian mixture prior)")
+    p.add_argument("--smm-iters", type=int, default=2,
+                   help="u-z coordinate rounds in the SMM combine")
+    p.add_argument("--smm-envelope-grads", action="store_true",
+                   help="envelope-theorem gradients for the SMM u-rounds: the "
+                        "converged q(u) is held constant in the backward pass")
     args = p.parse_args(argv)
     if args.config not in PORTED:
         p.error(f"--config {args.config}: svax_torch runs {', '.join(PORTED)} so far; "
@@ -87,10 +101,7 @@ def main(argv: list[str] | None = None) -> dict:
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain PyTorch path)")
 
-    if str(_ROOT) not in sys.path:
-        sys.path.insert(0, str(_ROOT))
-    from configs import CONFIGS
-
+    from svax_torch.configs import CONFIGS
     from svax_torch.data import load_dataset
     from svax_torch.models import evaluation
     from svax_torch.models.svae import SvaeConfig
@@ -129,7 +140,14 @@ def main(argv: list[str] | None = None) -> dict:
                         fused_combine=cfg.get("fused_combine", False),
                         kernel_rng=cfg.get("kernel_rng", False),
                         fused_mlp_decoder=(cfg.get("fused_mlp_decoder", False)
-                                           or args.fused_mlp_decoder))
+                                           or args.fused_mlp_decoder),
+                        dof=args.smm_dof, smm_iters=args.smm_iters,
+                        smm_envelope_grads=args.smm_envelope_grads)
+    if config.dof > 0.0:
+        # The SMM forward runs the plain combine and decoder (the reference's
+        # svae_smm.forward): the fused switches do not act on it.
+        config = config._replace(fused_combine=False, kernel_rng=False,
+                                 fused_mlp_decoder=False)
     gate = dict(batch_full=batch >= n, encoder_hidden=cfg["encoder_hidden"],
                 decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
                 rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim)
@@ -180,6 +198,9 @@ def main(argv: list[str] | None = None) -> dict:
                       args.engine == "kernel" and config.fused_combine,
                       "fused_mlp_decoder": args.engine == "kernel" and
                       config.fused_mlp_decoder and config.likelihood == "bernoulli",
+                      "prior": "smm" if config.dof > 0.0 else "gmm", "dof": config.dof,
+                      "smm_iters": config.smm_iters,
+                      "smm_envelope_grads": config.smm_envelope_grads,
                       "world_size": world, "n": n, "d_in": input_dim, "batch": batch,
                       "synthetic": meta.get("synthetic", False),
                       "init_test_elbo_per_point": init_elbo}), flush=True)
@@ -230,9 +251,16 @@ def main(argv: list[str] | None = None) -> dict:
            "warmup": warm_info, "x_test": x_test}
     if args.iw_samples > 0:
         iw_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-        iw = evaluation.svae_iw_loglik(state.nn_params, state.pgm_nat, x_test,
-                                       args.iw_samples, generator=iw_gen,
-                                       likelihood=config.likelihood)
+        if config.dof > 0.0:
+            # The SMM bound, as experiments/evaluate.py and svax/serve.py
+            # score an SMM model (the reference entry scores the GMM one).
+            iw = evaluation.svae_smm_iw_loglik(
+                state.nn_params, state.pgm_nat, x_test, args.iw_samples, dof=config.dof,
+                smm_iters=config.smm_iters, generator=iw_gen, likelihood=config.likelihood)
+        else:
+            iw = evaluation.svae_iw_loglik(state.nn_params, state.pgm_nat, x_test,
+                                           args.iw_samples, generator=iw_gen,
+                                           likelihood=config.likelihood)
         out["final_test_iw_loglik_per_point"] = float(iw.mean())
         print(json.dumps({"final_test_iw_loglik_per_point": float(iw.mean()),
                           "iw_samples": args.iw_samples}), flush=True)

@@ -195,7 +195,7 @@ def test_step_runner_draws_without_replacement(monkeypatch):
 def test_train_svae_bigk_loop_at_a_small_width(capsys, monkeypatch):
     """The entry's bigk-dp path with the config cut to a small width (the
     full width takes minutes on the CPU: the slow test below)."""
-    import configs
+    from svax_torch import configs
 
     small = dict(configs.CONFIGS["bigk-dp"], num_components=6, latent_dim=10,
                  encoder_hidden=[16, 16], decoder_hidden=[16, 16], batch_size=64)

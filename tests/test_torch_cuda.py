@@ -1,5 +1,6 @@
-"""The tinystep CUDA kernel on the card: against its plain version, seeded
-in-kernel noise, the Philox normals and the wrapper's checks.
+"""The tinystep CUDA kernel on the card: against its plain version (GMM
+prior, and the SMM prior in both gradient modes), seeded in-kernel noise,
+the Philox normals and the wrapper's checks.
 
 Every test needs a CUDA device and skips without one. The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -77,6 +78,48 @@ def test_kernel_matches_plain(dev, t_steps):
     _close([m_k["local_kl"]], [m_p["local_kl"]], 2e-4, 2e-4, "local_kl")
     assert st_k.step == st_p.step == t_steps
     assert st_k.opt_state.count == t_steps
+
+
+@pytest.mark.parametrize("smm", [
+    dict(dof=4.0, smm_iters=2, smm_envelope_grads=False),
+    dict(dof=4.0, smm_iters=2, smm_envelope_grads=True),
+    dict(dof=2.5, smm_iters=1, smm_envelope_grads=False),
+    dict(dof=4.0, smm_iters=6, smm_envelope_grads=False),
+], ids=["full_chain", "envelope", "dof2.5_one_round", "six_rounds"])
+@pytest.mark.parametrize("t_steps", [1, 3])
+def test_smm_kernel_matches_plain(dev, t_steps, smm):
+    """The SMM branch (u–z rounds, Student-t local term, ū-weighted
+    statistics, the hand-derived backward) against train_chunk_plain."""
+    state, prior, x = _setup(dev)
+    rng = np.random.default_rng(101)
+    kw = dict(lr=3e-3, rho=0.2, t_steps=t_steps, aug_noise=0.4,
+              eps=torch.tensor(rng.standard_normal((t_steps, 2, 72, 4, 2)),
+                               dtype=torch.float32, device=dev),
+              aug_eps=torch.tensor(rng.standard_normal((t_steps, 72, 2)),
+                                   dtype=torch.float32, device=dev), **smm)
+    before = tinystep.launches
+    st_k, m_k = tinystep.train_chunk(state, prior, x, **kw)
+    assert tinystep.launches == before + 1
+    st_p, m_p = tinystep.train_chunk_plain(state, prior, x, **kw)
+    _close(_flat(st_k.nn_params), _flat(st_p.nn_params), *TOL["params"], "params")
+    _close(_flat(st_k.opt_state.mu), _flat(st_p.opt_state.mu), *TOL["mu"], "adam m")
+    _close(_flat(st_k.opt_state.nu), _flat(st_p.opt_state.nu), *TOL["nu"], "adam v")
+    _close([st_k.pgm_nat.dir_nat, *st_k.pgm_nat.niw_nat],
+           [st_p.pgm_nat.dir_nat, *st_p.pgm_nat.niw_nat], *TOL["nat"], "naturals")
+    _close([m_k["recon"]], [m_p["recon"]], 2e-4, 0.0, "recon")
+    _close([m_k["local_kl"]], [m_p["local_kl"]], 2e-4, 2e-4, "local_kl")
+
+
+def test_smm_kernel_reruns_bit_equal_and_differ_from_gmm(dev):
+    state, prior, x = _setup(dev)
+    kw = dict(lr=3e-3, rho=0.2, t_steps=3, aug_noise=0.4, seed=5)
+    a, ma = tinystep.train_chunk(state, prior, x, dof=4.0, **kw)
+    b, mb = tinystep.train_chunk(state, prior, x, dof=4.0, **kw)
+    g, mg = tinystep.train_chunk(state, prior, x, **kw)
+    assert all(torch.equal(p, q) for p, q in zip(_flat(a.nn_params), _flat(b.nn_params)))
+    assert torch.equal(a.pgm_nat.niw_nat.eta2, b.pgm_nat.niw_nat.eta2)
+    assert torch.equal(ma["local_kl"], mb["local_kl"])
+    assert not torch.equal(a.pgm_nat.niw_nat.eta2, g.pgm_nat.niw_nat.eta2)
 
 
 def test_in_kernel_noise_is_seeded(dev):

@@ -84,6 +84,9 @@ def test_load_mnist_reads_idx_files(monkeypatch, tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Importing the port's modules and running its entries (two CPU steps
+    of pinwheel-svae, with and without the SMM prior, and of the GMM
+    mixture) loads neither jax, svax nor the reference's configs."""
     code = (
         "import sys\n"
         "import svax_torch, svax_torch.train_svae, svax_torch.ops.tinystep\n"
@@ -91,12 +94,67 @@ def test_port_imports_no_jax():
         "import svax_torch.train_gmm, svax_torch.train_smm, svax_torch.ops.mixstep\n"
         "import svax_torch.ops.estep, svax_torch.models.evaluation, svax_torch.pgm.init\n"
         "import svax_torch.ops.combine, svax_torch.train.warmup, svax_torch.data.mnist\n"
+        "import svax_torch.models.svae_smm, svax_torch.configs\n"
+        "from svax_torch import train_gmm, train_svae\n"
+        "for extra in ([], ['--smm-dof', '4']):\n"
+        "    train_svae.main(['--device', 'cpu', '--steps', '2', '--iw-samples', '2', *extra])\n"
+        "train_gmm.main(['--config', 'pinwheel-gmm', '--device', 'cpu', '--steps', '2'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'svax' or m.startswith('svax.'))\n"
+        " or m == 'svax' or m.startswith('svax.') or m == 'configs'"
+        " or m.startswith('configs.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.parametrize("env_dir", [None, "set"])
+def test_mnist_search_path_matches_the_reference(env_dir, monkeypatch, tmp_path):
+    """The port looks for MNIST where the original does, in its order:
+    $SVAX_DATA_DIR, <repo>/data, ./data, ~/.keras/datasets."""
+    if env_dir is None:
+        monkeypatch.delenv("SVAX_DATA_DIR", raising=False)
+    else:
+        monkeypatch.setenv("SVAX_DATA_DIR", str(tmp_path))
+    got = port_mnist._candidate_dirs()
+    assert got == ref_mnist._candidate_dirs()
+    assert got[-1] == Path.home() / ".keras" / "datasets"
+    assert len(got) == (3 if env_dir is None else 4)
+
+
+@pytest.mark.parametrize("name", ["pinwheel-svae", "pinwheel-gmm", "auto-svae",
+                                  "mnist-svae", "bigk-dp"])
+def test_port_configs_equal_the_reference(name):
+    """svax_torch.configs carries the reference's entries for the configs
+    the port runs, unchanged."""
+    import configs as ref_configs
+
+    from svax_torch import configs
+
+    assert configs.CONFIGS[name] == ref_configs.CONFIGS[name]
+
+
+def test_apply_config_matches_the_reference():
+    """Explicit flags win over the config, as configs.apply_config does."""
+    import argparse
+
+    import configs as ref_configs
+
+    from svax_torch import configs
+
+    def parse(mod, argv):
+        p = argparse.ArgumentParser()
+        p.add_argument("--config", default="")
+        p.add_argument("--steps", type=int, default=7)
+        p.add_argument("--rho", type=float, default=0.5)
+        p.add_argument("--aug-noise", type=float, default=0.0)
+        args = p.parse_args(argv)
+        mod.apply_config(args, p, argv)
+        return vars(args)
+
+    for argv in (["--config", "pinwheel-svae"], ["--config", "pinwheel-svae", "--steps", "3"],
+                 ["--steps", "3"], ["--config", "auto-svae", "--rho", "0.9"]):
+        assert parse(configs, argv) == parse(ref_configs, argv), argv
