@@ -48,7 +48,8 @@ B. the auto-svae main path: ``svax_torch.train_svae --config auto-svae
    (tests/test_auto_quality_pin.py's bar); then 50 steps on the plain
    engine for its rate;
 C. the combine kernels against their plain version at the mnist shape
-   (N=256, K=10, d=8, S=1) and the bigk shape (N=1024, K=100, d=10, S=1):
+   (N=256, K=10, d=8, S=1), the bigk shape (N=1024, K=100, d=10, S=1) and
+   one rank's shape on phase I's 2x1 data mesh (N=512, K=100, d=10, S=1):
    values at tests/test_combine_kernel.py's bars (2e-5 for z, log r̃, μ̃;
    2e-4 for the local row and the statistics), the gradients to the
    potentials and every expected-parameter field through each of the five
@@ -56,8 +57,9 @@ C. the combine kernels against their plain version at the mnist shape
    entry), bit-equal reruns of forward and backward; the in-kernel ε
    recovered as L̃ᵀ(z − μ̃): |mean| < 0.005 and |var − 1| < 0.01 at bigk,
    the same seed and step bit-equal, another step or seed different, and
-   the seeded gradients equal to those with the recovered ε injected; then
-   forward, backward and both timed against the plain version;
+   the seeded gradients equal to those with the recovered ε injected; then,
+   at mnist and bigk, forward, backward and both timed against the plain
+   version;
 D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    --steps 2000`` (the config's 1000 warmup steps, then chunks of 200 on
    the per-step engine with the combine kernels) for seeds 0 and 1, each
@@ -71,7 +73,9 @@ D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    combine's share of device time;
 E. the fused MLP-decoder kernels against their plain version at the bigk
    (S=1, N=1024, K=100, d=10, 200-200, D=784), mnist (N=256, K=10, d=8)
-   and a ragged shape (N=37, K=7, d=3, 24-40, D=50): ll and every gradient
+   and a ragged shape (N=37, K=7, d=3, 24-40, D=50), and at one rank's
+   bigk shape on phase I's 1x2 comp mesh (N=1024, K=50) and 2x1 data mesh
+   (N=512, K=100): ll and every gradient
    (dz, dW1..3, db1..3, dy, dc) at measure_mnist.DECODER_TOL, reruns of
    forward and backward bit-equal; then both timed at bigk and mnist
    against the plain version and the unfused bf16 decoder they replace
@@ -98,13 +102,43 @@ G. tinystep's SMM branch (dof > 0, the Student-t mixture prior) against
    bit-equal, training ELBO and test ELBO/pt rising, the SMM IW line
    printed), and ``--config auto-svae --smm-dof 4 --steps 200`` twice on
    the per-step engine (finite, bit-equal);
+H. the component-parallel kernels (``ops/combine.py: log_rho_fused`` and
+   ``combine_fused(log_norm=)``, combine.cu's ρ-kernels and log_norm
+   mode) against their plain versions at the bigk (N=1024, K=100 and its
+   two 50-shards, d=10, S=1) and pinwheel (N=400, K=10 in shards of 5,
+   d=2, S=4) shapes: log ρ at 2e-5 and its gradients at 5e-4 of each
+   largest entry; one shard's log_norm combine against the plain version
+   with the normaliser from both shards' ρ-kernels (values at phase C's
+   bars, every cotangent path alone and together, dn among them); the
+   identity log_norm = lse(log ρ) against the softmax combine, and two
+   shards' ρ-kernels, cross-shard lse and log_norm combines put together
+   against the unsharded combine, values and gradients
+   (tests/test_combine_kernel.py:223-262); reruns bit-equal; then the four
+   kernels timed at one bigk shard against their plain versions, with
+   their bounds;
+I. the parallel paths on the card, every rank on cuda:0 over gloo (named
+   explicitly: NCCL refuses two ranks on one card): (a)
+   ``parallel.dryrun.dryrun_multichip(4)`` on a 2x2 data x comp mesh —
+   three ok lines, finite ELBOs, the gathered K-shards of the naturals
+   within 1e-5 of the single-process step; (b) bigk-dp at full width from
+   a 300-step warmup, 100 steps on a 1x2 comp mesh, twice: one launch per
+   rank and step of each of the ρ-kernels and the log_norm combines, the
+   runs bit-equal, step 1's naturals within 1e-5 of the single-process
+   step's, the test ELBO/pt rising; (c) the same on a 2x1 data mesh
+   (step 1 against the single-process step on the same global batch);
+   (d) ``svax_torch.train_gmm --dp --engine plain --fused-kernel`` on two
+   ranks against the one-process run (300 estep launches per rank, rows
+   from rank 0 only, final naturals, ELBO rows and predictive within
+   1e-4); each rate beside phase F's, and 10 more steps of (b) and (c)
+   under ``torch.profiler`` for each rank's kernel time and collectives;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the 67
    TFLOP/s f32 peak — for the decoder kernels, the bf16 tensor-core peak
-   and the special-function rate — counted from this run's shapes) — the
-   card line, and last {"ok": true, "device": {...}}.
+   and the special-function rate — counted from this run's shapes; the
+   component-parallel kernels' launches are phase I (b)'s first run's, both
+   ranks) — the card line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -511,7 +545,9 @@ def combine_phase(card: str) -> list:
         return torch.autograd.grad(loss, leaves, allow_unused=True)
 
     entries = []
-    for label, (n, k, d, s) in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1))):
+    # "bigk data shard": one rank's combine on phase I's 2x1 data mesh.
+    for label, (n, k, d, s) in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1)),
+                                ("bigk data shard", (512, 100, 10, 1))):
         pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
         got = outputs(combine.combine_fused(pot_h, pot_p, exp, eps, s, scale=2.5))
         torch.cuda.synchronize()
@@ -568,14 +604,18 @@ def combine_phase(card: str) -> list:
             err = close(f"combine {label} seeded d{what}", g, w, 5e-4, 5e-4 * scale)
             e_rng = max(e_rng, err / scale) if scale > 0 else e_rng
 
+        line = (f"phase C: combine vs plain at {label} N={n} K={k} d={d} S={s}: "
+                + ", ".join(f"{name} max abs err {v:.3e}" for name, v in e_val.items())
+                + f" (bars {value_tol}); gradients, 5 paths alone and together, max abs err "
+                f"{e_grad_abs:.3e}, / max|grad| {e_grad:.3e} (bar 5e-4); reruns bit-equal; "
+                f"in-kernel eps recovered: mean {mean:.5f} var {var:.5f}, same seed "
+                f"bit-equal, seeded vs injected gradients {e_rng:.3e}")
+        if label == "bigk data shard":
+            print(f"{line}; {card}", flush=True)
+            continue
         t = time_combine(dev, n, k, d, s)
         fb, bb = combine_bound(n, k, d, s, False), combine_bound(n, k, d, s, True)
-        print(f"phase C: combine vs plain at {label} N={n} K={k} d={d} S={s}: "
-              + ", ".join(f"{name} max abs err {v:.3e}" for name, v in e_val.items())
-              + f" (bars {value_tol}); gradients, 5 paths alone and together, max abs err "
-              f"{e_grad_abs:.3e}, / max|grad| {e_grad:.3e} (bar 5e-4); reruns bit-equal; in-kernel eps "
-              f"recovered: mean {mean:.5f} var {var:.5f}, same seed bit-equal, seeded vs "
-              f"injected gradients {e_rng:.3e}; device ms per call: forward "
+        print(f"{line}; device ms per call: forward "
               f"{t['kernel_fwd_device']:.4f} (plain {t['plain_fwd_device']:.4f}), backward "
               f"{t['kernel_bwd_device']:.4f} (plain {t['plain_bwd_device']:.4f}); CUDA-event "
               f"ms per call: forward {t['kernel_fwd_call']:.4f} (plain "
@@ -670,8 +710,12 @@ def decoder_phase(card: str) -> list:
 
     dev = torch.device("cuda", 0)
     clock = sm_clock_hz()
+    # The shard shapes are one rank's decoder on phase I's 1x2 comp mesh (50
+    # rows a point) and 2x1 data mesh.
     shapes = {"bigk": (1, 1024, 100, 10, 200, 200, 784), "mnist": (1, 256, 10, 8, 200, 200, 784),
-              "ragged": (1, 37, 7, 3, 24, 40, 50)}
+              "ragged": (1, 37, 7, 3, 24, 40, 50),
+              "bigk comp shard": (1, 1024, 50, 10, 200, 200, 784),
+              "bigk data shard": (1, 512, 100, 10, 200, 200, 784)}
     entries = []
     for label, shape in shapes.items():
         params, z, x, dll = decoder_inputs(dev, *shape)
@@ -689,7 +733,7 @@ def decoder_phase(card: str) -> list:
         line = (f"phase E: decoder_mlp vs plain at {label} S,N,K,d,H1,H2,D={shape}: "
                 + ", ".join(f"{k_} {v:.3e}" for k_, v in e.items() if k_ != "finite")
                 + f" (bars {DECODER_TOL}); reruns bit-equal")
-        if label != "ragged":
+        if label in ("bigk", "mnist"):
             t = time_decoder(dev, *shape)
             fb, bb = (decoder_bound(*shape, backward=b, sm_clock_hz=clock) for b in (False, True))
             line += (f"; device ms per call: forward {t['kernel_fwd_device']:.4f} (plain "
@@ -928,6 +972,380 @@ def smm_phase(card: str) -> dict:
             "envelope_ms": ms["smm envelope"], "gmm_ms_same_call": ms["gmm"]}
 
 
+def rho_phase(card: str) -> list:
+    """Phase H; returns the log_rho_fwd, log_rho_bwd, combine_fwd_norm and
+    combine_bwd_norm entries of the kernels line (times at the bigk K-shard,
+    without launches)."""
+    import numpy as np
+    import torch
+
+    from svax_torch.measure_mnist import combine_bound, combine_inputs, rho_bound, time_comp
+    from svax_torch.ops import combine
+    from svax_torch.pgm import gmm
+
+    dev = torch.device("cuda", 0)
+    value_tol = {"z": 2e-5, "log_resp": 2e-5, "mean": 2e-5, "local": 2e-4, "stats": 2e-4}
+    fields = ["pot_h", "pot_p", *gmm.GmmExpected._fields, "log_norm"]
+
+    def outputs(out):
+        z, lr, mean, local, st = out
+        return {"z": z, "log_resp": lr, "mean": mean, "local": local,
+                "stats": torch.cat([st.counts[:, None], st.mean_stat,
+                                    st.scatter_stat.flatten(1)], dim=1)}
+
+    def shard(exp, i, count):
+        k = exp.log_pi.shape[0] // count
+        return gmm.GmmExpected(*(t[i * k:(i + 1) * k] for t in exp))
+
+    def grads(fn, tensors, loss_of):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+        return torch.autograd.grad(loss_of(fn(*leaves)), leaves, allow_unused=True)
+
+    def held(what, got, want, bar):
+        """Each gradient within ``bar`` of its largest entry; returns the
+        largest absolute error."""
+        err = 0.0
+        for g, w, name in zip(got, want, fields):
+            if w is None:
+                assert g is None or float(g.abs().max()) == 0.0, (what, name)
+                continue
+            scale = float(w.abs().max())
+            err = max(err, close(f"{what} d{name}", g, w, bar, bar * scale))
+        return err
+
+    errs = {"log_rho_fwd": 0.0, "log_rho_bwd": 0.0, "combine_fwd_norm": 0.0,
+            "combine_bwd_norm": 0.0}
+    lines = []
+    for label, (n, k, d, s) in (("bigk", (1024, 100, 10, 1)), ("pinwheel", (400, 10, 2, 4))):
+        pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
+        rng = np.random.default_rng(2)
+        shards = [shard(exp, i, 2) for i in range(2)]
+        # The ρ-kernel, forward and backward, at the full K and each shard.
+        for e in [exp, *shards]:
+            kk = e.log_pi.shape[0]
+            got = combine.log_rho_fused(pot_h, pot_p, e)
+            want = combine.log_rho_plain(pot_h, pot_p, e)
+            errs["log_rho_fwd"] = max(errs["log_rho_fwd"], close(
+                f"log rho {label} K={kk}", got, want, 2e-5, 2e-5))
+            assert torch.equal(got, combine.log_rho_fused(pot_h, pot_p, e)), "rho reruns differ"
+            drho = torch.tensor(rng.standard_normal((n, kk)), dtype=torch.float32, device=dev)
+            loss = lambda out: (out * drho).sum()  # noqa: E731
+            rho_k = lambda a, b, *f: combine.log_rho_fused(a, b, gmm.GmmExpected(*f))  # noqa: E731
+            rho_p = lambda a, b, *f: combine.log_rho_plain(a, b, gmm.GmmExpected(*f))  # noqa: E731
+            gk = grads(rho_k, (pot_h, pot_p, *e), loss)
+            errs["log_rho_bwd"] = max(errs["log_rho_bwd"], held(
+                f"log rho {label} K={kk}", gk, grads(rho_p, (pot_h, pot_p, *e), loss), 5e-4))
+            assert all(torch.equal(a, b) for a, b in
+                       zip(gk, grads(rho_k, (pot_h, pot_p, *e), loss))), "rho bwd reruns differ"
+
+        # The log_norm combine on one shard against its plain version, the
+        # normaliser from both shards' ρ-kernels: values, every cotangent
+        # path alone and together (dn among the gradients), reruns.
+        lse = torch.logsumexp(torch.cat([combine.log_rho_fused(pot_h, pot_p, e)
+                                         for e in shards], dim=1), dim=-1)
+        e0, eps0 = shards[0], eps[:, :, :k // 2].contiguous()
+        norm_k = lambda a, b, *f: combine.combine_fused(  # noqa: E731
+            a, b, gmm.GmmExpected(*f[:-1]), eps0, s, log_norm=f[-1])
+        norm_p = lambda a, b, *f: combine.combine_fused_plain(  # noqa: E731
+            a, b, gmm.GmmExpected(*f[:-1]), eps0, s, log_norm=f[-1])
+        got, want = outputs(norm_k(pot_h, pot_p, *e0, lse)), outputs(norm_p(pot_h, pot_p, *e0, lse))
+        for name, tol in value_tol.items():
+            errs["combine_fwd_norm"] = max(errs["combine_fwd_norm"], close(
+                f"norm combine {label} {name}", got[name], want[name], tol, tol))
+        again = outputs(norm_k(pot_h, pot_p, *e0, lse))
+        assert all(torch.equal(got[m], again[m]) for m in got), "norm combine reruns differ"
+        cts = {m: torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32, device=dev)
+               for m, t in want.items()}
+        for paths in [list(cts)] + [[m] for m in cts]:
+            loss = lambda out, paths=paths: sum(  # noqa: E731
+                (outputs(out)[m] * cts[m]).sum() for m in paths)
+            gk = grads(norm_k, (pot_h, pot_p, *e0, lse), loss)
+            errs["combine_bwd_norm"] = max(errs["combine_bwd_norm"], held(
+                f"norm combine {label} via {paths}", gk,
+                grads(norm_p, (pot_h, pot_p, *e0, lse), loss), 5e-4))
+            assert all((a is None and b is None) or torch.equal(a, b) for a, b in
+                       zip(gk, grads(norm_k, (pot_h, pot_p, *e0, lse), loss))), \
+                "norm combine bwd reruns differ"
+
+        # The identity of tests/test_combine_kernel.py:223-262: log_norm =
+        # lse(log ρ) reproduces the softmax combine, values and gradients
+        # through ρ-kernel → lse → combine.
+        def chain(use_norm):
+            def fn(a, b, *f):
+                e = gmm.GmmExpected(*f)
+                nrm = (torch.logsumexp(combine.log_rho_fused(a, b, e), dim=-1)
+                       if use_norm else None)
+                return combine.combine_fused(a, b, e, eps, s, log_norm=nrm)
+            return fn
+
+        def scalar(out):
+            z, lr, mean, local, st = out
+            return ((torch.exp(lr) * torch.tanh(z).sum(dim=(0, -1))).sum() - local.sum()
+                    + 0.01 * st.scatter_stat.sum() + 0.1 * mean.sum())
+
+        a_out = outputs(chain(True)(pot_h, pot_p, *exp))
+        b_out = outputs(chain(False)(pot_h, pot_p, *exp))
+        for name, tol in value_tol.items():
+            close(f"lse(log rho) vs softmax {label} {name}", a_out[name], b_out[name], tol, tol)
+        e_id = held(f"lse(log rho) vs softmax {label}", grads(chain(True), (pot_h, pot_p, *exp),
+                                                            scalar),
+                    grads(chain(False), (pot_h, pot_p, *exp), scalar), 5e-4)
+
+        # Two shards, each its own ρ-kernel, the cross-shard lse, each
+        # shard's log_norm combine, against the unsharded combine.
+        def sharded(a, b, *f):
+            es = [shard(gmm.GmmExpected(*f), i, 2) for i in range(2)]
+            nrm = torch.logsumexp(torch.cat([combine.log_rho_fused(a, b, e) for e in es],
+                                            dim=1), dim=-1)
+            outs = [combine.combine_fused(a, b, e, eps[:, :, i * (k // 2):(i + 1) * (k // 2)]
+                                          .contiguous(), s, log_norm=nrm)
+                    for i, e in enumerate(es)]
+            st = [o[4] for o in outs]
+            return (torch.cat([o[0] for o in outs], dim=2), torch.cat([o[1] for o in outs], 1),
+                    torch.cat([o[2] for o in outs], 1), outs[0][3] + outs[1][3],
+                    gmm.GmmSuffStats(*(torch.cat(t) for t in zip(*st))))
+
+        a_out = outputs(sharded(pot_h, pot_p, *exp))
+        for name, tol in value_tol.items():
+            close(f"2 shards vs unsharded {label} {name}", a_out[name], b_out[name], tol, tol)
+        e_sh = held(f"2 shards vs unsharded {label}", grads(sharded, (pot_h, pot_p, *exp), scalar),
+                    grads(chain(False), (pot_h, pot_p, *exp), scalar), 5e-4)
+        lines.append(f"{label} N={n} K={k} (2 shards of {k // 2}) d={d} S={s}: identity "
+                     f"gradients {e_id:.3e}, 2 shards vs unsharded gradients {e_sh:.3e}")
+    print("phase H: rho-kernel and log_norm combine vs plain (values 2e-5, local and stats "
+          "2e-4, gradients 5e-4 of each largest entry, every cotangent path, reruns "
+          "bit-equal): max abs err " + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
+          + "; " + "; ".join(lines), flush=True)
+
+    n, k, d, s = 1024, 50, 10, 1  # one bigk K-shard of two
+    t = time_comp(dev, n, k, d, s)
+    bounds = {"log_rho_fwd": rho_bound(n, k, d, False), "log_rho_bwd": rho_bound(n, k, d, True),
+              "combine_fwd_norm": combine_bound(n, k, d, s, False, norm=True),
+              "combine_bwd_norm": combine_bound(n, k, d, s, True, norm=True)}
+    keys = {"log_rho_fwd": "rho_fwd", "log_rho_bwd": "rho_bwd",
+            "combine_fwd_norm": "norm_fwd", "combine_bwd_norm": "norm_bwd"}
+    replaces = {"log_rho_fwd": 288, "log_rho_bwd": 342, "combine_fwd_norm": 431,
+                "combine_bwd_norm": 588}
+    print(f"phase H: device ms per call at the bigk shard N={n} K={k} d={d} S={s}: "
+          + ", ".join(f"{name} {t['kernel_' + key + '_device']:.4f} (plain "
+                      f"{t['plain_' + key + '_device']:.4f}, CUDA events "
+                      f"{t['kernel_' + key + '_call']:.4f}; bound "
+                      f"{bounds[name][0] * 1e3:.3f} us, {bounds[name][1]})"
+                      for name, key in keys.items()) + f"; {card}", flush=True)
+    return [{"name": name, "route": "cuda", "source": "svax_torch/ops/csrc/combine.cu",
+             "replaces": f"svax/ops/combine_pallas.py:{replaces[name]}",
+             "max_abs_err": errs[name], "ms": t[f"kernel_{key}_device"],
+             "plain_ms": t[f"plain_{key}_device"], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None} for name, key in keys.items()]
+
+
+def covered_us(ranges) -> float:
+    """µs covered by the union of profiler time ranges (nested or repeated
+    spans of one collective count once)."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((r.start, r.end) for r in ranges):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def _bigk_rank(rank: int, world: int, dev, state, steps: int) -> dict:
+    """Phase I (b) and (c) on one of two ranks sharing the card: bigk-dp at
+    full width from ``state``, on a 1x2 comp mesh twice, then on a 2x1 data
+    mesh; rank 0 also takes the single-process step 1 and the test ELBO."""
+    import torch
+
+    from svax_torch import convert
+    from svax_torch.configs import CONFIGS
+    from svax_torch.data import load_dataset
+    from svax_torch.models.svae import SvaeConfig
+    from svax_torch.measure_mixture import device_us, profiled
+    from svax_torch.ops import combine
+    from svax_torch.parallel import mesh
+    from svax_torch.pgm import gmm
+    from svax_torch.train import loop, svae_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = CONFIGS["bigk-dp"]
+    train, test, meta = load_dataset("mnist", seed=0)
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+    x_test = torch.tensor(test, dtype=torch.float32, device=dev)
+    config = SvaeConfig(latent_dim=cfg["latent_dim"], num_components=cfg["num_components"],
+                        num_samples=cfg["num_samples"], num_total=x.shape[0],
+                        likelihood="bernoulli", nn_compute_dtype=cfg["nn_compute_dtype"],
+                        fused_combine=True, kernel_rng=True, fused_mlp_decoder=True)
+    prior = gmm.make_prior(config.num_components, config.latent_dim, alpha=cfg["alpha"],
+                           kappa=cfg["kappa"], device=dev)
+    state0 = svae_step.state_to(state, dev)
+    meshes = {"comp": mesh.make_data_comp_mesh(1, 2), "data": mesh.make_data_comp_mesh(2, 1)}
+    kw = dict(lr=cfg["lr"], rho=cfg["rho"], rho_decay=cfg["rho_decay"],
+              batch_size=cfg["batch_size"], replace=False)
+    evaluate = svae_step.make_eval_fn(config, prior)
+
+    def test_elbo(st):
+        return float(evaluate(st, x_test, seed=1)["elbo_per_point"])
+
+    out = {}
+    for name, runs in (("comp", 2), ("data", 1)):
+        m = meshes[name]
+        prior_l = convert.shard_nat(prior, m.comp_idx, m.comp)
+        for run in range(runs):
+            st = state0._replace(pgm_nat=convert.shard_nat(state0.pgm_nat, m.comp_idx, m.comp))
+            runner = loop.make_step_runner(config, prior_l, data_group=m.data_group,
+                                           comp_group=m.comp_group, **kw)
+            combine.rho_launches = combine.rho_backward_launches = 0
+            combine.norm_launches = combine.norm_backward_launches = 0
+            st, m1 = runner(st, x, 1, seed=0)
+            nat1 = svae_step.nat_to(convert.gather_nat(st.pgm_nat, m.comp_group), "cpu")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, mets = runner(st, x, steps - 1, seed=0)
+            torch.cuda.synchronize()
+            rate = (steps - 1) / (time.perf_counter() - t0)
+            launches = [combine.rho_launches, combine.rho_backward_launches,
+                        combine.norm_launches, combine.norm_backward_launches]
+            nat = convert.gather_nat(st.pgm_nat, m.comp_group)
+            row = {"nat1": nat1, "launches": launches, "steps_per_s": rate,
+                   "elbo": [float(m1["elbo"][0]), float(mets["elbo"][-1])],
+                   "leaves": [t.cpu() for t in leaves(st)]}
+            if run == 0:
+                if rank == 0:
+                    row["test_elbo"] = test_elbo(st._replace(pgm_nat=nat))
+                # 10 more steps under the profiler: this rank's kernel time
+                # and its collectives (gloo's host-side spans).
+                wall, prof = profiled(lambda: runner(st, x, 10, seed=1))
+                events = list(prof.events())
+                row["profile"] = {
+                    "wall_ms": wall / 10, "device_ms": device_us(prof) / 1e4,
+                    "collectives": sum(e.name == "c10d::allreduce_" for e in events) / 10,
+                    "collective_ms": covered_us(e.time_range for e in events
+                                                if e.name == "gloo:all_reduce") / 1e4}
+            out[f"{name}{run}"] = row
+    if rank == 0:
+        single = loop.make_step_runner(config, prior, **kw)
+        out["single_nat1"] = svae_step.nat_to(single(state0, x, 1, seed=0)[0].pgm_nat, "cpu")
+        out["test_elbo0"] = test_elbo(state0)
+    return out
+
+
+def _gmm_dp_rank(rank: int, world: int, dev, argv: list) -> dict:
+    """Phase I (d) on one of two ranks sharing the card: ``train_gmm --dp``
+    in the group ``mesh.spawn`` joined (gloo on cuda:0)."""
+    import os
+
+    from svax_torch import train_gmm
+    from svax_torch.ops import estep
+
+    # train_gmm reads the world size from torchrun's variable and finds the
+    # group joined; LOCAL_RANK 0 keeps its "cuda" on the one card.
+    os.environ.update(WORLD_SIZE=str(world), LOCAL_RANK="0")
+    estep.launches = 0
+    out = train_gmm.main(argv)
+    return {"nat": [t.cpu() for t in nat_leaves(out["state"].nat)], "rows": out["rows"],
+            "launches": estep.launches, "steps_per_s": out["steps_per_s"],
+            "predictive": out.get("test_predictive_loglik_per_point")}
+
+
+def parallel_phase(card: str) -> list:
+    """Phase I; returns the four kernels' launches on the comp-sharded bigk
+    main path (both ranks, the first run)."""
+    import torch
+
+    from svax_torch import train_svae
+    from svax_torch.parallel import mesh
+    from svax_torch.parallel.dryrun import dryrun_multichip
+    from svax_torch.train import svae_step
+
+    # (a) the dry run's three geometries on a 2x2 mesh, four ranks on cuda:0.
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, "cuda:0", "gloo", timeout=300.0)
+    assert all(math.isfinite(r[g]["elbo"]) for r in dry["ranks"] for g in ("toy", "bigk", "smm"))
+    print(f"phase I: dryrun_multichip(4) on cuda:0 over gloo (2x2 data x comp; gloo carries "
+          f"the CUDA tensors, mesh.psum stages nothing): sharded naturals vs the "
+          f"single-process step, max rel err "
+          + ", ".join(f"{g} {dry[g]['nat_err']:.3e}" for g in ("toy", "bigk", "smm"))
+          + f" (bar 1e-5); bigk rho-kernel / log_norm combine launches per rank "
+          f"{[r['bigk']['launches'] for r in dry['ranks']]}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+    # (b), (c): bigk-dp at full width from a warmed-up state, two ranks on cuda:0.
+    steps = 100
+    warm = train_svae.main(["--config", "bigk-dp", "--warmup-steps", "300", "--steps", "1",
+                            "--device", "cuda", "--seed", "0", "--iw-samples", "0"])
+    state = svae_step.state_to(warm["state"], "cpu")
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(_bigk_rank, 2, "cuda:0", "gloo", args=(state, steps), timeout=600.0)
+    r0 = ranks[0]
+
+    def nat_err(got, want) -> float:
+        return max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(nat_leaves(got), nat_leaves(want)))
+
+    for name in ("comp0", "data0"):
+        err = nat_err(r0[name]["nat1"], r0["single_nat1"])
+        assert err < 1e-5, f"{name}: step 1's naturals differ from one process by {err:.3e}"
+        r0[name]["nat1_err"] = err
+        assert all(math.isfinite(v) for r in ranks for v in r[name]["elbo"])
+    for r in ranks:
+        assert all(torch.equal(a, b) for a, b in zip(r["comp0"]["leaves"],
+                                                      r["comp1"]["leaves"])), \
+            "two comp-sharded bigk-dp runs differ"
+        assert r["comp0"]["launches"] == [steps] * 4, r["comp0"]["launches"]
+        assert r["data0"]["launches"] == [0] * 4, r["data0"]["launches"]
+    start, end = r0["test_elbo0"], r0["comp0"]["test_elbo"]
+    assert end > start, f"comp-sharded bigk-dp: test ELBO/pt {start} -> {end}"
+    print(f"phase I: bigk-dp at full width, {steps} steps from a 300-step warmup, two ranks "
+          f"on cuda:0 over gloo: 1x2 comp mesh {r0['comp0']['steps_per_s']:.1f} steps/s "
+          f"(runs bit-equal; per rank log_rho fwd/bwd, norm combine fwd/bwd launches "
+          f"{[r['comp0']['launches'] for r in ranks]}; step 1 naturals vs one process "
+          f"{r0['comp0']['nat1_err']:.3e}; test ELBO/pt {start:.4f} -> {end:.4f}); 2x1 data "
+          f"mesh {r0['data0']['steps_per_s']:.1f} steps/s (step 1 naturals vs one process "
+          f"{r0['data0']['nat1_err']:.3e}; training ELBO {r0['data0']['elbo'][0]:.1f} -> "
+          f"{r0['data0']['elbo'][1]:.1f}); {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+    # (d) train_gmm --dp on the plain engine with the estep kernel, two ranks
+    # on cuda:0, against the one-process run of the same command.
+    from svax_torch import train_gmm
+
+    argv = ["--config", "pinwheel-gmm", "--init", "kmeanspp", "--device", "cuda",
+            "--engine", "plain", "--fused-kernel", "--dp"]
+    t0 = time.perf_counter()
+    gmm_ranks = mesh.spawn(_gmm_dp_rank, 2, "cuda:0", "gloo", args=(argv,), timeout=300.0)
+    one = train_gmm.main(argv)
+    g0 = gmm_ranks[0]
+    assert [r["launches"] for r in gmm_ranks] == [300, 300], [r["launches"] for r in gmm_ranks]
+    assert g0["rows"] and not gmm_ranks[1]["rows"], "rank 1 printed rows"
+    gmm_nat_err = max(rel_err(a, b.cpu())
+                      for a, b in zip(g0["nat"], nat_leaves(one["state"].nat)))
+    assert gmm_nat_err < 1e-4, f"train_gmm --dp: final naturals rel err {gmm_nat_err:.3e}"
+    gmm_elbo_err = max(abs(a["elbo"] - b["elbo"]) / abs(b["elbo"])
+                       for a, b in zip(g0["rows"], one["rows"]))
+    assert len(g0["rows"]) == len(one["rows"]) and gmm_elbo_err < 1e-4, gmm_elbo_err
+    assert math.isclose(g0["predictive"], one["test_predictive_loglik_per_point"],
+                        rel_tol=1e-4), (g0["predictive"], one)
+    print(f"phase I: train_gmm --dp --engine plain --fused-kernel (pinwheel-gmm, 300 steps), "
+          f"two ranks on cuda:0 over gloo: estep launches per rank "
+          f"{[r['launches'] for r in gmm_ranks]}; rows from rank 0 only; vs the one-process "
+          f"run: final naturals max rel err {gmm_nat_err:.3e} (bar 1e-4), ELBO rows "
+          f"{gmm_elbo_err:.3e} (bar 1e-4), predictive {g0['predictive']:.5f} vs "
+          f"{one['test_predictive_loglik_per_point']:.5f}; {g0['steps_per_s']:.1f} steps/s "
+          f"(one process {one['steps_per_s']:.1f}); {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+    for name in ("comp0", "data0"):
+        prof = [r[name]["profile"] for r in ranks]
+        print(f"phase I: {name[:-1]} mesh, 10 steps under torch.profiler on each rank: wall "
+              f"{prof[0]['wall_ms']:.2f} ms a step; the rank's kernel spans a step "
+              + " / ".join(f"{p['device_ms']:.2f}" for p in prof)
+              + " ms (the two ranks' contexts take turns on the card, so a span may hold "
+              "the other's turn); all-reduces a step per rank "
+              + " / ".join(f"{p['collectives']:.0f}, the host inside gloo for "
+                           f"{p['collective_ms']:.2f} ms" for p in prof) + f"; {card}",
+              flush=True)
+    return [sum(r["comp0"]["launches"][i] for r in ranks) for i in range(4)]
+
+
 def main() -> int:
     import torch
 
@@ -1107,6 +1525,13 @@ def main() -> int:
     smm_kernel = smm_phase(card)
     print(f"phase G done at {elapsed()}", flush=True)
 
+    # H–I. the component-parallel kernels and the parallel paths
+    rho_kernels = rho_phase(card)
+    print(f"phase H done at {elapsed()}", flush=True)
+    for entry, count in zip(rho_kernels, parallel_phase(card)):
+        entry["launches"] = count
+    print(f"phase I done at {elapsed()}", flush=True)
+
     # 9. result
     print(json.dumps({"kernels": [{
         "name": "tinystep", "route": "cuda",
@@ -1115,7 +1540,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None,
-    }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels]}))
+    }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels,
+        *rho_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,13 @@ in ``train``, ``models.evaluation.svae_iw_loglik`` and the CUDA kernel
 through ``svax_torch.train_svae --config auto-svae``; and the
 Student-t-prior SVAE — ``models.svae_smm``,
 ``models.evaluation.svae_smm_iw_loglik`` and tinystep's SMM branch,
-through ``svax_torch.train_svae --smm-dof``. ``configs`` carries the
-named configs the entries read.
+through ``svax_torch.train_svae --smm-dof``; and data × component
+parallelism — ``parallel.mesh`` (process groups on ``torch.distributed``),
+``parallel.dryrun``, the sharded forms of ``pgm.gmm``, ``models.svae``,
+``models.svae_smm``, ``train.svae_step`` and the baselines, the ρ-kernel
+and the combine's log_norm mode in ``ops.combine``, and ``--dp`` on
+``train_svae`` and ``train_gmm``. ``configs`` carries the named configs the
+entries read.
 """
 
 __version__ = "0.1.0"

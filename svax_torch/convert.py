@@ -11,6 +11,11 @@ dict of numpy arrays with the same field names. Layouts are identical on
 both sides, so both directions are exact copies. ``mixture_state_from_numpy``
 and ``mixture_state_to_numpy`` do the same for the pure mixtures'
 ``GmmTrainState``/``SmmTrainState`` (``nat``, ``step``).
+
+Under component parallelism a rank holds a K-slice of the naturals (and of
+the prior): ``shard_nat`` cuts rank i's contiguous slice of K, as the
+reference's ``P("comp")`` places it, ``unshard_nat`` concatenates slices
+in rank order, and ``gather_nat`` does that across a process group.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from svax_torch.expfam.niw import NiwNat
 from svax_torch.models.gmm_baseline import GmmTrainState
+from svax_torch.parallel import mesh
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train.svae_step import AdamState, SvaeTrainState
 
@@ -104,3 +110,31 @@ def mixture_state_from_numpy(state, *, device="cpu", dtype=None, cls=GmmTrainSta
 def mixture_state_to_numpy(state) -> dict:
     """The port's mixture state → {"nat": {"dir_nat", "eta1".."eta4"}, "step"}."""
     return {"nat": gmm_nat_to_numpy(state.nat), "step": np.asarray(state.step, np.int32)}
+
+
+def _nat_leaves(nat: GmmNat) -> list[torch.Tensor]:
+    return [nat.dir_nat, *nat.niw_nat]
+
+
+def _nat_of(leaves) -> GmmNat:
+    return GmmNat(dir_nat=leaves[0], niw_nat=NiwNat(*leaves[1:]))
+
+
+def shard_nat(nat: GmmNat, index: int, count: int) -> GmmNat:
+    """Rank ``index``'s slice of K out of ``count`` equal slices."""
+    k = nat.dir_nat.shape[0]
+    if k % count:
+        raise ValueError(f"K = {k} does not split into {count} equal component shards")
+    part = k // count
+    return _nat_of([t[index * part:(index + 1) * part] for t in _nat_leaves(nat)])
+
+
+def unshard_nat(shards: list[GmmNat]) -> GmmNat:
+    """The full K from the slices in rank order."""
+    return _nat_of([torch.cat(ts) for ts in zip(*(_nat_leaves(s) for s in shards))])
+
+
+def gather_nat(nat: GmmNat, group) -> GmmNat:
+    """Every rank's slice of ``group`` gathered into the full K, on every
+    rank (``nat`` itself for None)."""
+    return _nat_of(mesh.all_gather_rows(_nat_leaves(nat), group))

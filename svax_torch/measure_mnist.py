@@ -36,14 +36,17 @@ F32_FLOPS = 67e12
 MEM_BYTES_PER_S = 3.35e12
 
 
-def combine_bound(n: int, k: int, d: int, s: int, backward: bool) -> tuple[float, str]:
+def combine_bound(n: int, k: int, d: int, s: int, backward: bool,
+                  norm: bool = False) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time for the combine forward
     (or its backward) at these shapes — each input read once, each output
     written once, in float32; operations per (n, k) counted from the
     algorithm: Cholesky, L̃⁻¹ and Σ̃ ~d³/3 each, the two solves for μ̃ and
     one per sample 2d² each, the local KL and the statistics ~4d²; the
     backward recomputes the forward (without writing it) and adds ~2d³ +
-    (2S + 8)d² for the Cholesky backward, Σ̃Σ̄Σ̃ and the dw row."""
+    (2S + 8)d² for the Cholesky backward, Σ̃Σ̄Σ̃ and the dw row. ``norm``:
+    the log_norm mode, which also reads the (N,) normaliser (and, backward,
+    writes its cotangent)."""
     f, w = 1 + d + d * d, 3 + d + d * d
     fwd_ops = d ** 3 + (2 * s + 8) * d * d + 20 * d
     if backward:
@@ -55,6 +58,28 @@ def combine_bound(n: int, k: int, d: int, s: int, backward: bool) -> tuple[float
         ops = n * k * fwd_ops
         nbytes = 4 * (2 * n * d + k * w
                       + s * n * k * d + n * k + n * k * d + n + k * f)  # z, log r̃, μ̃, local, stats
+    if norm:
+        nbytes += 4 * n * (2 if backward else 1)
+    return _bound(ops, nbytes)
+
+
+def rho_bound(n: int, k: int, d: int, backward: bool) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for the ρ-kernel (or its
+    backward) — per (n, k) the Cholesky ~d³/3, the two solves for μ̃ 2d² and
+    the logs and dot ~10d; the backward recomputes that and adds L̃⁻¹ and Σ̃
+    (~d³/3 each) and the G and dw row (~3d²). Bytes: the potentials and w
+    read, log ρ written (backward: its cotangent read, dpot_h, dpot_p and dw
+    written)."""
+    w = 3 + d + d * d
+    ops = n * k * (d ** 3 / 3 + 2 * d * d + 10 * d)
+    nbytes = 4 * (2 * n * d + k * w + n * k)
+    if backward:
+        ops += n * k * (2 * d ** 3 / 3 + 3 * d * d)
+        nbytes += 4 * (2 * n * d + k * w)
+    return _bound(ops, nbytes)
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / F32_FLOPS, nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -113,6 +138,61 @@ def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
             else:
                 busy = device_us(prof)
             out[f"{name}_{part}_device"] = busy / 1e3 / n_rep
+    return out
+
+
+def time_comp(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
+    """ms per call of the component-parallel kernels at one K-shard: the
+    ρ-kernel's forward and backward (``log_rho_fused``) and the combine's
+    log_norm mode, forward and backward, against their plain versions, as
+    ``time_combine`` times the softmax mode (``*_device``: the card's
+    kernel time under the profiler; ``*_call``: CUDA events)."""
+    from svax_torch.ops import combine
+
+    pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
+    leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p, *exp)]
+    args = (leaves[0], leaves[1], type(exp)(*leaves[2:]))
+    norm = torch.logsumexp(combine.log_rho_plain(pot_h, pot_p, exp), dim=-1) + 0.5
+    norm_leaf = norm.clone().requires_grad_(True)
+    cases = {
+        "rho": (lambda a, b, e: combine.log_rho_fused(a, b, e),
+                lambda a, b, e: combine.log_rho_plain(a, b, e), "log_rho"),
+        "norm": (lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=1,
+                                                       log_norm=norm_leaf),
+                 lambda a, b, e: combine.combine_fused_plain(a, b, e, eps, s,
+                                                             log_norm=norm_leaf),
+                 "combine"),
+    }
+    out = {}
+    for case, (kernel_fn, plain_fn, prefix) in cases.items():
+        for name, fn, n_rep in (("kernel", kernel_fn, reps),
+                                ("plain", plain_fn, max(1, reps // 4))):
+            res = fn(*args)
+            if case == "rho":
+                loss = res.sum()
+                grad_of = leaves
+            else:
+                z, lr, mean, local, st = res
+                loss = (z.sum() + lr.sum() + mean.sum() + local.sum() + st.counts.sum()
+                        + st.mean_stat.sum() + st.scatter_stat.sum())
+                grad_of = leaves + [norm_leaf]
+
+            def forward(fn=fn):
+                with torch.no_grad():
+                    fn(*args)
+
+            def backward(loss=loss, grad_of=grad_of):
+                torch.autograd.grad(loss, grad_of, retain_graph=True)
+
+            for part, call in (("fwd", forward), ("bwd", backward)):
+                out[f"{name}_{case}_{part}_call"] = device_ms(call, n_rep)
+                _, prof = profiled(lambda: [call() for _ in range(n_rep)])
+                if name == "kernel":
+                    busy = (device_us(prof, f"{prefix}_{part}")
+                            + device_us(prof, "reduce_blocks"))
+                else:
+                    busy = device_us(prof)
+                out[f"{name}_{case}_{part}_device"] = busy / 1e3 / n_rep
     return out
 
 

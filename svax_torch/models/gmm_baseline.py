@@ -1,8 +1,8 @@
 """Pure-GMM baseline trained by natural-gradient VMP
 (``svax/models/gmm_baseline.py``, BASELINE config #2).
 
-One step: E-step → scaled sufficient statistics → CVI update. Data
-parallelism (``axis_name``) waits for the port's ``parallel`` package.
+One step: E-step → scaled sufficient statistics → (a SUM all-reduce over
+the data group) → CVI update.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
 
@@ -27,19 +28,24 @@ def init_state(generator: torch.Generator, prior: GmmNat, data=None,
 
 
 def make_train_step(prior: GmmNat, rho: float | Callable, num_total: int,
-                    fused: bool = False) -> Callable:
+                    fused: bool = False, data_group=None) -> Callable:
     """The GMM CVI step ``step(state, batch) → (state, metrics)``.
 
     The batch's statistics are scaled by ``num_total / M`` (§9.5). With
     ``fused=True`` the E-step and statistics run through
     ``ops.estep.e_step_stats_fused`` (the CUDA kernel on CUDA tensors).
     Both ELBO terms are taken at the pre-update naturals, so ``elbo`` is
-    the bound of the parameters the step consumed.
+    the bound of the parameters the step consumed. With ``data_group``
+    (``parallel.mesh``) the batch is this rank's shard, M is the global
+    batch (the local one times the group's size), and the statistics and
+    the local evidence are summed over the group (svax/models/
+    gmm_baseline.py:35-71), so every rank takes the same update.
     """
+    ndata = mesh.size(data_group)
 
     def step(state: GmmTrainState, batch: torch.Tensor):
         exp = gmm.expected_params(state.nat)
-        scale = num_total / batch.shape[0]
+        scale = num_total / (batch.shape[0] * ndata)
         if fused:
             from svax_torch.ops import estep
 
@@ -47,9 +53,12 @@ def make_train_step(prior: GmmNat, rho: float | Callable, num_total: int,
         else:
             resp, evidence = gmm.e_step_obs(batch, exp)
             stats = gmm.suff_stats_obs(batch, resp, scale=scale)
+        local = scale * evidence.sum()
+        if data_group is not None:
+            *fields, local = mesh.psum_tensors([*stats, local], data_group)
+            stats = type(stats)(*fields)
         rho_t = rho(state.step) if callable(rho) else rho
         new_nat = natgrad.cvi_update(state.nat, prior, gmm.stats_to_nat(stats), rho_t)
-        local = scale * evidence.sum()
         metrics = {
             "local_evidence": local,
             "elbo": local - gmm.kl_global(state.nat, prior),

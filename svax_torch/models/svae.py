@@ -19,6 +19,7 @@ import torch
 
 from svax_torch.nets import mlp as nets
 from svax_torch.ops import batched_linalg as bl
+from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm
 from svax_torch.pgm.gmm import GmmExpected, GmmNat, GmmSuffStats
 
@@ -32,9 +33,10 @@ class SvaeConfig(NamedTuple):
     The port implements the Gaussian and Bernoulli likelihoods, the diagonal
     recognition head, weighted reconstruction, zero jitter, the fused
     combine, the fused MLP decoder and the Student-t mixture prior
-    (``dof`` > 0, ``models.svae_smm``); the reference's other switches
-    (fused_decoder, remat, the full head, sampled recon, component
-    sharding) are not ported yet (ROADMAP.md)."""
+    (``dof`` > 0, ``models.svae_smm``), and component sharding
+    (``forward(comp_group=)``); the reference's other switches
+    (fused_decoder, remat, the full head, sampled recon) are not ported
+    yet (ROADMAP.md)."""
 
     latent_dim: int
     num_components: int
@@ -62,6 +64,9 @@ class SvaeConfig(NamedTuple):
     dof: float = 0.0
     smm_iters: int = 2
     smm_envelope_grads: bool = False
+    # The reference's reconstruction estimator switch; the port runs
+    # "weighted" and raises for "sampled" (check_recon_mode).
+    recon_mode: str = "weighted"
 
     @property
     def decoder_compute_dtype(self) -> torch.dtype | None:
@@ -101,12 +106,8 @@ class SvaeOutputs(NamedTuple):
     posterior: SinPosterior
 
 
-def sin_combine(
-    pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
-) -> SinPosterior:
-    """Conjugate combine of the diagonal encoder potential (N, d) with the
-    expected GMM naturals (§9.4). The responsibility formula drops per-n
-    constants, which cancel in the softmax over k."""
+def _sin_core(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected):
+    """(μ̃, chol J̃, Σ̃, log|J̃|, pre-softmax log ρ) of the SIN combine."""
     d = pot_h.shape[-1]
     eye = torch.eye(d, dtype=pot_h.dtype, device=pot_h.device)
     prec = (pot_p[:, :, None] * eye)[:, None] + exp.prec[None]  # (N, K, d, d)
@@ -122,7 +123,35 @@ def sin_combine(
         + 0.5 * (mean * h).sum(dim=-1)
         - 0.5 * logdet_prec
     )
-    log_resp = torch.log_softmax(log_rho, dim=-1)
+    return mean, chol, cov, logdet_prec, log_rho
+
+
+def sin_log_rho(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
+                ) -> torch.Tensor:
+    """The SIN combine's pre-softmax log ρ (N, K)."""
+    return _sin_core(pot_h, pot_p, exp)[4]
+
+
+def sin_combine(
+    pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
+    comp_group=None, log_norm: torch.Tensor | None = None,
+) -> SinPosterior:
+    """Conjugate combine of the diagonal encoder potential (N, d) with the
+    expected GMM naturals (§9.4). The responsibility formula drops per-n
+    constants, which cancel in the softmax over k.
+
+    With ``comp_group`` (component parallelism), ``exp`` holds this rank's
+    K-shard and the softmax normalises across the group's shards
+    (``gmm.lse_over_components``: one MAX and one SUM all-reduce).
+    ``log_norm`` (N,) gives that normaliser directly (the fused combine's
+    log_norm mode; ``ops.combine.combine_raw_plain`` passes it)."""
+    mean, chol, cov, logdet_prec, log_rho = _sin_core(pot_h, pot_p, exp)
+    if log_norm is None and comp_group is not None:
+        log_norm = gmm.lse_over_components(log_rho, comp_group)
+    if log_norm is None:
+        log_resp = torch.log_softmax(log_rho, dim=-1)
+    else:
+        log_resp = log_rho - log_norm[:, None]
     return SinPosterior(
         mean=mean, prec_chol=chol, cov=cov, log_resp=log_resp,
         logdet_prec=logdet_prec,
@@ -189,6 +218,20 @@ def local_kl_term(post: SinPosterior, exp: GmmExpected) -> torch.Tensor:
     return -(resp * (e_log_pbar - e_log_q)).sum(dim=-1)
 
 
+def check_recon_mode(config: SvaeConfig, comp_group=None) -> None:
+    """Raise for a reconstruction estimator the port does not run: the
+    sampled-component one is not ported (ROADMAP.md slice J), and, as the
+    reference asserts (svax/models/svae.py:399-404), it cannot run under
+    component parallelism."""
+    if config.recon_mode == "weighted":
+        return
+    if config.recon_mode == "sampled" and comp_group is not None:
+        raise ValueError("recon_mode='sampled' needs the full responsibility row; it does "
+                         "not compose with component parallelism — use 'weighted'.")
+    raise ValueError(f"recon_mode={config.recon_mode!r}: svax_torch runs the 'weighted' "
+                     "estimator only (ROADMAP.md slice J)")
+
+
 def forward(
     nn_params: dict,
     pgm_nat: GmmNat,
@@ -200,6 +243,7 @@ def forward(
     *,
     seed: int | None = None,
     step: int = 0,
+    comp_group=None,
 ) -> SvaeOutputs:
     """Full SVAE forward pass → structured ELBO + CVI payload.
 
@@ -212,10 +256,20 @@ def forward(
     statistics run in ``ops.combine.combine_fused`` (its CUDA kernels on
     CUDA tensors, the plain composition on CPU tensors), and the returned
     posterior carries ``mean`` and ``log_resp`` only (the reference's fused
-    branch, svax/models/svae.py:412-480)."""
+    branch, svax/models/svae.py:412-480).
+
+    With ``comp_group`` the PGM naturals, ``eps`` and the statistics are
+    this rank's K-shard (component parallelism): the softmax normalises
+    across the group, recon and the local KL are summed over it (an
+    autograd SUM all-reduce, ``parallel.mesh.psum``) and the global KL is
+    the whole mixture's, so the returned terms are the comp-global values
+    on every rank. The fused branch then runs the ρ-kernel
+    (``combine.log_rho_fused``), the cross-shard logsumexp, and the combine
+    in its ``log_norm`` mode."""
+    check_recon_mode(config, comp_group)
     n = x.shape[0]
     scale = config.num_total / n
-    exp = gmm.expected_params(pgm_nat)
+    exp = gmm.expected_params(pgm_nat, comp_group)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
     if config.fused_combine:
         from svax_torch.ops import combine
@@ -224,14 +278,20 @@ def forward(
         if eps is None and not (config.kernel_rng and seed is not None):
             eps = torch.randn((config.num_samples, n, k, d), generator=generator,
                               device=x.device, dtype=pot_h.dtype)
+        log_norm = None
+        if comp_group is not None:
+            # The flash-softmax decomposition: this shard's log ρ, its
+            # logsumexp across the shards, then the combine weighted by it.
+            log_norm = gmm.lse_over_components(
+                combine.log_rho_fused(pot_h, pot_p, exp), comp_group)
         z, log_resp, mean, local_n, stats = combine.combine_fused(
             pot_h, pot_p, exp, eps, config.num_samples, scale=scale,
-            seed=None if eps is not None else seed, step=step)
+            seed=None if eps is not None else seed, step=step, log_norm=log_norm)
         post = SinPosterior(mean=mean, prec_chol=None, cov=None, log_resp=log_resp,
                             logdet_prec=None)
         local = scale * local_n.sum()
     else:
-        post = sin_combine(pot_h, pot_p, exp)
+        post = sin_combine(pot_h, pot_p, exp, comp_group)
         z = sample_posterior(post, config.num_samples, eps=eps, generator=generator)
         local = scale * local_kl_term(post, exp).sum()
         ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
@@ -240,7 +300,9 @@ def forward(
     resp = torch.exp(post.log_resp)
     loglik = _weighted_loglik(nn_params["decoder"], z, x, config)  # (S, N, K)
     recon = scale * (resp * loglik.mean(dim=0)).sum()
-    global_kl = gmm.kl_global(pgm_nat, prior_nat)
+    if comp_group is not None:
+        recon, local = mesh.psum(torch.stack([recon, local]), comp_group).unbind()
+    global_kl = gmm.kl_global(pgm_nat, prior_nat, comp_group)
     return SvaeOutputs(
         elbo=recon - local - global_kl,
         recon=recon,

@@ -1,5 +1,5 @@
 """SVAE with a Student-t mixture (SMM) latent prior — the robust SVAE
-(``svax/models/svae_smm.py``, the diagonal-head, single-device subset).
+(``svax/models/svae_smm.py``, the diagonal-head subset).
 
 The scale augmentation of ``pgm.smm`` lifted to the latent space:
 
@@ -36,6 +36,7 @@ from svax_torch.models import svae as svae_mod
 from svax_torch.models.svae import SvaeConfig, SvaeOutputs, init_params  # noqa: F401
 from svax_torch.nets import mlp as nets
 from svax_torch.ops import batched_linalg as bl
+from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm
 from svax_torch.pgm.gmm import GmmExpected, GmmNat
 from svax_torch.pgm.smm import SmmSuffStats, stats_to_nat  # noqa: F401  (re-export)
@@ -87,8 +88,8 @@ def _quad_latent(mean: torch.Tensor, cov: torch.Tensor, exp: GmmExpected) -> tor
 
 
 def smm_combine(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
-                dof: float, num_iters: int = 2, envelope_grads: bool = False
-                ) -> tuple[SmmPosterior, torch.Tensor]:
+                dof: float, num_iters: int = 2, envelope_grads: bool = False,
+                comp_group=None) -> tuple[SmmPosterior, torch.Tensor]:
     """Coordinate-ascent u–z combine → (posterior, free_energy A (N, K)).
 
     ``num_iters`` u-updates (at least one), each after a z-update, ū
@@ -101,7 +102,9 @@ def smm_combine(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
     ``log r̃`` is the SIN convention: the log-normalizer of the encoder
     Gaussian times the ū-scaled expected component message, plus E[log π_k]
     and −KL(q(u)‖p(u)); ``free_energy`` is A_nk = E[log p̄(z,u|k)π_k] +
-    H[q(z|k)] + H[q(u|k)]."""
+    H[q(z|k)] + H[q(u|k)]. With ``comp_group``, ``exp`` is this rank's
+    K-shard: the u–z rounds are per component, and the softmax normalises
+    across the group (``gmm.lse_over_components``)."""
     d = pot_h.shape[-1]
     a0, a, log_pu_const, psi_a = gamma_constants(dof, d)
     b0 = a0
@@ -128,7 +131,10 @@ def smm_combine(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
                  - 0.5 * e_u * exp.quad[None, :])
     log_rho = (exp.log_pi[None, :] + msg_const + 0.5 * (mean * h).sum(dim=-1)
                - 0.5 * logdet + u_free)
-    log_resp = torch.log_softmax(log_rho, dim=-1)
+    if comp_group is None:
+        log_resp = torch.log_softmax(log_rho, dim=-1)
+    else:
+        log_resp = log_rho - gmm.lse_over_components(log_rho, comp_group)[:, None]
 
     e_log_pz = (0.5 * d * e_log_u - 0.5 * d * _LOG_2PI + 0.5 * exp.logdet[None, :]
                 - 0.5 * e_u * quad)
@@ -155,7 +161,7 @@ def suff_stats_latent(post: SmmPosterior, scale: float) -> SmmSuffStats:
 def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor,
             config: SvaeConfig, eps: torch.Tensor | None = None,
             generator: torch.Generator | None = None, *, seed: int | None = None,
-            step: int = 0) -> SvaeOutputs:
+            step: int = 0, comp_group=None) -> SvaeOutputs:
     """Full SMM-prior SVAE forward → structured ELBO + CVI payload.
 
     ``config.dof`` (> 0) is the Student-t degrees of freedom,
@@ -165,15 +171,19 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     decoder are the plain ones whatever ``fused_combine``, ``kernel_rng``
     and ``fused_mlp_decoder`` say (``seed`` and ``step`` are unused): a
     Bernoulli head runs ``bernoulli_loglik_decomposed`` in the config's
-    compute dtype."""
+    compute dtype. ``comp_group``: component parallelism, as in
+    ``svae.forward`` (the u–z rounds are K-local; the softmax normaliser,
+    recon, the local term and the global KL are reduced over the group)."""
     if config.dof <= 0.0:
         raise ValueError("svae_smm.forward needs config.dof > 0 (the Student-t prior)")
+    svae_mod.check_recon_mode(config, comp_group)
     n = x.shape[0]
     scale = config.num_total / n
-    exp = gmm.expected_params(pgm_nat)
+    exp = gmm.expected_params(pgm_nat, comp_group)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
     post, free_energy = smm_combine(pot_h, pot_p, exp, config.dof, config.smm_iters,
-                                    envelope_grads=config.smm_envelope_grads)
+                                    envelope_grads=config.smm_envelope_grads,
+                                    comp_group=comp_group)
     resp = torch.exp(post.log_resp)
 
     z = svae_mod.sample_posterior(post, config.num_samples, eps=eps, generator=generator)
@@ -188,7 +198,9 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     # Σ_n Σ_k r̃ (A_nk − log r̃_nk): r̃ follows the SIN convention, so the
     # explicit sum (not a logsumexp collapse) is the bound.
     local = -scale * (resp * (free_energy - post.log_resp)).sum()
-    global_kl = gmm.kl_global(pgm_nat, prior_nat)
+    if comp_group is not None:
+        recon, local = mesh.psum(torch.stack([recon, local]), comp_group).unbind()
+    global_kl = gmm.kl_global(pgm_nat, prior_nat, comp_group)
     return SvaeOutputs(
         elbo=recon - local - global_kl,
         recon=recon,

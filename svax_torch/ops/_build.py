@@ -82,20 +82,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.combine_blocks.argtypes = [i, i]
     lib.combine_blocks.restype = i
     lib.combine_forward.argtypes = [
-        p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, n, k, d, s
+        p, p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, norm, n, k, d, s
         ctypes.c_ulonglong, ctypes.c_uint,  # seed, step (the Philox stream)
         p, p, p, p, p, p,  # z, log_resp, mean, local, partial, stats
         p,  # stream
     ]
     lib.combine_forward.restype = i
     lib.combine_backward.argtypes = [
-        p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, n, k, d, s
+        p, p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, norm, n, k, d, s
         ctypes.c_ulonglong, ctypes.c_uint,  # seed, step
         p, p, p, p, p,  # dz, dlr, dmu, dlocal, dstats (each may be null)
-        p, p, p, p,  # dph, dpp, partial, dw (partial and dw null: no dw)
+        p, p, p, p, p,  # dph, dpp, dn (null without norm), partial, dw (both null: no dw)
         p,  # stream
     ]
     lib.combine_backward.restype = i
+    lib.rho_forward.argtypes = [p, p, p, i, i, i, p, p]  # pot_h, pot_p, w, n, k, d, log_rho
+    lib.rho_forward.restype = i
+    lib.rho_backward.argtypes = [
+        p, p, p, p, i, i, i,  # pot_h, pot_p, w, drho, n, k, d
+        p, p, p, p,  # dph, dpp, partial, dw (both null: no dw)
+        p,  # stream
+    ]
+    lib.rho_backward.restype = i
     lib.decoder_mlp_partial_floats.argtypes = [i, i, i, i]  # n, h1, h2, D
     lib.decoder_mlp_partial_floats.restype = ctypes.c_longlong
     dims = [i] * 7  # n, k, s, d, h1, h2, D

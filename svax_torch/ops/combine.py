@@ -16,6 +16,16 @@ recompute backward are the CUDA kernels of ``csrc/combine.cu``.
 * ``combine_grads_manual`` is the backward written out in plain PyTorch —
   the formulas the kernel transcribes, tested on the CPU against autograd.
 
+Component parallelism (the K-shard of one rank; ``log_rho_fused``, the
+reference's :722, and ``combine_fused(log_norm=)``): ``log_rho_fused``
+gives the shard's pre-softmax log ρ (N, K) and its VJP (the ρ-kernels of
+``csrc/combine.cu`` on CUDA tensors, ``log_rho_plain`` on CPU tensors); the
+caller's logsumexp across the shards is ``log_norm`` (N,), and
+``combine_fused(log_norm=)`` weights by log r̃ = log ρ − log_norm instead of
+the softmax over its own K, returning the normaliser's cotangent through
+autograd. ``log_rho_grads_manual`` and ``combine_grads_manual(log_norm=)``
+are the backwards the kernels transcribe.
+
 Expected parameters reach the kernel packed one row per component as
 ``pack_expected`` lays them out: [log π, E[log|Λ|], E[μᵀΛμ], E[Λμ] (d),
 E[Λ] (d×d row-major)] (combine_pallas.pack_expected, without padding).
@@ -49,8 +59,13 @@ _LOG_2PI = math.log(2.0 * math.pi)
 LATENT_DIMS = (2, 3, 4, 6, 8, 10)
 MAX_COMPONENTS = 128
 
-launches = 0  # forward kernel launches made by combine_fused (plain int)
-backward_launches = 0  # backward kernel launches (plain int)
+# Kernel launches (plain ints), each counted where its kernel is launched.
+launches = 0  # combine forward, softmax over K
+backward_launches = 0  # combine backward, softmax over K
+norm_launches = 0  # combine forward with log_norm
+norm_backward_launches = 0  # combine backward with log_norm
+rho_launches = 0  # log_rho forward
+rho_backward_launches = 0  # log_rho backward
 
 
 def stats_width(d: int) -> int:
@@ -93,17 +108,25 @@ def _draw_eps(shape, seed: int, step: int, like: torch.Tensor) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=like.device, dtype=like.dtype)
 
 
+def log_rho_plain(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
+                  ) -> torch.Tensor:
+    """The ρ-kernel's function in plain PyTorch: the pre-softmax log ρ (N, K)
+    of ``svae.sin_combine``."""
+    return svae.sin_log_rho(pot_h, pot_p, exp)
+
+
 def combine_raw_plain(pot_h: torch.Tensor, pot_p: torch.Tensor, w: torch.Tensor,
-                      eps: torch.Tensor):
+                      eps: torch.Tensor, log_norm: torch.Tensor | None = None):
     """The kernel's function in plain PyTorch, on the packed block ``w``:
     (z (S, N, K, d), log_resp (N, K), mean (N, K, d), local (N,), raw
     (K, 1 + d + d²) unscaled, unsymmetrised statistics) — the composition
     ``sin_combine`` → ``sample_posterior`` → ``local_kl_term`` →
     ``suff_stats_from_moments`` (the reference's oracle,
-    tests/test_combine_kernel.py:38-48)."""
+    tests/test_combine_kernel.py:38-48). ``log_norm`` (N,) replaces the
+    softmax's normaliser: log r̃ = log ρ − log_norm."""
     d = pot_h.shape[-1]
     exp = unpack_expected(w, d)
-    post = svae.sin_combine(pot_h, pot_p, exp)
+    post = svae.sin_combine(pot_h, pot_p, exp, log_norm=log_norm)
     z = svae.sample_posterior(post, eps.shape[0], eps=eps)
     local = svae.local_kl_term(post, exp)
     ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
@@ -114,7 +137,8 @@ def combine_raw_plain(pot_h: torch.Tensor, pot_p: torch.Tensor, w: torch.Tensor,
 
 def combine_fused_plain(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
                         eps: torch.Tensor | None, num_samples: int, scale: float = 1.0,
-                        *, seed: int | None = None, step: int = 0):
+                        *, seed: int | None = None, step: int = 0,
+                        log_norm: torch.Tensor | None = None):
     """``combine_raw_plain`` with ``combine_fused``'s packing, scaling and
     symmetrisation; returns what ``combine_fused`` returns. Seed mode draws
     ε from a generator seeded ``seed + step``."""
@@ -123,7 +147,8 @@ def combine_fused_plain(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpect
         if seed is None:
             raise ValueError("combine_fused: eps=None requires a seed")
         eps = _draw_eps((num_samples, pot_h.shape[0], k, d), seed, step, pot_h)
-    z, log_resp, mean, local, raw = combine_raw_plain(pot_h, pot_p, pack_expected(exp), eps)
+    z, log_resp, mean, local, raw = combine_raw_plain(pot_h, pot_p, pack_expected(exp), eps,
+                                                      log_norm)
     return z, log_resp, mean, local, stats_from_raw(raw, d, scale)
 
 
@@ -140,12 +165,14 @@ def _tril_half(a: torch.Tensor) -> torch.Tensor:
 
 
 def combine_grads_manual(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None,
-                         dlocal=None, dstats=None):
+                         dlocal=None, dstats=None, log_norm=None):
     """The backward of ``combine_raw_plain`` written out by hand.
 
     Cotangents of z (S, N, K, d), log r̃ (N, K), μ̃ (N, K, d), the local row
     (N,) and the raw statistics (K, 1 + d + d²); None is zero. Returns the
-    cotangents of pot_h (N, d), pot_p (N, d) and w (K, 3 + d + d²).
+    cotangents of pot_h (N, d), pot_p (N, d) and w (K, 3 + d + d²), and with
+    ``log_norm`` (N,) that of the normaliser, dn (N,): log r̃ = log ρ −
+    log_norm has no softmax Jacobian, so ρ̄ = lr̄ and dn = −Σ_k lr̄.
 
     Per (n, k), with local_n = Σ_k r̃ A_k, A = log r̃ − (d/2)(1 + log 2π)
     + ½log|J̃| − E_q[log p̄], and ω = local̄ₙ·r̃:
@@ -187,7 +214,8 @@ def combine_grads_manual(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None,
     logdet_j = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
     log_rho = (exp.log_pi + 0.5 * exp.logdet - 0.5 * exp.quad
                + 0.5 * (mu * ht).sum(-1) - 0.5 * logdet_j)
-    log_resp = torch.log_softmax(log_rho, dim=-1)
+    log_resp = (torch.log_softmax(log_rho, dim=-1) if log_norm is None
+                else log_rho - log_norm[:, None])
     resp = torch.exp(log_resp)
     ezz = cov + mu[..., :, None] * mu[..., None, :]
     g_k = 0.5 * exp.logdet - 0.5 * d * _LOG_2PI - 0.5 * exp.quad
@@ -199,7 +227,10 @@ def combine_grads_manual(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None,
     omega = dlocal[:, None] * resp
     rbar = (dlocal[:, None] * a_nk + ds0 + (ds1 * mu).sum(-1) + (ds2 * ezz).sum((-2, -1)))
     lrbar = dlr + omega + rbar * resp
-    rhobar = lrbar - resp * lrbar.sum(-1, keepdim=True)
+    if log_norm is None:
+        rhobar = lrbar - resp * lrbar.sum(-1, keepdim=True)
+    else:
+        rhobar = lrbar
 
     # μ̃, Σ̃, log|J̃|, h̃.
     sprec = _sym(prec)
@@ -227,7 +258,34 @@ def combine_grads_manual(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None,
                     (0.5 * (omega - rhobar)).sum(0)[:, None],
                     (htbar - omega[..., None] * mu).sum(0),
                     dprec.reshape(k, d * d)], dim=1)
-    return dph, dpp, dw
+    if log_norm is None:
+        return dph, dpp, dw
+    return dph, dpp, dw, -lrbar.sum(-1)
+
+
+def log_rho_grads_manual(pot_h, pot_p, w, drho):
+    """The backward of ``log_rho_plain`` (on the packed ``w``) written out
+    by hand, as the ρ-kernel's backward transcribes it: per (n, k), log ρ =
+    E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ − ½log|J̃| with μ̃ = J̃⁻¹h̃ gives
+    h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ + μ̃μ̃ᵀ), read
+    back through the Cholesky's lower triangle as ``combine_grads_manual``
+    reads its G. Returns the cotangents of pot_h, pot_p (N, d) and w
+    (K, 3 + d + d²)."""
+    d = pot_h.shape[-1]
+    exp = unpack_expected(w, d)
+    jt = exp.prec[None] + torch.diag_embed(pot_p)[:, None]
+    ht = exp.prec_mean[None] + pot_h[:, None]
+    cov = torch.cholesky_inverse(torch.linalg.cholesky(jt))
+    mu = (cov @ ht[..., None])[..., 0]
+    g = -0.5 * drho[..., None, None] * (cov + mu[..., :, None] * mu[..., None, :])
+    diag_g = torch.diagonal(g, dim1=-2, dim2=-1)
+    htbar = drho[..., None] * mu
+    jbar = torch.tril(2.0 * g, diagonal=-1) + torch.diag_embed(diag_g)
+    k = w.shape[0]
+    dw = torch.cat([drho.sum(0)[:, None], 0.5 * drho.sum(0)[:, None],
+                    -0.5 * drho.sum(0)[:, None], htbar.sum(0),
+                    jbar.sum(0).reshape(k, d * d)], dim=1)
+    return htbar.sum(1), diag_g.sum(1), dw
 
 
 # ------------------------------------------------------------- the wrapper
@@ -253,11 +311,12 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
 
 class _CombineKernel(torch.autograd.Function):
     """The forward and recompute-backward kernels as one differentiable
-    function of (pot_h, pot_p, w); ε (or its seed) is a constant."""
+    function of (pot_h, pot_p, w) and, in the log_norm mode, of the
+    normaliser; ε (or its seed) is a constant."""
 
     @staticmethod
-    def forward(ctx, ph, pp, w, eps, seed, step, num_samples):
-        global launches
+    def forward(ctx, ph, pp, w, norm, eps, seed, step, num_samples):
+        global launches, norm_launches
         from svax_torch.ops import _build
         ptr = _build.ptr
 
@@ -276,35 +335,40 @@ class _CombineKernel(torch.autograd.Function):
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):
             err = lib.combine_forward(
-                ptr(ph), ptr(pp), ptr(w), ptr(eps), n, k, d, num_samples,
+                ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, num_samples,
                 seed & 0xFFFFFFFFFFFFFFFF, step & 0xFFFFFFFF,
                 ptr(z), ptr(log_resp), ptr(mean), ptr(local), ptr(partial), ptr(raw),
                 ctypes.c_void_p(stream))
         _build.check(lib, err, "combine_forward")
-        launches += 1
-        ctx.save_for_backward(ph, pp, w, eps)
+        if norm is None:
+            launches += 1
+        else:
+            norm_launches += 1
+        ctx.save_for_backward(ph, pp, w, norm, eps)
         ctx.seed, ctx.step, ctx.num_samples = seed, step, num_samples
         ctx.set_materialize_grads(False)
         return z, log_resp, mean, local, raw
 
     @staticmethod
     def backward(ctx, dz, dlr, dmu, dlocal, dstats):
-        global backward_launches
+        global backward_launches, norm_backward_launches
         from svax_torch.ops import _build
         ptr = _build.ptr
 
-        ph, pp, w, eps = ctx.saved_tensors
+        ph, pp, w, norm, eps = ctx.saved_tensors
         need_pot = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
         need_w = ctx.needs_input_grad[2]
+        need_norm = ctx.needs_input_grad[3]
         cts = [_f32(t) for t in (dz, dlr, dmu, dlocal, dstats)]
-        if all(t is None for t in cts) or not (need_pot or need_w):
-            return None, None, None, None, None, None, None
+        if all(t is None for t in cts) or not (need_pot or need_w or need_norm):
+            return (None,) * 8
         lib = _build.load()
         n, d = ph.shape
         k = w.shape[0]
         kw = dict(device=ph.device, dtype=torch.float32)
         dph = torch.empty((n, d), **kw)
         dpp = torch.empty((n, d), **kw)
+        dn = None if norm is None else torch.empty((n,), **kw)
         dw = partial = None
         if need_w:
             partial = torch.empty((lib.combine_blocks(n, k), k, slot_width(d)), **kw)
@@ -312,25 +376,116 @@ class _CombineKernel(torch.autograd.Function):
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):
             err = lib.combine_backward(
-                ptr(ph), ptr(pp), ptr(w), ptr(eps), n, k, d, ctx.num_samples,
+                ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, ctx.num_samples,
                 ctx.seed & 0xFFFFFFFFFFFFFFFF, ctx.step & 0xFFFFFFFF,
-                *(ptr(t) for t in cts), ptr(dph), ptr(dpp), ptr(partial), ptr(dw),
+                *(ptr(t) for t in cts), ptr(dph), ptr(dpp), ptr(dn), ptr(partial), ptr(dw),
                 ctypes.c_void_p(stream))
         _build.check(lib, err, "combine_backward")
-        backward_launches += 1
-        return dph, dpp, dw, None, None, None, None
+        if norm is None:
+            backward_launches += 1
+        else:
+            norm_backward_launches += 1
+        return dph, dpp, dw, dn, None, None, None, None
+
+
+class _RhoKernel(torch.autograd.Function):
+    """The ρ-kernel and its recompute backward: log ρ (N, K) as a
+    differentiable function of (pot_h, pot_p, w)."""
+
+    @staticmethod
+    def forward(ctx, ph, pp, w):
+        global rho_launches
+        from svax_torch.ops import _build
+        ptr = _build.ptr
+
+        lib = _build.load()
+        n, d = ph.shape
+        k = w.shape[0]
+        log_rho = torch.empty((n, k), device=ph.device, dtype=torch.float32)
+        stream = torch.cuda.current_stream(ph.device).cuda_stream
+        with torch.cuda.device(ph.device):
+            err = lib.rho_forward(ptr(ph), ptr(pp), ptr(w), n, k, d, ptr(log_rho),
+                                  ctypes.c_void_p(stream))
+        _build.check(lib, err, "rho_forward")
+        rho_launches += 1
+        ctx.save_for_backward(ph, pp, w)
+        return log_rho
+
+    @staticmethod
+    def backward(ctx, drho):
+        global rho_backward_launches
+        from svax_torch.ops import _build
+        ptr = _build.ptr
+
+        ph, pp, w = ctx.saved_tensors
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+            return None, None, None
+        lib = _build.load()
+        n, d = ph.shape
+        k = w.shape[0]
+        kw = dict(device=ph.device, dtype=torch.float32)
+        dph = torch.empty((n, d), **kw)
+        dpp = torch.empty((n, d), **kw)
+        dw = partial = None
+        if ctx.needs_input_grad[2]:
+            partial = torch.empty((lib.combine_blocks(n, k), k, slot_width(d)), **kw)
+            dw = torch.empty((k, slot_width(d)), **kw)
+        stream = torch.cuda.current_stream(ph.device).cuda_stream
+        with torch.cuda.device(ph.device):
+            err = lib.rho_backward(ptr(ph), ptr(pp), ptr(w), ptr(_f32(drho)), n, k, d,
+                                   ptr(dph), ptr(dpp), ptr(partial), ptr(dw),
+                                   ctypes.c_void_p(stream))
+        _build.check(lib, err, "rho_backward")
+        rho_backward_launches += 1
+        return dph, dpp, dw
+
+
+def _check_cuda(what: str, pot_h: torch.Tensor, k: int, s: int, tensors) -> None:
+    """Raise unless the kernels take these CUDA tensors and shapes."""
+    if pot_h.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {pot_h.device}")
+    n, d = pot_h.shape
+    reason = unsupported_reason(n, k, d, s)
+    if reason is not None:
+        raise ValueError(f"{what}: {reason}")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != pot_h.device:
+            raise ValueError(f"{what}: every tensor must be float32 on "
+                             f"{pot_h.device} (got {t.dtype} on {t.device})")
+
+
+def log_rho_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
+                  ) -> torch.Tensor:
+    """This K-shard's pre-softmax log ρ (N, K), differentiable in pot_h,
+    pot_p and ``exp``: the component-parallel companion of
+    ``combine_fused`` (combine_pallas.log_rho_fused). Its logsumexp across
+    the shards (``gmm.lse_over_components``) is ``combine_fused``'s
+    ``log_norm``.
+
+    CUDA tensors: the ρ-kernels of ``csrc/combine.cu`` (float32, latent d
+    in LATENT_DIMS, K ≤ MAX_COMPONENTS); anything else raises. CPU tensors:
+    ``log_rho_plain``."""
+    if pot_h.device.type == "cpu":
+        return log_rho_plain(pot_h, pot_p, exp)
+    w = pack_expected(exp)
+    _check_cuda("log_rho_fused", pot_h, w.shape[0], 1, [pot_h, pot_p, w])
+    return _RhoKernel.apply(pot_h.contiguous(), pot_p.contiguous(), w)
 
 
 def combine_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
                   eps: torch.Tensor | None, num_samples: int, scale: float = 1.0,
-                  *, seed: int | None = None, step: int = 0):
+                  *, seed: int | None = None, step: int = 0,
+                  log_norm: torch.Tensor | None = None):
     """Fused combine + local KL + sampling + statistics, differentiable in
-    pot_h, pot_p and ``exp``.
+    pot_h, pot_p, ``exp`` and ``log_norm``.
 
     pot_h, pot_p (N, d): the encoder's diagonal potentials; eps (S, N, K, d)
     standard normals, or None with ``seed`` (and the step folded into the
     Philox counter). Returns (z (S, N, K, d), log_resp (N, K), mean
-    (N, K, d), local (N,), GmmSuffStats × ``scale``).
+    (N, K, d), local (N,), GmmSuffStats × ``scale``). ``log_norm`` (N,):
+    the log-normaliser of the responsibilities across every K-shard
+    (component parallelism); log r̃ = log ρ − log_norm, and ``local`` and the
+    statistics cover this shard's components only.
 
     CUDA tensors: the kernels of ``csrc/combine.cu`` (float32, latent d in
     LATENT_DIMS, K ≤ MAX_COMPONENTS); anything else raises. CPU tensors:
@@ -339,26 +494,22 @@ def combine_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
         raise ValueError("combine_fused: eps=None requires a seed")
     if pot_h.device.type == "cpu":
         return combine_fused_plain(pot_h, pot_p, exp, eps, num_samples, scale,
-                                   seed=seed, step=step)
-    if pot_h.device.type != "cuda":
-        raise ValueError(f"combine_fused: no kernel for device {pot_h.device}")
+                                   seed=seed, step=step, log_norm=log_norm)
     n, d = pot_h.shape
     k = exp.log_pi.shape[0]
     s = num_samples if eps is None else eps.shape[0]
-    reason = unsupported_reason(n, k, d, s)
-    if reason is not None:
-        raise ValueError(f"combine_fused: {reason}")
     w = pack_expected(exp)
-    tensors = [pot_h, pot_p, w] + ([] if eps is None else [eps])
-    for t in tensors:
-        if t.dtype != torch.float32 or t.device != pot_h.device:
-            raise ValueError("combine_fused: every tensor must be float32 on "
-                             f"{pot_h.device} (got {t.dtype} on {t.device})")
+    _check_cuda("combine_fused", pot_h, k, s,
+                [pot_h, pot_p, w] + [t for t in (eps, log_norm) if t is not None])
     if eps is not None:
         if tuple(eps.shape) != (s, n, k, d):
             raise ValueError(f"combine_fused: eps shape {tuple(eps.shape)} != {(s, n, k, d)}")
         eps = eps.contiguous()
+    if log_norm is not None:
+        if tuple(log_norm.shape) != (n,):
+            raise ValueError(f"combine_fused: log_norm shape {tuple(log_norm.shape)} != {(n,)}")
+        log_norm = log_norm.contiguous()
     z, log_resp, mean, local, raw = _CombineKernel.apply(
-        pot_h.contiguous(), pot_p.contiguous(), w, eps, 0 if seed is None else int(seed),
-        int(step), s)
+        pot_h.contiguous(), pot_p.contiguous(), w, log_norm, eps,
+        0 if seed is None else int(seed), int(step), s)
     return z, log_resp, mean, local, stats_from_raw(raw, d, scale)

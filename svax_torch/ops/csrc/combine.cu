@@ -28,6 +28,28 @@
 // (philox.cuh) keyed (seed, step) and counted by ((s·N + n)·K + k)·d + i, so
 // the backward regenerates the forward's numbers whatever the tiling.
 //
+// Component parallelism (log_rho_fused, combine_pallas.py:722, and
+// combine_fused's log_norm mode, _tile_core's norm=): with the mixture's K
+// sharded over ranks, the softmax over K spans the shards. log_rho_fwd
+// (replaces _rho_fwd_call's pallas_call, :288) writes this shard's
+// pre-softmax log ρ (N, K); the caller takes the logsumexp across shards;
+// combine_fwd<D, true> then reads that normaliser (N,) in place of its
+// in-block softmax: log r̃ = log ρ − norm[n], r̃ = exp(log r̃), and
+// combine_bwd<D, true> drops the softmax Jacobian (ρ̄ = lr̄) and writes the
+// normaliser's cotangent dn[n] = −Σ_k lr̄ (the extra output of
+// _fused_core_bwd, :682-697), which flows back through the lse into
+// log_rho_bwd (replaces _rho_bwd_call's pallas_call, :342): per (n, k),
+// log ρ = E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ − ½log|J̃| gives
+// h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ + μ̃μ̃ᵀ) — the
+// tile_core_bwd formulas of combine_tile.cuh with no sample or local-KL
+// cotangent — read back as combine_bwd reads its G. The mode is a template
+// parameter, so the unsharded kernels keep their arithmetic (their outputs
+// are bit-equal to those of the build before the mode existed). The
+// ρ-kernels are bound by operations, as the combine is: at the bigk shard
+// (N = 1024, K = 50, d = 10) ~32 MFLOP forward and ~80 backward, 0.5 and
+// 1.2 µs at the card's f32 rate, against ~0.4 MB moved; one thread's
+// dependent Cholesky chain and the launch set their time.
+//
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
@@ -56,6 +78,7 @@ struct FwdArgs {
   const float* __restrict__ pp;   // (N, D)
   const float* __restrict__ w;    // (K, 3 + D + D²)
   const float* __restrict__ eps;  // (S, N, K, D) or null: in-kernel Philox
+  const float* __restrict__ norm;  // (N,) log-normaliser (kNorm) or null
   int n, k, s;
   unsigned long long seed;
   uint32_t stream;
@@ -71,6 +94,7 @@ struct BwdArgs {
   const float* __restrict__ pp;
   const float* __restrict__ w;
   const float* __restrict__ eps;
+  const float* __restrict__ norm;  // (N,) (kNorm) or null
   int n, k, s;
   unsigned long long seed;
   uint32_t stream;
@@ -82,6 +106,19 @@ struct BwdArgs {
   float* dph;                        // (N, D)
   float* dpp;                        // (N, D)
   float* partial;                    // (blocks, K, 3 + D + D²) or null: no dw
+  float* dn;                         // (N,) (kNorm) or null
+};
+
+struct RhoArgs {
+  const float* __restrict__ ph;    // (N, D)
+  const float* __restrict__ pp;    // (N, D)
+  const float* __restrict__ w;     // (K, 3 + D + D²)
+  const float* __restrict__ drho;  // (N, K) cotangent (backward only)
+  int n, k;
+  float* log_rho;  // (N, K) (forward)
+  float* dph;      // (N, D) (backward)
+  float* dpp;      // (N, D)
+  float* partial;  // (blocks, K, 3 + D + D²) or null: no dw
 };
 
 // The potentials of row n; rows past N get unit precision and zero h, so
@@ -107,6 +144,20 @@ __device__ __forceinline__ void softmax_row(const float* row, int k, float log_r
   resp = expf(log_rho - mx) / den;
 }
 
+// log r̃ and r̃ against an external normaliser; rows past N take their own
+// log ρ (r̃ = 1, finite; the callers zero what such rows add).
+template <bool kNorm>
+__device__ __forceinline__ void resp_of(const float* s_row, int k, const float* norm, int n,
+                                        bool valid, float log_rho, float& log_resp,
+                                        float& resp) {
+  if constexpr (kNorm) {
+    log_resp = log_rho - (valid ? norm[n] : log_rho);
+    resp = expf(log_resp);
+  } else {
+    softmax_row(s_row, k, log_rho, log_resp, resp);
+  }
+}
+
 template <int D>
 __device__ __forceinline__ void noise(const float* eps, unsigned long long seed, uint32_t stream,
                                       size_t base, float (&e)[D]) {
@@ -115,7 +166,7 @@ __device__ __forceinline__ void noise(const float* eps, unsigned long long seed,
     e[i] = eps ? eps[base + i] : philox_normal(seed, stream, static_cast<uint32_t>(base + i));
 }
 
-template <int D>
+template <int D, bool kNorm>
 __global__ void __launch_bounds__(kThreads) combine_fwd(FwdArgs a) {
   constexpr int F = 1 + D + D * D;
   const int K = a.k, R = rows_per_block(K);
@@ -132,10 +183,12 @@ __global__ void __launch_bounds__(kThreads) combine_fwd(FwdArgs a) {
   load_row<D>(a.ph, a.pp, n, valid, p, h);
   float L[D][D], ht[D], mu[D], logdet_j, log_rho;
   tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
-  s_rho[tid] = log_rho;
-  __syncthreads();
+  if constexpr (!kNorm) {
+    s_rho[tid] = log_rho;
+    __syncthreads();
+  }
   float log_resp, resp;
-  softmax_row(s_rho + row * K, K, log_rho, log_resp, resp);
+  resp_of<kNorm>(s_rho + row * K, K, a.norm, n, valid, log_rho, log_resp, resp);
 
   const size_t nk = static_cast<size_t>(n) * K + kk;
   if (valid) {
@@ -181,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) combine_fwd(FwdArgs a) {
   }
 }
 
-template <int D>
+template <int D, bool kNorm>
 __global__ void __launch_bounds__(kThreads) combine_bwd(BwdArgs a) {
   using S = Slot<D>;
   constexpr int F = 1 + D + D * D, W = S::SIZE, P = 2 * D;
@@ -200,10 +253,12 @@ __global__ void __launch_bounds__(kThreads) combine_bwd(BwdArgs a) {
   load_row<D>(a.ph, a.pp, n, valid, p, h);
   float L[D][D], ht[D], mu[D], logdet_j, log_rho;
   tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
-  s_rho[tid] = log_rho;
-  __syncthreads();
+  if constexpr (!kNorm) {
+    s_rho[tid] = log_rho;
+    __syncthreads();
+  }
   float log_resp, resp;
-  softmax_row(s_rho + row * K, K, log_rho, log_resp, resp);
+  resp_of<kNorm>(s_rho + row * K, K, a.norm, n, valid, log_rho, log_resp, resp);
   float Li[D][D], C[D][D];
   tri_inverse<D>(L, Li);
   cov_from_inverse<D>(Li, C);
@@ -227,9 +282,21 @@ __global__ void __launch_bounds__(kThreads) combine_bwd(BwdArgs a) {
   const float lrbar = ((valid && a.dlr) ? a.dlr[nk] : 0.0f) + omega + rbar * resp;
   s_lrb[tid] = lrbar;
   __syncthreads();
-  float lsum = 0.0f;
-  for (int c = 0; c < K; ++c) lsum += s_lrb[row * K + c];
-  const float rhobar = lrbar - resp * lsum;
+  float rhobar;
+  if constexpr (kNorm) {
+    // log r̃ = log ρ − norm: no softmax Jacobian; the normaliser's cotangent
+    // is −Σ_k lr̄.
+    rhobar = lrbar;
+    if (valid && kk == 0) {
+      float lsum = 0.0f;
+      for (int c = 0; c < K; ++c) lsum += s_lrb[row * K + c];
+      a.dn[n] = -lsum;
+    }
+  } else {
+    float lsum = 0.0f;
+    for (int c = 0; c < K; ++c) lsum += s_lrb[row * K + c];
+    rhobar = lrbar - resp * lsum;
+  }
 
   // μ̄: the mean output, the local KL, the statistics and ½μ̃ᵀh̃ in log ρ.
   float mb[D];
@@ -373,6 +440,84 @@ __global__ void __launch_bounds__(kThreads) combine_bwd(BwdArgs a) {
   }
 }
 
+// log ρ per (n, k): one thread each.
+template <int D>
+__global__ void __launch_bounds__(kThreads) log_rho_fwd(RhoArgs a) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= a.n * a.k) return;
+  const int n = idx / a.k, kk = idx % a.k;
+  float p[D], h[D];
+  load_row<D>(a.ph, a.pp, n, true, p, h);
+  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
+  tile_core<D>(a.w + static_cast<size_t>(kk) * Slot<D>::SIZE, p, h, L, ht, mu, logdet_j,
+               log_rho);
+  a.log_rho[idx] = log_rho;
+}
+
+// The recompute backward of log_rho_fwd, laid out as combine_bwd: a block
+// holds R whole rows of K, sums its rows' dph, dpp over k in shared memory
+// and writes its (K, 3 + D + D²) dw partial for reduce_blocks.
+template <int D>
+__global__ void __launch_bounds__(kThreads) log_rho_bwd(RhoArgs a) {
+  using S = Slot<D>;
+  constexpr int W = S::SIZE, P = 2 * D;
+  const int K = a.k, R = rows_per_block(K);
+  const int tid = threadIdx.x, row = tid / K, kk = tid % K;
+  const int n = blockIdx.x * R + row;
+  const bool valid = n < a.n;
+  extern __shared__ float smem[];
+  float* s_pot = smem;              // (R, K, 2D) [h̃̄, diag G]
+  float* s_dw = s_pot + R * K * P;  // (R, K, W) dw terms
+
+  const float* e = a.w + static_cast<size_t>(kk) * W;
+  float p[D], h[D];
+  load_row<D>(a.ph, a.pp, n, valid, p, h);
+  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
+  tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
+  float Li[D][D], C[D][D];
+  tri_inverse<D>(L, Li);
+  cov_from_inverse<D>(Li, C);
+  // Rows past N read no cotangent: every term they add is zero.
+  const float rb = valid ? a.drho[static_cast<size_t>(n) * K + kk] : 0.0f;
+
+  float* dwt = s_dw + static_cast<size_t>(tid) * W;
+  float* pot = s_pot + static_cast<size_t>(tid) * P;
+  dwt[S::LOGPI] = rb;
+  dwt[S::LOGDET] = 0.5f * rb;
+  dwt[S::QUAD] = -0.5f * rb;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    dwt[S::PM + i] = rb * mu[i];
+    pot[i] = rb * mu[i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float g = -0.5f * rb * (C[i][j] + mu[i] * mu[j]);
+      dwt[S::PREC + i * D + j] = j < i ? 2.0f * g : (j == i ? g : 0.0f);
+      if (i == j) pot[D + i] = g;
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < R * P; idx += blockDim.x) {
+    const int r2 = idx / P, c = idx % P, n2 = blockIdx.x * R + r2;
+    if (n2 >= a.n) continue;
+    float acc = 0.0f;
+    for (int c2 = 0; c2 < K; ++c2) acc += s_pot[static_cast<size_t>(r2 * K + c2) * P + c];
+    if (c < D)
+      a.dph[static_cast<size_t>(n2) * D + c] = acc;
+    else
+      a.dpp[static_cast<size_t>(n2) * D + c - D] = acc;
+  }
+  if (a.partial) {
+    float* out = a.partial + static_cast<size_t>(blockIdx.x) * K * W;
+    for (int idx = tid; idx < K * W; idx += blockDim.x) {
+      float acc = 0.0f;
+      for (int r2 = 0; r2 < R; ++r2) acc += s_dw[static_cast<size_t>(r2 * K) * W + idx];
+      out[idx] = acc;
+    }
+  }
+}
+
 // out[e] = Σ_b partial[b·len + e], b in order.
 __global__ void reduce_blocks(const float* partial, int blocks, int len, float* out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -395,26 +540,56 @@ cudaError_t launch(Kernel kernel, const Args& a, int blocks, int threads, size_t
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kNorm>
 cudaError_t forward_d(const FwdArgs& a, float* stats, cudaStream_t st) {
   constexpr int F = 1 + D + D * D;
   static int opted = 0;
   const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
   const size_t bytes = static_cast<size_t>(threads) * (2 + F) * sizeof(float);
-  cudaError_t err = launch(combine_fwd<D>, a, blocks, threads, bytes, opted, st);
+  cudaError_t err = launch(combine_fwd<D, kNorm>, a, blocks, threads, bytes, opted, st);
   if (err != cudaSuccess) return err;
   const int len = a.k * F;
   reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, stats);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kNorm>
 cudaError_t backward_d(const BwdArgs& a, float* dw, cudaStream_t st) {
   constexpr int W = Slot<D>::SIZE;
   static int opted = 0;
   const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
   const size_t bytes = static_cast<size_t>(threads) * (2 + 2 * D + W) * sizeof(float);
-  cudaError_t err = launch(combine_bwd<D>, a, blocks, threads, bytes, opted, st);
+  cudaError_t err = launch(combine_bwd<D, kNorm>, a, blocks, threads, bytes, opted, st);
+  if (err != cudaSuccess || !a.partial) return err;
+  const int len = a.k * W;
+  reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, dw);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t forward_mode(const FwdArgs& a, float* stats, cudaStream_t st) {
+  return a.norm ? forward_d<D, true>(a, stats, st) : forward_d<D, false>(a, stats, st);
+}
+
+template <int D>
+cudaError_t backward_mode(const BwdArgs& a, float* dw, cudaStream_t st) {
+  return a.norm ? backward_d<D, true>(a, dw, st) : backward_d<D, false>(a, dw, st);
+}
+
+template <int D>
+cudaError_t rho_forward_d(const RhoArgs& a, cudaStream_t st) {
+  const int total = a.n * a.k;
+  log_rho_fwd<D><<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t rho_backward_d(const RhoArgs& a, float* dw, cudaStream_t st) {
+  constexpr int W = Slot<D>::SIZE;
+  static int opted = 0;
+  const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
+  const size_t bytes = static_cast<size_t>(threads) * (2 * D + W) * sizeof(float);
+  cudaError_t err = launch(log_rho_bwd<D>, a, blocks, threads, bytes, opted, st);
   if (err != cudaSuccess || !a.partial) return err;
   const int len = a.k * W;
   reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, dw);
@@ -425,57 +600,89 @@ bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= kMaxK && s 
 
 }  // namespace
 
+// The switch over d in the kernels' shape class: CALL(D) for each.
+#define SVAX_BY_DIM(d, err, CALL)         \
+  switch (d) {                            \
+    case 2: err = CALL(2); break;         \
+    case 3: err = CALL(3); break;         \
+    case 4: err = CALL(4); break;         \
+    case 6: err = CALL(6); break;         \
+    case 8: err = CALL(8); break;         \
+    case 10: err = CALL(10); break;       \
+    default: err = cudaErrorInvalidValue; \
+  }
+
 extern "C" {
 
 // Blocks for N points and K components: the partial buffers hold
-// blocks·K·F (forward) and blocks·K·(3 + d + d²) (backward) floats.
+// blocks·K·F (forward) and blocks·K·(3 + d + d²) (backward) floats, for
+// the combine and the ρ-kernel alike.
 int combine_blocks(int n, int k) { return blocks_for(n, k); }
 
 // Forward: z (S, N, K, d), log r̃ (N, K), μ̃ (N, K, d), the local row (N,)
 // and the raw statistics (K, 1 + d + d²), unscaled and unsymmetrised.
-int combine_forward(const float* ph, const float* pp, const float* w, const float* eps, int n,
-                    int k, int d, int s, unsigned long long seed, unsigned int stream_id,
-                    float* z, float* log_resp, float* mean, float* local, float* partial,
-                    float* stats, void* stream) {
+// norm (N,) null: the softmax over this K; else log r̃ = log ρ − norm.
+int combine_forward(const float* ph, const float* pp, const float* w, const float* eps,
+                    const float* norm, int n, int k, int d, int s, unsigned long long seed,
+                    unsigned int stream_id, float* z, float* log_resp, float* mean, float* local,
+                    float* partial, float* stats, void* stream) {
   if (!shape_ok(n, k, s)) return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a{ph, pp, w, eps, n, k, s, seed, stream_id, z, log_resp, mean, local, partial};
+  const FwdArgs a{ph,       pp,   w,    eps,   norm,  n,      k,
+                  s,        seed, stream_id, z, log_resp, mean, local, partial};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (d) {
-    case 2: err = forward_d<2>(a, stats, st); break;
-    case 3: err = forward_d<3>(a, stats, st); break;
-    case 4: err = forward_d<4>(a, stats, st); break;
-    case 6: err = forward_d<6>(a, stats, st); break;
-    case 8: err = forward_d<8>(a, stats, st); break;
-    case 10: err = forward_d<10>(a, stats, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+#define SVAX_CALL(D) forward_mode<D>(a, stats, st)
+  SVAX_BY_DIM(d, err, SVAX_CALL)
+#undef SVAX_CALL
   return static_cast<int>(err);
 }
 
 // Backward: the cotangents of pot_h, pot_p (N, d) and, when dw is not
 // null, of w (K, 3 + d + d²), from those of the forward's outputs (each
-// may be null: zero).
-int combine_backward(const float* ph, const float* pp, const float* w, const float* eps, int n,
-                     int k, int d, int s, unsigned long long seed, unsigned int stream_id,
-                     const float* dz, const float* dlr, const float* dmu, const float* dlocal,
-                     const float* dstats, float* dph, float* dpp, float* partial, float* dw,
-                     void* stream) {
-  if (!shape_ok(n, k, s) || (dw == nullptr) != (partial == nullptr))
+// may be null: zero); with norm, also the normaliser's dn (N,).
+int combine_backward(const float* ph, const float* pp, const float* w, const float* eps,
+                     const float* norm, int n, int k, int d, int s, unsigned long long seed,
+                     unsigned int stream_id, const float* dz, const float* dlr, const float* dmu,
+                     const float* dlocal, const float* dstats, float* dph, float* dpp,
+                     float* dn, float* partial, float* dw, void* stream) {
+  if (!shape_ok(n, k, s) || (dw == nullptr) != (partial == nullptr) ||
+      (norm == nullptr) != (dn == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{ph, pp, w, eps, n, k, s, seed, stream_id, dz, dlr, dmu, dlocal, dstats,
-                  dph, dpp, partial};
+  const BwdArgs a{ph,     pp,  w,      eps,    norm, n,   k,       s,  seed,
+                  stream_id, dz, dlr, dmu, dlocal, dstats, dph, dpp, partial, dn};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (d) {
-    case 2: err = backward_d<2>(a, dw, st); break;
-    case 3: err = backward_d<3>(a, dw, st); break;
-    case 4: err = backward_d<4>(a, dw, st); break;
-    case 6: err = backward_d<6>(a, dw, st); break;
-    case 8: err = backward_d<8>(a, dw, st); break;
-    case 10: err = backward_d<10>(a, dw, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+#define SVAX_CALL(D) backward_mode<D>(a, dw, st)
+  SVAX_BY_DIM(d, err, SVAX_CALL)
+#undef SVAX_CALL
+  return static_cast<int>(err);
+}
+
+// The ρ-kernel: this K-shard's pre-softmax log ρ (N, K).
+int rho_forward(const float* ph, const float* pp, const float* w, int n, int k, int d,
+                float* log_rho, void* stream) {
+  if (!shape_ok(n, k, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const RhoArgs a{ph, pp, w, nullptr, n, k, log_rho, nullptr, nullptr, nullptr};
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define SVAX_CALL(D) rho_forward_d<D>(a, st)
+  SVAX_BY_DIM(d, err, SVAX_CALL)
+#undef SVAX_CALL
+  return static_cast<int>(err);
+}
+
+// Its backward: the cotangents of pot_h, pot_p (N, d) and, when dw is not
+// null, of w (K, 3 + d + d²) from drho (N, K).
+int rho_backward(const float* ph, const float* pp, const float* w, const float* drho, int n,
+                 int k, int d, float* dph, float* dpp, float* partial, float* dw, void* stream) {
+  if (!shape_ok(n, k, 1) || (dw == nullptr) != (partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RhoArgs a{ph, pp, w, drho, n, k, nullptr, dph, dpp, partial};
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define SVAX_CALL(D) rho_backward_d<D>(a, dw, st)
+  SVAX_BY_DIM(d, err, SVAX_CALL)
+#undef SVAX_CALL
   return static_cast<int>(err);
 }
 

@@ -22,8 +22,9 @@
 // the comment says so; D is a template parameter so everything unrolls
 // into registers. Shared by flexstep.cu and combine.cu (the combine_fused
 // port, whose kernel writes out the full backward, including J̄'s off-
-// diagonal, the statistics' cotangent and dw, on top of these functions);
-// the log_rho_fused port can take the same functions.
+// diagonal, the statistics' cotangent and dw, on top of these functions,
+// and whose ρ-kernels — the log_rho_fused port — run tile_core and, for
+// the backward, tri_inverse and cov_from_inverse).
 #pragma once
 
 namespace svax {

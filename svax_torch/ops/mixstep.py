@@ -46,8 +46,11 @@ def check_unroll(unroll: int, *t_steps: int) -> None:
 
 
 def unsupported_reason(*, data_dim: int, batch_full: bool, rho, num_points: int,
-                       num_components: int) -> str | None:
-    """The gate: why the kernel cannot run this workload (None = it can)."""
+                       num_components: int, data_parallel: bool = False) -> str | None:
+    """The gate: why the kernel cannot run this workload (None = it can);
+    as the reference's (svax/train/loop.py:327-345), it is single-device."""
+    if data_parallel:
+        return "the mixstep kernel is single-device (no data sharding)"
     if data_dim != 2:
         return f"the mixstep kernel takes 2-D data (got d = {data_dim})"
     if not batch_full:

@@ -1,6 +1,6 @@
 """Gaussian-mixture PGM: expected parameters, the observed-data E-step and
 sufficient statistics (``svax/pgm/gmm.py``, the subset the SVAE and the
-pure-mixture training paths use).
+pure-mixture training paths use, with its component-parallel forms).
 
 A Dirichlet(α) prior over mixing weights and one NIW prior per component,
 batched over K along the leading axis.
@@ -15,6 +15,7 @@ import torch
 
 from svax_torch.expfam import dirichlet, niw
 from svax_torch.expfam.niw import NiwNat, NiwStandard
+from svax_torch.parallel import mesh
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -44,17 +45,37 @@ class GmmSuffStats(NamedTuple):
     scatter_stat: torch.Tensor  # (K, d, d) S₂ = Σ_n r_nk E[z_n z_nᵀ]
 
 
-def expected_params(nat: GmmNat) -> GmmExpected:
-    """Expected-parameter messages from the global naturals."""
+def expected_params(nat: GmmNat, group=None) -> GmmExpected:
+    """Expected-parameter messages from the global naturals.
+
+    With ``group`` (component parallelism), ``nat`` is this rank's K-shard:
+    the NIW expectations are per component, and only the Dirichlet's ψ(Σα)
+    needs the sum of α across the group (one SUM all-reduce)."""
     alpha = dirichlet.natural_to_standard(nat.dir_nat)
     stats = niw.expected_stats_nat(nat.niw_nat)
+    if group is None:
+        log_pi = dirichlet.expected_log_pi(alpha)
+    else:
+        total = mesh.psum(alpha.sum(dim=-1, keepdim=True), group)
+        log_pi = torch.special.digamma(alpha) - torch.special.digamma(total)
     return GmmExpected(
-        log_pi=dirichlet.expected_log_pi(alpha),
+        log_pi=log_pi,
         prec=stats.prec,
         prec_mean=stats.prec_mean,
         quad=stats.quad,
         logdet=stats.logdet,
     )
+
+
+def lse_over_components(log_rho: torch.Tensor, group=None) -> torch.Tensor:
+    """Row-wise logsumexp over the component axis, (N, K_local) → (N,),
+    across ``group``'s K-shards when given: a MAX all-reduce of the
+    detached row maxima (a constant shift: the value and the softmax
+    gradient do not depend on it), then a SUM all-reduce of the shifted
+    exp-sums, differentiable."""
+    m = mesh.pmax_const(log_rho.max(dim=-1).values, group)
+    se = mesh.psum(torch.exp(log_rho - m[:, None]).sum(dim=-1), group)
+    return m + torch.log(se)
 
 
 def make_prior(
@@ -188,13 +209,24 @@ def stats_to_nat(stats: GmmSuffStats) -> GmmNat:
     )
 
 
-def kl_global(nat: GmmNat, prior: GmmNat) -> torch.Tensor:
-    """KL(q(π)‖p(π)) + Σ_k KL(q(μ_k,Λ_k)‖p(μ_k,Λ_k)) (§9.6 global term)."""
+def kl_global(nat: GmmNat, prior: GmmNat, group=None) -> torch.Tensor:
+    """KL(q(π)‖p(π)) + Σ_k KL(q(μ_k,Λ_k)‖p(μ_k,Λ_k)) (§9.6 global term).
+
+    With ``group``, ``nat`` and ``prior`` are this rank's K-shards: the
+    Dirichlet KL couples the shards through Σα only, the NIW KLs sum over
+    them; two SUM all-reduces give the whole mixture's KL on every rank."""
     alpha_q = dirichlet.natural_to_standard(nat.dir_nat)
     alpha_p = dirichlet.natural_to_standard(prior.dir_nat)
-    kl_dir = dirichlet.kl(alpha_q, alpha_p)
-    kl_niw = niw.kl_nat(nat.niw_nat, prior.niw_nat).sum()
-    return kl_dir + kl_niw
+    if group is None:
+        kl_dir = dirichlet.kl(alpha_q, alpha_p)
+        kl_niw = niw.kl_nat(nat.niw_nat, prior.niw_nat).sum()
+        return kl_dir + kl_niw
+    sum_q, sum_p = mesh.psum(torch.stack([alpha_q.sum(-1), alpha_p.sum(-1)]), group).unbind()
+    elogpi = torch.special.digamma(alpha_q) - torch.special.digamma(sum_q)
+    per_k = (alpha_q - alpha_p) * elogpi - torch.lgamma(alpha_q) + torch.lgamma(alpha_p)
+    dir_sum, kl_niw = mesh.psum(torch.stack(
+        [per_k.sum(-1), niw.kl_nat(nat.niw_nat, prior.niw_nat).sum()]), group).unbind()
+    return dir_sum + torch.lgamma(sum_q) - torch.lgamma(sum_p) + kl_niw
 
 
 def elbo_obs(x: torch.Tensor, nat: GmmNat, prior: GmmNat,

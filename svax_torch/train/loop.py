@@ -24,12 +24,14 @@ from typing import Callable
 import torch
 
 from svax_torch.ops import flexstep, mixstep, tinystep
+from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm
 from svax_torch.train import svae_step
 
 PER_STEP = "per-step"
 FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
                      "(dof > 0 is the Student-t mixture prior)")
+SINGLE_DEVICE = "the whole-train-step kernels are single-device (no data/component sharding)"
 
 
 def augment_step(step: Callable, sigma: float) -> Callable:
@@ -115,7 +117,8 @@ def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
 
 def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
                   rho, rho_decay: float = 0.0, likelihood: str = "gaussian",
-                  input_dim: int = 0, engine: str = "megakernel") -> str:
+                  input_dim: int = 0, engine: str = "megakernel",
+                  data_parallel: bool = False) -> str:
     """The whole-train-step kernel for this workload, as the reference's
     ``make_megakernel_runner`` picks it (svax/train/loop.py:218-232):
     "tinystep" for full-batch d = 2 constant-ρ work in its shape class, else
@@ -123,9 +126,14 @@ def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
     kernels' reasons and ``engine="auto"`` returns ``PER_STEP``, the
     per-step engine (the reference entry's auto rule,
     experiments/train_svae.py:251-271): a choice by shape, made before any
-    kernel runs."""
+    kernel runs. Under data sharding neither kernel runs (``SINGLE_DEVICE``,
+    svax/train/loop.py:117-118)."""
     if engine not in ("megakernel", "auto"):
         raise ValueError(f"unknown engine {engine!r} (megakernel|auto)")
+    if data_parallel:
+        if engine == "auto":
+            return PER_STEP
+        raise ValueError(SINGLE_DEVICE)
     kw = dict(encoder_hidden=encoder_hidden, decoder_hidden=decoder_hidden, rho=rho,
               likelihood=likelihood)
     tiny = tinystep_unsupported_reason(config, batch_full=batch_full,
@@ -250,7 +258,7 @@ def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
 
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
                      batch_size: int = 0, engine: str = "kernel",
-                     replace: bool = True) -> Callable:
+                     replace: bool = True, data_group=None, comp_group=None) -> Callable:
     """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
     metrics)`` on the per-step engine: T calls of
     ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
@@ -274,7 +282,17 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     prior's (``svae_step.model_for``), whose forward runs no kernel.
 
     Metrics are (T,) tensors of each step's elbo, recon, local_kl,
-    global_kl (at its pre-update naturals), neg_loss and rho."""
+    global_kl (at its pre-update naturals), neg_loss and rho.
+
+    Sharded (``data_group``, ``comp_group``: ``parallel.mesh``): ``prior``
+    and the state's naturals are this rank's K-shard under ``comp_group``;
+    every rank draws the same global indices from the shared generator and
+    keeps its contiguous slice of each minibatch along ``data_group`` (the
+    reference's ``P("data")``), so the global batch must divide by the data
+    size; then one number more from the shared generator, folded with the
+    rank's (data, comp) place (``mesh.fold_seed``), seeds the rank's own
+    generator for ε and the chunk seed, so the ranks' noise differs. ``eps``
+    is then this rank's (T, S, M / data, K_shard, d)."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     if engine == "plain":
@@ -282,19 +300,31 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
                                  fused_mlp_decoder=False)
     use_seed = config.fused_combine and config.kernel_rng
     step = svae_step.make_train_step(config, prior, lr,
-                                     svae_step.rho_schedule(rho, rho_decay))
+                                     svae_step.rho_schedule(rho, rho_decay),
+                                     data_group=data_group, comp_group=comp_group)
+    sharded = data_group is not None or comp_group is not None
+    ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
 
     def runner(state, x, t_steps: int, seed: int = 0, eps=None):
         n = x.shape[0]
         m = min(batch_size or n, n)
+        if m % ndata:
+            raise ValueError(f"a batch of {m} does not split over {ndata} data ranks")
         gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
         idx = minibatch_indices(gen, n, m, t_steps, replace) if m < n else None
+        if sharded:
+            folded = mesh.fold_seed(int(torch.randint(0, 2**62, (1,), generator=gen,
+                                                      device=x.device)),
+                                    data_idx, mesh.index(comp_group))
+            gen = torch.Generator(device=x.device).manual_seed(folded)
         chunk_seed = (int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
                       if use_seed and eps is None else None)
+        mine = slice(data_idx * (m // ndata), (data_idx + 1) * (m // ndata))
         rows = []
         for t in range(t_steps):
             xb = x if idx is None else x[idx[t]]
-            state, mets = step(state, xb, eps=None if eps is None else eps[t],
+            state, mets = step(state, xb[mine],
+                               eps=None if eps is None else eps[t],
                                generator=gen, seed=chunk_seed)
             rows.append(mets)
         return state, {name: torch.stack([r[name] for r in rows]) for name in rows[0]}

@@ -1,5 +1,6 @@
 """One SVAE train step: Adam on the NN params + CVI on the PGM naturals
-(``svax/train/svae_step.py``, single device).
+(``svax/train/svae_step.py``), on one process or sharded over data and
+mixture components (``parallel.mesh``).
 
 Adam is a plain function over (param, m, v, count) with optax.adam's
 semantics (b1=0.9, b2=0.999, eps=1e-8, bias correction from the global
@@ -15,6 +16,7 @@ import torch
 
 from svax_torch.models import svae, svae_smm
 from svax_torch.models.svae import SvaeConfig
+from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
 
@@ -137,7 +139,8 @@ def model_for(config: SvaeConfig):
 
 
 def make_train_step(
-    config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable
+    config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable,
+    data_group=None, comp_group=None,
 ) -> Callable:
     """Build step(state, batch, eps=None, generator=None, seed=None) →
     (state, metrics).
@@ -154,9 +157,24 @@ def make_train_step(
     sufficient statistics of the pre-update naturals. ``rho`` is a float or
     a schedule ``rho(step)`` evaluated at the pre-update ``state.step``
     (``rho_schedule`` builds the Trainer's inverse decay); the ``rho``
-    metric reports the value used."""
+    metric reports the value used.
+
+    Sharded (``parallel.mesh``; svax/train/svae_step.py:64-160): with
+    ``data_group`` the batch is this rank's shard, and the ELBO in the loss
+    is divided by the data size so that the gradients summed over the group
+    are the full batch's; with ``comp_group``, ``prior`` and the naturals
+    are this rank's K-shard and the forward reduces over the group inside
+    the loss. The NN gradients are SUM-reduced over every sharded axis and
+    divided by the comp size (the forward's psum makes every comp rank's
+    loss the global one, so the summed gradient is comp-size times the
+    true one); the statistics are divided by the data size and summed over
+    the data group, as are the loss, recon and local metrics. The CVI
+    update is then K-local. The state's NN params and Adam moments are
+    replicated; each rank holds its own K-shard of the naturals."""
     model = model_for(config)
     stats_to_nat = getattr(model, "stats_to_nat", gmm.stats_to_nat)
+    ndata = mesh.size(data_group)
+    ncomp = mesh.size(comp_group)
 
     def step(state: SvaeTrainState, batch: torch.Tensor,
              eps: torch.Tensor | None = None,
@@ -166,27 +184,35 @@ def make_train_step(
         )
         out = model.forward(
             params, state.pgm_nat, prior, batch, config, eps=eps,
-            generator=generator, seed=seed, step=state.step,
+            generator=generator, seed=seed, step=state.step, comp_group=comp_group,
         )
-        loss = -out.elbo / config.num_total
+        loss = -out.elbo / (ndata * config.num_total)
         leaves = [t for side in params.values() for ly in side for t in ly.values()]
         grads_flat = torch.autograd.grad(loss, leaves)
-        it = iter(grads_flat)
-        grads = map_params(lambda _: next(it), params)
         with torch.no_grad():
+            for group in (data_group, comp_group):
+                grads_flat = mesh.psum_tensors(grads_flat, group)
+            if comp_group is not None:
+                grads_flat = [g / ncomp for g in grads_flat]
+            it = iter(grads_flat)
+            grads = map_params(lambda _: next(it), params)
             nn_params, opt_state = adam_update(
                 grads, state.opt_state, state.nn_params, lr
             )
-            stats = out.suff_stats
-            inc = stats_to_nat(type(stats)(*(s.detach() for s in stats)))
+            shares = [t.detach() if ndata == 1 else t.detach() / ndata
+                      for t in (*out.suff_stats, out.recon, out.local_kl)]
+            *fields, recon, local, loss_sum = mesh.psum_tensors(
+                shares + [loss.detach()], data_group)
+            stats = type(out.suff_stats)(*fields)
+            inc = stats_to_nat(stats)
             rho_t = float(rho(state.step)) if callable(rho) else float(rho)
             pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho_t)
         metrics = {
-            "elbo": -loss.detach() * config.num_total,
-            "recon": out.recon.detach(),
-            "local_kl": out.local_kl.detach(),
+            "elbo": -loss_sum * config.num_total,
+            "recon": recon,
+            "local_kl": local,
             "global_kl": out.global_kl.detach(),
-            "neg_loss": (-(out.recon - out.local_kl) / config.num_total).detach(),
+            "neg_loss": -(recon - local) / config.num_total,
             # A fill on the device: a tensor copied from the host would sync.
             "rho": torch.full((), rho_t, dtype=loss.dtype, device=loss.device),
         }

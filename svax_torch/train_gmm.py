@@ -3,7 +3,7 @@ mixstep and estep CUDA kernels). BASELINE config #2.
 
     python -m svax_torch.train_gmm --config pinwheel-gmm [--init kmeanspp]
         [--device cuda|cpu] [--engine kernel|plain] [--fused-kernel]
-        [--unroll U] [--eval-every E] [--steps N] [--seed S]
+        [--unroll U] [--eval-every E] [--steps N] [--seed S] [--dp]
 
 Mirrors experiments/train_gmm.py on the full batch with constant ρ.
 ``--engine kernel`` (the default) runs chunks of ``--eval-every`` steps,
@@ -19,12 +19,24 @@ elbo, test_evidence_per_point), then steps/sec, the component counts and
 cuda`` without a CUDA device raises; nothing falls back. Tensors are made
 in torch's default dtype: float32 unless the caller changed it (the
 kernels take float32 only).
+
+``--dp`` is the reference's data-parallel step (experiments/train_gmm.py
+:106-113): under ``torchrun`` each of the ``WORLD_SIZE`` ranks keeps its
+contiguous slice of the batch, the statistics are summed over the ranks
+(``models.gmm_baseline``, ``parallel.mesh``), and rank 0 alone evaluates
+and prints. It runs the per-step engine, so it needs ``--engine plain``
+(with or without ``--fused-kernel``); the mixstep kernel is single-device
+and refused under it:
+
+    torchrun --standalone --nproc-per-node 2 -m svax_torch.train_gmm \
+        --config pinwheel-gmm --engine plain --device cpu --dp
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -69,7 +81,8 @@ def setup(args, x_train_np: np.ndarray, *, fused: bool = False):
         mixstep.check_unroll(args.unroll, args.eval_every, last or args.eval_every)
         reason = mixstep.unsupported_reason(
             data_dim=x_train_np.shape[1], batch_full=True, rho=args.rho,
-            num_points=x_train_np.shape[0], num_components=args.num_components)
+            num_points=x_train_np.shape[0], num_components=args.num_components,
+            data_parallel=getattr(args, "dp", False))
         if reason is not None:
             raise ValueError(f"--engine kernel: {reason}")
     elif args.unroll != 1:
@@ -104,11 +117,34 @@ def main(argv: list[str] | None = None) -> dict:
     add_common_flags(p)
     p.add_argument("--fused-kernel", action="store_true",
                    help="plain engine: the E-step through the estep kernel")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the WORLD_SIZE ranks torchrun starts "
+                        "(plain engine)")
     args = p.parse_args(argv)
     from svax_torch.configs import apply_config
 
     apply_config(args, p, sys.argv[1:] if argv is None else argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.dp:
+        p.error(f"WORLD_SIZE={world}: more than one process needs --dp")
+    if world == 1:
+        return _train(args, None, 0)
+    import torch.distributed as dist
 
+    from svax_torch.parallel import mesh
+
+    joined = not dist.is_initialized()
+    args.device = str(mesh.init_distributed(args.device))
+    try:
+        return _train(args, mesh.make_data_mesh(), dist.get_rank())
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, dmesh, rank: int) -> dict:
+    """The training run of ``main`` on this rank (``dmesh``: the data mesh
+    when ``--dp`` runs on several ranks); rank 0 prints."""
     from svax_torch.data.pinwheel import load_pinwheel
     from svax_torch.models import evaluation, gmm_baseline
     from svax_torch.pgm import gmm
@@ -121,12 +157,22 @@ def main(argv: list[str] | None = None) -> dict:
     x_test = torch.tensor(test, dtype=dtype, device=device)
     n = x_train.shape[0]
     state = gmm_baseline.GmmTrainState(nat=nat, step=0)
-    print(f"device={device} n={n} K={args.num_components} engine={args.engine}"
-          f"{' fused-kernel' if args.fused_kernel else ''} unroll={args.unroll}")
+    world, x_mine = 1, x_train
+    if dmesh is not None:
+        world = dmesh.data
+        if n % world:
+            raise ValueError(f"--dp: N = {n} does not split over {world} ranks")
+        x_mine = x_train[dmesh.data_idx * (n // world):(dmesh.data_idx + 1) * (n // world)]
+    if rank == 0:
+        print(f"device={device} n={n} K={args.num_components} engine={args.engine}"
+              f"{' fused-kernel' if args.fused_kernel else ''} unroll={args.unroll}"
+              f"{f' dp world_size={world}' if args.dp else ''}")
 
     rows = []
 
     def emit(t, st, elbo):
+        if rank != 0:
+            return
         ev = gmm_baseline.evaluate(st.nat, prior, x_test, num_total=n)
         row = {"step": t, "elbo": elbo,
                "test_evidence_per_point": float(ev["evidence_per_point"])}
@@ -137,11 +183,14 @@ def main(argv: list[str] | None = None) -> dict:
         runner = make_mixture_runner(prior, rho=args.rho, unroll=args.unroll)
         kw = {"runner": runner}
     else:
-        kw = {"step": gmm_baseline.make_train_step(prior, args.rho, num_total=n,
-                                                   fused=args.fused_kernel)}
-    state, seconds = run_mixture(state, x_train, steps=args.steps,
+        kw = {"step": gmm_baseline.make_train_step(
+            prior, args.rho, num_total=n, fused=args.fused_kernel,
+            data_group=None if dmesh is None else dmesh.data_group)}
+    state, seconds = run_mixture(state, x_mine, steps=args.steps,
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds
+    if rank != 0:
+        return {"state": state, "rows": rows, "steps_per_s": rate}
     resp, _ = gmm.e_step_obs(x_train, gmm.expected_params(state.nat))
     counts = resp.sum(0).cpu().numpy()
     print(f"steps/sec: {rate:.1f}")

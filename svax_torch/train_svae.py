@@ -4,7 +4,7 @@ and decoder_mlp CUDA kernels).
     python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae|bigk-dp
         [--steps N] [--warmup-steps N] [--device cuda|cpu]
         [--engine kernel|plain] [--seed S] [--iw-samples S]
-        [--fused-mlp-decoder] [--eval-every N]
+        [--fused-mlp-decoder] [--eval-every N] [--dp]
         [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
 
 Mirrors experiments/train_svae.py with its ``--engine auto`` rule
@@ -20,9 +20,21 @@ with in-kernel ε, after the config's ρ = 0 warmup and k-means++ reseed
 1024) runs the same way on one card, with the decoder in the fused MLP
 decoder kernel (``fused_mlp_decoder``), each step's minibatch drawn
 without replacement, and a row after step 1 and every ``--eval-every``
-steps (and after the last), as the reference's data-parallel loop; its
-data-parallel wrapper is the identity on one card, and more than one
-process (``WORLD_SIZE`` > 1) is refused (slice G of ROADMAP.md). ``--fused-mlp-decoder`` turns the decoder
+steps (and after the last), as the reference's data-parallel loop.
+``--dp`` (on in bigk-dp's config) is that loop: on one process it is the
+per-step engine as it stands; under ``torchrun`` with ``WORLD_SIZE`` > 1
+it shards each minibatch over the ranks (``parallel.mesh``: every rank
+draws the same global indices and keeps its contiguous slice, the batch
+rounded down to a multiple of the world size), sums the gradients and
+statistics over them, and rank 0 alone evaluates and prints; the warmup
+runs on every rank alike, replicated, as the reference runs it before its
+sharded loop. ``--device cuda`` puts rank r on ``cuda:LOCAL_RANK``; on the
+CPU the ranks join over gloo:
+
+    torchrun --standalone --nproc-per-node 2 -m svax_torch.train_svae \
+        --config bigk-dp --device cpu --steps 2
+
+More than one process without ``--dp`` is refused. ``--fused-mlp-decoder`` turns the decoder
 kernel on for the other Bernoulli config, mnist-svae, and is refused for a
 Gaussian one. ``--engine plain`` runs the plain PyTorch step instead (for
 the Bernoulli configs: ``sin_combine``, ``torch.randn`` ε and the
@@ -35,8 +47,9 @@ keeps tinystep (its SMM branch), the other configs run the per-step engine
 forward runs the plain combine and decoder, so the first line reports
 ``fused_combine`` and ``fused_mlp_decoder`` off; the IW line is the SMM
 bound (``evaluation.svae_smm_iw_loglik``).
-Prints one JSON line with the engine, its reason and the initial test
-ELBO, the warmup line, one JSON row per chunk — step, elbo, recon,
+Prints one JSON line with the engine, its reason, the world size and mesh
+(``world_size``, ``data``, ``comp``) and the initial test ELBO, the warmup
+line, one JSON row per chunk — step, elbo, recon,
 local_kl, global_kl, test_elbo_per_point, wall_s — then steps/sec, then
 the importance-weighted test log-likelihood with ``--iw-samples`` samples
 (0 = off). ``--device cuda`` without a CUDA device raises; nothing falls
@@ -87,21 +100,44 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--smm-envelope-grads", action="store_true",
                    help="envelope-theorem gradients for the SMM u-rounds: the "
                         "converged q(u) is held constant in the backward pass")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the WORLD_SIZE ranks torchrun starts "
+                        "(on in bigk-dp's config)")
     args = p.parse_args(argv)
     if args.config not in PORTED:
         p.error(f"--config {args.config}: svax_torch runs {', '.join(PORTED)} so far; "
                 "ROADMAP.md lists the remaining configs")
     if args.eval_every < 1:
         p.error("--eval-every must be >= 1")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise RuntimeError(f"WORLD_SIZE={world}: svax_torch trains on one process and one "
-                           "card; data parallelism across cards is slice G of ROADMAP.md")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain PyTorch path)")
 
     from svax_torch.configs import CONFIGS
+    from svax_torch.parallel import mesh
+
+    cfg = CONFIGS[args.config]
+    data_parallel = args.dp or bool(cfg.get("dp", False))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not data_parallel:
+        p.error(f"WORLD_SIZE={world}: more than one process needs --dp")
+    device = torch.device(args.device)
+    data_group, rank, joined = None, 0, False
+    if world > 1:
+        import torch.distributed as dist
+
+        joined = not dist.is_initialized()
+        device = mesh.init_distributed(args.device)
+        data_group, rank = mesh.make_data_mesh().data_group, dist.get_rank()
+    try:
+        return _train(args, p, cfg, device, data_parallel, world, data_group, rank)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict:
+    """The training run of ``main`` on this rank; rank 0 prints."""
     from svax_torch.data import load_dataset
     from svax_torch.models import evaluation
     from svax_torch.models.svae import SvaeConfig
@@ -110,12 +146,14 @@ def main(argv: list[str] | None = None) -> dict:
     from svax_torch.train.loop import (PER_STEP, choose_kernel, kernel_unsupported_reason,
                                        make_runner, make_step_runner)
 
-    cfg = CONFIGS[args.config]
-    data_parallel = bool(cfg.get("dp", False))
     steps = args.steps or cfg["steps"]
     warmup_steps = (cfg.get("warmup_steps", 0) if args.warmup_steps is None
                     else args.warmup_steps)
-    device = torch.device(args.device)
+
+    def show(*a, **kw) -> None:
+        if rank == 0:
+            print(*a, **kw)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # A bf16 matmul may otherwise reduce split-K partial sums in bf16; the
@@ -131,6 +169,9 @@ def main(argv: list[str] | None = None) -> dict:
     x_test = torch.tensor(test, dtype=f32, device=device)
     n, input_dim = x_train.shape
     batch = cfg["batch_size"] if 0 < cfg["batch_size"] < n else n
+    if batch % world:  # experiments/train_svae.py:278-280
+        batch = (batch // world) * world or world
+        show(f"rounding batch to {batch} for {world} data ranks", flush=True)
     rho_decay = cfg.get("rho_decay", 0.0)
     config = SvaeConfig(latent_dim=cfg["latent_dim"],
                         num_components=cfg["num_components"],
@@ -150,7 +191,8 @@ def main(argv: list[str] | None = None) -> dict:
                                  fused_mlp_decoder=False)
     gate = dict(batch_full=batch >= n, encoder_hidden=cfg["encoder_hidden"],
                 decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
-                rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim)
+                rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim,
+                data_parallel=data_parallel)
     kernel = choose_kernel(config, engine="auto", **gate)
     why = kernel_unsupported_reason(config, **gate) if kernel == PER_STEP else None
 
@@ -166,7 +208,7 @@ def main(argv: list[str] | None = None) -> dict:
     if kernel == PER_STEP:
         runner = make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                                   rho_decay=rho_decay, batch_size=batch, engine=args.engine,
-                                  replace=not data_parallel)
+                                  replace=not data_parallel, data_group=data_group)
     else:
         runner = make_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                              rho_decay=rho_decay, batch_size=batch,
@@ -192,8 +234,8 @@ def main(argv: list[str] | None = None) -> dict:
             out = evaluate(state, x_test, generator=ev_gen)
         return float(out["elbo_per_point"])
 
-    init_elbo = test_elbo()
-    print(json.dumps({"config": args.config, "kernel": kernel, "engine": args.engine,
+    init_elbo = test_elbo() if rank == 0 else None
+    show(json.dumps({"config": args.config, "kernel": kernel, "engine": args.engine,
                       "why": why, "fused_combine": kernel == PER_STEP and
                       args.engine == "kernel" and config.fused_combine,
                       "fused_mlp_decoder": args.engine == "kernel" and
@@ -201,7 +243,8 @@ def main(argv: list[str] | None = None) -> dict:
                       "prior": "smm" if config.dof > 0.0 else "gmm", "dof": config.dof,
                       "smm_iters": config.smm_iters,
                       "smm_envelope_grads": config.smm_envelope_grads,
-                      "world_size": world, "n": n, "d_in": input_dim, "batch": batch,
+                      "world_size": world, "data": world, "comp": 1,
+                      "n": n, "d_in": input_dim, "batch": batch,
                       "synthetic": meta.get("synthetic", False),
                       "init_test_elbo_per_point": init_elbo}), flush=True)
     warm_info = None
@@ -212,13 +255,15 @@ def main(argv: list[str] | None = None) -> dict:
             batch_size=batch, scan_chunk=cfg.get("scan_chunk") or 100, seed=args.seed,
             engine=args.engine)
         warm_info["seconds"] = time.perf_counter() - t_warm
-        print(f"warmup {warmup_steps} steps + k-means++ reseed "
+        show(f"warmup {warmup_steps} steps + k-means++ reseed "
               f"({warm_info['seconds']:.1f}s): seed occupancy "
               f"{warm_info['seed_occupancy']}, cov_scale {warm_info['cov_scale']:.4g}",
               flush=True)
     rows = []
 
     def emit(t, metrics):
+        if rank != 0:
+            return
         row = {
             "step": t,
             "elbo": float(metrics["elbo"]),
@@ -244,12 +289,12 @@ def main(argv: list[str] | None = None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     rate = steps / (time.perf_counter() - t0)
-    print(f"steps/sec: {rate:.1f} (device={args.device}, engine={args.engine}, "
-          f"kernel={kernel})")
+    show(f"steps/sec: {rate:.1f} (device={device}, engine={args.engine}, "
+         f"kernel={kernel})")
     out = {"state": state, "rows": rows, "steps_per_s": rate, "kernel": kernel,
            "why": why, "init_test_elbo_per_point": init_elbo, "meta": meta,
            "warmup": warm_info, "x_test": x_test}
-    if args.iw_samples > 0:
+    if args.iw_samples > 0 and rank == 0:
         iw_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
         if config.dof > 0.0:
             # The SMM bound, as experiments/evaluate.py and svax/serve.py

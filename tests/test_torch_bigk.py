@@ -9,7 +9,8 @@
   from one converted state;
 * the data-parallel loop's draw without replacement;
 * ``train_svae --config bigk-dp`` on the CPU (at full width in the slow
-  tier) and its refusals.
+  tier), its refusals, and its data-parallel run on two ranks under
+  ``torch.distributed.run`` (gloo).
 
 Tolerances, float32 on both sides: the ELBO terms at rtol 2e-5 (the
 decoder's f32 sums over D of bf16 products, in other orders, and torch's
@@ -234,6 +235,56 @@ def test_train_svae_refusals(monkeypatch):
     with pytest.raises(SystemExit):
         train_svae.main(["--config", "pinwheel-svae", "--device", "cpu", "--steps", "1",
                          "--fused-mlp-decoder"])
+    # Several processes train only data-parallel (--dp, or bigk-dp's config).
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="slice G"):
-        train_svae.main(["--config", "bigk-dp", "--device", "cpu", "--steps", "1"])
+    with pytest.raises(SystemExit):
+        train_svae.main(["--config", "pinwheel-svae", "--device", "cpu", "--steps", "1"])
+
+
+_DP_WRAPPER = """
+import os, sys
+import torch
+from svax_torch import configs, train_svae
+configs.CONFIGS["bigk-dp"] = dict(configs.CONFIGS["bigk-dp"], num_components=6, latent_dim=10,
+                                  encoder_hidden=[16, 16], decoder_hidden=[16, 16],
+                                  batch_size=64)
+out = train_svae.main(sys.argv[1:])
+st = out["state"]
+leaves = [t for side in st.nn_params.values() for ly in side for t in ly.values()]
+leaves += [t for side in st.opt_state.mu.values() for ly in side for t in ly.values()]
+leaves += [st.pgm_nat.dir_nat, *st.pgm_nat.niw_nat]
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "svax", "configs"))
+torch.save({"leaves": leaves, "loaded": loaded, "rows": out["rows"]},
+           os.path.join(os.path.dirname(__file__), f"rank{os.environ['RANK']}.pt"))
+"""
+
+
+def test_train_svae_dp_on_two_ranks(tmp_path):
+    """bigk-dp cut to a small width (as the fast test above) on two ranks
+    over gloo: each rank trains on its half of every minibatch, rank 0
+    alone prints, and the replicated state is equal on both ranks."""
+    import os
+    import subprocess
+    import sys
+
+    wrapper = tmp_path / "dp_wrapper.py"
+    wrapper.write_text(_DP_WRAPPER)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         str(wrapper), "--config", "bigk-dp", "--device", "cpu", "--steps", "2",
+         "--warmup-steps", "0", "--eval-every", "1", "--iw-samples", "2"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    first = [ln for ln in lines if ln.startswith('{"config"')]
+    assert len(first) == 1 and '"world_size": 2, "data": 2, "comp": 1' in first[0], lines
+    assert '"batch": 64' in first[0] and '"kernel": "per-step"' in first[0]
+    assert [ln.count('"step": ') for ln in lines if ln.startswith('{"step"')] == [1, 1]
+    assert sum(ln.startswith('{"final_test_iw_loglik_per_point"') for ln in lines) == 1
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in (0, 1)]
+    assert [r["loaded"] for r in ranks] == [[], []]
+    assert [row["step"] for row in ranks[0]["rows"]] == [1, 2] and ranks[1]["rows"] == []
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["leaves"], ranks[1]["leaves"]))
+    assert all(bool(torch.isfinite(t).all()) for t in ranks[0]["leaves"])
