@@ -131,14 +131,36 @@ I. the parallel paths on the card, every rank on cuda:0 over gloo (named
    from rank 0 only, final naturals, ELBO rows and predictive within
    1e-4); each rate beside phase F's, and 10 more steps of (b) and (c)
    under ``torch.profiler`` for each rank's kernel time and collectives;
+J. the row-sum kernels (``ops/decoder.py: rowsum_logsig_neg``,
+   decoder.cu) against their plain version at the bigk (M = S·N·K =
+   102,400) and mnist (M = 2,560) shapes, Dh = 200, D = 784, in the f32 and
+   the bf16-operand modes: s at rtol = atol = 2e-5 and H̄, W̄, b̄ within 5e-5
+   of each largest entry (tests/test_kernel_interpret.py:82, :101; in the
+   bf16 mode H̄ within 5e-3 with under 20% of entries beyond 5e-5,
+   ``measure_mnist.ROWSUM_TOL``), reruns bit-equal; each timed beside its
+   plain version, the unfused f32 row sum it replaces and its bound;
+K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
+   full width with an f32 decoder (``make_step_runner``) from one seeded
+   state with injected numpy ε, the row sum in the kernels against the
+   unfused one (ELBO, parameters, Adam moments, naturals at the stated
+   bars); (b) ``svax_torch.train_svae --config bigk-dp --nn-compute-dtype
+   float32 --no-fused-mlp-decoder --fused-decoder`` cut to 300 warmup and
+   600 joint steps: one row-sum forward and backward a step (plus a forward
+   per test ELBO), the MLP-decoder kernels not launched, phase F's floors
+   (rise > 100 nats, purity > 0.7, ≥ 6 components); (c) the step's rate
+   with the row sum fused and unfused, in turns, and 20 profiled steps of
+   each;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the 67
    TFLOP/s f32 peak — for the decoder kernels, the bf16 tensor-core peak
-   and the special-function rate — counted from this run's shapes; the
-   component-parallel kernels' launches are phase I (b)'s first run's, both
-   ranks) — the card line, and last {"ok": true, "device": {...}}.
+   and the special-function rate, and for the row-sum kernels, the f32
+   peak and the special-function rate — counted from this run's shapes;
+   the component-parallel kernels' launches are phase I (b)'s first run's,
+   both ranks; the row-sum kernels' phase K (b)'s, with their times in the
+   f32 mode at bigk beside the unfused f32 row sum's) — the card line, and
+   last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1346,6 +1368,145 @@ def parallel_phase(card: str) -> list:
     return [sum(r["comp0"]["launches"][i] for r in ranks) for i in range(4)]
 
 
+def rowsum_phase(card: str) -> list:
+    """Phase J; returns the rowsum_fwd and rowsum_bwd entries of the kernels
+    line (the bigk shape in the f32 mode, the path's, without launches)."""
+    import torch
+
+    from svax_torch.measure_mnist import (ROWSUM_TOL, rowsum_bound, rowsum_errors,
+                                          rowsum_failures, rowsum_grads, rowsum_inputs,
+                                          sm_clock_hz, time_rowsum)
+    from svax_torch.ops import decoder
+
+    dev = torch.device("cuda", 0)
+    clock = sm_clock_hz()
+    entries = []
+    for label, m in (("bigk", 102400), ("mnist", 2560)):
+        for precision in ("highest", "default"):
+            args = rowsum_inputs(dev, m, 200, 784)
+            e = rowsum_errors(*args, precision)
+            bad = rowsum_failures(e, precision)
+            assert not bad, f"rowsum {label} {precision}: {bad} ({e})"
+            twice = [rowsum_grads(decoder.rowsum_logsig_neg, *args, precision)
+                     for _ in range(2)]
+            assert torch.equal(twice[0][0], twice[1][0]), f"rowsum {label}: forward reruns differ"
+            assert all(torch.equal(a, b) for a, b in zip(twice[0][1], twice[1][1])), \
+                f"rowsum {label} {precision}: backward reruns differ"
+            t = time_rowsum(dev, m, 200, 784, precision)
+            bf16 = precision != "highest"
+            fb, bb = (rowsum_bound(m, 200, 784, backward=b_, bf16=bf16, sm_clock_hz=clock)
+                      for b_ in (False, True))
+            print(f"phase J: rowsum vs plain at {label} M,Dh,D=({m}, 200, 784) {precision}: "
+                  + ", ".join(f"{k_} {v:.3e}" for k_, v in e.items() if k_ != "finite")
+                  + f" (bars {ROWSUM_TOL}); reruns bit-equal; CUDA-event ms per call: "
+                  f"forward {t['kernel_fwd']:.4f} (plain {t['plain_fwd']:.4f}, unfused f32 "
+                  f"{t['unfused_fwd']:.4f}), backward {t['kernel_bwd']:.4f} (plain "
+                  f"{t['plain_bwd']:.4f}, unfused f32 {t['unfused_bwd']:.4f}); bound "
+                  f"forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
+                  f"{fb['products_ms'] * 1e3:.2f}, special functions "
+                  f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
+                  f"{fb['bytes_ms'] * 1e3:.2f}), backward {bb['ms'] * 1e3:.2f} us ({bb['by']}: "
+                  f"products {bb['products_ms'] * 1e3:.2f}, special functions "
+                  f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f}); {card}",
+                  flush=True)
+            if label == "bigk" and precision == "highest":
+                common = {"route": "cuda", "source": "svax_torch/ops/csrc/decoder.cu",
+                          "library_ms": None}
+                entries = [
+                    {"name": "rowsum_fwd", **common,
+                     "replaces": "svax/ops/decoder_pallas.py:64", "max_abs_err": e["s max abs"],
+                     "ms": t["kernel_fwd"], "plain_ms": t["plain_fwd"], "bound_ms": fb["ms"],
+                     "bound_by": fb["by"], "unfused_f32_ms": t["unfused_fwd"]},
+                    {"name": "rowsum_bwd", **common,
+                     "replaces": "svax/ops/decoder_pallas.py:114",
+                     "max_abs_err": e["grad max abs"], "ms": t["kernel_bwd"],
+                     "plain_ms": t["plain_bwd"], "bound_ms": bb["ms"], "bound_by": bb["by"],
+                     "unfused_f32_ms": t["unfused_bwd"]},
+                ]
+    return entries
+
+
+def fused_decoder_phase(card: str) -> tuple[int, int]:
+    """Phase K; returns the row-sum forward and backward launches of the big-K
+    f32 fused_decoder main path."""
+    import numpy as np
+    import torch
+
+    from svax_torch import train_svae
+    from svax_torch.measure_mnist import bigk_f32_rates, bigk_f32_setup, quality
+    from svax_torch.ops import decoder, decoder_mlp
+
+    dev = torch.device("cuda", 0)
+    # (a) 3 steps from one seeded state with injected numpy ε, the row sum in
+    # the kernels against the unfused f32 row sum.
+    eps = torch.tensor(np.random.default_rng(5).standard_normal((3, 1, 1024, 100, 10)),
+                       dtype=torch.float32, device=dev)
+    runs = {}
+    for fused in (True, False):
+        runner, state, x = bigk_f32_setup(dev, fused)
+        runs[fused] = runner(state, x, 3, seed=0, eps=eps)
+    (st_f, met_f), (st_u, met_u) = runs[True], runs[False]
+    errs = {"elbo": max(abs(float(a) - float(b)) / abs(float(b))
+                        for a, b in zip(met_f["elbo"], met_u["elbo"]))}
+    assert errs["elbo"] < 1e-5, errs
+    moved = []
+    for got, want, m_ in zip(flat(st_f.nn_params), flat(st_u.nn_params), flat(st_u.opt_state.mu)):
+        keep = m_.abs() >= 0.05 * m_.abs().max()
+        moved.append(float((got - want).abs()[keep].max()))
+    errs["params where moved"] = max(moved)
+    assert errs["params where moved"] < 5e-5, errs
+    for name, tk, tu in (("adam m", st_f.opt_state.mu, st_u.opt_state.mu),
+                         ("adam v", st_f.opt_state.nu, st_u.opt_state.nu)):
+        errs[name] = max(float((a - b).abs().max()) / float(b.abs().max())
+                         for a, b in zip(flat(tk), flat(tu)))
+        assert errs[name] < 1e-3, errs
+    errs["naturals"] = max(close("naturals", a, b, 1e-4, 1e-4)
+                           for a, b in zip(nat_leaves(st_f.pgm_nat), nat_leaves(st_u.pgm_nat)))
+    print("phase K: big-K f32 step, 3 steps with injected noise, row sum fused vs unfused: "
+          + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
+          + " (elbo rtol 1e-5; params 5e-5 where the first moment is at least 5% of its "
+          "leaf's largest; Adam moments 1e-3 of each leaf's largest; naturals 1e-4/1e-4)",
+          flush=True)
+    # (b) the main path: bigk-dp's recipe with the f32 decoder and the row sum
+    # in the kernels, from the entry.
+    argv = ["--config", "bigk-dp", "--nn-compute-dtype", "float32", "--no-fused-mlp-decoder",
+            "--fused-decoder", "--warmup-steps", "300", "--steps", "600", "--device", "cuda",
+            "--seed", "0", "--iw-samples", "0"]
+    decoder.launches = decoder.backward_launches = 0
+    decoder_mlp.launches = decoder_mlp.backward_launches = 0
+    run = train_svae.main(argv)
+    launches = (decoder.launches, decoder.backward_launches)
+    rows = run["rows"]
+    assert [r["step"] for r in rows] == [1, 200, 400, 600], [r["step"] for r in rows]
+    # One forward and one backward a step (300 warmup + 600), and one forward
+    # for each test ELBO (before training and at every row).
+    assert launches == (900 + len(rows) + 1, 900), f"row-sum launches {launches}"
+    assert (decoder_mlp.launches, decoder_mlp.backward_launches) == (0, 0)
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run["state"]))
+    start, end = run["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    purity, used = quality(run, 0)
+    print(f"phase K: big-K f32 fused_decoder main path (bigk-dp, --nn-compute-dtype float32 "
+          f"--no-fused-mlp-decoder --fused-decoder, 300 warmup + 600 joint steps, seed 0): "
+          f"row sum {launches[0]} forward / {launches[1]} backward launches, warmup "
+          f"{run['warmup']['seconds']:.1f} s, {run['steps_per_s']:.1f} steps/s, test ELBO/pt "
+          f"{start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 100 components in use; "
+          f"{card}", flush=True)
+    assert end > start + 100.0, f"big-K f32: test ELBO/pt {start} -> {end}"
+    assert purity > 0.7, f"big-K f32: cluster purity {purity}"
+    assert used >= 6, f"big-K f32: only {used} of 100 components in use"
+    # (c) the step's rate with the row sum fused and unfused, in turns.
+    rates = bigk_f32_rates(dev)
+    print("phase K: big-K f32 step (make_step_runner, 100 steps a turn; turns unfused, "
+          "fused, fused, unfused): " + "; ".join(
+              f"row sum {name} " + " / ".join(f"{v:.1f}" for v in r["rates"])
+              + f" steps/s, 20 profiled steps: wall {r['wall_ms']:.3f} ms, device "
+              f"{r['device_ms']:.3f} ms a step, idle share {100 * r['idle']:.1f}%, row-sum "
+              f"kernels {r['rowsum_ms']:.3f} ms a step" for name, r in rates.items())
+          + f"; {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1532,6 +1693,13 @@ def main() -> int:
         entry["launches"] = count
     print(f"phase I done at {elapsed()}", flush=True)
 
+    # J–K. the row-sum kernels and the big-K f32 fused_decoder path
+    rowsum_kernels = rowsum_phase(card)
+    print(f"phase J done at {elapsed()}", flush=True)
+    for entry, count in zip(rowsum_kernels, fused_decoder_phase(card)):
+        entry["launches"] = count
+    print(f"phase K done at {elapsed()}", flush=True)
+
     # 9. result
     print(json.dumps({"kernels": [{
         "name": "tinystep", "route": "cuda",
@@ -1541,7 +1709,7 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None,
     }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels,
-        *rho_kernels]}))
+        *rho_kernels, *rowsum_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,10 @@ parallelism — ``parallel.mesh`` (process groups on ``torch.distributed``),
 ``parallel.dryrun``, the sharded forms of ``pgm.gmm``, ``models.svae``,
 ``models.svae_smm``, ``train.svae_step`` and the baselines, the ρ-kernel
 and the combine's log_norm mode in ``ops.combine``, and ``--dp`` on
-``train_svae`` and ``train_gmm``. ``configs`` carries the named configs the
-entries read.
+``train_svae`` and ``train_gmm``; and the Bernoulli decoder's fused
+x-free row sum — ``ops.decoder`` behind ``SvaeConfig.fused_decoder``,
+through ``train_svae --fused-decoder``. ``configs`` carries the named
+configs the entries read.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
 """Measure the mnist-svae and bigk-dp paths on one CUDA card: the numbers
 behind PERF.md's mnist-svae and bigk-dp breakdowns.
 
-    python -m svax_torch.measure_mnist [--config mnist-svae|bigk-dp] > measure.txt
+    python -m svax_torch.measure_mnist [--config mnist-svae|bigk-dp] [--fused-decoder] > measure.txt
 
 Run from the root of a checkout; needs one CUDA device and nvcc.
 ``--config bigk-dp`` measures the decoder kernels and the bigk entry
-(``measure_bigk``). The default prints the card, then two parts (every
+(``measure_bigk``); ``--fused-decoder`` the row-sum kernels and the big-K
+f32 step with and without them (``measure_fused_decoder``). The default prints the card, then two parts (every
 time a median of 3):
 
 1. the combine kernels at the mnist shape (N=256, K=10, d=8, S=1) and the
@@ -349,6 +350,193 @@ def time_decoder(dev, s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
     return out
 
 
+# The row-sum kernels against their plain version, at the reference kernel
+# test's bars (tests/test_kernel_interpret.py:82, :101): s at rtol = atol =
+# 2e-5 (reported as |Δ| / (1 + |ref|)), and each gradient within 5e-5 of its
+# largest entry. In the "default" mode both sides round do = −σ(o)·s̄ to bf16
+# after forming o in other orders (the kernel's FMA chain, cuBLAS), so a do
+# entry within an ulp of a rounding tie rounds the other way on one side,
+# which moves its row of H̄ by one bf16 ulp of one term of its D-long sum:
+# H̄ is then held within 5e-3 of its largest entry (2⁻⁸ of a term's size),
+# with under 20% of its entries beyond 5e-5; W̄ and b̄ (b̄ sums the f32 do) keep
+# the f32 bar.
+ROWSUM_TOL = {"s": 2e-5, "grad": 5e-5, "hbar max bf16": 5e-3, "hbar share bf16": 0.2}
+
+
+def rowsum_inputs(dev, m: int, dh: int, d: int, seed: int = 0):
+    """Seeded decoder-like operands on ``dev``: rows h = tanh(N(0, 1)) (M,
+    Dh), a Glorot-scaled last layer w (Dh, D), a bias of scale 0.1 and a
+    non-uniform cotangent s̄ = sin(3·N(0, 1)) (M,)."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    h = torch.tensor(np.tanh(rng.standard_normal((m, dh))), **f32)
+    w = torch.tensor(rng.standard_normal((dh, d)) * np.sqrt(2.0 / (dh + d)), **f32)
+    b = torch.tensor(0.1 * rng.standard_normal(d), **f32)
+    sbar = torch.tensor(np.sin(3.0 * rng.standard_normal(m)), **f32)
+    return h, w, b, sbar
+
+
+def rowsum_grads(fn, h, w, b, sbar, precision: str):
+    """s and the gradients (H̄, W̄, b̄) of ⟨s, s̄⟩ through ``fn``
+    (``rowsum_logsig_neg`` or ``rowsum_logsig_neg_plain``)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (h, w, b)]
+    s = fn(*leaves, precision)
+    return s.detach(), torch.autograd.grad((s * sbar).sum(), leaves)
+
+
+def rowsum_errors(h, w, b, sbar, precision: str) -> dict:
+    """The kernels against the plain version on the same inputs, in the
+    measures of ROWSUM_TOL: "s", and per gradient ("hbar", "wbar", "bbar")
+    its largest |Δ| over its largest entry and the share of entries beyond
+    5e-5 of that; plus "s max abs" and "grad max abs"."""
+    from svax_torch.ops import decoder
+
+    s_k, g_k = rowsum_grads(decoder.rowsum_logsig_neg, h, w, b, sbar, precision)
+    torch.cuda.synchronize()
+    s_p, g_p = rowsum_grads(decoder.rowsum_logsig_neg_plain, h, w, b, sbar, precision)
+    diff = (s_k.double() - s_p.double()).abs()
+    errs = {"s": float((diff / (1.0 + s_p.double().abs())).max()), "s max abs": float(diff.max())}
+    errs["grad max abs"] = 0.0
+    for name, got, ref in zip(("hbar", "wbar", "bbar"), g_k, g_p):
+        delta = (got.double() - ref.double()).abs()
+        scale = float(ref.abs().max())
+        errs[name] = float(delta.max()) / scale
+        errs[f"{name} share > 5e-5"] = float((delta > 5e-5 * scale).double().mean())
+        errs["grad max abs"] = max(errs["grad max abs"], float(delta.max()))
+    errs["finite"] = all(bool(torch.isfinite(t).all()) for t in (s_k, *g_k))
+    return errs
+
+
+def rowsum_failures(errs: dict, precision: str) -> list:
+    """The measures of ``rowsum_errors`` outside ROWSUM_TOL."""
+    bars = [("s", ROWSUM_TOL["s"]), ("wbar", ROWSUM_TOL["grad"]), ("bbar", ROWSUM_TOL["grad"])]
+    if precision == "highest":
+        bars.append(("hbar", ROWSUM_TOL["grad"]))
+    else:
+        bars += [("hbar", ROWSUM_TOL["hbar max bf16"]),
+                 ("hbar share > 5e-5", ROWSUM_TOL["hbar share bf16"])]
+    bad = [(name, errs[name], bar) for name, bar in bars if not errs[name] <= bar]
+    return bad + ([("finite", False, True)] if not errs["finite"] else [])
+
+
+def rowsum_bound(m: int, dh: int, d: int, backward: bool, bf16: bool,
+                 sm_clock_hz: float) -> dict:
+    """The least time for the row sum (or its backward) at these shapes, as
+    the largest of three: its products (2 FLOP per multiply-add; the
+    backward recomputes o and adds H̄ and W̄: three products) over the f32
+    peak, or the bf16 tensor-core peak in the bf16 mode; its special
+    functions (logσ as an exp and a log; σ as an exp and a reciprocal) over
+    the special-function units at ``sm_clock_hz``; its bytes (H, W, b read
+    and s written; backward: H, W, b, s̄ read and H̄, W̄, b̄ written; f32)
+    over the memory rate. Returns {"ms", "by", "products_ms", "special_ms",
+    "bytes_ms"}."""
+    flops = 2 * m * dh * d * (3 if backward else 1)
+    special = 2 * m * d
+    nbytes = 4 * ((2 * m * dh + 2 * dh * d + 2 * d + m) if backward
+                  else (m * dh + dh * d + d + m))
+    times = {"products_ms": flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3,
+             "special_ms": special / (SFU_PER_CLOCK * sm_clock_hz) * 1e3,
+             "bytes_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return {"ms": times[by], "by": "bytes" if by == "bytes_ms" else "operations", **times}
+
+
+def unfused_rowsum(h, w, b):
+    """The row sum the kernels replace: the f32 logits through cuBLAS and
+    ``F.logsigmoid``, differentiated by autograd."""
+    return torch.nn.functional.logsigmoid(-(h @ w + b)).sum(dim=-1)
+
+
+def time_rowsum(dev, m: int, dh: int, d: int, precision: str, reps: int = 10) -> dict:
+    """CUDA-event ms per call at these shapes in this mode (``device_ms``):
+    ``{kernel,plain,unfused}_{fwd,bwd}`` for the kernels (forward; the
+    backward alone, autograd over a retained graph), the plain version and
+    the unfused f32 row sum (``unfused_rowsum``). At the bigk shape each
+    call keeps the card busy for milliseconds, so the event time is its
+    device time; ``torch.profiler`` is not used here, as it has dropped
+    device events late in a long process (PERF.md, PR 8)."""
+    from svax_torch.ops import decoder
+
+    h, w, b, sbar = rowsum_inputs(dev, m, dh, d)
+    leaves = [t.clone().requires_grad_(True) for t in (h, w, b)]
+    out = {}
+    for name, fn in (("kernel", lambda *a: decoder.rowsum_logsig_neg(*a, precision)),
+                     ("plain", lambda *a: decoder.rowsum_logsig_neg_plain(*a, precision)),
+                     ("unfused", unfused_rowsum)):
+        loss = (fn(*leaves) * sbar).sum()
+
+        def forward(fn=fn):
+            with torch.no_grad():
+                fn(*leaves)
+
+        out[f"{name}_fwd"] = device_ms(forward, reps)
+        out[f"{name}_bwd"] = device_ms(
+            lambda loss=loss: torch.autograd.grad(loss, leaves, retain_graph=True), reps)
+    return out
+
+
+def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0):
+    """The big-K f32 step at benchmarks/mfu.py's bigk-single-chip shape:
+    bigk-dp's widths and recipe (K = 100, d = 10, S = 1, 200-200,
+    minibatches of 1024 without replacement, the fused combine with
+    in-kernel ε) with an f32 decoder, the fused MLP decoder off and the row
+    sum in the kernels or not; returns (runner, state, x_train) on ``dev``
+    (``loop.make_step_runner``, kernel engine)."""
+    from svax_torch.configs import CONFIGS
+    from svax_torch.data import load_dataset
+    from svax_torch.models.svae import SvaeConfig
+    from svax_torch.pgm import gmm
+    from svax_torch.train import loop, svae_step
+
+    cfg = CONFIGS["bigk-dp"]
+    train, _, meta = load_dataset(cfg["dataset"], seed=seed)
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+    config = SvaeConfig(latent_dim=cfg["latent_dim"], num_components=cfg["num_components"],
+                        num_samples=cfg["num_samples"], num_total=x.shape[0],
+                        likelihood=meta["likelihood"], nn_compute_dtype="float32",
+                        fused_combine=cfg["fused_combine"], kernel_rng=cfg["kernel_rng"],
+                        fused_decoder=fused_decoder)
+    prior = gmm.make_prior(config.num_components, config.latent_dim, alpha=cfg["alpha"],
+                           kappa=cfg["kappa"], device=dev)
+    state = svae_step.init_state(torch.Generator(device=dev).manual_seed(seed), x.shape[1],
+                                 config, prior, tuple(cfg["encoder_hidden"]),
+                                 tuple(cfg["decoder_hidden"]))
+    runner = loop.make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
+                                   rho_decay=cfg["rho_decay"], batch_size=cfg["batch_size"],
+                                   replace=False)
+    return runner, state, x
+
+
+def bigk_f32_rates(dev, steps: int = 100, profiled_steps: int = 20) -> dict:
+    """Steps/s of the big-K f32 step with the row sum unfused and fused, in
+    turns (unfused, fused, fused, unfused; ``steps`` each, timed to a
+    synchronise after 5 warm steps), then ``profiled_steps`` of each under
+    ``torch.profiler``: wall and device ms a step, the idle share and the
+    row-sum kernels' device ms a step. Returns {"unfused": {...}, "fused":
+    {...}} with "rates" (both turns), "wall_ms", "device_ms", "idle",
+    "rowsum_ms"."""
+    import time
+
+    out = {"unfused": {"rates": []}, "fused": {"rates": []}}
+    setups = {name: bigk_f32_setup(dev, name == "fused") for name in out}
+    for name in ("unfused", "fused", "fused", "unfused"):
+        runner, state, x = setups[name]
+        state, _ = runner(state, x, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(state, x, steps)
+        torch.cuda.synchronize()
+        out[name]["rates"].append(steps / (time.perf_counter() - t0))
+    for name, r in out.items():
+        runner, state, x = setups[name]
+        wall, prof = profiled(lambda: runner(state, x, profiled_steps))
+        busy = device_us(prof) / 1e3
+        r.update(wall_ms=wall / profiled_steps, device_ms=busy / profiled_steps,
+                 idle=1.0 - busy / wall,
+                 rowsum_ms=device_us(prof, "rowsum_") / 1e3 / profiled_steps)
+    return out
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -430,6 +618,9 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", choices=["mnist-svae", "bigk-dp"], default="mnist-svae")
+    p.add_argument("--fused-decoder", action="store_true",
+                   help="the row-sum kernels and the big-K f32 step with and without "
+                        "them (measure_fused_decoder)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_mnist: needs a CUDA device")
@@ -441,6 +632,8 @@ def main(argv: list[str] | None = None) -> int:
                           timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
+    if args.fused_decoder:
+        return measure_fused_decoder(dev)
     if args.config == "bigk-dp":
         return measure_bigk(dev)
     for label, shape in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1)),
@@ -487,6 +680,36 @@ def measure_bigk(dev) -> int:
           f"{out['init_test_elbo_per_point']:.4f} -> {rows[-1]['test_elbo_per_point']:.4f}, "
           f"IW/pt {out['final_test_iw_loglik_per_point']:.4f}, purity {purity:.4f}, "
           f"{used} of 100 components in use", flush=True)
+    return 0
+
+
+def measure_fused_decoder(dev) -> int:
+    """``--fused-decoder``: the row-sum kernels in both modes at the bigk (M
+    = 102,400) and mnist (M = 2,560) shapes (Dh = 200, D = 784) against
+    their plain version, the unfused f32 row sum and their bound; then the
+    big-K f32 step (``bigk_f32_rates``) with the row sum unfused and fused."""
+    clock = sm_clock_hz()
+    for label, m in (("bigk", 102400), ("mnist", 2560)):
+        for precision in ("highest", "default"):
+            t = time_rowsum(dev, m, 200, 784, precision)
+            fb, bb = (rowsum_bound(m, 200, 784, backward=b_, bf16=precision != "highest",
+                                   sm_clock_hz=clock) for b_ in (False, True))
+            print(f"rowsum {label} M,Dh,D={(m, 200, 784)} {precision}, CUDA-event ms per "
+                  "call: " + ", ".join(
+                f"{key} {val:.4f} ms" for key, val in t.items())
+                + f"; bound fwd {fb['ms'] * 1e3:.2f} us ({fb['by']}; products "
+                f"{fb['products_ms'] * 1e3:.2f}, special functions {fb['special_ms'] * 1e3:.2f}, "
+                f"bytes {fb['bytes_ms'] * 1e3:.2f} us), bwd {bb['ms'] * 1e3:.2f} us "
+                f"({bb['by']}; products {bb['products_ms'] * 1e3:.2f}, special functions "
+                f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f} us) at "
+                f"{clock / 1e6:.0f} MHz", flush=True)
+    rates = bigk_f32_rates(dev)
+    for name, r in rates.items():
+        print(f"== big-K f32 step, row sum {name}: "
+              + " / ".join(f"{v:.1f}" for v in r["rates"]) + " steps/s (100 steps, two "
+              f"turns); 20 profiled steps: wall {r['wall_ms']:.3f} ms, device "
+              f"{r['device_ms']:.3f} ms a step, idle share {100 * r['idle']:.1f}%, row-sum "
+              f"kernels {r['rowsum_ms']:.3f} ms a step", flush=True)
     return 0
 
 

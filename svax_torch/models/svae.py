@@ -16,6 +16,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from svax_torch.nets import mlp as nets
 from svax_torch.ops import batched_linalg as bl
@@ -32,11 +33,11 @@ class SvaeConfig(NamedTuple):
 
     The port implements the Gaussian and Bernoulli likelihoods, the diagonal
     recognition head, weighted reconstruction, zero jitter, the fused
-    combine, the fused MLP decoder and the Student-t mixture prior
-    (``dof`` > 0, ``models.svae_smm``), and component sharding
-    (``forward(comp_group=)``); the reference's other switches
-    (fused_decoder, remat, the full head, sampled recon) are not ported
-    yet (ROADMAP.md)."""
+    combine, the fused MLP decoder, the fused Bernoulli row sum and decoder
+    remat, the Student-t mixture prior (``dof`` > 0, ``models.svae_smm``),
+    and component sharding (``forward(comp_group=)``); the reference's other
+    switches (nn_precision, remat_combine, the full head, sampled recon)
+    are not ported yet (ROADMAP.md)."""
 
     latent_dim: int
     num_components: int
@@ -58,6 +59,16 @@ class SvaeConfig(NamedTuple):
     # tensors, their plain version on CPU tensors (bf16 products, f32
     # activations, whatever nn_compute_dtype says).
     fused_mlp_decoder: bool = False
+    # Route the Bernoulli decoder's x-free row sum through
+    # ops.decoder.rowsum_logsig_neg so the (S·N·K, D) logits never reach
+    # device memory (forward and backward). Acts at f32 decoder compute
+    # only; no-op for Gaussian likelihoods, and the fused MLP decoder takes
+    # precedence when it applies.
+    fused_decoder: bool = False
+    # Rematerialise the decoder in the backward pass
+    # (torch.utils.checkpoint): drops the (S·N·K, hidden) activation
+    # residuals and recomputes the decoder instead.
+    remat_decoder: bool = False
     # Student-t mixture (SMM) latent prior: dof > 0 selects models.svae_smm
     # with smm_iters u–z coordinate rounds; smm_envelope_grads stops the
     # gradient through the converged q(u) (the envelope theorem).
@@ -180,13 +191,28 @@ def sample_posterior(
     return post.mean[None] + bl.solve_triu_vec(chol, eps)
 
 
+def _weighted_loglik_fn(config: SvaeConfig):
+    """The decoder log-likelihood callable, checkpointed under
+    ``remat_decoder`` (svax/models/svae.py:248-252)."""
+    if not config.remat_decoder:
+        return _weighted_loglik
+
+    def remat(dec_params, z, x, cfg):
+        # The decoder draws no random numbers: no RNG state to replay.
+        return checkpoint(_weighted_loglik, dec_params, z, x, cfg, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return remat
+
+
 def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor,
                      config: SvaeConfig) -> torch.Tensor:
     """Decoder log-likelihood batched over (S, N, K): the fused MLP decoder
     under the reference's conditions (svax/models/svae.py:258-269: the
     switch, a Bernoulli likelihood, three decoder layers; the port's hidden
     layers are tanh), else the Bernoulli head in its x-free decomposed form
-    (in ``nn_compute_dtype``), else Gaussian."""
+    (in ``nn_compute_dtype``; with ``fused_decoder`` at f32, its row sum in
+    ``ops.decoder``), else Gaussian."""
     if (config.fused_mlp_decoder and config.likelihood == "bernoulli"
             and len(dec_params) == 3):
         from svax_torch.ops import decoder_mlp
@@ -194,7 +220,8 @@ def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor,
         return decoder_mlp.bernoulli_mlp_loglik_fused(dec_params, z, x)
     if config.likelihood == "bernoulli":
         return nets.bernoulli_loglik_decomposed(
-            dec_params, z, x, compute_dtype=config.decoder_compute_dtype)
+            dec_params, z, x, compute_dtype=config.decoder_compute_dtype,
+            fused=config.fused_decoder)
     mean, var = nets.decoder_apply(dec_params, z)
     return nets.gaussian_loglik(x[None, :, None, :], mean, var)
 
@@ -298,7 +325,7 @@ def forward(
         stats = gmm.suff_stats_from_moments(torch.exp(post.log_resp), post.mean, ezz,
                                             scale=scale)
     resp = torch.exp(post.log_resp)
-    loglik = _weighted_loglik(nn_params["decoder"], z, x, config)  # (S, N, K)
+    loglik = _weighted_loglik_fn(config)(nn_params["decoder"], z, x, config)  # (S, N, K)
     recon = scale * (resp * loglik.mean(dim=0)).sum()
     if comp_group is not None:
         recon, local = mesh.psum(torch.stack([recon, local]), comp_group).unbind()

@@ -171,8 +171,9 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     decoder are the plain ones whatever ``fused_combine``, ``kernel_rng``
     and ``fused_mlp_decoder`` say (``seed`` and ``step`` are unused): a
     Bernoulli head runs ``bernoulli_loglik_decomposed`` in the config's
-    compute dtype. ``comp_group``: component parallelism, as in
-    ``svae.forward`` (the u–z rounds are K-local; the softmax normaliser,
+    compute dtype, its row sum in ``ops.decoder`` under ``fused_decoder``
+    (svax/models/svae_smm.py:249-252). ``comp_group``: component
+    parallelism, as in ``svae.forward`` (the u–z rounds are K-local; the softmax normaliser,
     recon, the local term and the global KL are reduced over the group)."""
     if config.dof <= 0.0:
         raise ValueError("svae_smm.forward needs config.dof > 0 (the Student-t prior)")
@@ -189,7 +190,8 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     z = svae_mod.sample_posterior(post, config.num_samples, eps=eps, generator=generator)
     if config.likelihood == "bernoulli":
         loglik = nets.bernoulli_loglik_decomposed(
-            nn_params["decoder"], z, x, compute_dtype=config.decoder_compute_dtype)
+            nn_params["decoder"], z, x, compute_dtype=config.decoder_compute_dtype,
+            fused=config.fused_decoder)
     else:
         mean, var = nets.decoder_apply(nn_params["decoder"], z)
         loglik = nets.gaussian_loglik(x[None, :, None, :], mean, var)

@@ -101,7 +101,8 @@ def bernoulli_loglik(x: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 def bernoulli_loglik_decomposed(params: list[dict], z: torch.Tensor, x: torch.Tensor,
                                 compute_dtype: torch.dtype | None = None,
-                                fused: bool = False) -> torch.Tensor:
+                                fused: bool = False, precision: str = "highest"
+                                ) -> torch.Tensor:
     """Bernoulli log-lik as ll = ⟨x, o⟩ + Σ_D logσ(−o) (logσ(o) − logσ(−o) =
     o): the x-dependent part reduces to small products with the last layer's
     weights and the large logits term is x-free. z (..., N, K, d); x (N, D)
@@ -114,13 +115,13 @@ def bernoulli_loglik_decomposed(params: list[dict], z: torch.Tensor, x: torch.Te
     operands upcast to f32 (a bf16 ``matmul`` would round its output to
     bf16), and the logσ(−o) row sum accumulates in f32. The result is f32.
 
-    ``fused=True`` is the reference's x-free row-sum kernel
-    (``svax/ops/decoder_pallas.py``), not ported yet (ROADMAP.md, kernel C):
-    it raises."""
-    if fused:
-        raise NotImplementedError(
-            "the fused Bernoulli row-sum kernel (svax/ops/decoder_pallas.py) is not "
-            "ported to svax_torch yet (ROADMAP.md, kernel C)")
+    ``fused=True`` at f32 compute (``compute_dtype=None``) takes the row sum
+    from ``ops.decoder.rowsum_logsig_neg`` at ``precision`` (its CUDA
+    kernels on CUDA tensors, its plain version on CPU tensors), so the
+    logits never reach device memory; under bf16 compute it has no effect,
+    as in the reference (svax/nets/mlp.py:268-274, whose other condition,
+    the TPU backend, holds here always). The other products run f32 whatever
+    ``precision`` says."""
     out_dtype = z.dtype
     if compute_dtype is not None:
         z = z.to(compute_dtype)
@@ -134,6 +135,10 @@ def bernoulli_loglik_decomposed(params: list[dict], z: torch.Tensor, x: torch.Te
     y = x @ last["w"].T  # (N, Dh), in the compute dtype
     c = x.to(acc) @ last["b"].to(acc)  # (N,)
     t = torch.einsum("...nkh,nh->...nk", h.to(acc), y.to(acc)) + c[:, None]
+    if fused and compute_dtype is None:
+        from svax_torch.ops import decoder
+
+        return t + decoder.rowsum_logsig_neg(h, last["w"], last["b"], precision)
     o = h @ last["w"] + last["b"]
     rowsum = F.logsigmoid(-o).sum(dim=-1, dtype=acc)
     return (t + rowsum).to(out_dtype)

@@ -121,6 +121,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.decoder_mlp_backward.restype = i
+    lib.rowsum_partial_floats.argtypes = [i, i, i]  # m, dh, d
+    lib.rowsum_partial_floats.restype = ctypes.c_longlong
+    lib.rowsum_forward.argtypes = [p, p, p, i, i, i, i, p, p]  # h, w, b, m, dh, d, bf16, s
+    lib.rowsum_forward.restype = i
+    lib.rowsum_backward.argtypes = [
+        p, p, p, p, i, i, i, i,  # h, w, b, sbar, m, dh, d, bf16
+        p, p, p, p,  # hbar, wbar, bbar, partial
+        p,  # stream
+    ]
+    lib.rowsum_backward.restype = i
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 

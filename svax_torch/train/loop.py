@@ -127,7 +127,10 @@ def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
     per-step engine (the reference entry's auto rule,
     experiments/train_svae.py:251-271): a choice by shape, made before any
     kernel runs. Under data sharding neither kernel runs (``SINGLE_DEVICE``,
-    svax/train/loop.py:117-118)."""
+    svax/train/loop.py:117-118). A Bernoulli likelihood fits neither kernel
+    (both train a Gaussian decoder), so the Bernoulli decoder's switches
+    (``fused_mlp_decoder``, ``fused_decoder``, ``remat_decoder``) always
+    run on the per-step engine."""
     if engine not in ("megakernel", "auto"):
         raise ValueError(f"unknown engine {engine!r} (megakernel|auto)")
     if data_parallel:
@@ -276,7 +279,9 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     from Philox keyed (chunk seed, state.step), one host read of the seed
     per chunk. ``engine="plain"`` turns both off: ``sin_combine`` and
     ``torch.randn`` ε, the reference's path with fused_combine off; it turns
-    fused_mlp_decoder off with them (the bf16 or f32 decomposed decoder).
+    fused_mlp_decoder and fused_decoder off with them (the bf16 or f32
+    decomposed decoder, its row sum unfused). Either engine carries
+    ``remat_decoder`` as it is.
     ``batch_size`` 0 or ≥ N is the full batch; ``eps`` (T, S, M, K, d)
     injects the noise. With ``config.dof`` > 0 the step is the Student-t
     prior's (``svae_step.model_for``), whose forward runs no kernel.
@@ -297,7 +302,7 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     if engine == "plain":
         config = config._replace(fused_combine=False, kernel_rng=False,
-                                 fused_mlp_decoder=False)
+                                 fused_mlp_decoder=False, fused_decoder=False)
     use_seed = config.fused_combine and config.kernel_rng
     step = svae_step.make_train_step(config, prior, lr,
                                      svae_step.rho_schedule(rho, rho_decay),

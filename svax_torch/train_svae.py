@@ -1,10 +1,11 @@
-"""Train an SVAE with the port (PyTorch + the tinystep, flexstep, combine
-and decoder_mlp CUDA kernels).
+"""Train an SVAE with the port (PyTorch + the tinystep, flexstep, combine,
+decoder_mlp and row-sum CUDA kernels).
 
     python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae|bigk-dp
         [--steps N] [--warmup-steps N] [--device cuda|cpu]
         [--engine kernel|plain] [--seed S] [--iw-samples S]
-        [--fused-mlp-decoder] [--eval-every N] [--dp]
+        [--[no-]fused-mlp-decoder] [--nn-compute-dtype float32|bfloat16]
+        [--fused-decoder] [--remat-decoder] [--eval-every N] [--dp]
         [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
 
 Mirrors experiments/train_svae.py with its ``--engine auto`` rule
@@ -36,8 +37,22 @@ CPU the ranks join over gloo:
 
 More than one process without ``--dp`` is refused. ``--fused-mlp-decoder`` turns the decoder
 kernel on for the other Bernoulli config, mnist-svae, and is refused for a
-Gaussian one. ``--engine plain`` runs the plain PyTorch step instead (for
-the Bernoulli configs: ``sin_combine``, ``torch.randn`` ε and the
+Gaussian one; ``--no-fused-mlp-decoder`` turns it off for bigk-dp.
+``--nn-compute-dtype`` overrides the config's decoder compute dtype (the
+Bernoulli configs ship bfloat16). ``--fused-decoder`` (the reference's
+``benchmarks/mfu.py`` flag) takes the f32 Bernoulli decoder's x-free row
+sum from the row-sum kernels (``ops.decoder``), so the (rows, D) logits
+never reach device memory; it is refused where it could not act: a
+Gaussian likelihood, bf16 decoder compute, or the fused MLP decoder on
+(which takes precedence). The big-K f32 path is
+
+    python -m svax_torch.train_svae --config bigk-dp --nn-compute-dtype float32 \
+        --no-fused-mlp-decoder --fused-decoder
+
+``--remat-decoder`` recomputes the decoder in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its activations.
+``--engine plain`` runs the plain PyTorch step instead (for the Bernoulli
+configs: ``sin_combine``, ``torch.randn`` ε and the
 decomposed decoder); on the CPU every kernel runs its plain version.
 ``--smm-dof DOF`` (> 0) trains the Student-t mixture prior
 (``models.svae_smm``) with ``--smm-iters`` u–z rounds and, with
@@ -86,9 +101,21 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--warmup-steps", type=int, default=None,
                    help="rho = 0 warmup steps before the k-means++ reseed "
                         "(default: the config's; 0 = none)")
-    p.add_argument("--fused-mlp-decoder", action="store_true",
+    p.add_argument("--fused-mlp-decoder", action=argparse.BooleanOptionalAction,
+                   default=None,
                    help="the Bernoulli decoder in the fused MLP decoder kernel "
-                        "(on in bigk-dp's config; refused for a Gaussian config)")
+                        "(default: the config's, on in bigk-dp's; refused for a "
+                        "Gaussian config)")
+    p.add_argument("--nn-compute-dtype", choices=["float32", "bfloat16"], default=None,
+                   help="decoder compute dtype (default: the config's; bfloat16 runs "
+                        "the Bernoulli decoder body in bf16 with f32 sums)")
+    p.add_argument("--fused-decoder", action="store_true",
+                   help="the f32 Bernoulli decoder's x-free row sum in the row-sum "
+                        "kernels: the (rows, D) logits never reach device memory "
+                        "(refused where it cannot act)")
+    p.add_argument("--remat-decoder", action="store_true",
+                   help="recompute the decoder in the backward pass instead of "
+                        "storing its activations")
     p.add_argument("--eval-every", type=int, default=200,
                    help="data-parallel configs (bigk-dp): a row after step 1, every "
                         "N steps and after the last")
@@ -177,18 +204,36 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                         num_components=cfg["num_components"],
                         num_samples=cfg["num_samples"], num_total=n,
                         likelihood=meta["likelihood"],
-                        nn_compute_dtype=cfg.get("nn_compute_dtype", "float32"),
+                        nn_compute_dtype=(args.nn_compute_dtype
+                                          or cfg.get("nn_compute_dtype", "float32")),
                         fused_combine=cfg.get("fused_combine", False),
                         kernel_rng=cfg.get("kernel_rng", False),
                         fused_mlp_decoder=(cfg.get("fused_mlp_decoder", False)
-                                           or args.fused_mlp_decoder),
+                                           if args.fused_mlp_decoder is None
+                                           else args.fused_mlp_decoder),
+                        fused_decoder=args.fused_decoder,
+                        remat_decoder=args.remat_decoder,
                         dof=args.smm_dof, smm_iters=args.smm_iters,
                         smm_envelope_grads=args.smm_envelope_grads)
     if config.dof > 0.0:
         # The SMM forward runs the plain combine and decoder (the reference's
-        # svae_smm.forward): the fused switches do not act on it.
+        # svae_smm.forward): the fused switches do not act on it, but for the
+        # row sum, which svae_smm takes under fused_decoder.
         config = config._replace(fused_combine=False, kernel_rng=False,
                                  fused_mlp_decoder=False)
+    if args.fused_decoder:
+        # SvaeConfig's fused_decoder is a silent no-op where it cannot act, as
+        # the reference's; the entry refuses it there.
+        if config.likelihood != "bernoulli":
+            p.error(f"--fused-decoder: the row sum is a Bernoulli head's, and "
+                    f"{args.config} has a {config.likelihood} likelihood")
+        if config.nn_compute_dtype != "float32":
+            p.error(f"--fused-decoder: the row-sum kernels run an f32 decoder, and "
+                    f"{args.config} computes it in {config.nn_compute_dtype} (add "
+                    f"--nn-compute-dtype float32)")
+        if config.fused_mlp_decoder:
+            p.error(f"--fused-decoder: {args.config} runs the fused MLP decoder, which "
+                    f"takes precedence (add --no-fused-mlp-decoder)")
     gate = dict(batch_full=batch >= n, encoder_hidden=cfg["encoder_hidden"],
                 decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
                 rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim,
@@ -215,11 +260,11 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                              aug_noise=cfg.get("aug_noise", 0.0), engine=args.engine,
                              kernel=kernel)
     # The evaluation runs the training path's combine and decoder: on the
-    # plain engine with fused_combine and fused_mlp_decoder off, on the
-    # kernel engine with the kernels and the in-kernel ε.
+    # plain engine with fused_combine, fused_mlp_decoder and fused_decoder
+    # off, on the kernel engine with the kernels and the in-kernel ε.
     eval_config = (config if args.engine == "kernel"
                    else config._replace(fused_combine=False, kernel_rng=False,
-                                        fused_mlp_decoder=False))
+                                        fused_mlp_decoder=False, fused_decoder=False))
     evaluate = svae_step.make_eval_fn(eval_config, prior)
     if args.engine == "kernel" and device.type == "cuda":
         from svax_torch.ops import _build
@@ -240,6 +285,9 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                       args.engine == "kernel" and config.fused_combine,
                       "fused_mlp_decoder": args.engine == "kernel" and
                       config.fused_mlp_decoder and config.likelihood == "bernoulli",
+                      "fused_decoder": args.engine == "kernel" and config.fused_decoder,
+                      "nn_compute_dtype": config.nn_compute_dtype,
+                      "remat_decoder": config.remat_decoder,
                       "prior": "smm" if config.dof > 0.0 else "gmm", "dof": config.dof,
                       "smm_iters": config.smm_iters,
                       "smm_envelope_grads": config.smm_envelope_grads,

@@ -113,13 +113,6 @@ def test_broadcast_form_matches_jax_and_the_decomposition():
         rtol=1e-12)
 
 
-def test_fused_row_sum_is_not_ported_and_raises():
-    params = _torch_params(_params([2, 4, 6]))
-    with pytest.raises(NotImplementedError, match="decoder_pallas"):
-        nets.bernoulli_loglik_decomposed(params, torch.zeros(1, 3, 2, 2), torch.zeros(3, 6),
-                                         fused=True)
-
-
 def test_bernoulli_decoder_convert_round_trip():
     """The mnist-svae state (784 → 200-200 → 16, 8 → 200-200 → 784) from
     the JAX package converts to the port and back bit-exactly; the port's
