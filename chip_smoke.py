@@ -77,11 +77,13 @@ E. the fused MLP-decoder kernels against their plain version at the bigk
    bigk shape on phase I's 1x2 comp mesh (N=1024, K=50) and 2x1 data mesh
    (N=512, K=100): ll and every gradient
    (dz, dW1..3, db1..3, dy, dc) at measure_mnist.DECODER_TOL, reruns of
-   forward and backward bit-equal; then both timed at bigk and mnist
-   against the plain version and the unfused bf16 decoder they replace
-   (``nets.bernoulli_loglik_decomposed(compute_dtype=bfloat16)``), with
-   their bound (bf16 tensor-core products, special functions at the card's
-   maximum SM clock, bytes: the largest of the three);
+   forward and backward bit-equal; then both timed by CUDA events at bigk
+   and mnist against the plain version and the unfused bf16 decoder they
+   replace (``nets.bernoulli_loglik_decomposed(compute_dtype=bfloat16)``),
+   saying whether the backward, and forward + backward, are no slower than
+   the unfused ones, with their bound (bf16 tensor-core products, special
+   functions at the card's maximum SM clock, bytes: the largest of the
+   three);
 F. the bigk-dp main path: ``svax_torch.train_svae --config bigk-dp`` cut to
    300 warmup and 600 joint steps at seed 0, twice: the decoder and
    combine kernels launched, the runs bit-equal, test ELBO/pt up by more
@@ -137,8 +139,11 @@ J. the row-sum kernels (``ops/decoder.py: rowsum_logsig_neg``,
    the bf16-operand modes: s at rtol = atol = 2e-5 and H̄, W̄, b̄ within 5e-5
    of each largest entry (tests/test_kernel_interpret.py:82, :101; in the
    bf16 mode H̄ within 5e-3 with under 20% of entries beyond 5e-5,
-   ``measure_mnist.ROWSUM_TOL``), reruns bit-equal; each timed beside its
-   plain version, the unfused f32 row sum it replaces and its bound;
+   ``measure_mnist.ROWSUM_TOL``), and in the f32 mode H̄, W̄ within 2e-6
+   of the plain version in f64 (f32-accurate products,
+   ``measure_mnist.ROWSUM_F64_TOL``), reruns bit-equal; each timed by CUDA
+   events beside its plain version and the unfused f32 row sum it replaces
+   (saying whether the backward is no slower), and its bound;
 K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    full width with an f32 decoder (``make_step_runner``) from one seeded
    state with injected numpy ε, the row sum in the kernels against the
@@ -155,8 +160,12 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    ``bound_ms``, the least time the card could take for the same work (the
    larger of its bytes over 3.35 TB/s and its operations over the 67
    TFLOP/s f32 peak — for the decoder kernels, the bf16 tensor-core peak
-   and the special-function rate, and for the row-sum kernels, the f32
-   peak and the special-function rate — counted from this run's shapes;
+   and the special-function rate, and for the row-sum kernels' f32 mode,
+   the fastest f32-accurate product on the tensor cores (three TF32
+   passes) and the special-function rate — counted from this run's shapes;
+   the decoder and row-sum kernels' times are CUDA-event times, the other
+   per-call kernels' profiler device times (a profiled kernel that
+   launched and reads no time fails its phase);
    the component-parallel kernels' launches are phase I (b)'s first run's,
    both ranks; the row-sum kernels' phase K (b)'s, with their times in the
    f32 mode at bigk beside the unfused f32 row sum's) — the card line, and
@@ -758,12 +767,14 @@ def decoder_phase(card: str) -> list:
         if label in ("bigk", "mnist"):
             t = time_decoder(dev, *shape)
             fb, bb = (decoder_bound(*shape, backward=b, sm_clock_hz=clock) for b in (False, True))
-            line += (f"; device ms per call: forward {t['kernel_fwd_device']:.4f} (plain "
-                     f"{t['plain_fwd_device']:.4f}, unfused bf16 {t['unfused_fwd_device']:.4f}), "
-                     f"backward {t['kernel_bwd_device']:.4f} (plain {t['plain_bwd_device']:.4f}), "
-                     f"forward + backward {t['kernel_fwd_device'] + t['kernel_bwd_device']:.4f} "
-                     f"(unfused bf16 {t['unfused_fwdbwd_device']:.4f}); CUDA-event ms per call: "
-                     f"forward {t['kernel_fwd_call']:.4f}, backward {t['kernel_bwd_call']:.4f}; "
+            unfused_bwd = t["unfused_fwdbwd"] - t["unfused_fwd"]
+            both = t["kernel_fwd"] + t["kernel_bwd"]
+            line += (f"; CUDA-event ms per call: forward {t['kernel_fwd']:.4f} (plain "
+                     f"{t['plain_fwd']:.4f}, unfused bf16 {t['unfused_fwd']:.4f}), backward "
+                     f"{t['kernel_bwd']:.4f} (plain {t['plain_bwd']:.4f}, unfused bf16 "
+                     f"{unfused_bwd:.4f}: {'no slower' if t['kernel_bwd'] <= unfused_bwd else 'slower'}), "
+                     f"forward + backward {both:.4f} (unfused bf16 {t['unfused_fwdbwd']:.4f}: "
+                     f"{'no slower' if both <= t['unfused_fwdbwd'] else 'slower'}); "
                      f"bound forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
                      f"{fb['products_ms'] * 1e3:.2f}, special functions "
                      f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
@@ -777,15 +788,14 @@ def decoder_phase(card: str) -> list:
             entries = [
                 {"name": "decoder_mlp_forward", **common,
                  "replaces": "svax/ops/decoder_mlp_pallas.py:99", "max_abs_err": e["ll max abs"],
-                 "ms": t["kernel_fwd_device"], "plain_ms": t["plain_fwd_device"],
+                 "ms": t["kernel_fwd"], "plain_ms": t["plain_fwd"],
                  "bound_ms": fb["ms"], "bound_by": fb["by"], "special_ms": fb["special_ms"],
-                 "unfused_bf16_ms": t["unfused_fwd_device"]},
+                 "unfused_bf16_ms": t["unfused_fwd"]},
                 {"name": "decoder_mlp_backward", **common,
                  "replaces": "svax/ops/decoder_mlp_pallas.py:205",
-                 "max_abs_err": e["grad max abs"], "ms": t["kernel_bwd_device"],
-                 "plain_ms": t["plain_bwd_device"], "bound_ms": bb["ms"], "bound_by": bb["by"],
-                 "special_ms": bb["special_ms"],
-                 "unfused_bf16_ms": t["unfused_fwdbwd_device"] - t["unfused_fwd_device"]},
+                 "max_abs_err": e["grad max abs"], "ms": t["kernel_bwd"],
+                 "plain_ms": t["plain_bwd"], "bound_ms": bb["ms"], "bound_by": bb["by"],
+                 "special_ms": bb["special_ms"], "unfused_bf16_ms": unfused_bwd},
             ]
     return entries
 
@@ -1373,9 +1383,9 @@ def rowsum_phase(card: str) -> list:
     line (the bigk shape in the f32 mode, the path's, without launches)."""
     import torch
 
-    from svax_torch.measure_mnist import (ROWSUM_TOL, rowsum_bound, rowsum_errors,
-                                          rowsum_failures, rowsum_grads, rowsum_inputs,
-                                          sm_clock_hz, time_rowsum)
+    from svax_torch.measure_mnist import (ROWSUM_F64_TOL, ROWSUM_TOL, rowsum_bound,
+                                          rowsum_errors, rowsum_f64_errors, rowsum_failures,
+                                          rowsum_grads, rowsum_inputs, sm_clock_hz, time_rowsum)
     from svax_torch.ops import decoder
 
     dev = torch.device("cuda", 0)
@@ -1392,21 +1402,28 @@ def rowsum_phase(card: str) -> list:
             assert torch.equal(twice[0][0], twice[1][0]), f"rowsum {label}: forward reruns differ"
             assert all(torch.equal(a, b) for a, b in zip(twice[0][1], twice[1][1])), \
                 f"rowsum {label} {precision}: backward reruns differ"
+            f64 = ""
+            if precision == "highest":
+                e64 = rowsum_f64_errors(twice[0][1], *args)
+                assert max(e64.values()) <= ROWSUM_F64_TOL, f"rowsum {label} against f64: {e64}"
+                f64 = (" against f64: " + ", ".join(f"{k_} {v:.3e}" for k_, v in e64.items())
+                       + f" (bar {ROWSUM_F64_TOL});")
             t = time_rowsum(dev, m, 200, 784, precision)
             bf16 = precision != "highest"
             fb, bb = (rowsum_bound(m, 200, 784, backward=b_, bf16=bf16, sm_clock_hz=clock)
                       for b_ in (False, True))
             print(f"phase J: rowsum vs plain at {label} M,Dh,D=({m}, 200, 784) {precision}: "
                   + ", ".join(f"{k_} {v:.3e}" for k_, v in e.items() if k_ != "finite")
-                  + f" (bars {ROWSUM_TOL}); reruns bit-equal; CUDA-event ms per call: "
+                  + f" (bars {ROWSUM_TOL});{f64} reruns bit-equal; CUDA-event ms per call: "
                   f"forward {t['kernel_fwd']:.4f} (plain {t['plain_fwd']:.4f}, unfused f32 "
                   f"{t['unfused_fwd']:.4f}), backward {t['kernel_bwd']:.4f} (plain "
-                  f"{t['plain_bwd']:.4f}, unfused f32 {t['unfused_bwd']:.4f}); bound "
+                  f"{t['plain_bwd']:.4f}, unfused f32 {t['unfused_bwd']:.4f}: "
+                  f"{'no slower' if t['kernel_bwd'] <= t['unfused_bwd'] else 'slower'}); bound "
                   f"forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
-                  f"{fb['products_ms'] * 1e3:.2f}, special functions "
+                  f"{fb['products_ms'] * 1e3:.2f} as {fb['products_by']}, special functions "
                   f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
                   f"{fb['bytes_ms'] * 1e3:.2f}), backward {bb['ms'] * 1e3:.2f} us ({bb['by']}: "
-                  f"products {bb['products_ms'] * 1e3:.2f}, special functions "
+                  f"products {bb['products_ms'] * 1e3:.2f} as {bb['products_by']}, special functions "
                   f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f}); {card}",
                   flush=True)
             if label == "bigk" and precision == "highest":

@@ -80,6 +80,17 @@ def rho_bound(n: int, k: int, d: int, backward: bool) -> tuple[float, str]:
     return _bound(ops, nbytes)
 
 
+def launched_us(prof, name: str) -> float:
+    """``device_us(prof, name)`` for a kernel the profiled calls launched:
+    raises if the profiler recorded no device time for it (it has dropped
+    device events late in a long process, PERF.md), rather than report 0."""
+    us = device_us(prof, name)
+    if us <= 0.0:
+        raise RuntimeError(f"torch.profiler recorded no device time for {name}, which the "
+                           "profiled calls launched: time it in a fresh process")
+    return us
+
+
 def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / F32_FLOPS, nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -135,7 +146,7 @@ def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
             out[f"{name}_{part}_call"] = device_ms(call, n_rep)
             _, prof = profiled(lambda: [call() for _ in range(n_rep)])
             if name == "kernel":
-                busy = device_us(prof, kernel_name) + device_us(prof, "reduce_blocks")
+                busy = launched_us(prof, kernel_name) + device_us(prof, "reduce_blocks")
             else:
                 busy = device_us(prof)
             out[f"{name}_{part}_device"] = busy / 1e3 / n_rep
@@ -189,7 +200,7 @@ def time_comp(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
                 out[f"{name}_{case}_{part}_call"] = device_ms(call, n_rep)
                 _, prof = profiled(lambda: [call() for _ in range(n_rep)])
                 if name == "kernel":
-                    busy = (device_us(prof, f"{prefix}_{part}")
+                    busy = (launched_us(prof, f"{prefix}_{part}")
                             + device_us(prof, "reduce_blocks"))
                 else:
                     busy = device_us(prof)
@@ -306,13 +317,16 @@ def decoder_bound(s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
 
 def time_decoder(dev, s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
                  reps: int = 10) -> dict:
-    """ms per call at these shapes: the kernels (forward; the backward alone,
-    autograd over a retained graph), the plain version, and the unfused
-    bf16 decoder the kernel replaces (``nets.bernoulli_loglik_decomposed``
-    with ``compute_dtype=torch.bfloat16``, cuBLAS products; forward, and
-    forward + backward). ``*_device`` is the card's kernel time per call
-    under ``torch.profiler`` (for the kernels, decoder_mlp.cu's own),
-    ``*_call`` the CUDA-event time per call."""
+    """CUDA-event ms per call at these shapes (``device_ms``):
+    ``{kernel,plain}_{fwd,bwd}`` for the kernels (forward; the backward
+    alone, autograd over a retained graph) and the plain version, and
+    ``unfused_{fwd,fwdbwd}`` for the unfused bf16 decoder the kernels
+    replace (``nets.bernoulli_loglik_decomposed`` with
+    ``compute_dtype=torch.bfloat16``, cuBLAS products; forward, and forward
+    + backward). At the bigk shape each call keeps the card busy for
+    milliseconds, so the event time is its device time; ``torch.profiler``
+    is not used here, as it has dropped device events late in a long
+    process (PERF.md)."""
     from svax_torch.nets import mlp as nets
     from svax_torch.ops import decoder_mlp
 
@@ -321,32 +335,28 @@ def time_decoder(dev, s: int, n: int, k: int, d: int, h1: int, h2: int, dd: int,
         t.clone().requires_grad_(True) for ly in params for t in (ly["w"], ly["b"])]
     ps = [{"w": leaves[1 + 2 * i], "b": leaves[2 + 2 * i]} for i in range(3)]
     out = {}
-    for name, fn, kernels in (
-            ("kernel", lambda: decoder_mlp.bernoulli_mlp_loglik_fused(ps, leaves[0], x),
-             ("decoder_fwd", "decoder_bwd", "reduce_partials")),
-            ("plain", lambda: decoder_mlp.bernoulli_mlp_loglik_plain(ps, leaves[0], x), ()),
+    for name, fn in (
+            ("kernel", lambda: decoder_mlp.bernoulli_mlp_loglik_fused(ps, leaves[0], x)),
+            ("plain", lambda: decoder_mlp.bernoulli_mlp_loglik_plain(ps, leaves[0], x)),
             ("unfused", lambda: nets.bernoulli_loglik_decomposed(
-                ps, leaves[0], x, compute_dtype=torch.bfloat16), ())):
+                ps, leaves[0], x, compute_dtype=torch.bfloat16))):
         loss = (fn() * dll).sum()
 
-        def forward():
+        def forward(fn=fn):
             with torch.no_grad():
                 fn()
 
-        def backward():
+        def backward(loss=loss):
             torch.autograd.grad(loss, leaves, retain_graph=True)
 
-        def both():
+        def both(fn=fn):
             torch.autograd.grad((fn() * dll).sum(), leaves)
 
-        parts = [("fwd", forward), ("bwd", backward)] if name != "unfused" else [
-            ("fwd", forward), ("fwdbwd", both)]
-        for part, call in parts:
-            out[f"{name}_{part}_call"] = device_ms(call, reps)
-            _, prof = profiled(lambda: [call() for _ in range(reps)])
-            busy = (sum(device_us(prof, kn) for kn in kernels) if kernels
-                    else device_us(prof))
-            out[f"{name}_{part}_device"] = busy / 1e3 / reps
+        out[f"{name}_fwd"] = device_ms(forward, reps)
+        if name == "unfused":
+            out[f"{name}_fwdbwd"] = device_ms(both, reps)
+        else:
+            out[f"{name}_bwd"] = device_ms(backward, reps)
     return out
 
 
@@ -407,6 +417,27 @@ def rowsum_errors(h, w, b, sbar, precision: str) -> dict:
     return errs
 
 
+# The f32 mode's products against the plain version evaluated in f64: H̄
+# and W̄ each within 2e-6 of its largest entry. f32-accurate products meet
+# it (the kernels' six-term three-part products 1.5e-7–7.6e-7, cuBLAS's f32
+# 1.9e-6 at the bigk shape, on an H100); products of two-part bf16 splits
+# (three terms, within ~2⁻¹⁶) do not (~5e-6). b̄, a sum of the f32 do over
+# the M rows, is left to ROWSUM_TOL.
+ROWSUM_F64_TOL = 2e-6
+
+
+def rowsum_f64_errors(grads, h, w, b, sbar) -> dict:
+    """H̄ and W̄ of ``grads`` (``rowsum_grads``' gradients at "highest")
+    against the plain version in f64 on the same inputs: the largest |Δ|
+    over the largest entry, by name."""
+    from svax_torch.ops import decoder
+
+    ref = rowsum_grads(decoder.rowsum_logsig_neg_plain, *(t.double() for t in (h, w, b, sbar)),
+                       "highest")[1]
+    return {name: float((got.double() - want).abs().max()) / float(want.abs().max())
+            for name, got, want in zip(("hbar", "wbar"), grads, ref)}
+
+
 def rowsum_failures(errs: dict, precision: str) -> list:
     """The measures of ``rowsum_errors`` outside ROWSUM_TOL."""
     bars = [("s", ROWSUM_TOL["s"]), ("wbar", ROWSUM_TOL["grad"]), ("bbar", ROWSUM_TOL["grad"])]
@@ -419,26 +450,39 @@ def rowsum_failures(errs: dict, precision: str) -> list:
     return bad + ([("finite", False, True)] if not errs["finite"] else [])
 
 
+# One H100 SXM (data sheet): the dense TF32 tensor-core peak. An f32-accurate
+# product on the tensor cores takes three TF32 passes (hi·hi + hi·lo +
+# lo·hi) or six bf16 passes (a three-part split's terms of order < 3).
+TF32_FLOPS = 495e12
+
+
 def rowsum_bound(m: int, dh: int, d: int, backward: bool, bf16: bool,
                  sm_clock_hz: float) -> dict:
     """The least time for the row sum (or its backward) at these shapes, as
     the largest of three: its products (2 FLOP per multiply-add; the
-    backward recomputes o and adds H̄ and W̄: three products) over the f32
-    peak, or the bf16 tensor-core peak in the bf16 mode; its special
+    backward recomputes o and adds H̄ and W̄: three products) at the fastest
+    way the card has to form them — the bf16 tensor-core peak in the bf16
+    mode; in the f32 mode the least of the 67 TFLOP/s f32 peak, three TF32
+    passes and six bf16 passes (``products_by`` names it); its special
     functions (logσ as an exp and a log; σ as an exp and a reciprocal) over
     the special-function units at ``sm_clock_hz``; its bytes (H, W, b read
     and s written; backward: H, W, b, s̄ read and H̄, W̄, b̄ written; f32)
-    over the memory rate. Returns {"ms", "by", "products_ms", "special_ms",
-    "bytes_ms"}."""
+    over the memory rate. Returns {"ms", "by", "products_by", "products_ms",
+    "special_ms", "bytes_ms"}."""
     flops = 2 * m * dh * d * (3 if backward else 1)
     special = 2 * m * d
     nbytes = 4 * ((2 * m * dh + 2 * dh * d + 2 * d + m) if backward
                   else (m * dh + dh * d + d + m))
-    times = {"products_ms": flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3,
+    ways = ({"bf16": flops / BF16_FLOPS} if bf16 else
+            {"f32": flops / F32_FLOPS, "tf32x3": 3 * flops / TF32_FLOPS,
+             "bf16x6": 6 * flops / BF16_FLOPS})
+    way = min(ways, key=ways.get)
+    times = {"products_ms": ways[way] * 1e3,
              "special_ms": special / (SFU_PER_CLOCK * sm_clock_hz) * 1e3,
              "bytes_ms": nbytes / MEM_BYTES_PER_S * 1e3}
     by = max(times, key=times.get)
-    return {"ms": times[by], "by": "bytes" if by == "bytes_ms" else "operations", **times}
+    return {"ms": times[by], "by": "bytes" if by == "bytes_ms" else "operations",
+            "products_by": way, **times}
 
 
 def unfused_rowsum(h, w, b):
@@ -562,9 +606,11 @@ def profile_entry(argv: list[str]) -> dict:
     wall, prof = profiled(run)
     busy = device_us(prof) / 1e3
     # combine.cu's kernels: combine_fwd, combine_bwd and their reduce_blocks;
-    # decoder_mlp.cu's: decoder_fwd, decoder_bwd and reduce_partials.
+    # decoder_mlp.cu's: decoder_fwd, the backward's mlp_* kernels and
+    # reduce_partials.
     comb = (device_us(prof, "combine_") + device_us(prof, "reduce_blocks")) / 1e3
-    dec = (device_us(prof, "decoder_") + device_us(prof, "reduce_partials")) / 1e3
+    dec = (device_us(prof, "decoder_") + device_us(prof, "mlp_")
+           + device_us(prof, "reduce_partials")) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "idle": 1.0 - busy / wall,
             "combine_ms": comb, "decoder_ms": dec,
             "steps_per_s": result["out"]["steps_per_s"], "prof": prof}
@@ -698,9 +744,10 @@ def measure_fused_decoder(dev) -> int:
                   "call: " + ", ".join(
                 f"{key} {val:.4f} ms" for key, val in t.items())
                 + f"; bound fwd {fb['ms'] * 1e3:.2f} us ({fb['by']}; products "
-                f"{fb['products_ms'] * 1e3:.2f}, special functions {fb['special_ms'] * 1e3:.2f}, "
-                f"bytes {fb['bytes_ms'] * 1e3:.2f} us), bwd {bb['ms'] * 1e3:.2f} us "
-                f"({bb['by']}; products {bb['products_ms'] * 1e3:.2f}, special functions "
+                f"{fb['products_ms'] * 1e3:.2f} as {fb['products_by']}, special functions "
+                f"{fb['special_ms'] * 1e3:.2f}, bytes {fb['bytes_ms'] * 1e3:.2f} us), bwd "
+                f"{bb['ms'] * 1e3:.2f} us ({bb['by']}; products {bb['products_ms'] * 1e3:.2f} as "
+                f"{bb['products_by']}, special functions "
                 f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f} us) at "
                 f"{clock / 1e6:.0f} MHz", flush=True)
     rates = bigk_f32_rates(dev)

@@ -104,9 +104,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.rho_backward.restype = i
-    lib.decoder_mlp_partial_floats.argtypes = [i, i, i, i]  # n, h1, h2, D
-    lib.decoder_mlp_partial_floats.restype = ctypes.c_longlong
+    declare_decoders(lib)
+
+
+def declare_decoders(lib: ctypes.CDLL) -> None:
+    """The C entries of ``decoder_mlp.cu``, ``decoder.cu`` and ``errors.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     dims = [i] * 7  # n, k, s, d, h1, h2, D
+    lib.decoder_mlp_scratch_floats.argtypes = dims
+    lib.decoder_mlp_scratch_floats.restype = ctypes.c_longlong
     weights = [p] * 9  # w1, w1t, w2, w2t, w3, w3t (bf16), b1, b2, b3
     lib.decoder_mlp_forward.argtypes = [
         p, *dims, *weights,  # z
@@ -116,18 +122,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.decoder_mlp_forward.restype = i
     lib.decoder_mlp_backward.argtypes = [
         p, p, *dims, *weights,  # z, dll
-        p, p, p, p, p,  # y, dz, dy, dc, partial
+        p, p, p, p, p,  # y, dz, dy, dc, scratch
         p, p, p, p, p, p,  # dw1, db1, dw2, db2, dw3, db3
         p,  # stream
     ]
     lib.decoder_mlp_backward.restype = i
-    lib.rowsum_partial_floats.argtypes = [i, i, i]  # m, dh, d
-    lib.rowsum_partial_floats.restype = ctypes.c_longlong
+    lib.rowsum_scratch_floats.argtypes = [i, i, i, i]  # m, dh, d, bf16
+    lib.rowsum_scratch_floats.restype = ctypes.c_longlong
     lib.rowsum_forward.argtypes = [p, p, p, i, i, i, i, p, p]  # h, w, b, m, dh, d, bf16, s
     lib.rowsum_forward.restype = i
     lib.rowsum_backward.argtypes = [
         p, p, p, p, i, i, i, i,  # h, w, b, sbar, m, dh, d, bf16
-        p, p, p, p,  # hbar, wbar, bbar, partial
+        p, p, p, p,  # hbar, wbar, bbar, scratch
         p,  # stream
     ]
     lib.rowsum_backward.restype = i
@@ -135,42 +141,54 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
 
 
+def build(sources=None, extra_flags=(), tag: str = "libsvax_kernels") -> Path:
+    """Compile ``sources`` (default every ``csrc/*.cu``) with NVCC_FLAGS and
+    ``extra_flags`` into ``build/svax_torch/<tag>-<hash>.so`` unless it is
+    there already; returns its path. The hash covers every file beside the
+    sources (headers included) and the flags."""
+    global build_log
+    sources = sorted(sources if sources is not None else _CSRC.glob("*.cu"))
+    flags = [*NVCC_FLAGS, *extra_flags]
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    for hdr in sorted({h for src in sources for h in Path(src).parent.glob("*.cuh")}):
+        digest.update(hdr.name.encode() + hdr.read_bytes())
+    digest.update(" ".join(flags).encode())
+    out = _BUILD_DIR / f"{tag}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in sources]
+    jobs = [[nvcc, *flags, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+    jobs.append([nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs[:-1]]
+    logs = []
+    for cmd, proc in zip(jobs, procs):
+        output, _ = proc.communicate()
+        logs.append((cmd, proc.returncode, output))
+    if all(rc == 0 for _, rc, _ in logs):
+        link = subprocess.run(jobs[-1], capture_output=True, text=True)
+        logs.append((jobs[-1], link.returncode, link.stdout + link.stderr))
+    build_log = "".join(output for _, _, output in logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, rc, output in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
+    os.replace(tmp, out)
+    return out
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; returns the CDLL."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for src in sorted(_CSRC.glob("*.cu*")):
-        digest.update(src.name.encode() + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f"libsvax_kernels-{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(sources, objs)]
-        jobs.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for cmd in jobs[:-1]]
-        logs = []
-        for cmd, proc in zip(jobs, procs):
-            output, _ = proc.communicate()
-            logs.append((cmd, proc.returncode, output))
-        if all(rc == 0 for _, rc, _ in logs):
-            link = subprocess.run(jobs[-1], capture_output=True, text=True)
-            logs.append((jobs[-1], link.returncode, link.stdout + link.stderr))
-        build_log = "".join(output for _, _, output in logs)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        for cmd, rc, output in logs:
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(build()))
     _declare(lib)
     _lib = lib
     return lib

@@ -1048,8 +1048,4 @@ int philox_normals(unsigned long long seed, unsigned int base, float* out, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* svax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

@@ -12,9 +12,12 @@ backward (H̄ = do Wᵀ, W̄ = Hᵀ do, b̄ = Σ_m do with do = −σ(o)·s̄), 
 neither direction writes the logits to device memory.
 
 Precision, as the reference kernel's ``precision`` argument
-(``_kernel_precision``): "highest" is f32 throughout; "default" rounds H,
-W and, in the backward, do to bf16 before each product and sums in f32 (a
-Mosaic dot at DEFAULT; b̄ sums the f32 do); "high" maps to "default".
+(``_kernel_precision``): "highest" is f32 (the plain version, and the
+forward kernel, in f32 FMAs; the backward kernels on the tensor cores,
+each operand split exactly into three bf16 parts and the six terms of
+order < 3 summed: f32-accurate products); "default" rounds H, W and, in the backward, do to bf16 before
+each product and sums in f32 (a Mosaic dot at DEFAULT; b̄ sums the f32 do);
+"high" maps to "default".
 
 * On CUDA tensors ``rowsum_logsig_neg`` launches the kernels, or raises;
   there is no fallback.
@@ -111,24 +114,33 @@ class _RowsumKernel(torch.autograd.Function):
     def backward(ctx, sbar):
         global backward_launches
         from svax_torch.ops import _build
-        ptr = _build.ptr
 
         h2, w, b = ctx.saved_tensors
-        lib = _build.load()
-        m, dh = h2.shape
-        d = w.shape[1]
-        kw = dict(device=h2.device, dtype=torch.float32)
-        sbar = sbar.to(torch.float32).contiguous()
-        hbar, wbar, bbar = (torch.empty(shape, **kw) for shape in ((m, dh), (dh, d), (d,)))
-        partial = torch.empty((lib.rowsum_partial_floats(m, dh, d),), **kw)
-        stream = torch.cuda.current_stream(h2.device).cuda_stream
-        with torch.cuda.device(h2.device):
-            err = lib.rowsum_backward(ptr(h2), ptr(w), ptr(b), ptr(sbar), m, dh, d,
-                                      int(ctx.bf16), ptr(hbar), ptr(wbar), ptr(bbar),
-                                      ptr(partial), ctypes.c_void_p(stream))
-        _build.check(lib, err, "rowsum_backward")
+        grads = backward_call(_build.load(), h2, w, b, sbar.to(torch.float32).contiguous(),
+                              ctx.bf16)
         backward_launches += 1
-        return hbar, wbar, bbar, None
+        return (*grads, None)
+
+
+def backward_call(lib, h2, w, b, sbar, bf16: bool):
+    """(H̄, W̄, b̄) from ``lib``'s C entry ``rowsum_backward`` (the kernel
+    library, or another build of ``decoder.cu``): contiguous float32 CUDA
+    tensors h2 (M, Dh), w (Dh, D), b (D,), sbar (M,)."""
+    from svax_torch.ops import _build
+    ptr = _build.ptr
+
+    m, dh = h2.shape
+    d = w.shape[1]
+    kw = dict(device=h2.device, dtype=torch.float32)
+    hbar, wbar, bbar = (torch.empty(shape, **kw) for shape in ((m, dh), (dh, d), (d,)))
+    scratch = torch.empty((lib.rowsum_scratch_floats(m, dh, d, int(bf16)),), **kw)
+    stream = torch.cuda.current_stream(h2.device).cuda_stream
+    with torch.cuda.device(h2.device):
+        err = lib.rowsum_backward(ptr(h2), ptr(w), ptr(b), ptr(sbar), m, dh, d, int(bf16),
+                                  ptr(hbar), ptr(wbar), ptr(bbar), ptr(scratch),
+                                  ctypes.c_void_p(stream))
+    _build.check(lib, err, "rowsum_backward")
+    return hbar, wbar, bbar
 
 
 def rowsum_logsig_neg(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

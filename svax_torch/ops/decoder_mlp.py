@@ -148,31 +148,43 @@ class _DecoderKernel(torch.autograd.Function):
     def backward(ctx, dll):
         global backward_launches
         from svax_torch.ops import _build
-        ptr = _build.ptr
 
         z, w1, b1, w2, b2, w3, b3, y, *wb = ctx.saved_tensors
-        lib = _build.load()
-        s, n, k, d = z.shape
-        h1, h2, dd = w1.shape[1], w2.shape[1], w3.shape[1]
-        kw = dict(device=z.device, dtype=torch.float32)
-        dll = dll.to(torch.float32).contiguous()
-        dz = torch.empty(z.shape, **kw)
-        dy = torch.empty((n, h2), **kw)
-        dc = torch.empty((n,), **kw)
-        dw1, db1 = torch.empty((d, h1), **kw), torch.empty((h1,), **kw)
-        dw2, db2 = torch.empty((h1, h2), **kw), torch.empty((h2,), **kw)
-        dw3, db3 = torch.empty((h2, dd), **kw), torch.empty((dd,), **kw)
-        partial = torch.empty((lib.decoder_mlp_partial_floats(n, h1, h2, dd),), **kw)
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        with torch.cuda.device(z.device):
-            err = lib.decoder_mlp_backward(
-                ptr(z), ptr(dll), n, k, s, d, h1, h2, dd, *(ptr(t) for t in wb),
-                ptr(b1), ptr(b2), ptr(b3), ptr(y), ptr(dz), ptr(dy), ptr(dc), ptr(partial),
-                ptr(dw1), ptr(db1), ptr(dw2), ptr(db2), ptr(dw3), ptr(db3),
-                ctypes.c_void_p(stream))
-        _build.check(lib, err, "decoder_mlp_backward")
+        grads = backward_call(_build.load(), z, (w1, b1, w2, b2, w3, b3), y, wb,
+                              dll.to(torch.float32).contiguous())
         backward_launches += 1
-        return dz, dw1, db1, dw2, db2, dw3, db3, dy, dc
+        return grads
+
+
+def backward_call(lib, z, params, y, wb, dll):
+    """(dz, dW1, db1, dW2, db2, dW3, db3, dy, dc) from ``lib``'s C entry
+    ``decoder_mlp_backward`` (the kernel library, or another build of
+    ``decoder_mlp.cu``): params (w1, b1, w2, b2, w3, b3), y (N, H2), wb
+    ``_bf16_weights(w1, w2, w3)``, dll (S, N, K); contiguous float32 CUDA
+    tensors."""
+    from svax_torch.ops import _build
+    ptr = _build.ptr
+
+    w1, b1, w2, b2, w3, b3 = params
+    s, n, k, d = z.shape
+    h1, h2, dd = w1.shape[1], w2.shape[1], w3.shape[1]
+    kw = dict(device=z.device, dtype=torch.float32)
+    dz = torch.empty(z.shape, **kw)
+    dy = torch.empty((n, h2), **kw)
+    dc = torch.empty((n,), **kw)
+    dw1, db1 = torch.empty((d, h1), **kw), torch.empty((h1,), **kw)
+    dw2, db2 = torch.empty((h1, h2), **kw), torch.empty((h2,), **kw)
+    dw3, db3 = torch.empty((h2, dd), **kw), torch.empty((dd,), **kw)
+    scratch = torch.empty((lib.decoder_mlp_scratch_floats(n, k, s, d, h1, h2, dd),), **kw)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    with torch.cuda.device(z.device):
+        err = lib.decoder_mlp_backward(
+            ptr(z), ptr(dll), n, k, s, d, h1, h2, dd, *(ptr(t) for t in wb),
+            ptr(b1), ptr(b2), ptr(b3), ptr(y), ptr(dz), ptr(dy), ptr(dc), ptr(scratch),
+            ptr(dw1), ptr(db1), ptr(dw2), ptr(db2), ptr(dw3), ptr(db3),
+            ctypes.c_void_p(stream))
+    _build.check(lib, err, "decoder_mlp_backward")
+    return dz, dw1, db1, dw2, db2, dw3, db3, dy, dc
 
 
 def core_fused(z, w1, b1, w2, b2, w3, b3, y, c) -> torch.Tensor:

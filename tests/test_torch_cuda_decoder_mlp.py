@@ -21,10 +21,15 @@ pytestmark = pytest.mark.requires_cuda
 
 # (S, N, K, d, H1, H2, D): small; ragged (nothing a multiple of 8 or 16);
 # S = 2 with many blocks of points; the mnist and bigk shapes; hidden 256
-# (the backward's 64-row tiles).
+# (the wider width class). The engine's edges: rows one past a 64-row tile
+# and D not a multiple of the 64-column slab or chunk; fewer points (3)
+# than mlp_tail's blocks, with d = 1; both hidden widths at the cap with
+# D = 784; one width in each class (112 and 240 padded).
 SHAPES = [(2, 40, 5, 3, 16, 16, 24), (1, 37, 7, 3, 24, 40, 50), (2, 300, 5, 3, 16, 16, 24),
           (1, 256, 10, 8, 200, 200, 784), (1, 1024, 100, 10, 200, 200, 784),
-          (2, 150, 3, 16, 256, 256, 40)]
+          (2, 150, 3, 16, 256, 256, 40), (1, 13, 5, 4, 200, 200, 100),
+          (1, 3, 2, 1, 200, 200, 784), (1, 40, 5, 10, 256, 256, 784),
+          (1, 50, 6, 7, 100, 240, 300)]
 
 
 @pytest.fixture

@@ -1,7 +1,9 @@
 """The row-sum CUDA kernels on the card (``ops/decoder.py``,
 ``csrc/decoder.cu``): forward and recompute backward against their plain
 version in both modes at ragged and multi-block shapes (M not a multiple
-of the 64-row tile, D = 33 and 784), bit-equal reruns, the launch counters,
+of the 64-row tile, D = 33 and 784) and at the engine's edges, the f32
+mode against an f64 evaluation, bit-equal reruns at the bigk shape, the
+launch counters,
 and the wrapper raising (not falling back) outside its shape class.
 
 Every test needs a CUDA device and skips without one. The file imports no
@@ -13,16 +15,20 @@ JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from svax_torch.measure_mnist import (rowsum_errors, rowsum_failures, rowsum_grads,
-                                      rowsum_inputs)
+from svax_torch.measure_mnist import (ROWSUM_F64_TOL, rowsum_errors, rowsum_f64_errors,
+                                      rowsum_failures, rowsum_grads, rowsum_inputs)
 from svax_torch.ops import decoder
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.requires_cuda
 
 # (M, Dh, D): ragged everywhere; several row tiles and D chunks; the mnist
-# decoder's rows (S·N·K = 2,560); a wide Dh at the kernels' limit.
-SHAPES = [(37, 20, 33), (300, 70, 150), (1000, 200, 784), (2560, 200, 784), (130, 512, 33)]
+# decoder's rows (S·N·K = 2,560); a wide Dh at the kernels' limit. The
+# engine's edges: rows one past a 64-row tile; Dh = 1 and D = 3; Dh at the
+# narrow configuration's cap (224) with D a whole number of 64-column
+# chunks, and one past it (225, the wide configuration).
+SHAPES = [(37, 20, 33), (300, 70, 150), (1000, 200, 784), (2560, 200, 784), (130, 512, 33),
+          (65, 200, 784), (5, 1, 3), (129, 224, 128), (200, 225, 100)]
 
 
 @pytest.fixture
@@ -43,9 +49,19 @@ def test_kernel_matches_plain(dev, shape, precision):
     assert not rowsum_failures(errs, precision), errs
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(102400, 200, 784)])
+def test_f32_mode_is_f32_accurate(dev, shape):
+    """The f32 mode's H̄ and W̄ within ROWSUM_F64_TOL of an f64 evaluation:
+    f32-accurate products, which two-part bf16 splits are not."""
+    args = rowsum_inputs(dev, *shape)
+    grads = rowsum_grads(decoder.rowsum_logsig_neg, *args, "highest")[1]
+    errs = rowsum_f64_errors(grads, *args)
+    assert max(errs.values()) <= ROWSUM_F64_TOL, errs
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_reruns_are_bit_equal(dev, precision):
-    args = rowsum_inputs(dev, 3000, 200, 784, seed=2)
+    args = rowsum_inputs(dev, 102400, 200, 784, seed=2)  # the bigk shape
     runs = [rowsum_grads(decoder.rowsum_logsig_neg, *args, precision) for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -232,3 +232,87 @@ def test_wrapper_rejects_unknown_precision_and_devices():
         decoder.rowsum_logsig_neg(*args, precision="bf16")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         decoder.rowsum_logsig_neg(*(t.to("meta") for t in args))
+
+
+@pytest.mark.parametrize("backward,bf16,want_ms,want_by", [
+    (False, False, 0.1946, "tf32x3"), (True, False, 0.5839, "tf32x3"),
+    (False, True, 0.0325, "bf16"), (True, True, 0.0974, "bf16")])
+def test_rowsum_bound_takes_the_fastest_product_the_card_has(backward, bf16, want_ms, want_by):
+    """The row sum's bound at bigk (M = 102,400, Dh = 200, D = 784): in the
+    f32 mode an f32-accurate product costs three TF32 passes (the least of
+    those, six bf16 passes and the 67 TFLOP/s f32 FMA rate), in the bf16
+    mode one bf16 pass; the products bound both directions."""
+    from svax_torch.measure_mnist import rowsum_bound
+
+    got = rowsum_bound(102400, 200, 784, backward=backward, bf16=bf16, sm_clock_hz=1.98e9)
+    assert got["products_by"] == want_by
+    assert got["products_ms"] == pytest.approx(want_ms, rel=2e-3)
+    assert got["ms"] == max(got["products_ms"], got["special_ms"], got["bytes_ms"])
+    assert got["by"] == "operations"
+
+
+def test_profiler_times_of_a_launched_kernel_may_not_read_zero():
+    """``launched_us`` (the combine and ρ-kernel timings) raises when the
+    profile holds no device time for a kernel the calls launched, rather
+    than report 0 ms; with its events present it sums them."""
+    from types import SimpleNamespace
+
+    from svax_torch.measure_mnist import launched_us
+
+    def evt(name, us):
+        return SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name=name,
+                               time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+    prof = SimpleNamespace(events=lambda: [evt("combine_fwd<10>", 3.0), evt("combine_fwd<10>", 4.0),
+                                           evt("reduce_blocks", 1.0)])
+    assert launched_us(prof, "combine_fwd") == 7.0
+    with pytest.raises(RuntimeError, match="no device time for combine_bwd"):
+        launched_us(prof, "combine_bwd")
+
+
+def _split_product(a, b, parts: int):
+    """a @ b as the f32 mode's engine forms it: each operand split into
+    ``parts`` bf16 parts, the terms of order < parts, smallest first, summed
+    in f32 (each term a product of bf16 values, exact in f32)."""
+    def split(x):
+        out = []
+        for _ in range(parts):
+            out.append(x.to(torch.bfloat16).float())
+            x = x - out[-1]
+        return out
+
+    pa, pb = split(a), split(b)
+    total = torch.zeros(a.shape[0], b.shape[1])
+    for order in range(parts - 1, -1, -1):
+        for i in range(min(order, parts - 1), -1, -1):
+            if order - i < parts:
+                total = total + pa[i] @ pb[order - i]
+    return total
+
+
+@pytest.mark.parametrize("parts,meets", [(3, True), (2, False)])
+def test_f64_bar_tells_f32_products_from_two_part_ones(parts, meets):
+    """ROWSUM_F64_TOL, the card's check that the f32 mode's products are
+    f32-accurate: the backward with six-term three-part products meets it
+    and with three-term two-part ones (bf16x3) does not; the plain f32
+    version meets it."""
+    from svax_torch.measure_mnist import (ROWSUM_F64_TOL, rowsum_f64_errors, rowsum_grads,
+                                          rowsum_inputs)
+
+    h, w, b, sbar = rowsum_inputs("cpu", 1000, 200, 784)
+    do = -torch.sigmoid(_split_product(h, w, parts) + b) * sbar[:, None]
+    grads = (_split_product(do, w.T.contiguous(), parts),
+             _split_product(h.T.contiguous(), do, parts))
+    assert (max(rowsum_f64_errors(grads, h, w, b, sbar).values()) <= ROWSUM_F64_TOL) == meets
+    plain = rowsum_grads(decoder.rowsum_logsig_neg_plain, h, w, b, sbar, "highest")[1]
+    assert max(rowsum_f64_errors(plain, h, w, b, sbar).values()) <= ROWSUM_F64_TOL
+
+
+def test_phase_split_needs_a_card():
+    """``measure_phases`` builds and times on a CUDA card only: without one
+    it exits non-zero before building anything."""
+    from svax_torch import measure_phases
+
+    with mock.patch.object(torch.cuda, "is_available", return_value=False), \
+            mock.patch.object(measure_phases, "_load", side_effect=AssertionError("built")):
+        assert measure_phases.main([]) == 1
