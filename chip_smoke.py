@@ -177,6 +177,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -263,6 +264,24 @@ def rel_err(got, ref) -> float:
     """max |got − ref| / max |ref| (benchmarks/bench_estep.py's measure)."""
     got, ref = got.double(), ref.double()
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def kernel_resources(log: str, name: str) -> list[str]:
+    """ptxas's registers and spill bytes for each instantiation of the
+    kernel ``name`` in an nvcc -Xptxas -v log, one string each."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            if name in entry:
+                args = re.findall(r"Li(\d+)E", entry[entry.index(name):].split("Ev")[0])
+                out.append(f"{name}<{', '.join(args)}>: "
+                           f"{line.split('Used')[1].split(',')[0].strip()}, {spill}")
+            entry = None
+    return out
 
 
 def mixture_phases(card: str) -> list:
@@ -452,8 +471,21 @@ def auto_phases(card: str) -> dict:
     cases = [("auto width", full, train),
              ("d=2", dict(d=2, d_in=3, k=5, s=2, hidden=(16, 16), m=32), None),
              ("d=6", dict(d=6, d_in=8, k=3, s=2, hidden=(24, 24), m=32), None)]
+    from svax_torch.ops import _build
+
+    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
+    lines = kernel_resources(_build.build_log, "flexstep_kernel")
+    if not lines:
+        raise RuntimeError("phase A: no ptxas line for flexstep_kernel in the build log")
+    for line in lines:
+        print(f"phase A: ptxas {line}")
+    # The auto width at every cluster size, the small shapes at the default.
+    cases = [(f"{name}, cluster {cluster}", c, data, cluster)
+             for name, c, data in cases
+             for cluster in (flexstep.CLUSTER_SIZES if name == "auto width"
+                             else (flexstep.DEFAULT_CLUSTER,))]
     errs = {}
-    for name, c, data in cases:
+    for name, c, data, cluster in cases:
         state, prior, x = setup(**c, data=data)
         t = 3
         batches = stack(x, t, c["m"], 1)
@@ -461,7 +493,7 @@ def auto_phases(card: str) -> dict:
         eps = torch.tensor(rng.standard_normal((t, c["s"], c["m"], c["k"], c["d"])),
                            dtype=torch.float32, device=dev)
         kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=x.shape[0], eps=eps)
-        st_k, met_k = flexstep.train_chunk(state, prior, batches, **kw)
+        st_k, met_k = flexstep.train_chunk(state, prior, batches, cluster=cluster, **kw)
         torch.cuda.synchronize()
         st_p, met_p = flexstep.train_chunk_plain(state, prior, batches, **kw)
         e = {"params": max(close(f"flexstep {name} params", a_, b_, 5e-4, 5e-5)
@@ -481,15 +513,18 @@ def auto_phases(card: str) -> dict:
               + ", ".join(f"{k_} max abs err {v:.3e}" for k_, v in e.items())
               + " (params rtol 5e-4 atol 5e-5; m 5e-4/1e-5; naturals 5e-4/5e-4; recon, "
               "local_kl 2e-3; neg_loss 1e-4; rho 1e-6)")
-    max_abs_err = max(errs["auto width"][g] for g in ("params", "adam m", "naturals"))
+    max_abs_err = max(errs[f"auto width, cluster {flexstep.DEFAULT_CLUSTER}"][g]
+                      for g in ("params", "adam m", "naturals"))
 
     state, prior, x = setup(**full, data=train)
     n = x.shape[0]
     t_kernel, t_plain = 500, 20
     big, small = stack(x, t_kernel, 64, 3), stack(x, t_plain, 64, 4)
     kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=n, num_samples=4)
-    kernel_ms = time_per_step(lambda: flexstep.train_chunk(state, prior, big, **kw),
-                              t_kernel)
+    cluster_ms = {c: time_per_step(
+        lambda: flexstep.train_chunk(state, prior, big, cluster=c, **kw), t_kernel)
+        for c in flexstep.CLUSTER_SIZES}
+    kernel_ms = cluster_ms[flexstep.DEFAULT_CLUSTER]
     plain_ms = time_per_step(lambda: flexstep.train_chunk_plain(state, prior, small, **kw),
                              t_plain)
     # The bound, per step: the decoder MLP over K·S·M rows (backward to z)
@@ -502,7 +537,9 @@ def auto_phases(card: str) -> dict:
         2 * step_fmas(d, d_in, k, s, m, full["hidden"][0]),
         4 * m * d_in + 4 * (6 * p_flex + 3 * k * (3 + d + d * d)) / t_kernel + 16)
     print(f"phase A: per step on the card at auto width: kernel {kernel_ms:.4f} ms "
-          f"(chunks of {t_kernel}), plain {plain_ms:.4f} ms (chunks of {t_plain}); "
+          f"(chunks of {t_kernel}, cluster of {flexstep.DEFAULT_CLUSTER}; by cluster size "
+          + ", ".join(f"{c}: {v:.4f} ms" for c, v in cluster_ms.items())
+          + f"), plain {plain_ms:.4f} ms (chunks of {t_plain}); "
           f"bound {flex_bound[0] * 1e3:.3f} us ({flex_bound[1]}); {card}")
 
     # B. the auto-svae main path
@@ -537,7 +574,8 @@ def auto_phases(card: str) -> dict:
     assert max(ends.values()) > -12.3, f"auto-svae quality over seeds 0-3: {ends} (pin -12.3)"
     plain = train_svae.main(["--config", "auto-svae", "--steps", "50", "--device", "cuda",
                              "--engine", "plain", "--iw-samples", "0"])
-    print(f"phase B: auto-svae main path: {launches} flexstep launches, kernel "
+    print(f"phase B: auto-svae main path: {launches} flexstep launches (each one cluster "
+          f"of {flexstep.DEFAULT_CLUSTER} CTAs), kernel "
           f"{run1['steps_per_s']:.1f} steps/s, plain {plain['steps_per_s']:.1f} steps/s "
           f"(50 steps), test ELBO/pt {start:.4f} -> {end:.4f}, IW/pt {iw:.4f}, ends over "
           f"seeds 0-3 {[round(v, 4) for v in ends.values()]}, "
@@ -545,7 +583,8 @@ def auto_phases(card: str) -> dict:
     return {"name": "flexstep", "route": "cuda", "source": "svax_torch/ops/csrc/flexstep.cu",
             "replaces": "svax/ops/flexstep_pallas.py:374", "launches": launches,
             "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": flex_bound[0], "bound_by": flex_bound[1], "library_ms": None}
+            "bound_ms": flex_bound[0], "bound_by": flex_bound[1], "library_ms": None,
+            "cluster": flexstep.DEFAULT_CLUSTER}
 
 
 def combine_phase(card: str) -> list:
@@ -921,7 +960,8 @@ def smm_phase(card: str) -> dict:
                               met_p["local_kl"], 2e-4, 2e-4)
         assert st_k.step == st_p.step == t and st_k.opt_state.count == t
         errs[name] = e
-        print(f"phase G: tinystep SMM vs plain, T={t} at N={n} K={k} S={s} sigma=0.4, "
+        print(f"phase G: tinystep SMM (one cluster of {tinystep.DEFAULT_CLUSTER} CTAs) vs "
+              f"plain, T={t} at N={n} K={k} S={s} sigma=0.4, "
               f"{name}: " + ", ".join(f"{g} max abs err {v:.3e}" for g, v in e.items())
               + " (phase 4's tolerances)", flush=True)
     max_abs_err = max(e[g] for e in errs.values()
@@ -989,7 +1029,8 @@ def smm_phase(card: str) -> dict:
                zip(leaves(auto1["state"]), leaves(auto2["state"]))), \
         "two SMM auto-svae runs at one seed differ"
     print(f"phase G: SMM main path (pinwheel-svae --smm-dof 4, 2000 steps): {launches} "
-          f"tinystep launches, {run1['steps_per_s']:.1f} steps/s, training ELBO "
+          f"tinystep launches (each one cluster of {tinystep.DEFAULT_CLUSTER} CTAs), "
+          f"{run1['steps_per_s']:.1f} steps/s, training ELBO "
           f"{rows[0]['elbo']:.4f} -> {rows[-1]['elbo']:.4f}, test ELBO/pt {start:.4f} -> "
           f"{end:.4f}, SMM IW/pt {iw:.4f}, runs bit-equal; auto-svae --smm-dof 4 (per-step "
           f"engine, 200 steps): {auto1['steps_per_s']:.1f} steps/s, test ELBO/pt "
@@ -1001,7 +1042,8 @@ def smm_phase(card: str) -> dict:
             "replaces": "svax/ops/tinystep_pallas.py:621", "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms["smm full chain"], "plain_ms": plain_ms,
             "bound_ms": smm_bound[0], "bound_by": smm_bound[1], "library_ms": None,
-            "envelope_ms": ms["smm envelope"], "gmm_ms_same_call": ms["gmm"]}
+            "envelope_ms": ms["smm envelope"], "gmm_ms_same_call": ms["gmm"],
+            "cluster": tinystep.DEFAULT_CLUSTER}
 
 
 def rho_phase(card: str) -> list:
@@ -1598,36 +1640,48 @@ def main() -> int:
                            dtype=torch.float32, device=dev)
     kw = dict(lr=cfg["lr"], rho=cfg["rho"], t_steps=cfg["t"],
               aug_noise=cfg["aug"], eps=eps, aug_eps=aug_eps)
-    st_k, met_k = tinystep.train_chunk(state, prior, x, **kw)
-    torch.cuda.synchronize()
     st_p, met_p = tinystep.train_chunk_plain(state, prior, x, **kw)
-    errs = {}
-    groups = [("params", st_k.nn_params, st_p.nn_params, 5e-4, 5e-5),
-              ("adam m", st_k.opt_state.mu, st_p.opt_state.mu, 5e-4, 5e-6),
-              ("adam v", st_k.opt_state.nu, st_p.opt_state.nu, 5e-4, 1e-8)]
-    for name, tk, tp, rtol, atol in groups:
-        errs[name] = max(close(name, a_, b_, rtol, atol)
-                         for a_, b_ in zip(flat(tk), flat(tp)))
-    nat_pairs = [(st_k.pgm_nat.dir_nat, st_p.pgm_nat.dir_nat),
-                 *zip(st_k.pgm_nat.niw_nat, st_p.pgm_nat.niw_nat)]
-    errs["naturals"] = max(close("naturals", a_, b_, 2e-5, 2e-5)
-                           for a_, b_ in nat_pairs)
-    errs["recon"] = close("recon", met_k["recon"], met_p["recon"], 2e-4, 0.0)
-    errs["local_kl"] = close("local_kl", met_k["local_kl"], met_p["local_kl"],
-                             2e-4, 2e-4)
-    assert st_k.opt_state.count == st_p.opt_state.count == cfg["t"]
-    assert st_k.step == st_p.step == cfg["t"]
-    max_abs_err = max(errs[g] for g in ("params", "adam m", "adam v", "naturals"))
-    print("phase 4: kernel vs plain, T=3 at N=400 K=10 S=4 50-50 sigma=0.4: "
-          + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
-          + " (params rtol 5e-4 atol 5e-5; m 5e-4/5e-6; v 5e-4/1e-8; "
-          "naturals 2e-5/2e-5; recon rtol 2e-4; local_kl 2e-4/2e-4)")
+    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
+    lines = kernel_resources(_build.build_log, "tinystep_kernel")
+    if not lines:
+        raise RuntimeError("phase 4: no ptxas line for tinystep_kernel in the build log")
+    for line in lines:
+        print(f"phase 4: ptxas {line}")
+    # Every cluster size against the plain version; the default's errors
+    # go into the kernels line.
+    for cluster in tinystep.CLUSTER_SIZES:
+        st_k, met_k = tinystep.train_chunk(state, prior, x, cluster=cluster, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        groups = [("params", st_k.nn_params, st_p.nn_params, 5e-4, 5e-5),
+                  ("adam m", st_k.opt_state.mu, st_p.opt_state.mu, 5e-4, 5e-6),
+                  ("adam v", st_k.opt_state.nu, st_p.opt_state.nu, 5e-4, 1e-8)]
+        for name, tk, tp, rtol, atol in groups:
+            errs[name] = max(close(name, a_, b_, rtol, atol)
+                             for a_, b_ in zip(flat(tk), flat(tp)))
+        nat_pairs = [(st_k.pgm_nat.dir_nat, st_p.pgm_nat.dir_nat),
+                     *zip(st_k.pgm_nat.niw_nat, st_p.pgm_nat.niw_nat)]
+        errs["naturals"] = max(close("naturals", a_, b_, 2e-5, 2e-5)
+                               for a_, b_ in nat_pairs)
+        errs["recon"] = close("recon", met_k["recon"], met_p["recon"], 2e-4, 0.0)
+        errs["local_kl"] = close("local_kl", met_k["local_kl"], met_p["local_kl"],
+                                 2e-4, 2e-4)
+        assert st_k.opt_state.count == st_p.opt_state.count == cfg["t"]
+        assert st_k.step == st_p.step == cfg["t"]
+        if cluster == tinystep.DEFAULT_CLUSTER:
+            max_abs_err = max(errs[g] for g in ("params", "adam m", "adam v", "naturals"))
+        print(f"phase 4: kernel (one cluster of {cluster} CTAs) vs plain, T=3 at N=400 K=10 "
+              "S=4 50-50 sigma=0.4: "
+              + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
+              + " (params rtol 5e-4 atol 5e-5; m 5e-4/5e-6; v 5e-4/1e-8; "
+              "naturals 2e-5/2e-5; recon rtol 2e-4; local_kl 2e-4/2e-4)")
 
     t_kernel = 200
-    kernel_ms = time_per_step(
+    cluster_ms = {c: time_per_step(
         lambda: tinystep.train_chunk(state, prior, x, lr=cfg["lr"], rho=cfg["rho"],
-                                     t_steps=t_kernel, aug_noise=cfg["aug"]),
-        t_kernel)
+                                     t_steps=t_kernel, aug_noise=cfg["aug"], cluster=c),
+        t_kernel) for c in tinystep.CLUSTER_SIZES}
+    kernel_ms = cluster_ms[tinystep.DEFAULT_CLUSTER]
     t_plain = 20
     plain_ms = time_per_step(
         lambda: tinystep.train_chunk_plain(state, prior, x, lr=cfg["lr"],
@@ -1635,8 +1689,9 @@ def main() -> int:
                                            aug_noise=cfg["aug"]),
         t_plain)
     print(f"phase 4: per step on the card: kernel {kernel_ms:.4f} ms "
-          f"(chunks of {t_kernel}), plain {plain_ms:.4f} ms "
-          f"(chunks of {t_plain}); {card}")
+          f"(chunks of {t_kernel}, cluster of {tinystep.DEFAULT_CLUSTER}; by cluster size "
+          + ", ".join(f"{c}: {v:.4f} ms" for c, v in cluster_ms.items())
+          + f"), plain {plain_ms:.4f} ms (chunks of {t_plain}); {card}")
 
     # 5. the main path
     argv = ["--config", "pinwheel-svae", "--steps", "2000", "--device", "cuda",
@@ -1656,7 +1711,8 @@ def main() -> int:
         "two runs at one seed differ"
     plain = train_svae.main(["--config", "pinwheel-svae", "--steps", "50",
                              "--device", "cuda", "--engine", "plain"])
-    print(f"phase 5: main path: {launches} kernel launches, kernel "
+    print(f"phase 5: main path: {launches} kernel launches (each one cluster of "
+          f"{tinystep.DEFAULT_CLUSTER} CTAs), kernel "
           f"{run1['steps_per_s']:.1f} steps/s, plain {plain['steps_per_s']:.1f} "
           f"steps/s (50 steps), runs bit-equal; {card}")
 
@@ -1724,7 +1780,7 @@ def main() -> int:
         "replaces": "svax/ops/tinystep_pallas.py:621",
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
-        "bound_by": tiny_bound[1], "library_ms": None,
+        "bound_by": tiny_bound[1], "library_ms": None, "cluster": tinystep.DEFAULT_CLUSTER,
     }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels,
         *rho_kernels, *rowsum_kernels]}))
     print(card)

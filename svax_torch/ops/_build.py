@@ -25,7 +25,9 @@ NVCC_FLAGS = [
 ]
 
 _lib: ctypes.CDLL | None = None
-build_log = ""  # nvcc's output (register and shared-memory use per kernel)
+# nvcc's output (register and shared-memory use per kernel) for the library
+# build() last returned, kept beside it as <tag>-<hash>.log
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -41,19 +43,7 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tinystep_scratch_floats.argtypes = [i, i, i, i, i]
-    lib.tinystep_scratch_floats.restype = ctypes.c_longlong
-    lib.tinystep_train_chunk.argtypes = [
-        p, i, i, i, i, i,  # x, n, k, s, h1, h2
-        p, p, p, p, p,  # prior, nat, params, m, v
-        p, p, p, p,  # metrics, scratch, eps, aug_eps
-        i, i, ctypes.c_ulonglong, f, f, f,  # t_steps, count, seed, lr, rho, aug
-        f, i, i, f, f,  # dof, smm_iters, smm_env, psi_a, k_u
-        p,  # stream
-    ]
-    lib.tinystep_train_chunk.restype = i
-    lib.philox_normals.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, p, i, p]
-    lib.philox_normals.restype = i
+    declare_steps(lib)
     lib.mixstep_train_chunk.argtypes = [
         p, i, i, p, p, p,  # x, n, k, prior, nat, metrics
         i, f, f, f, f, i,  # t_steps, rho, scale, dof, smm_const, unroll
@@ -68,17 +58,6 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.estep_stats.restype = i
-    lib.flexstep_scratch_floats.argtypes = [i] * 9
-    lib.flexstep_scratch_floats.restype = ctypes.c_longlong
-    lib.flexstep_train_chunk.argtypes = [
-        p, i, i, i, i, i, i, i, i, i,  # batches, m, d_in, d, k, s, h1e, h2e, h1d, h2d
-        p, p, p, p, p,  # prior, nat, params, m1, m2
-        p, p, p,  # metrics, scratch, eps
-        i, i, i, ctypes.c_ulonglong,  # t_steps, adam count, step0, seed
-        f, ctypes.c_double, ctypes.c_double, f,  # lr, rho0, rho_decay, num_total
-        p,  # stream
-    ]
-    lib.flexstep_train_chunk.restype = i
     lib.combine_blocks.argtypes = [i, i]
     lib.combine_blocks.restype = i
     lib.combine_forward.argtypes = [
@@ -105,6 +84,39 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.rho_backward.restype = i
     declare_decoders(lib)
+
+
+def declare_steps(lib: ctypes.CDLL) -> None:
+    """The C entries of ``tinystep.cu`` and ``flexstep.cu``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tinystep_scratch_floats.argtypes = [i] * 6  # n, k, s, h1, h2, cluster
+    lib.tinystep_scratch_floats.restype = ctypes.c_longlong
+    lib.tinystep_smem_bytes.argtypes = [i] * 4  # h1, h2, k, cluster
+    lib.tinystep_smem_bytes.restype = ctypes.c_longlong
+    lib.tinystep_train_chunk.argtypes = [
+        p, i, i, i, i, i,  # x, n, k, s, h1, h2
+        p, p, p, p, p,  # prior, nat, params, m, v
+        p, p, p, p,  # metrics, scratch, eps, aug_eps
+        i, i, ctypes.c_ulonglong, f, f, f,  # t_steps, count, seed, lr, rho, aug
+        f, i, i, f, f,  # dof, smm_iters, smm_env, psi_a, k_u
+        i, p,  # cluster, stream
+    ]
+    lib.tinystep_train_chunk.restype = i
+    lib.philox_normals.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, p, i, p]
+    lib.philox_normals.restype = i
+    lib.flexstep_scratch_floats.argtypes = [i] * 10  # m, d_in, d, k, s, h1e, h2e, h1d, h2d, cluster
+    lib.flexstep_scratch_floats.restype = ctypes.c_longlong
+    lib.flexstep_smem_bytes.argtypes = [i] * 10
+    lib.flexstep_smem_bytes.restype = ctypes.c_longlong
+    lib.flexstep_train_chunk.argtypes = [
+        p, i, i, i, i, i, i, i, i, i,  # batches, m, d_in, d, k, s, h1e, h2e, h1d, h2d
+        p, p, p, p, p,  # prior, nat, params, m1, m2
+        p, p, p,  # metrics, scratch, eps
+        i, i, i, ctypes.c_ulonglong,  # t_steps, adam count, step0, seed
+        f, ctypes.c_double, ctypes.c_double, f,  # lr, rho0, rho_decay, num_total
+        i, p,  # cluster, stream
+    ]
+    lib.flexstep_train_chunk.restype = i
 
 
 def declare_decoders(lib: ctypes.CDLL) -> None:
@@ -144,8 +156,9 @@ def declare_decoders(lib: ctypes.CDLL) -> None:
 def build(sources=None, extra_flags=(), tag: str = "libsvax_kernels") -> Path:
     """Compile ``sources`` (default every ``csrc/*.cu``) with NVCC_FLAGS and
     ``extra_flags`` into ``build/svax_torch/<tag>-<hash>.so`` unless it is
-    there already; returns its path. The hash covers every file beside the
-    sources (headers included) and the flags."""
+    there already; returns its path and sets ``build_log`` (read back from
+    the ``.log`` beside a library built before). The hash covers every file
+    beside the sources (headers included) and the flags."""
     global build_log
     sources = sorted(sources if sources is not None else _CSRC.glob("*.cu"))
     flags = [*NVCC_FLAGS, *extra_flags]
@@ -156,7 +169,9 @@ def build(sources=None, extra_flags=(), tag: str = "libsvax_kernels") -> Path:
         digest.update(hdr.name.encode() + hdr.read_bytes())
     digest.update(" ".join(flags).encode())
     out = _BUILD_DIR / f"{tag}-{digest.hexdigest()[:16]}.so"
-    if out.exists():
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        build_log = log.read_text()
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -179,6 +194,7 @@ def build(sources=None, extra_flags=(), tag: str = "libsvax_kernels") -> Path:
     for cmd, rc, output in logs:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
+    log.write_text(build_log)
     os.replace(tmp, out)
     return out
 

@@ -15,23 +15,31 @@
 // Bound: the decoder's forward, activation backward and weight gradients,
 // about 94 M FMA per step at the auto shape (2,560 rows through
 // 4→100→100→16, each product three times); the encoder adds 2 M. Design:
-// ONE thread block of 512 threads on ONE SM, as tinystep — that SM is the
-// design limit. The state does not fit in one SM's shared memory at
-// 100-100 (parameters, Adam m and v are 288 KB), so parameters, moments and
-// gradients stay in global memory (L2-resident, updated in place) and each
-// product stages its weight matrix — W or Wᵀ — into shared memory. Per-row
-// data live feature-major in a global scratch buffer (row r of feature f at
-// [f·ld + r]), so every product reads float4s of 8 consecutive rows:
-// * products Out = act(In·W): a thread owns 8 rows × 4 columns, reads its
-//   rows as two float4 and its columns as one float4 of shared memory;
-// * weight gradients dW = Aᵀ·G (with a row of ones for the bias): a warp
-//   owns a 4×4 block, its lanes stride over the rows with coalesced float4
-//   loads, and the lanes' sums are added in lane order;
+// ONE thread-block cluster of C = 8 or 16 CTAs of 512 threads
+// (cluster_step.cuh). CTA r owns a contiguous range of the M minibatch
+// rows and their K·S decoder rows, so the whole forward and backward down
+// to the encoder needs only __syncthreads() inside the CTA. Each CTA keeps
+// every parameter in its shared memory (96 KB at 100-100) for the whole
+// chunk, with its slice of both Adam moments (192/C KB); its gradient,
+// statistics and metric partials go to its slab of global scratch (L2),
+// which the owners of the parameter slices read in rank order after the
+// first of the step's two cluster barriers. Per-row data live
+// feature-major in the CTA's own block of global scratch (row r of feature
+// f at [f·ld + r]):
+// * products Out = act(In·W): a thread owns 8 rows × 4 columns, the row
+//   tile fastest across threads, so a warp reads consecutive rows of In as
+//   float4 (coalesced) and shares its columns: W and Wᵀ are read straight
+//   from the shared parameter copy as broadcasts;
+// * weight gradients dW = Aᵀ·G (with a row of ones for the bias): a thread
+//   owns a 4×4 block and sums it over the CTA's rows in row order;
 // * per-(n, k) combine work (forward, softmax, sampling, backward): one
 //   thread per (n, k), D a template parameter, all in registers.
+// * registers: 512 threads, 128 registers each; the scratch layout and
+//   both sides' offsets are kernel arguments and the CTA's counts 32-bit,
+//   so they hold no registers across the step (no spills at d ≤ 4).
 // No atomics, so two runs at one seed are bit-identical. f32 FMA on CUDA
-// cores (no TF32). Spreading the rows over a cluster, and wgmma for the
-// 100×100 products, is later work (PERF.md).
+// cores (no TF32). Measured per-phase split: PERF.md
+// (svax_torch/measure_steps.py).
 //
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
 
@@ -39,22 +47,23 @@
 
 #include <cstdint>
 
+#include "cluster_step.cuh"
 #include "combine_tile.cuh"
 #include "gmm_d2.cuh"
 #include "philox.cuh"
+#include "phase_clock.cuh"
 
 namespace {
 
 using namespace svax;  // combine_tile.cuh, digammaf (gmm_d2.cuh), philox_normal
+namespace cs = svax::cluster_step;
+namespace cg = cooperative_groups;
 
-constexpr int NT = 512;  // threads in the one block
-constexpr int NW = NT / 32;  // its warps
-constexpr int RED_LD = 17;   // a lane's 16 weight-gradient sums, padded against bank conflicts
+constexpr int NT = 512;  // threads in each CTA of the cluster
 constexpr int TM = 8;    // rows per product tile
 constexpr int TN = 4;    // columns per product tile
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float kVarFloor = 1e-6f;
-constexpr float kB1 = 0.9f, kB2 = 0.999f, kAdamEps = 1e-8f;
 constexpr int kMaxHidden = 128, kMaxInput = 8, kMaxComponents = 64;
 
 __host__ __device__ constexpr long long pad4(long long v) { return (v + 3) / 4 * 4; }
@@ -69,6 +78,7 @@ struct Dims {
 // (in, out) row-major as in svax/nets/mlp.py.
 struct Side {
   int in, h1, h2, out, w1, b1, w2, b2, w3, b3, size;
+  Side() = default;
   __host__ __device__ Side(int in_, int h1_, int h2_, int out_, int base)
       : in(in_), h1(h1_), h2(h2_), out(out_) {
     w1 = base;
@@ -87,13 +97,25 @@ struct Side {
 enum RecField { R_LOGR, R_R, R_A, R_LRBAR, R_MU };
 __host__ __device__ constexpr int rec_width(int d) { return R_MU + 3 * d + d * d; }
 
-// Offsets (floats) of the scratch buffers; every one starts on 16 bytes.
+__host__ __device__ inline int n_params(const Dims& g) {
+  const Side enc(g.d_in, g.h1e, g.h2e, 2 * g.d, 0);
+  const Side dec(g.d, g.h1d, g.h2d, 2 * g.d_in, enc.size);
+  return enc.size + dec.size;
+}
+
+// Offsets (floats) of one CTA's block of scratch, every buffer on 16
+// bytes, sized for `g.m` points (the largest part, ⌈M/C⌉); the rows a CTA
+// owns are local (its points from 0, its decoder rows (n·K + k)·S + s).
+// After the C blocks come C slabs of partials: the gradient (P floats),
+// then the statistics (K·(1 + d + d²)), recon and local.
 struct Layout {
-  long long mp, r, rp;  // encoder rows padded; decoder rows K·S·M and padded
+  long long mp, r, rp;  // encoder rows padded; decoder rows K·S·m and padded
   long long x, a1e, a2e, oe, obe, g2e, g1e;  // encoder, feature-major, ld = mp
   long long z, a1d, a2d, od, obd, g2d, g1d, zb, ll;  // decoder, ld = rp
-  long long ph, nsc, rec, grad, total;
-  __host__ __device__ Layout(const Dims& g, int n_params) {
+  long long ph, nsc, rec, cta;
+  long long stats, slab;  // offset of the statistics in a slab; a slab's size
+  Layout() = default;
+  __host__ __device__ explicit Layout(const Dims& g) {
     mp = pad8(g.m);
     r = static_cast<long long>(g.k) * g.s * g.m;
     rp = pad8(r);
@@ -122,47 +144,35 @@ struct Layout {
     ph = take(2LL * g.d * g.m);
     nsc = take(3LL * g.m);
     rec = take(static_cast<long long>(g.m) * g.k * rec_width(g.d));
-    grad = take(n_params);
-    total = off;
+    cta = off;
+    stats = pad4(n_params(g));
+    slab = stats + pad4(static_cast<long long>(g.k) * (1 + g.d + g.d * g.d) + 2);
   }
 };
 
-__host__ __device__ inline int n_params(const Dims& g) {
-  const Side enc(g.d_in, g.h1e, g.h2e, 2 * g.d, 0);
-  const Side dec(g.d, g.h1d, g.h2d, 2 * g.d_in, enc.size);
-  return enc.size + dec.size;
-}
-
-// The largest weight matrix a product stages: Q × pad4(C) floats.
-__host__ __device__ inline long long stage_floats(const Dims& g) {
-  const long long qc[10][2] = {
-      {g.d_in, g.h1e}, {g.h1e, g.h2e}, {g.h2e, 2 * g.d}, {2 * g.d, g.h2e}, {g.h2e, g.h1e},
-      {g.d, g.h1d},    {g.h1d, g.h2d}, {g.h2d, 2 * g.d_in}, {2 * g.d_in, g.h2d}, {g.h2d, g.h1d}};
-  long long most = 0;
-  for (const auto& p : qc) most = p[0] * pad4(p[1]) > most ? p[0] * pad4(p[1]) : most;
-  return most;
-}
-
-// Shared memory: the staged weights, then per component the expected
-// parameters (slot row), the naturals, the prior and the statistics, then
-// the weight-gradient reduction buffer.
+// Shared memory of one CTA, in floats: the parameters (flat, the global
+// layout), this CTA's slice of both Adam moments, the naturals, the
+// expected parameters (slot rows) and the cluster totals of the
+// statistics, recon and local. svax_torch/ops/flexstep.py: smem_bytes is
+// its Python twin.
 struct Smem {
-  long long stage, exp, nat, prior, stat, red, total;
-  __host__ __device__ explicit Smem(const Dims& g) {
-    const int f = 3 + g.d + g.d * g.d;
-    stage = 0;
-    exp = pad4(stage_floats(g));
-    nat = exp + pad4(static_cast<long long>(g.k) * f);
-    prior = nat + pad4(static_cast<long long>(g.k) * f);
-    stat = prior + pad4(static_cast<long long>(g.k) * f);
-    red = stat + pad4(static_cast<long long>(g.k) * (1 + g.d + g.d * g.d));
-    total = red + NW * 32 * RED_LD;
+  long long m, v, nat, exp, tot, total;
+  __host__ __device__ Smem(const Dims& g, int c) {
+    const long long f = 3 + g.d + g.d * g.d;
+    const long long p = n_params(g);
+    const long long slice = pad4((p + c - 1) / c);
+    m = pad4(p);
+    v = m + slice;
+    nat = v + slice;
+    exp = nat + pad4(g.k * f);
+    tot = exp + pad4(g.k * f);
+    total = tot + pad4(static_cast<long long>(g.k) * (1 + g.d + g.d * g.d) + 2);
   }
 };
 
 struct Args {
   const float* batches;  // (T, M, d_in)
-  Dims g;
+  Dims g;              // the whole minibatch
   const float* prior;  // (K, F), F = 3 + d + d²: dir, η₁, η₂, η₃, η₄
   float* nat;          // (K, F), updated in place
   float* params;       // flat, updated in place
@@ -176,6 +186,11 @@ struct Args {
   float lr;
   double rho0, rho_decay;
   float num_total;
+  // Set by the host: one CTA's block of scratch (for ⌈M/C⌉ points) and both
+  // sides' parameter offsets. Read from the kernel's parameter space where
+  // they are used, they hold no registers across the step.
+  Layout lo;
+  Side enc, dec;
 };
 
 __device__ __forceinline__ float softplusf(float x) {
@@ -190,38 +205,43 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 enum Epi { kBiasTanh, kBias, kDTanh, kNone };
 
-// Out[c][r] = epi(Σ_q In[q][r]·B[q][c]) for r < rp, c < C, feature-major
-// with row stride ld. B = W (Q×C row-major) or, with trans, Wᵀ for W (C×Q)
-// row-major; it is staged into shared memory with rows padded to pad4(C).
-// Epilogues: tanh(· + b), · + b, ·(1 − act²) (the tanh backward with act
-// the layer's output), or none. All threads call; ends synchronised.
+// Out[c][r] = epi(Σ_q In[q][r]·B[q][c]) for r < rp (a multiple of 8),
+// c < C, feature-major with row stride ld. B = W (Q×C row-major) or, with
+// trans, Wᵀ for W (C×Q) row-major, read from the CTA's shared parameter
+// copy. A thread owns an 8-row × 4-column tile, the row tile fastest across
+// threads: a warp reads consecutive rows of In as float4 and shares its
+// columns, so each W read is a broadcast. Epilogues: tanh(· + b), · + b,
+// ·(1 − act²) (the tanh backward with act the layer's output), or none.
+// All threads call; ends synchronised.
 __device__ void gemm(const float* in, int Q, int C, long long ld, long long rp,
                      const float* W, bool trans, const float* bias, const float* act,
-                     Epi epi, float* out, float* sb) {
-  const int cp = static_cast<int>(pad4(C));
-  for (int i = threadIdx.x; i < Q * cp; i += NT) {
-    const int q = i / cp, c = i - q * cp;
-    sb[i] = c < C ? (trans ? W[c * Q + q] : W[q * C + c]) : 0.0f;
-  }
-  __syncthreads();
-  const int ncb = cp / TN;
-  const long long tiles = rp / TM * ncb;
+                     Epi epi, float* out) {
+  const int ncb = (C + TN - 1) / TN;
+  const long long nrt = rp / TM;
+  const long long tiles = nrt * ncb;
+  const int bstep = trans ? 1 : C;  // from B[q][c] to B[q + 1][c]
   for (long long t = threadIdx.x; t < tiles; t += NT) {
-    const int c0 = static_cast<int>(t % ncb) * TN;
-    const long long r0 = t / ncb * TM;
+    const int c0 = static_cast<int>(t / nrt) * TN;
+    const long long r0 = (t % nrt) * TM;
+    const float* b[TN];  // column c0 + y of B (the last column past C)
+#pragma unroll
+    for (int y = 0; y < TN; ++y) {
+      const int c = c0 + y < C ? c0 + y : C - 1;
+      b[y] = trans ? W + c * Q : W + c;
+    }
     float acc[TM][TN];
 #pragma unroll
     for (int x = 0; x < TM; ++x)
 #pragma unroll
       for (int y = 0; y < TN; ++y) acc[x][y] = 0.0f;
     const float* a = in + r0;
-    const float* b = sb + c0;
 #pragma unroll 2
     for (int q = 0; q < Q; ++q) {
       const float4 a0 = ld4(a + q * ld), a1 = ld4(a + q * ld + 4);
-      const float4 bq = *reinterpret_cast<const float4*>(b + q * cp);
       const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {bq.x, bq.y, bq.z, bq.w};
+      float bv[TN];
+#pragma unroll
+      for (int y = 0; y < TN; ++y) bv[y] = b[y][q * bstep];
 #pragma unroll
       for (int x = 0; x < TM; ++x)
 #pragma unroll
@@ -268,15 +288,12 @@ struct WGrad {
   int q, c, w, b;
 };
 
-// The three layers of one side in one pass: a warp owns a 4×4 block of one
-// layer's [dW; db]; its lanes take 4 consecutive rows each, 128 rows per
-// pass (every load a coalesced 512-byte float4 run), then the 32 lanes'
-// partial sums are added in lane order through shared memory `red` (NW ·
-// 32 · RED_LD floats), so the result does not depend on timing. Rows past
-// the real ones carry G = 0. Every warp runs the same number of rounds, so
-// the barriers are uniform. All threads call; ends synchronised.
+// The three layers of one side: a thread owns a 4×4 block of one layer's
+// [dW; db] and sums it over the CTA's rp rows in row order (float4 loads
+// of 4 consecutive rows), so the result does not depend on timing. Rows
+// past the real ones carry G = 0. All threads call; ends synchronised.
 __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, long long ld,
-                             long long rp, float* grad, float* red) {
+                             long long rp, float* grad) {
   const WGrad* layers[3] = {&l0, &l1, &l2};
   int blocks[3], total = 0;
 #pragma unroll
@@ -284,66 +301,56 @@ __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, 
     blocks[l] = ((layers[l]->q + 4) / 4) * ((layers[l]->c + 3) / 4);
     total += blocks[l];
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
-  float* mine = red + warp * 32 * RED_LD;
-  for (int base = 0; base < total; base += NW) {
-    const int task = base + warp;
+  for (int task = threadIdx.x; task < total; task += NT) {
+    int l = 0, idx = task;
+    while (idx >= blocks[l]) idx -= blocks[l++];
+    const WGrad* L = layers[l];
+    const int ncb = (L->c + 3) / 4;
+    const int i0 = idx / ncb * 4, c0 = idx % ncb * 4;
+    const float* arow[4];
+    const float* grow[4];
+    float4 aconst[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = i0 + x;
+      arow[x] = i < L->q ? L->a + i * ld : nullptr;
+      aconst[x] = i == L->q ? ones : zero;
+      grow[x] = c0 + x < L->c ? L->g + (c0 + x) * ld : nullptr;
+    }
     float acc[4][4];
 #pragma unroll
     for (int x = 0; x < 4; ++x)
 #pragma unroll
       for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
-    const WGrad* L = nullptr;
-    int i0 = 0, c0 = 0;
-    if (task < total) {
-      int l = 0, idx = task;
-      while (idx >= blocks[l]) idx -= blocks[l++];
-      L = layers[l];
-      const int ncb = (L->c + 3) / 4;
-      i0 = idx / ncb * 4;
-      c0 = idx % ncb * 4;
-      const float* arow[4];
-      const float* grow[4];
-      float4 aconst[4];
+    for (long long r = 0; r < rp; r += 4) {
+      float4 av[4], gv[4];
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int i = i0 + x;
-        arow[x] = i < L->q ? L->a + i * ld : nullptr;
-        aconst[x] = i == L->q ? ones : zero;
-        grow[x] = c0 + x < L->c ? L->g + (c0 + x) * ld : nullptr;
+        av[x] = arow[x] ? ld4(arow[x] + r) : aconst[x];
+        gv[x] = grow[x] ? ld4(grow[x] + r) : zero;
       }
-      for (long long r = 4 * lane; r < rp; r += 128) {
-        float4 av[4], gv[4];
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          av[x] = arow[x] ? ld4(arow[x] + r) : aconst[x];
-          gv[x] = grow[x] ? ld4(grow[x] + r) : zero;
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          acc[x][y] = fmaf(av[x].x, gv[y].x, acc[x][y]);
+          acc[x][y] = fmaf(av[x].y, gv[y].y, acc[x][y]);
+          acc[x][y] = fmaf(av[x].z, gv[y].z, acc[x][y]);
+          acc[x][y] = fmaf(av[x].w, gv[y].w, acc[x][y]);
         }
+    }
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
+    for (int x = 0; x < 4; ++x)
 #pragma unroll
-          for (int y = 0; y < 4; ++y) {
-            acc[x][y] = fmaf(av[x].x, gv[y].x, acc[x][y]);
-            acc[x][y] = fmaf(av[x].y, gv[y].y, acc[x][y]);
-            acc[x][y] = fmaf(av[x].z, gv[y].z, acc[x][y]);
-            acc[x][y] = fmaf(av[x].w, gv[y].w, acc[x][y]);
-          }
+      for (int y = 0; y < 4; ++y) {
+        const int i = i0 + x, c = c0 + y;
+        if (c < L->c && i < L->q) grad[L->w + i * L->c + c] = acc[x][y];
+        else if (c < L->c && i == L->q) grad[L->b + c] = acc[x][y];
       }
-    }
-#pragma unroll
-    for (int e = 0; e < 16; ++e) mine[lane * RED_LD + e] = acc[e / 4][e % 4];
-    __syncthreads();
-    if (L != nullptr && lane < 16) {
-      const int i = i0 + lane / 4, c = c0 + lane % 4;
-      float sum = 0.0f;
-      for (int l = 0; l < 32; ++l) sum += mine[l * RED_LD + lane];
-      if (c < L->c && i < L->q) grad[L->w + i * L->c + c] = sum;
-      else if (c < L->c && i == L->q) grad[L->b + c] = sum;
-    }
-    __syncthreads();
   }
+  __syncthreads();
 }
 
 // The expected GMM parameters of component k as one slot row
@@ -406,46 +413,65 @@ __device__ __forceinline__ void draw_eps(const Args& a, int t, int s, int n, int
   }
 }
 
-template <int D>
+// Phase-clock slots (svax_torch/measure_steps.py names them): 0–10 the
+// step's phases, then the two cluster barriers and the chunk's loads and
+// stores.
+enum FlexPhase { PH_BAR1 = 11, PH_BAR2 = 12, PH_IO = 13 };
+
+template <int D, int C>
 __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   constexpr int F = 3 + D + D * D;  // naturals and expected-parameter slots
   constexpr int FS = 1 + D + D * D;  // statistics: count, s1, s2
   constexpr int RW = rec_width(D);
   constexpr int R_ZZ = R_MU + D, R_JB = R_ZZ + D * D, R_HB = R_JB + D;
   static_assert(Slot<D>::SIZE == F, "the naturals and the slot rows share a width");
+  PHASE_START;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
   const int tid = threadIdx.x;
   const Dims& g = a.g;
   const int M = g.m, K = g.k, S = g.s, DI = g.d_in;
   const int P = n_params(g);
-  const Layout lo(g, P);
-  const long long mp = lo.mp, rp = lo.rp, R = lo.r;
-  const Side enc(DI, g.h1e, g.h2e, 2 * D, 0);
-  const Side dec(D, g.h1d, g.h2d, 2 * DI, enc.size);
+  // This CTA's minibatch rows [m0, m0 + mc) and parameter slice [p0, p1).
+  const int m0 = static_cast<int>(cs::part_begin(M, C, rank));
+  const int mc = static_cast<int>(cs::part_begin(M, C, rank + 1)) - m0;
+  const int p0 = static_cast<int>(cs::part_begin(P, C, rank));
+  const int p1 = static_cast<int>(cs::part_begin(P, C, rank + 1));
+  const Layout& lo = a.lo;
+  const int ldm = static_cast<int>(lo.mp), ldr = static_cast<int>(lo.rp);  // the block's strides
+  const int mp = static_cast<int>(pad8(mc)), R = K * S * mc, rp = static_cast<int>(pad8(R));
+  const Side &enc = a.enc, &dec = a.dec;
 
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Smem so(g);
-  float* sb = smem + so.stage;
-  float* sexp = smem + so.exp;
+  const Smem so(g, C);
+  float* sp = smem;  // parameters (every CTA's copy identical)
+  float* sm = smem + so.m;
+  float* sv = smem + so.v;
   float* snat = smem + so.nat;
-  float* sprior = smem + so.prior;
-  float* sstat = smem + so.stat;
-  float* sred = smem + so.red;
+  float* sexp = smem + so.exp;
+  float* stot = smem + so.tot;
 
-  float* scr = a.scratch;
+  float* scr = a.scratch + rank * lo.cta;
   float *X = scr + lo.x, *A1E = scr + lo.a1e, *A2E = scr + lo.a2e, *OE = scr + lo.oe,
         *OBE = scr + lo.obe, *G2E = scr + lo.g2e, *G1E = scr + lo.g1e;
   float *Z = scr + lo.z, *A1D = scr + lo.a1d, *A2D = scr + lo.a2d, *OD = scr + lo.od,
         *OBD = scr + lo.obd, *G2D = scr + lo.g2d, *G1D = scr + lo.g1d, *ZB = scr + lo.zb,
         *LL = scr + lo.ll;
-  float *PH = scr + lo.ph, *NSC = scr + lo.nsc, *REC = scr + lo.rec, *grad = scr + lo.grad;
-  const float* pw = a.params;  // both sides' offsets are into the one flat block
+  float *PH = scr + lo.ph, *NSC = scr + lo.nsc, *REC = scr + lo.rec;
+  float* slabs = a.scratch + C * lo.cta;  // rank 0's slab of partials
+  float* grad = slabs + rank * lo.slab;
+  float* spart = grad + lo.stats;  // statistics (K, FS), then recon and local
+  const float* pw = sp;  // both sides' offsets are into the one flat block
 
-  for (int i = tid; i < K * F; i += NT) {
-    snat[i] = a.nat[i];
-    sprior[i] = a.prior[i];
+  for (int i = tid; i < P; i += NT) sp[i] = a.params[i];
+  for (int i = p0 + tid; i < p1; i += NT) {
+    sm[i - p0] = a.m1[i];
+    sv[i - p0] = a.m2[i];
   }
+  for (int i = tid; i < K * F; i += NT) snat[i] = a.nat[i];
   __syncthreads();
+  PHASE_MARK(PH_IO);
 
   const float scale = a.num_total / static_cast<float>(M);
   const float lbar = scale / a.num_total;  // ∂neg_loss/∂(Σ_n local_n)
@@ -454,36 +480,37 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   const float half_d_const = 0.5f * D * (1.0f + kLog2Pi);
 
   for (int t = 0; t < a.t_steps; ++t) {
-    const float* xb = a.batches + static_cast<long long>(t) * M * DI;
+    const float* xb = a.batches + (static_cast<long long>(t) * M + m0) * DI;  // this CTA's rows
 
     // ---- 0: the batch, feature-major; expected parameters of the pre-update naturals.
-    for (long long i = tid; i < DI * mp; i += NT) {
+    for (int i = tid; i < DI * mp; i += NT) {
       const int f = static_cast<int>(i / mp), n = static_cast<int>(i % mp);
-      X[i] = n < M ? xb[n * DI + f] : 0.0f;
+      X[f * ldm + n] = n < mc ? xb[n * DI + f] : 0.0f;
     }
     if (tid < K) expected_slots<D>(snat, K, tid, sexp + tid * F);
     __syncthreads();
+    PHASE_MARK(0);
 
     // ---- 1: encoder forward; the diagonal potential per row.
-    gemm(X, DI, enc.h1, mp, mp, pw + enc.w1, false, pw + enc.b1, nullptr, kBiasTanh, A1E, sb);
-    gemm(A1E, enc.h1, enc.h2, mp, mp, pw + enc.w2, false, pw + enc.b2, nullptr, kBiasTanh, A2E,
-         sb);
-    gemm(A2E, enc.h2, 2 * D, mp, mp, pw + enc.w3, false, pw + enc.b3, nullptr, kBias, OE, sb);
-    for (int n = tid; n < M; n += NT) {
+    gemm(X, DI, enc.h1, ldm, mp, pw + enc.w1, false, pw + enc.b1, nullptr, kBiasTanh, A1E);
+    gemm(A1E, enc.h1, enc.h2, ldm, mp, pw + enc.w2, false, pw + enc.b2, nullptr, kBiasTanh, A2E);
+    gemm(A2E, enc.h2, 2 * D, ldm, mp, pw + enc.w3, false, pw + enc.b3, nullptr, kBias, OE);
+    for (int n = tid; n < mc; n += NT) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        const float p = 1.0f / (softplusf(OE[(D + i) * mp + n]) + kVarFloor);
+        const float p = 1.0f / (softplusf(OE[(D + i) * ldm + n]) + kVarFloor);
         PH[n * 2 * D + i] = p;
-        PH[n * 2 * D + D + i] = OE[i * mp + n] * p;
+        PH[n * 2 * D + D + i] = OE[i * ldm + n] * p;
       }
     }
     __syncthreads();
+    PHASE_MARK(1);
 
     // ---- 2: combine per (n, k): log ρ, the local-KL part, S samples.
-    for (int q = tid; q < M * K; q += NT) {
+    for (int q = tid; q < mc * K; q += NT) {
       const int n = q / K, k = q - n * K;
       const float* e = sexp + k * F;
-      float p[D], h[D], L[D][D], ht[D], mu[D], Li[D][D], C[D][D], logdet_j, log_rho;
+      float p[D], h[D], L[D][D], ht[D], mu[D], Li[D][D], Cv[D][D], logdet_j, log_rho;
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         p[i] = PH[n * 2 * D + i];
@@ -491,24 +518,25 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       }
       tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
       tri_inverse<D>(L, Li);
-      cov_from_inverse<D>(Li, C);
+      cov_from_inverse<D>(Li, Cv);
       float* rec = REC + static_cast<long long>(q) * RW;
       rec[R_LOGR] = log_rho;
-      rec[R_A] = local_a0<D>(e, mu, C, logdet_j);
+      rec[R_A] = local_a0<D>(e, mu, Cv, logdet_j);
       for (int s = 0; s < S; ++s) {
         float ep[D], u[D];
-        draw_eps<D>(a, t, s, n, k, ep);
+        draw_eps<D>(a, t, s, m0 + n, k, ep);
         solve_upper<D>(L, ep, u);
         const long long r = static_cast<long long>(q) * S + s;
 #pragma unroll
-        for (int i = 0; i < D; ++i) Z[i * rp + r] = mu[i] + u[i];
+        for (int i = 0; i < D; ++i) Z[i * ldr + r] = mu[i] + u[i];
       }
     }
-    for (long long i = tid; i < D * (rp - R); i += NT) Z[(i / (rp - R)) * rp + R + i % (rp - R)] = 0.0f;
+    for (int i = tid; i < D * (rp - R); i += NT) Z[(i / (rp - R)) * ldr + R + i % (rp - R)] = 0.0f;
     __syncthreads();
+    PHASE_MARK(2);
 
     // ---- 3: softmax over K per row; r̃ and a_nk.
-    for (int n = tid; n < M; n += NT) {
+    for (int n = tid; n < mc; n += NT) {
       float* recs = REC + static_cast<long long>(n) * K * RW;
       float mx = -3.0e38f;
       for (int k = 0; k < K; ++k) mx = fmaxf(mx, recs[k * RW + R_LOGR]);
@@ -524,44 +552,46 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       }
     }
     __syncthreads();
+    PHASE_MARK(3);
 
-    // ---- 4: decoder forward over K·S·M rows; log-likelihood and its cotangent.
-    gemm(Z, D, dec.h1, rp, rp, pw + dec.w1, false, pw + dec.b1, nullptr, kBiasTanh, A1D, sb);
-    gemm(A1D, dec.h1, dec.h2, rp, rp, pw + dec.w2, false, pw + dec.b2, nullptr, kBiasTanh, A2D,
-         sb);
-    gemm(A2D, dec.h2, 2 * DI, rp, rp, pw + dec.w3, false, pw + dec.b3, nullptr, kBias, OD, sb);
-    for (long long r = tid; r < rp; r += NT) {
+    // ---- 4: decoder forward over the CTA's K·S·mc rows; log-likelihood and its cotangent.
+    gemm(Z, D, dec.h1, ldr, rp, pw + dec.w1, false, pw + dec.b1, nullptr, kBiasTanh, A1D);
+    gemm(A1D, dec.h1, dec.h2, ldr, rp, pw + dec.w2, false, pw + dec.b2, nullptr, kBiasTanh, A2D);
+    gemm(A2D, dec.h2, 2 * DI, ldr, rp, pw + dec.w3, false, pw + dec.b3, nullptr, kBias, OD);
+    for (int r = tid; r < rp; r += NT) {
       if (r >= R) {
         LL[r] = 0.0f;
-        for (int j = 0; j < 2 * DI; ++j) OBD[j * rp + r] = 0.0f;
+        for (int j = 0; j < 2 * DI; ++j) OBD[j * ldr + r] = 0.0f;
         continue;
       }
-      const long long q = r / S;
+      const int q = r / S;
       const int n = static_cast<int>(q / K);
       const float llbar = rbar * REC[q * RW + R_R] * inv_s;
       float ll = 0.0f;
       for (int j = 0; j < DI; ++j) {
-        const float o = OD[j * rp + r], raw = OD[(DI + j) * rp + r];
+        const float o = OD[j * ldr + r], raw = OD[(DI + j) * ldr + r];
         const float var = softplusf(raw) + kVarFloor;
         const float diff = xb[n * DI + j] - o;
         ll += logf(var) + diff * diff / var + kLog2Pi;
-        OBD[j * rp + r] = llbar * diff / var;
-        OBD[(DI + j) * rp + r] =
+        OBD[j * ldr + r] = llbar * diff / var;
+        OBD[(DI + j) * ldr + r] =
             llbar * -0.5f * (1.0f / var - diff * diff / (var * var)) * sigmoidf(raw);
       }
       LL[r] = -0.5f * ll;
     }
     __syncthreads();
+    PHASE_MARK(4);
 
-    // ---- 5: decoder backward to z̄; decoder weight gradients.
-    gemm(OBD, 2 * DI, dec.h2, rp, rp, pw + dec.w3, true, nullptr, A2D, kDTanh, G2D, sb);
-    gemm(G2D, dec.h2, dec.h1, rp, rp, pw + dec.w2, true, nullptr, A1D, kDTanh, G1D, sb);
-    gemm(G1D, dec.h1, D, rp, rp, pw + dec.w1, true, nullptr, nullptr, kNone, ZB, sb);
+    // ---- 5: decoder backward to z̄; the decoder's weight-gradient partial.
+    gemm(OBD, 2 * DI, dec.h2, ldr, rp, pw + dec.w3, true, nullptr, A2D, kDTanh, G2D);
+    gemm(G2D, dec.h2, dec.h1, ldr, rp, pw + dec.w2, true, nullptr, A1D, kDTanh, G1D);
+    gemm(G1D, dec.h1, D, ldr, rp, pw + dec.w1, true, nullptr, nullptr, kNone, ZB);
     weight_grads({Z, G1D, D, dec.h1, dec.w1, dec.b1}, {A1D, G2D, dec.h1, dec.h2, dec.w2, dec.b2},
-                 {A2D, OBD, dec.h2, 2 * DI, dec.w3, dec.b3}, rp, rp, grad, sred);
+                 {A2D, OBD, dec.h2, 2 * DI, dec.w3, dec.b3}, ldr, rp, grad);
+    PHASE_MARK(5);
 
     // ---- 6: softmax backward per row (r̃ feeds recon weights and local KL).
-    for (int n = tid; n < M; n += NT) {
+    for (int n = tid; n < mc; n += NT) {
       float* recs = REC + static_cast<long long>(n) * K * RW;
       float sum_lr = 0.0f, recon_n = 0.0f, local_n = 0.0f;
       for (int k = 0; k < K; ++k) {
@@ -582,12 +612,13 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       NSC[n * 3 + 2] = sum_lr;
     }
     __syncthreads();
+    PHASE_MARK(6);
 
     // ---- 7: combine backward per (n, k); the statistics' terms.
-    for (int q = tid; q < M * K; q += NT) {
+    for (int q = tid; q < mc * K; q += NT) {
       const int n = q / K, k = q - n * K;
       const float* e = sexp + k * F;
-      float p[D], h[D], L[D][D], ht[D], mu[D], Li[D][D], C[D][D], logdet_j, log_rho;
+      float p[D], h[D], L[D][D], ht[D], mu[D], Li[D][D], Cv[D][D], logdet_j, log_rho;
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         p[i] = PH[n * 2 * D + i];
@@ -595,7 +626,7 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       }
       tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
       tri_inverse<D>(L, Li);
-      cov_from_inverse<D>(Li, C);
+      cov_from_inverse<D>(Li, Cv);
       float mubar[D], Lbar[D][D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
@@ -605,12 +636,12 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       }
       for (int s = 0; s < S; ++s) {
         float ep[D], u[D], zb[D], v[D];
-        draw_eps<D>(a, t, s, n, k, ep);
+        draw_eps<D>(a, t, s, m0 + n, k, ep);
         solve_upper<D>(L, ep, u);
         const long long r = static_cast<long long>(q) * S + s;
 #pragma unroll
         for (int i = 0; i < D; ++i) {
-          zb[i] = ZB[i * rp + r];
+          zb[i] = ZB[i * ldr + r];
           mubar[i] += zb[i];
         }
         lower_times<D>(Li, zb, v);
@@ -623,24 +654,25 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
       const float r = rec[R_R];
       const float rhobar = rec[R_LRBAR] - r * NSC[n * 3 + 2];
       float jbar[D], hbar[D];
-      tile_core_bwd<D>(e, L, Li, C, mu, ht, mubar, Lbar, lbar * r, rhobar, jbar, hbar);
+      tile_core_bwd<D>(e, L, Li, Cv, mu, ht, mubar, Lbar, lbar * r, rhobar, jbar, hbar);
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         rec[R_JB + i] = jbar[i];
         rec[R_HB + i] = hbar[i];
         rec[R_MU + i] = r * mu[i];
 #pragma unroll
-        for (int j = 0; j < D; ++j) rec[R_ZZ + i * D + j] = r * (C[i][j] + mu[i] * mu[j]);
+        for (int j = 0; j < D; ++j) rec[R_ZZ + i * D + j] = r * (Cv[i][j] + mu[i] * mu[j]);
       }
     }
     __syncthreads();
+    PHASE_MARK(7);
 
     // ---- 8: diagonal head backward per row: p = 1/(softplus(raw) + floor), h = mean·p.
     for (int n = tid; n < mp; n += NT) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         float ob_mean = 0.0f, ob_raw = 0.0f;
-        if (n < M) {
+        if (n < mc) {
           float pb = 0.0f, hb = 0.0f;
           for (int k = 0; k < K; ++k) {
             const float* rec = REC + (static_cast<long long>(n) * K + k) * RW;
@@ -649,79 +681,97 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
           }
           const float p = PH[n * 2 * D + i];
           ob_mean = hb * p;
-          ob_raw = -(pb + hb * OE[i * mp + n]) * p * p * sigmoidf(OE[(D + i) * mp + n]);
+          ob_raw = -(pb + hb * OE[i * ldm + n]) * p * p * sigmoidf(OE[(D + i) * ldm + n]);
         }
-        OBE[i * mp + n] = ob_mean;
-        OBE[(D + i) * mp + n] = ob_raw;
+        OBE[i * ldm + n] = ob_mean;
+        OBE[(D + i) * ldm + n] = ob_raw;
       }
     }
     __syncthreads();
+    PHASE_MARK(8);
 
-    // ---- 9: encoder backward and weight gradients; statistics; metrics.
-    gemm(OBE, 2 * D, enc.h2, mp, mp, pw + enc.w3, true, nullptr, A2E, kDTanh, G2E, sb);
-    gemm(G2E, enc.h2, enc.h1, mp, mp, pw + enc.w2, true, nullptr, A1E, kDTanh, G1E, sb);
+    // ---- 9: encoder backward and its weight-gradient partial; the
+    // statistics' and metrics' partials over the CTA's rows in order.
+    gemm(OBE, 2 * D, enc.h2, ldm, mp, pw + enc.w3, true, nullptr, A2E, kDTanh, G2E);
+    gemm(G2E, enc.h2, enc.h1, ldm, mp, pw + enc.w2, true, nullptr, A1E, kDTanh, G1E);
     weight_grads({X, G1E, DI, enc.h1, enc.w1, enc.b1}, {A1E, G2E, enc.h1, enc.h2, enc.w2, enc.b2},
-                 {A2E, OBE, enc.h2, 2 * D, enc.w3, enc.b3}, mp, mp, grad, sred);
+                 {A2E, OBE, enc.h2, 2 * D, enc.w3, enc.b3}, ldm, mp, grad);
     for (int i = tid; i < K * FS; i += NT) {
       const int k = i / FS, f = i - k * FS;
       const int field = f == 0 ? R_R : R_MU + f - 1;
       float acc = 0.0f;
-      for (int n = 0; n < M; ++n) acc += REC[(static_cast<long long>(n) * K + k) * RW + field];
-      sstat[i] = acc;
+      for (int n = 0; n < mc; ++n) acc += REC[(static_cast<long long>(n) * K + k) * RW + field];
+      spart[i] = acc;
+    }
+    if (tid == NT - 1) {
+      float recon = 0.0f, local = 0.0f;
+      for (int n = 0; n < mc; ++n) {
+        recon += NSC[n * 3 + 0];
+        local += NSC[n * 3 + 1];
+      }
+      spart[K * FS] = recon;
+      spart[K * FS + 1] = local;
     }
     __syncthreads();
+    PHASE_MARK(9);
+    cl.sync();  // every CTA's partials are in its slab
+    PHASE_MARK(PH_BAR1);
 
-    // ---- 10: Adam (optax.adam, bias correction at the global count); CVI.
-    const int count = a.adam_count + t + 1;
-    const float bc1 = static_cast<float>(1.0 - pow(0.9, static_cast<double>(count)));
-    const float bc2 = static_cast<float>(1.0 - pow(0.999, static_cast<double>(count)));
-    for (int i = tid; i < P; i += NT) {
-      const float gr = grad[i];
-      const float mm = (1.0f - kB1) * gr + kB1 * a.m1[i];
-      const float vv = (1.0f - kB2) * gr * gr + kB2 * a.m2[i];
-      a.m1[i] = mm;
-      a.m2[i] = vv;
-      a.params[i] -= a.lr * ((mm / bc1) / (sqrtf(vv / bc2) + kAdamEps));
-    }
+    // ---- 10: the slice's gradient over the cluster in rank order, Adam
+    // (optax.adam, bias correction at the global count) and the broadcast;
+    // the statistics and metrics summed in rank order by every CTA; CVI.
+    float bc1, bc2;
+    cs::adam_bias(a.adam_count + t + 1, bc1, bc2);
+    const cs::SlabPart grads{slabs, lo.slab}, parts{slabs + lo.stats, lo.slab};
+    cs::reduce_adam_broadcast<C, NT>(cl, grads, sp, sm, sv, p0, p1, a.lr, bc1, bc2);
+    cs::sum_ranks<C, NT>(parts, K * FS + 2, stot);
+    __syncthreads();
     const float rho_t = static_cast<float>(
         a.rho0 / (1.0 + a.rho_decay * static_cast<double>(a.step0 + t)));
     for (int i = tid; i < K * F; i += NT) {
       const int k = i / F, c = i - k * F;
-      const float* st = sstat + k * FS;
+      const float* st = stot + k * FS;
       // [dir, η₁ (D), η₂, η₃ (D²), η₄] ← [count, s1, count, s2, count]
       float delta;
       if (c == 0 || c == 1 + D || c == F - 1) delta = st[0];
       else if (c <= D) delta = st[c];
       else delta = st[1 + D + (c - 2 - D)];
-      snat[i] = (1.0f - rho_t) * snat[i] + rho_t * (sprior[i] + scale * delta);
+      snat[i] = (1.0f - rho_t) * snat[i] + rho_t * (a.prior[i] + scale * delta);
     }
-    if (tid == 0) {
-      float recon = 0.0f, local = 0.0f;
-      for (int n = 0; n < M; ++n) {
-        recon += NSC[n * 3 + 0];
-        local += NSC[n * 3 + 1];
-      }
-      recon *= scale;
-      local *= scale;
+    if (rank == 0 && tid == 0) {
+      const float recon = stot[K * FS] * scale, local = stot[K * FS + 1] * scale;
       a.metrics[t * 4 + 0] = recon;
       a.metrics[t * 4 + 1] = local;
       a.metrics[t * 4 + 2] = -(recon - local) / a.num_total;
       a.metrics[t * 4 + 3] = rho_t;
     }
     __syncthreads();
+    PHASE_MARK(10);
+    cl.sync();  // every parameter copy is updated; the slabs may be reused
+    PHASE_MARK(PH_BAR2);
   }
 
-  for (int i = tid; i < K * F; i += NT) a.nat[i] = snat[i];
+  for (int i = p0 + tid; i < p1; i += NT) {
+    a.params[i] = sp[i];
+    a.m1[i] = sm[i - p0];
+    a.m2[i] = sv[i - p0];
+  }
+  if (rank == 0)
+    for (int i = tid; i < K * F; i += NT) a.nat[i] = snat[i];
+  PHASE_MARK(PH_IO);
+}
+
+template <int D, int C>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t bytes = Smem(a.g, C).total * sizeof(float);
+  return cs::launch_cluster(flexstep_kernel<D, C>, C, NT, bytes, stream, a);
 }
 
 template <int D>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = Smem(a.g).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flexstep_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flexstep_kernel<D><<<1, NT, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+int launch(const Args& a, int cluster, cudaStream_t stream) {
+  if (cluster == 8) return launch<D, 8>(a, stream);
+  if (cluster == 16) return launch<D, 16>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -729,9 +779,19 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 long long flexstep_scratch_floats(int m, int d_in, int d, int k, int s, int h1e, int h2e,
-                                  int h1d, int h2d) {
+                                  int h1d, int h2d, int cluster) {
   const Dims g{m, d_in, d, k, s, h1e, h2e, h1d, h2d};
-  return Layout(g, n_params(g)).total;
+  Dims gc = g;
+  gc.m = static_cast<int>(cs::part_max(m, cluster));
+  const Layout lo(gc);
+  return cluster * (lo.cta + lo.slab);
+}
+
+// Dynamic shared memory of one CTA (svax_torch/ops/flexstep.py: smem_bytes).
+long long flexstep_smem_bytes(int m, int d_in, int d, int k, int s, int h1e, int h2e,
+                              int h1d, int h2d, int cluster) {
+  const Dims g{m, d_in, d, k, s, h1e, h2e, h1d, h2d};
+  return Smem(g, cluster).total * static_cast<long long>(sizeof(float));
 }
 
 int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, int s, int h1e,
@@ -739,25 +799,33 @@ int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, in
                          float* params, float* m1, float* m2, float* metrics, float* scratch,
                          const float* eps, int t_steps, int adam_count, int step0,
                          unsigned long long seed, float lr, double rho0, double rho_decay,
-                         float num_total, void* stream) {
+                         float num_total, int cluster, void* stream) {
   const Dims g{m, d_in, d, k, s, h1e, h2e, h1d, h2d};
   const int widths[4] = {h1e, h2e, h1d, h2d};
   for (int w : widths)
     if (w < 1 || w > kMaxHidden) return static_cast<int>(cudaErrorInvalidValue);
-  if (m < 1 || s < 1 || d_in < 1 || d_in > kMaxInput || k < 1 || k > kMaxComponents)
+  if (m < 1 || s < 1 || d_in < 1 || d_in > kMaxInput || k < 1 || k > kMaxComponents ||
+      (cluster != 8 && cluster != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{batches, g,     prior,   nat,   params,     m1,    m2,
          metrics, scratch, eps,   t_steps, adam_count, step0, seed,
          lr,      rho0,  rho_decay, num_total};
+  Dims gc = g;
+  gc.m = static_cast<int>(cs::part_max(m, cluster));
+  a.lo = Layout(gc);
+  a.enc = Side(d_in, h1e, h2e, 2 * d, 0);
+  a.dec = Side(d, h1d, h2d, 2 * d_in, a.enc.size);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 2: return launch<2>(a, st);
-    case 3: return launch<3>(a, st);
-    case 4: return launch<4>(a, st);
-    case 5: return launch<5>(a, st);
-    case 6: return launch<6>(a, st);
+    case 2: return launch<2>(a, cluster, st);
+    case 3: return launch<3>(a, cluster, st);
+    case 4: return launch<4>(a, cluster, st);
+    case 5: return launch<5>(a, cluster, st);
+    case 6: return launch<6>(a, cluster, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+SVAX_PHASE_ENTRY(flexstep_phase_clocks)
 
 }  // extern "C"

@@ -7,7 +7,9 @@ encoder, general-d SIN combine (Cholesky of J̃ = diag(Pₙ) + E[Λ_k], μ̃,
 log|J̃|, softmax over K), S reparameterised samples per (n, k), Gaussian
 decoder over K·S·M rows, local KL, CVI statistics, backward, Adam, and
 CVI with ρ_t = ρ₀/(1 + decay·t) — in ONE launch of the CUDA kernel in
-``csrc/flexstep.cu`` (its combine math in ``csrc/combine_tile.cuh``).
+``csrc/flexstep.cu`` (its combine math in ``csrc/combine_tile.cuh``): one
+thread-block cluster of ``cluster`` CTAs (``csrc/cluster_step.cuh``), each
+owning a contiguous range of the minibatch rows (``cluster_plan``).
 
 * On CUDA tensors it launches the kernel, or raises; there is no fallback.
 * On CPU tensors it runs ``train_chunk_plain``: T iterations of
@@ -32,8 +34,8 @@ import torch.nn.functional as F
 
 from svax_torch.expfam.niw import NiwNat
 from svax_torch.models.svae import SvaeConfig
-from svax_torch.ops.tinystep import (digamma, flat_params, mlp3_bwd, mlp3_fwd,
-                                     unflat_params)
+from svax_torch.ops.tinystep import (CLUSTER_SIZES, SMEM_LIMIT, digamma, flat_params,
+                                     mlp3_bwd, mlp3_fwd, pad_to, part_begin, unflat_params)
 from svax_torch.pgm import gmm
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train import svae_step
@@ -49,6 +51,9 @@ LATENT_DIMS = (2, 3, 4, 5, 6)
 MAX_INPUT = 8
 MAX_HIDDEN = 128
 MAX_COMPONENTS = 64
+# The cluster size the wrapper launches unless told otherwise (the faster
+# on the H100, PERF.md); CLUSTER_SIZES are those instantiated.
+DEFAULT_CLUSTER = 16
 
 launches = 0  # kernel launches made by train_chunk (plain int)
 
@@ -279,10 +284,48 @@ def unsupported_reason(nn_params: dict, prior: GmmNat, batch_shape,
     return None
 
 
+def cluster_plan(m: int, k: int, s: int, n_params: int, cluster: int) -> list[dict]:
+    """What each CTA of the cluster owns, as the kernel cuts it: per rank r,
+    its minibatch rows, its (n, k) records (n·K + k), its decoder rows in
+    the kernel's order ((n·K + k)·S + s: one range) and its slice of the
+    flat parameters."""
+    plan = []
+    for r in range(cluster):
+        m0, m1 = part_begin(m, cluster, r), part_begin(m, cluster, r + 1)
+        plan.append({
+            "points": range(m0, m1),
+            "records": range(m0 * k, m1 * k),
+            "rows": [range(m0 * k * s, m1 * k * s)],
+            "params": range(part_begin(n_params, cluster, r),
+                            part_begin(n_params, cluster, r + 1)),
+        })
+    return plan
+
+
+def n_params(d_in: int, d: int, h1e: int, h2e: int, h1d: int, h2d: int) -> int:
+    """Size of the flat parameter vector (both sides, W then b per layer)."""
+    enc = d_in * h1e + h1e + h1e * h2e + h2e + h2e * 2 * d + 2 * d
+    dec = d * h1d + h1d + h1d * h2d + h2d + h2d * 2 * d_in + 2 * d_in
+    return enc + dec
+
+
+def smem_bytes(d_in: int, d: int, k: int, h1e: int, h2e: int, h1d: int, h2d: int,
+               cluster: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/flexstep.cu: Smem): the
+    parameters, this CTA's slice of both Adam moments, the naturals and the
+    expected parameters (K rows of 3 + d + d²), and the cluster totals of
+    the statistics (K·(1 + d + d²)), recon and local."""
+    p = n_params(d_in, d, h1e, h2e, h1d, h2d)
+    f = 3 + d + d * d
+    floats = (pad_to(p, 4) + 2 * pad_to(-(-p // cluster), 4) + 2 * pad_to(k * f, 4)
+              + pad_to(k * (1 + d + d * d) + 2, 4))
+    return 4 * floats
+
+
 def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
                 lr: float, rho: float, rho_decay: float = 0.0, num_total: int,
                 num_samples: int = 4, seed: int = 0,
-                eps: torch.Tensor | None = None):
+                eps: torch.Tensor | None = None, cluster: int | None = None):
     """Run T complete train steps, one per row of the (T, M, d_in) stack;
     returns (state, {"recon", "local_kl", "neg_loss", "rho"} of shape (T,)).
 
@@ -291,8 +334,10 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     statistics scaled by num_total/M. ``elbo`` needs the global KL, added
     outside (``loop.make_runner``).
 
-    CUDA tensors: one launch of the CUDA kernel; f32, contiguous, one
-    device, the kernel's shape class — anything else raises. The returned
+    CUDA tensors: one launch of the CUDA kernel as one cluster of
+    ``cluster`` CTAs (``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` when None); f32,
+    contiguous, one device, the kernel's shape class — anything else
+    raises, as does a card with no room for the cluster. The returned
     state's tensors are views of fresh flat buffers that the kernel
     updated in place; the input state is not modified. CPU tensors:
     ``train_chunk_plain``.
@@ -313,6 +358,16 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     reason = unsupported_reason(state.nn_params, prior, batches.shape, s)
     if reason is not None:
         raise ValueError(f"flexstep.train_chunk: {reason}")
+    cluster = DEFAULT_CLUSTER if cluster is None else cluster
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"flexstep.train_chunk: cluster {cluster} not in {CLUSTER_SIZES}")
+    enc, dec = state.nn_params["encoder"], state.nn_params["decoder"]
+    h1e, h2e = enc[0]["w"].shape[1], enc[1]["w"].shape[1]
+    h1d, h2d = dec[0]["w"].shape[1], dec[1]["w"].shape[1]
+    smem = smem_bytes(d_in, d, k, h1e, h2e, h1d, h2d, cluster)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flexstep.train_chunk: {smem} bytes of shared memory a CTA "
+                         f"exceed {SMEM_LIMIT}")
     tensors = [batches, *prior.niw_nat, prior.dir_nat, *state.pgm_nat.niw_nat,
                state.pgm_nat.dir_nat]
     for tree in (state.nn_params, state.opt_state.mu, state.opt_state.nu):
@@ -334,9 +389,6 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     ptr = _build.ptr
 
     lib = _build.load()
-    enc, dec = state.nn_params["encoder"], state.nn_params["decoder"]
-    h1e, h2e = enc[0]["w"].shape[1], enc[1]["w"].shape[1]
-    h1d, h2d = dec[0]["w"].shape[1], dec[1]["w"].shape[1]
     params = flat_params(state.nn_params)
     m1 = flat_params(state.opt_state.mu)
     v1 = flat_params(state.opt_state.nu)
@@ -344,7 +396,7 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     prior_b = pack_nat(prior)
     metrics = torch.empty((t_steps, 4), device=batches.device, dtype=torch.float32)
     dims = (m, d_in, d, k, s, h1e, h2e, h1d, h2d)
-    scratch = torch.empty(lib.flexstep_scratch_floats(*dims), device=batches.device,
+    scratch = torch.empty(lib.flexstep_scratch_floats(*dims, cluster), device=batches.device,
                           dtype=torch.float32)
     stream = torch.cuda.current_stream(batches.device).cuda_stream
     with torch.cuda.device(batches.device):
@@ -355,7 +407,7 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
             t_steps, state.opt_state.count, state.step,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(rho_decay), float(num_total),
-            ctypes.c_void_p(stream),
+            cluster, ctypes.c_void_p(stream),
         )
     _build.check(lib, err, "flexstep_train_chunk")
     launches += 1

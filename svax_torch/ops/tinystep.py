@@ -7,7 +7,9 @@ runs T complete training steps — encoder, closed-form 2×2 SIN combine (for
 ``dof`` > 0 the u–z coordinate rounds of ``models.svae_smm``), reparameterised
 sampling, Gaussian decoder over S·N·K rows, local term, sufficient
 statistics, backward, Adam, CVI — in ONE launch of the CUDA kernel in
-``csrc/tinystep.cu``.
+``csrc/tinystep.cu``: one thread-block cluster of ``cluster`` CTAs
+(``csrc/cluster_step.cuh``), each owning a contiguous range of the points
+(``cluster_plan``).
 
 * On CUDA tensors it launches the kernel, or raises; there is no fallback.
 * On CPU tensors it runs ``train_chunk_plain``: T iterations of
@@ -46,6 +48,12 @@ _VAR_FLOOR = 1e-6
 SUPPORTED_HIDDEN = ((16, 16), (50, 50))
 # The kernel's shared memory holds K-sized blocks; it is sized for K <= 32.
 MAX_COMPONENTS = 32
+# Cluster sizes the kernel is instantiated for, and the one the wrapper
+# launches unless told otherwise (the faster on the H100, PERF.md).
+CLUSTER_SIZES = (8, 16)
+DEFAULT_CLUSTER = 16
+# Shared memory one CTA can have on the H100 (227 KB).
+SMEM_LIMIT = 232_448
 
 launches = 0  # kernel launches made by train_chunk (plain int)
 
@@ -468,13 +476,57 @@ def shape_class_reason(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
     return None
 
 
+def part_begin(count: int, parts: int, r: int) -> int:
+    """First item of part r when ``count`` items are cut into ``parts``
+    parts (csrc/cluster_step.cuh: part_begin): ⌊r·count/parts⌋."""
+    return count * r // parts
+
+
+def cluster_plan(n: int, k: int, s: int, n_params: int, cluster: int) -> list[dict]:
+    """What each CTA of the cluster owns, as the kernel cuts it: per rank r,
+    its points, its (n, k) records (n·K + k), its decoder rows in the plain
+    version's order (s·N·K + n·K + k: one range per sample) and its slice
+    of the flat parameters."""
+    plan = []
+    for r in range(cluster):
+        n0, n1 = part_begin(n, cluster, r), part_begin(n, cluster, r + 1)
+        plan.append({
+            "points": range(n0, n1),
+            "records": range(n0 * k, n1 * k),
+            "rows": [range(si * n * k + n0 * k, si * n * k + n1 * k) for si in range(s)],
+            "params": range(part_begin(n_params, cluster, r),
+                            part_begin(n_params, cluster, r + 1)),
+        })
+    return plan
+
+
+def pad_to(v: int, m: int) -> int:
+    """v rounded up to a multiple of m."""
+    return (v + m - 1) // m * m
+
+
+def smem_bytes(h1: int, h2: int, k: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/tinystep.cu: Shape::smem_floats):
+    the parameters and this CTA's gradient partial, its slice of both Adam
+    moments, padded W2 and W2ᵀ copies of both sides, the naturals, prior and
+    expected parameters, the statistics partial and its cluster total, and
+    the weight-gradient tile."""
+    p = 2 * (2 * h1 + h1 + h1 * h2 + h2 + h2 * 4 + 4)
+    tile_rows = 3 + pad_to(h1 + 1, 3) + pad_to(h2 + 1, 3) + pad_to(h1, 4) + pad_to(h2, 4) + 4
+    floats = (2 * p + 2 * pad_to(-(-p // cluster), 4)
+              + 2 * (h1 * pad_to(h2, 4) + h2 * pad_to(h1, 4))
+              + 2 * pad_to(9 * k, 4) + pad_to(8 * k, 4) + 2 * pad_to(7 * k + 2, 4)
+              + tile_rows * 36)
+    return 4 * floats
+
+
 def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
                 lr: float, rho: float, t_steps: int, seed: int = 0,
                 aug_noise: float = 0.0, num_samples: int = 4,
                 eps: torch.Tensor | None = None,
                 aug_eps: torch.Tensor | None = None,
                 dof: float = 0.0, smm_iters: int = 2,
-                smm_envelope_grads: bool = False):
+                smm_envelope_grads: bool = False, cluster: int | None = None):
     """Run T complete train steps; returns (state, {"recon", "local_kl",
     "neg_loss"} of shape (T,)).
 
@@ -485,8 +537,10 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     computes. ``elbo`` needs the global KL, added outside
     (``loop.make_runner``).
 
-    CUDA tensors: one launch of the CUDA kernel; f32, contiguous, one
-    device, the kernel's shape class — anything else raises. The state is
+    CUDA tensors: one launch of the CUDA kernel as one cluster of
+    ``cluster`` CTAs (``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` when None); f32,
+    contiguous, one device, the kernel's shape class — anything else
+    raises, as does a card with no room for the cluster. The state is
     packed into fresh flat device buffers that the kernel updates in
     place; the returned state's tensors are views of those buffers, and
     the input state is not modified. CPU tensors: ``train_chunk_plain``.
@@ -508,9 +562,15 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     reason = shape_class_reason(state, prior, x, s)
     if reason is not None:
         raise ValueError(f"tinystep.train_chunk: {reason}")
+    cluster = DEFAULT_CLUSTER if cluster is None else cluster
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"tinystep.train_chunk: cluster {cluster} not in {CLUSTER_SIZES}")
     n, k = x.shape[0], prior.dir_nat.shape[0]
     h1, h2 = state.nn_params["encoder"][0]["w"].shape[1], (
         state.nn_params["encoder"][1]["w"].shape[1])
+    if smem_bytes(h1, h2, k, cluster) > SMEM_LIMIT:
+        raise ValueError(f"tinystep.train_chunk: {smem_bytes(h1, h2, k, cluster)} bytes of "
+                         f"shared memory a CTA exceed {SMEM_LIMIT}")
     tensors = [x, *prior.niw_nat, prior.dir_nat, *state.pgm_nat.niw_nat,
                state.pgm_nat.dir_nat]
     for tree in (state.nn_params, state.opt_state.mu, state.opt_state.nu):
@@ -545,7 +605,7 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     nat = pack_nat(state.pgm_nat)
     prior_b = pack_nat(prior)
     metrics = torch.empty((t_steps, 3), device=x.device, dtype=torch.float32)
-    scratch = torch.empty(lib.tinystep_scratch_floats(n, k, s, h1, h2),
+    scratch = torch.empty(lib.tinystep_scratch_floats(n, k, s, h1, h2, cluster),
                           device=x.device, dtype=torch.float32)
     aug_in = aug_eps if aug_noise > 0.0 else None
     psi_a = k_u = 0.0
@@ -562,7 +622,7 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(aug_noise),
             float(max(dof, 0.0)), int(smm_iters), int(bool(smm_envelope_grads)),
-            float(psi_a), float(k_u), ctypes.c_void_p(stream),
+            float(psi_a), float(k_u), cluster, ctypes.c_void_p(stream),
         )
     _build.check(lib, err, "tinystep_train_chunk")
     launches += 1

@@ -1,7 +1,7 @@
 """The flexstep CUDA kernel on the card: against its plain version at
-d ∈ {2, 3, 4, 6} and several hidden widths, bit-equal reruns with
-in-kernel noise, and the wrapper raising (not falling back) outside its
-shape class.
+d ∈ {2, 3, 4, 6}, several hidden widths and each cluster size (including
+ragged and empty parts of the cluster), bit-equal reruns with in-kernel
+noise, and the wrapper raising (not falling back) outside its shape class.
 
 Every test needs a CUDA device and skips without one. The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -81,6 +81,66 @@ def test_kernel_matches_plain(dev, d, d_in, k, hidden):
     assert st_k.step == st_p.step == 3 and st_k.opt_state.count == 3
 
 
+def _assert_matches_plain(st_k, m_k, st_p, m_p, t):
+    _close(_flat(st_k.nn_params), _flat(st_p.nn_params), *TOL["params"], "params")
+    _close(_flat(st_k.opt_state.mu), _flat(st_p.opt_state.mu), *TOL["mu"], "adam m")
+    _close([st_k.pgm_nat.dir_nat, *st_k.pgm_nat.niw_nat],
+           [st_p.pgm_nat.dir_nat, *st_p.pgm_nat.niw_nat], *TOL["nat"], "naturals")
+    for key, tol in MET_TOL.items():
+        _close([m_k[key]], [m_p[key]], tol, tol, key)
+    assert st_k.step == st_p.step == t and st_k.opt_state.count == t
+
+
+@pytest.mark.parametrize("case", [
+    dict(m=37), dict(m=5), dict(m=37, k=1), dict(m=37, t=1), dict(m=37, d=2, d_in=2),
+    dict(m=37, d=6, k=3), dict(m=64, k=10, s=4, hidden=(100, 100)),
+], ids=["ragged_m37", "m5_empty_ctas", "k1", "t1", "d2", "d6", "auto_width"])
+@pytest.mark.parametrize("cluster", flexstep.CLUSTER_SIZES)
+def test_cluster_kernel_matches_plain(dev, cluster, case):
+    """Each cluster size against the plain version where M does not divide
+    by C, where some CTAs own no row (M < C), at K = 1, T = 1, d = 2, 6."""
+    t = case.get("t", 3)
+    state, prior, batches, eps, n = _setup(dev, **{"t": t, **case})
+    kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=n, eps=eps)
+    st_k, m_k = flexstep.train_chunk(state, prior, batches, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    st_p, m_p = flexstep.train_chunk_plain(state, prior, batches, **kw)
+    _assert_matches_plain(st_k, m_k, st_p, m_p, t)
+
+
+@pytest.mark.parametrize("cluster", flexstep.CLUSTER_SIZES)
+def test_cluster_reruns_are_bit_equal(dev, cluster):
+    state, prior, batches, _, n = _setup(dev, m=37, hidden=(24, 40), k=7)
+    kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=n, seed=11, cluster=cluster)
+    a, ma = flexstep.train_chunk(state, prior, batches, **kw)
+    b, mb = flexstep.train_chunk(state, prior, batches, **kw)
+    assert all(torch.equal(p, q) for p, q in zip(_flat(a.nn_params), _flat(b.nn_params)))
+    assert all(torch.equal(p, q) for p, q in zip(_flat(a.opt_state.nu), _flat(b.opt_state.nu)))
+    assert torch.equal(a.pgm_nat.niw_nat.eta3, b.pgm_nat.niw_nat.eta3)
+    assert torch.equal(ma["neg_loss"], mb["neg_loss"])
+
+
+def test_cluster_sizes_agree(dev):
+    """C = 8 and C = 16 add the same terms in other groupings: within the
+    kernel-vs-plain bars of each other."""
+    state, prior, batches, eps, n = _setup(dev, m=64, k=10, s=4, hidden=(100, 100))
+    kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=n, eps=eps)
+    a, ma = flexstep.train_chunk(state, prior, batches, cluster=8, **kw)
+    b, mb = flexstep.train_chunk(state, prior, batches, cluster=16, **kw)
+    _assert_matches_plain(a, ma, b, mb, 3)
+
+
+@pytest.mark.parametrize("cluster", flexstep.CLUSTER_SIZES)
+def test_smem_bytes_match_the_c_entry(dev, cluster):
+    from svax_torch.ops import _build
+
+    lib = _build.load()
+    for d_in, d, k, hid in ((8, 4, 10, (100, 100, 100, 100)), (8, 6, 64, (128,) * 4),
+                            (2, 2, 1, (16, 16, 16, 16)), (5, 3, 7, (24, 40, 24, 40))):
+        assert lib.flexstep_smem_bytes(64, d_in, d, k, 4, *hid, cluster) == (
+            flexstep.smem_bytes(d_in, d, k, *hid, cluster))
+
+
 def test_in_kernel_noise_is_seeded_and_reruns_are_bit_equal(dev):
     state, prior, batches, _, n = _setup(dev, hidden=(100, 100), k=10, s=4, m=64)
     kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=n, num_samples=4)
@@ -111,4 +171,6 @@ def test_wrapper_raises_outside_the_shape_class(dev):
     wide, pw, bw, _, _ = _setup(dev, hidden=(200, 200))
     with pytest.raises(ValueError, match="hidden widths"):
         flexstep.train_chunk(wide, pw, bw, **kw)
+    with pytest.raises(ValueError, match="cluster 12"):
+        flexstep.train_chunk(state, prior, batches, cluster=12, **kw)
     assert flexstep.launches == before
