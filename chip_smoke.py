@@ -83,7 +83,8 @@ E. the fused MLP-decoder kernels against their plain version at the bigk
    saying whether the backward, and forward + backward, are no slower than
    the unfused ones, with their bound (bf16 tensor-core products, special
    functions at the card's maximum SM clock, bytes: the largest of the
-   three);
+   three) and the forward's share of it; the forward's ptxas lines (every
+   ``decoder_fwd`` instantiation, 0 spill bytes or the phase fails);
 F. the bigk-dp main path: ``svax_torch.train_svae --config bigk-dp`` cut to
    300 warmup and 600 joint steps at seed 0, twice: the decoder and
    combine kernels launched, the runs bit-equal, test ELBO/pt up by more
@@ -141,9 +142,12 @@ J. the row-sum kernels (``ops/decoder.py: rowsum_logsig_neg``,
    bf16 mode H̄ within 5e-3 with under 20% of entries beyond 5e-5,
    ``measure_mnist.ROWSUM_TOL``), and in the f32 mode H̄, W̄ within 2e-6
    of the plain version in f64 (f32-accurate products,
-   ``measure_mnist.ROWSUM_F64_TOL``), reruns bit-equal; each timed by CUDA
-   events beside its plain version and the unfused f32 row sum it replaces
-   (saying whether the backward is no slower), and its bound;
+   ``measure_mnist.ROWSUM_F64_TOL``) and s no further from f64 than twice
+   the plain version's, reruns bit-equal; each timed by CUDA events beside
+   its plain version and the unfused f32 row sum it replaces (saying
+   whether each is no slower), its bound and the forward's share of it;
+   the forward's ptxas lines (every ``rowsum_fwd`` instantiation, 0 spill
+   bytes or the phase fails);
 K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    full width with an f32 decoder (``make_step_runner``) from one seeded
    state with injected numpy ε, the row sum in the kernels against the
@@ -282,6 +286,23 @@ def kernel_resources(log: str, name: str) -> list[str]:
                            f"{line.split('Used')[1].split(',')[0].strip()}, {spill}")
             entry = None
     return out
+
+
+def forward_ptxas(name: str, phase: str) -> None:
+    """Print ptxas's line for each instantiation of the forward kernel
+    ``name`` in the kernel library's build log; raise if there is none or
+    one spills."""
+    from svax_torch.ops import _build
+
+    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
+    lines = kernel_resources(_build.build_log, name)
+    if not lines:
+        raise RuntimeError(f"phase {phase}: no ptxas line for {name} in the build log")
+    for line in lines:
+        print(f"phase {phase}: ptxas {line}", flush=True)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill is None or int(spill.group(1)) != 0:
+            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
 
 
 def mixture_phases(card: str) -> list:
@@ -817,7 +838,8 @@ def decoder_phase(card: str) -> list:
                      f"bound forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
                      f"{fb['products_ms'] * 1e3:.2f}, special functions "
                      f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
-                     f"{fb['bytes_ms'] * 1e3:.2f}), backward {bb['ms'] * 1e3:.2f} us "
+                     f"{fb['bytes_ms'] * 1e3:.2f}; the forward at "
+                     f"{fb['ms'] / t['kernel_fwd']:.1%} of it), backward {bb['ms'] * 1e3:.2f} us "
                      f"({bb['by']}: products {bb['products_ms'] * 1e3:.2f}, special functions "
                      f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f})")
         print(line + f"; {card}", flush=True)
@@ -836,6 +858,7 @@ def decoder_phase(card: str) -> list:
                  "plain_ms": t["plain_bwd"], "bound_ms": bb["ms"], "bound_by": bb["by"],
                  "special_ms": bb["special_ms"], "unfused_bf16_ms": unfused_bwd},
             ]
+    forward_ptxas("decoder_fwd", "E")
     return entries
 
 
@@ -1427,7 +1450,8 @@ def rowsum_phase(card: str) -> list:
 
     from svax_torch.measure_mnist import (ROWSUM_F64_TOL, ROWSUM_TOL, rowsum_bound,
                                           rowsum_errors, rowsum_f64_errors, rowsum_failures,
-                                          rowsum_grads, rowsum_inputs, sm_clock_hz, time_rowsum)
+                                          rowsum_grads, rowsum_inputs, rowsum_s_f64_error,
+                                          sm_clock_hz, time_rowsum)
     from svax_torch.ops import decoder
 
     dev = torch.device("cuda", 0)
@@ -1448,8 +1472,14 @@ def rowsum_phase(card: str) -> list:
             if precision == "highest":
                 e64 = rowsum_f64_errors(twice[0][1], *args)
                 assert max(e64.values()) <= ROWSUM_F64_TOL, f"rowsum {label} against f64: {e64}"
+                s64 = {"s": rowsum_s_f64_error(twice[0][0], *args[:3]),
+                       "plain s": rowsum_s_f64_error(
+                           decoder.rowsum_logsig_neg_plain(*args[:3], precision), *args[:3])}
+                assert s64["s"] <= max(2.0 * s64["plain s"], 2.0 ** -24), \
+                    f"rowsum {label}: s against f64 {s64}"
+                e64.update(s64)
                 f64 = (" against f64: " + ", ".join(f"{k_} {v:.3e}" for k_, v in e64.items())
-                       + f" (bar {ROWSUM_F64_TOL});")
+                       + f" (bar {ROWSUM_F64_TOL}; s within twice the plain version's);")
             t = time_rowsum(dev, m, 200, 784, precision)
             bf16 = precision != "highest"
             fb, bb = (rowsum_bound(m, 200, 784, backward=b_, bf16=bf16, sm_clock_hz=clock)
@@ -1458,13 +1488,16 @@ def rowsum_phase(card: str) -> list:
                   + ", ".join(f"{k_} {v:.3e}" for k_, v in e.items() if k_ != "finite")
                   + f" (bars {ROWSUM_TOL});{f64} reruns bit-equal; CUDA-event ms per call: "
                   f"forward {t['kernel_fwd']:.4f} (plain {t['plain_fwd']:.4f}, unfused f32 "
-                  f"{t['unfused_fwd']:.4f}), backward {t['kernel_bwd']:.4f} (plain "
+                  f"{t['unfused_fwd']:.4f}: "
+                  f"{'no slower' if t['kernel_fwd'] <= t['unfused_fwd'] else 'slower'}), "
+                  f"backward {t['kernel_bwd']:.4f} (plain "
                   f"{t['plain_bwd']:.4f}, unfused f32 {t['unfused_bwd']:.4f}: "
                   f"{'no slower' if t['kernel_bwd'] <= t['unfused_bwd'] else 'slower'}); bound "
                   f"forward {fb['ms'] * 1e3:.2f} us ({fb['by']}: products "
                   f"{fb['products_ms'] * 1e3:.2f} as {fb['products_by']}, special functions "
                   f"{fb['special_ms'] * 1e3:.2f} at {clock / 1e6:.0f} MHz, bytes "
-                  f"{fb['bytes_ms'] * 1e3:.2f}), backward {bb['ms'] * 1e3:.2f} us ({bb['by']}: "
+                  f"{fb['bytes_ms'] * 1e3:.2f}; the forward at "
+                  f"{fb['ms'] / t['kernel_fwd']:.1%} of it), backward {bb['ms'] * 1e3:.2f} us ({bb['by']}: "
                   f"products {bb['products_ms'] * 1e3:.2f} as {bb['products_by']}, special functions "
                   f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f}); {card}",
                   flush=True)
@@ -1482,6 +1515,7 @@ def rowsum_phase(card: str) -> list:
                      "plain_ms": t["plain_bwd"], "bound_ms": bb["ms"], "bound_by": bb["by"],
                      "unfused_f32_ms": t["unfused_bwd"]},
                 ]
+    forward_ptxas("rowsum_fwd", "J")
     return entries
 
 

@@ -426,6 +426,25 @@ def rowsum_errors(h, w, b, sbar, precision: str) -> dict:
 ROWSUM_F64_TOL = 2e-6
 
 
+# The f32 mode's row sums s against the plain version in f64: |Δs| within
+# 1e-7 of 1 + |s|, about two half-ulps of an f32 s at the decoder's sizes
+# (|s| ~ 550 at D = 784). f32-accurate products with an exact row sum of the
+# f32 logσ values meet it (an emulation of the kernel's three-part products
+# on the CPU: 5.7e-8 at M = 1,000, Dh = 200, D = 784); two-part products do
+# not (1.6e-7), nor the plain version's f32 row sum on the CPU (1.6e-7). On
+# the card the kernel is held to twice the plain f32 version's error.
+ROWSUM_S_F64_TOL = 1e-7
+
+
+def rowsum_s_f64_error(s, h, w, b) -> float:
+    """max |s − s_f64| / (1 + |s_f64|) over the rows, s_f64 the plain
+    version in f64 on the same inputs."""
+    from svax_torch.ops import decoder
+
+    ref = decoder.rowsum_logsig_neg_plain(*(t.double() for t in (h, w, b)), "highest")
+    return float(((s.double() - ref).abs() / (1.0 + ref.abs())).max())
+
+
 def rowsum_f64_errors(grads, h, w, b, sbar) -> dict:
     """H̄ and W̄ of ``grads`` (``rowsum_grads``' gradients at "highest")
     against the plain version in f64 on the same inputs: the largest |Δ|

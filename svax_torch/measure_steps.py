@@ -103,10 +103,12 @@ def time_per_step(fn, steps: int, repeats: int = 3) -> float:
 
 
 def _clocks(lib, kernel: str) -> list[int]:
+    from svax_torch.measure_phases import PHASE_SLOTS
+
     entry = getattr(lib, f"{kernel}_phase_clocks")
     entry.argtypes = [ctypes.c_void_p]
     entry.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * PHASE_SLOTS)()
     err = entry(ctypes.cast(buf, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"{kernel}_phase_clocks: CUDA error {err}")
@@ -265,7 +267,7 @@ def main(argv=None) -> int:
                     print(json.dumps({
                         "split": name, "cluster": c, "ms_per_step_with_marks": ms,
                         "phases": {PHASES[kernel].get(i, f"slot {i}"): clk[i] / total
-                                   for i in range(16) if clk[i]}}), flush=True)
+                                   for i in range(len(clk)) if clk[i]}}), flush=True)
         finally:
             _build._lib = None
     if args.entries:

@@ -125,7 +125,9 @@ def declare_decoders(lib: ctypes.CDLL) -> None:
     dims = [i] * 7  # n, k, s, d, h1, h2, D
     lib.decoder_mlp_scratch_floats.argtypes = dims
     lib.decoder_mlp_scratch_floats.restype = ctypes.c_longlong
-    weights = [p] * 9  # w1, w1t, w2, w2t, w3, w3t (bf16), b1, b2, b3
+    lib.decoder_mlp_forward_smem_bytes.argtypes = dims
+    lib.decoder_mlp_forward_smem_bytes.restype = ctypes.c_longlong
+    weights = [p] * 6  # w1, w2, w3 (bf16, padded), b1, b2, b3
     lib.decoder_mlp_forward.argtypes = [
         p, *dims, *weights,  # z
         p, p, p,  # y, c, ll
@@ -141,7 +143,11 @@ def declare_decoders(lib: ctypes.CDLL) -> None:
     lib.decoder_mlp_backward.restype = i
     lib.rowsum_scratch_floats.argtypes = [i, i, i, i]  # m, dh, d, bf16
     lib.rowsum_scratch_floats.restype = ctypes.c_longlong
-    lib.rowsum_forward.argtypes = [p, p, p, i, i, i, i, p, p]  # h, w, b, m, dh, d, bf16, s
+    lib.rowsum_forward_scratch_floats.argtypes = [i, i, i]  # dh, d, bf16
+    lib.rowsum_forward_scratch_floats.restype = ctypes.c_longlong
+    lib.rowsum_forward_smem_bytes.argtypes = [i, i]  # dh, bf16
+    lib.rowsum_forward_smem_bytes.restype = ctypes.c_longlong
+    lib.rowsum_forward.argtypes = [p, p, p, i, i, i, i, p, p, p]  # h, w, b, m, dh, d, bf16, s, scratch
     lib.rowsum_forward.restype = i
     lib.rowsum_backward.argtypes = [
         p, p, p, p, i, i, i, i,  # h, w, b, sbar, m, dh, d, bf16

@@ -24,15 +24,28 @@
 // bytes (H in, H̄ out, 82 MB each) take under 0.05 ms. Both directions are
 // bound by operations.
 //
-// * rowsum_fwd (not redesigned): scalar f32 FMAs, 256 threads as 16 × 16,
-//   a thread owning a 4 × 4 micro-tile of a 64 × 64 output tile, operands
-//   staged in shared memory in 32-deep chunks; one block per 64 rows walks
-//   D in 64-column chunks, adds logσ(−o) into per-row sums in registers,
-//   then adds the 16 per-thread partials of a row in a fixed order.
-// * The backward runs on the tensor-core engine of lastlayer_bwd.cuh, with
-//   every operand in P bf16 parts: P = 3 in the f32 mode (an exact split,
-//   and the six terms of order < 3 of each product: f32-accurate), P = 1 in
-//   the bf16 mode.
+// Both directions run on the tensor-core engine of lastlayer.cuh, with
+// every operand in P bf16 parts: P = 3 in the f32 mode (an exact split,
+// and the six terms of order < 3 of each product: f32-accurate), P = 1 in
+// the bf16 mode.
+// * Forward: rowsum_split puts W's P parts (zero-padded to multiples of 16)
+//   into scratch, once a call (157 k values at bigk); rowsum_fwd (one block
+//   per 64 rows, 32 where Dh is wide) issues its first W slab, then reads
+//   its H tile as f32 and splits it into its P parts while staging it in
+//   shared memory (H is read once, 82 MB at bigk; splitting H ahead of the
+//   kernel would write 128 MB of f32-mode parts and read them again, ~0.06
+//   ms of traffic beside a 0.195 ms bound), then engine block (f) walks D in
+//   64-column W slabs by cp.async, forms o on the tensor cores and adds
+//   logσ(−(o + b)) into per-row Kahan sums, then adds each row's partials
+//   in f64 in a fixed order. f32 mode: the 83 KB three-part H tile leaves
+//   room for one slab stage (175 KB, one block of 16 warps an SM, each warp
+//   one m16 × n16 tile a slab: on an H100 this beat 32-column slabs
+//   double-buffered in 8 warps, and 8 warps of two tiles each);
+//   bf16 mode: two stages, 88 KB, two blocks of 8 warps an SM, each warp
+//   two m16 tiles, with the special-function units' logσ. Every block reads
+//   all of W's parts from L2: 0.98 MB (f32) or 0.33 MB (bf16) a block, 1.57
+//   GB or 0.52 GB a call at bigk (1,600 blocks).
+// * Backward:
 //   (0) rowsum_split: H and W into their bf16 parts, zero-padded to
 //       multiples of 16 (Dh → kp, D → np), so that every operand is staged
 //       by cp.async.
@@ -46,7 +59,7 @@
 //       The f32 mode loads do's parts (their sum is the f32 do exactly);
 //       the bf16 mode stages its W chunk once and forms o and do again,
 //       and forms again from a sequential f32 FMA chain over k any do
-//       within 2048/65536 of a bf16 rounding tie (lastlayer_bwd.cuh:
+//       within 2048/65536 of a bf16 rounding tie (lastlayer.cuh:
 //       kTieRepair), as the plain version's cuBLAS o rounds it: the one
 //       scalar product left in the backward, kept because without it W̄
 //       misses its 5e-5 bar at M = 1,000 (PERF.md).
@@ -67,7 +80,7 @@
 #include <cmath>
 #include <cstddef>
 
-#include "lastlayer_bwd.cuh"
+#include "lastlayer.cuh"
 #include "phase_clock.cuh"
 
 namespace {
@@ -75,17 +88,9 @@ namespace {
 namespace ll = lastlayer;
 using ll::bf16;
 
-constexpr int kThreads = 256;   // rowsum_fwd: 16 × 16
-constexpr int kTM = 64;         // rows per tile
-constexpr int kTN = 64;         // D columns per chunk
-constexpr int kKC = 32;         // depth of one staged chunk of the o product
 constexpr int kMaxDh = 512;
-constexpr int kLdHs = kTM + 1;  // Hs[k][m], stored along k
-constexpr int kStage = kTN * (kTN + 1);  // ≥ kKC·kLdHs + kKC·kTN floats
 constexpr int kWaveBlocks = 264;  // rowsum_wbar's grid: about two blocks per SM
 constexpr int kSmemMax = 232448;
-
-static_assert(kKC * kLdHs + kKC * kTN <= kStage, "stage holds the o-product chunks");
 
 struct Args {
   const float* h;  // (M, Dh)
@@ -98,97 +103,7 @@ struct Args {
 template <typename T>
 __host__ __device__ constexpr T round_up(T v, T q) { return (v + q - 1) / q * q; }
 
-template <bool BF16>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// logσ(−o) = −(max(o, 0) + log1p(exp(−|o|))), stable for any o.
-__device__ __forceinline__ float logsig_neg(float o) {
-  return -(fmaxf(o, 0.0f) + log1pf(expf(-fabsf(o))));
-}
-
-__device__ __forceinline__ float sigmoid(float o) { return 1.0f / (1.0f + expf(-o)); }
-
-// acc[i][j] = Σ_k rnd(H[m0 + ty + 16i][k]) · rnd(W[k][n0 + tx + 16j]) over
-// k in order (zero outside M, Dh, D); `stage` holds kStage floats and is
-// free again on return.
-template <bool BF16>
-__device__ void tile_logits(const Args& a, int m0, int n0, float* stage, float (&acc)[4][4]) {
-  float* hs = stage;              // [kKC][kLdHs]
-  float* ws = stage + kKC * kLdHs;  // [kKC][kTN]
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < a.dh; k0 += kKC) {
-#pragma unroll
-    for (int e = 0; e < kTM * kKC / kThreads; ++e) {
-      const int idx = t + kThreads * e, row = idx / kKC, kk = idx % kKC;
-      const int r = m0 + row, k = k0 + kk;
-      const float v = (r < a.m && k < a.dh) ? a.h[static_cast<size_t>(r) * a.dh + k] : 0.0f;
-      hs[kk * kLdHs + row] = rnd<BF16>(v);
-    }
-#pragma unroll
-    for (int e = 0; e < kKC * kTN / kThreads; ++e) {
-      const int idx = t + kThreads * e, kk = idx / kTN, nn = idx % kTN;
-      const int k = k0 + kk, n = n0 + nn;
-      const float v = (k < a.dh && n < a.d) ? a.w[static_cast<size_t>(k) * a.d + n] : 0.0f;
-      ws[kk * kTN + nn] = rnd<BF16>(v);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKC; ++kk) {
-      float hv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hv[i] = hs[kk * kLdHs + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[kk * kTN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads) rowsum_fwd(Args a, float* s) {
-  __shared__ float stage[kStage];
-  __shared__ float red[kTM][17];
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.x * kTM;
-  float rs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int n0 = 0; n0 < a.d; n0 += kTN) {
-    float acc[4][4];
-    tile_logits<BF16>(a, m0, n0, stage, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < a.d) {
-        const float bn = a.b[n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) rs[i] += logsig_neg(acc[i][j] + bn);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) red[ty + 16 * i][tx] = rs[i];
-  __syncthreads();
-  if (t < kTM && m0 + t < a.m) {
-    float v = 0.0f;
-    for (int q = 0; q < 16; ++q) v += red[t][q];
-    s[m0 + t] = v;
-  }
-}
-
-// ------------------------------------------------------------ backward
+// ------------------------------------------------------------ operands
 
 // (0) P bf16 parts of src (rows × cols, f32 row-major) into out, each part
 // (prow × pcol, zero-padded) `prow·pcol` apart.
@@ -205,6 +120,57 @@ __global__ void rowsum_split(const float* src, int rows, int cols, int prow, int
     for (int j = 0; j < P; ++j) out[j * n + e] = p[j];
   }
 }
+
+// ------------------------------------------------------------- forward
+
+struct FwdArgs {
+  const float* h;  // (M, Dh)
+  const bf16* wp;  // P parts of W, each (kp, np)
+  const float* b;  // (D)
+  int m, dh, d, kp, np;
+  float* s;  // (M)
+};
+
+template <class Cfg, int P>
+__host__ __device__ constexpr size_t fwd_smem(int kp) {
+  return sizeof(bf16) * (static_cast<size_t>(P) * Cfg::TM * (kp + ll::kPad) + Cfg::ws_elems(kp, P)) +
+         sizeof(double) * Cfg::RED;
+}
+
+// s for one tile of Cfg::TM rows: the H tile split into its P parts while
+// staged (the first W slab already in flight), then engine block (f) — the
+// f32 mode with the exact logσ, the bf16 mode with the special-function
+// units' (its bar allows it).
+template <class Cfg, int P>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::MINB) rowsum_fwd(FwdArgs a) {
+  constexpr int TM = Cfg::TM;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kp = a.kp, ldh = kp + ll::kPad;
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw);                        // P × [TM][ldh]
+  bf16* ws = hs + P * TM * ldh;                                        // Cfg::ws_elems
+  double* red = reinterpret_cast<double*>(ws + Cfg::ws_elems(kp, P));  // Cfg::RED
+  PHASE_START;
+  const int m0 = blockIdx.x * TM;
+  const size_t wps = static_cast<size_t>(kp) * a.np;
+  ll::stage_slab<Cfg::SN, Cfg::ST, P>(ws, a.wp, wps, kp, a.np, 0);
+  ll::stage_split<P>(hs, ldh, TM * ldh, a.h + static_cast<size_t>(m0) * a.dh, a.dh, TM, kp,
+                     a.m - m0, a.dh);
+  PHASE_MARK(16);
+  float rs[Cfg::FMI][2], rc[Cfg::FMI][2];
+  if constexpr (P == 3) {
+    ll::rowsum_slabs<Cfg, P, P, false>(rs, rc, hs, TM * ldh, ws, a.wp, wps, kp, a.d, a.b,
+                                       [](float o) { return ll::logsig_neg(o); });
+  } else {
+    ll::rowsum_slabs<Cfg, P, P, false>(rs, rc, hs, TM * ldh, ws, a.wp, wps, kp, a.d, a.b,
+                                       [](float o) { return ll::logsig_neg_fast(o); });
+  }
+  ll::row_totals<Cfg>(rs, rc, red);
+  for (int r = threadIdx.x; r < TM && m0 + r < a.m; r += blockDim.x)
+    a.s[m0 + r] = ll::row_total<Cfg>(red, r);
+  PHASE_MARK(17);
+}
+
+// ------------------------------------------------------------ backward
 
 struct BwdArgs {
   const bf16* hp;  // P parts of H, each (M, kp)
@@ -317,18 +283,21 @@ template <int P>
 struct Narrow;
 template <>
 struct Narrow<1> {
+  using F = ll::CfgF<64, 64, 2, 224, 8, 2, 2>;
   using A = ll::CfgA<64, 64, 2, 224, 8, 2>;
   using B = ll::CfgB<64, 64, 1, 224, 16, 1>;
   static constexpr bool kLoadDo = false;
 };
 template <>
 struct Narrow<3> {
+  using F = ll::CfgF<64, 64, 1, 224, 16, 1, 1>;
   using A = ll::CfgA<64, 64, 1, 224, 8, 1>;
   using B = ll::CfgB<32, 64, 2, 224, 8, 2>;
   static constexpr bool kLoadDo = true;
 };
 template <int P>
 struct Wide {
+  using F = ll::CfgF<32, 16, 1, 512, 2, 1, 1>;
   using A = ll::CfgAWide;
   using B = ll::CfgBWide;
   static constexpr bool kLoadDo = Narrow<P>::kLoadDo;
@@ -351,6 +320,25 @@ bool narrow_fits_p(int kp) {
 bool narrow_fits(int dh, bool bf16) {
   const int kp = round_up(dh, 16);
   return bf16 ? narrow_fits_p<1>(kp) : narrow_fits_p<3>(kp);
+}
+
+// The same for a forward.
+template <int P>
+bool fwd_narrow_fits_p(int kp) {
+  using F = typename Narrow<P>::F;
+  return kp <= F::KPMAX && fwd_smem<F, P>(kp) <= static_cast<size_t>(kSmemMax);
+}
+
+bool fwd_narrow_fits(int dh, bool bf16) {
+  const int kp = round_up(dh, 16);
+  return bf16 ? fwd_narrow_fits_p<1>(kp) : fwd_narrow_fits_p<3>(kp);
+}
+
+size_t fwd_bytes(int dh, bool bf16) {
+  const int kp = round_up(dh, 16);
+  const bool narrow = fwd_narrow_fits(dh, bf16);
+  if (bf16) return narrow ? fwd_smem<Narrow<1>::F, 1>(kp) : fwd_smem<Wide<1>::F, 1>(kp);
+  return narrow ? fwd_smem<Narrow<3>::F, 3>(kp) : fwd_smem<Wide<3>::F, 3>(kp);
 }
 
 template <typename Kernel>
@@ -389,6 +377,23 @@ long long parts_floats(const Scratch& s) {
 }
 
 long long scratch_floats(const Scratch& s) { return parts_floats(s) + s.pw + s.pb; }
+
+// W's P parts into `scratch`, then rowsum_fwd over the row tiles.
+template <class Cfg, int P>
+cudaError_t forward(const Args& a, float* s, float* scratch, cudaStream_t st) {
+  const int kp = round_up(a.dh, 16), np = round_up(a.d, 16);
+  bf16* wp = reinterpret_cast<bf16*>(scratch);
+  rowsum_split<P><<<256, 256, 0, st>>>(a.w, a.dh, a.d, kp, np, wp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  static int opted = 0;
+  const size_t bytes = fwd_smem<Cfg, P>(kp);
+  err = opt_in(rowsum_fwd<Cfg, P>, bytes, opted);
+  if (err != cudaSuccess) return err;
+  const FwdArgs fa{a.h, wp, a.b, a.m, a.dh, a.d, kp, np, s};
+  rowsum_fwd<Cfg, P><<<(a.m + Cfg::TM - 1) / Cfg::TM, Cfg::THREADS, bytes, st>>>(fa);
+  return cudaGetLastError();
+}
 
 template <class C, int P>
 cudaError_t backward(const Args& a, float* hbar, float* wbar, float* bbar, float* scratch,
@@ -462,19 +467,34 @@ long long rowsum_scratch_floats(int m, int dh, int d, int bf16) {
   return scratch_floats(scratch_for(m, dh, d, bf16 != 0));
 }
 
-// Forward: s (M) from H (M, Dh), W (Dh, D), b (D); bf16 != 0 is the BF16 mode.
+// Floats of the forward's scratch: W's bf16 parts.
+long long rowsum_forward_scratch_floats(int dh, int d, int bf16) {
+  if (!shape_ok(1, dh, d)) return 0;
+  const long long parts = static_cast<long long>(bf16 ? 1 : 3) * round_up(dh, 16) * round_up(d, 16);
+  return (parts + 1) / 2;
+}
+
+// Dynamic shared memory of the forward's rowsum_fwd block at this width.
+long long rowsum_forward_smem_bytes(int dh, int bf16) {
+  if (!shape_ok(1, dh, 1)) return 0;
+  return static_cast<long long>(fwd_bytes(dh, bf16 != 0));
+}
+
+// Forward: s (M) from H (M, Dh), W (Dh, D), b (D); bf16 != 0 is the BF16 mode;
+// `scratch` holds rowsum_forward_scratch_floats(dh, d, bf16) floats.
 int rowsum_forward(const float* h, const float* w, const float* b, int m, int dh, int d,
-                   int bf16, float* s, void* stream) {
+                   int bf16, float* s, float* scratch, void* stream) {
   if (!shape_ok(m, dh, d)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{h, w, b, nullptr, m, dh, d};
-  const unsigned blocks = static_cast<unsigned>((m + kTM - 1) / kTM);
   auto st = static_cast<cudaStream_t>(stream);
+  const bool narrow = fwd_narrow_fits(dh, bf16 != 0);
+  cudaError_t err;
   if (bf16) {
-    rowsum_fwd<true><<<blocks, kThreads, 0, st>>>(a, s);
+    err = narrow ? forward<Narrow<1>::F, 1>(a, s, scratch, st) : forward<Wide<1>::F, 1>(a, s, scratch, st);
   } else {
-    rowsum_fwd<false><<<blocks, kThreads, 0, st>>>(a, s);
+    err = narrow ? forward<Narrow<3>::F, 3>(a, s, scratch, st) : forward<Wide<3>::F, 3>(a, s, scratch, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // Backward: H̄ (M, Dh), W̄ (Dh, D), b̄ (D) from s̄ (M); `scratch` holds

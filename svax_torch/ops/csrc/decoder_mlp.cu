@@ -25,16 +25,24 @@
 // recomputes o twice). Bytes are tens of µs: the kernels are bound by
 // operations, not bytes.
 //
-// * Forward (decoder_fwd, not redesigned): mma.sync m16n8k16 with each
-//   16-deep product added in f32, fragments built in registers, weights
-//   read from L2 as zero-padded bf16 copies (d, H1, H2 and D padded to 16;
-//   tanh(0) = 0 so padding adds nothing); a block of 8 warps takes 64 rows,
-//   keeps z, h1 and h2 as bf16 in shared memory, forms the t-term from the
-//   f32 h2 and walks the D columns in 8-wide tiles, each warp spanning all
-//   64 rows; per-row partials are added in a fixed order (no atomics).
-// * Backward, on the tensor-core engine of lastlayer_bwd.cuh (every operand
-//   staged in shared memory in its bf16 parts by cp.async, products on
-//   mma.sync fed by ldmatrix), five kernels:
+// Both directions run on the tensor-core engine of lastlayer.cuh (every
+// operand staged in shared memory in its bf16 parts by cp.async, products
+// on mma.sync fed by ldmatrix, each 16-deep product added in f32).
+// * Forward, decoder_fwd (one block per 64 rows, 32 below kFwdSmallRows so
+//   that the mnist shape's 2,560 rows make 80 blocks, not 40; 8 warps, two
+//   blocks an SM at widths ≤ 224): hidden_layers — the prologue it shares
+//   with mlp_rows: z as bf16, W1 staged whole and W2 in double-buffered
+//   32-deep chunks, h1 = tanh(z W1 + b1) as bf16, h1 W2 — then h2 =
+//   tanh(h1 W2 + b2) as bf16 in shared memory, the t-term ⟨h2, y_n⟩ from
+//   the f32 h2, while the first W3 slab comes in; then engine block (f)
+//   with H = bf16(h2) and W = W3 (1 part, its [k][n] bf16 copy), over
+//   double-buffered 64-column W3 slabs in the region the hidden layers
+//   used: Σ_D logσ(−o) per row in Kahan sums (logσ from the
+//   special-function units, logsig_neg_fast: DECODER_TOL allows it), each
+//   row's partials added in f64 in a fixed order. Each block reads W3 from
+//   L2 once: 0.33 MB a block, 0.52 GB a call at bigk (1,600 blocks; W1 and
+//   W2 0.15 GB more).
+// * Backward, five kernels:
 //   mlp_rows (one block per 32 rows): h1 = tanh(z W1 + b1) and h2 = tanh(h1
 //     W2 + b2), W1 staged whole and W2 in double-buffered 32-deep chunks;
 //     bf16(h1), bf16(h2) and the f32 h2 written out; then engine block (a)
@@ -63,7 +71,7 @@
 #include <cmath>
 #include <cstdint>
 
-#include "lastlayer_bwd.cuh"
+#include "lastlayer.cuh"
 #include "phase_clock.cuh"
 
 namespace {
@@ -73,72 +81,14 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kDP = 16;          // latent d padded to one k-step
 constexpr int kMaxHidden = 256;
-constexpr int kFwdRows = 64;     // rows per forward block
-constexpr int kFwdThreads = 256;  // 8 warps
 constexpr int kSmemMax = 232448;  // bytes a block may opt into (sm_90)
 
 __host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
-// ------------------------------------------------------------ fragments
-
-// Lane roles in m16n8k16 (PTX ISA): g = lane / 4 is the row (A, C) or the
-// column (B); t = lane % 4 picks the pair of k (A, B) or columns (C).
-// A regs: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..).
-// B regs: (k = 2t..2t+1, n = g), (k = 2t+8..2t+9, n = g).
-// C: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  ll::mma(c, a, b);
-}
-
-// A from bf16 row-major storage, base at (m0, k0).
-__device__ __forceinline__ void a_bf16(uint32_t (&a)[4], const bf16* base, int ld, int g, int t) {
-  const bf16* p0 = base + g * ld + 2 * t;
-  const bf16* p1 = p0 + 8 * ld;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-}
-
-// B(k, n) from bf16 storage laid out [n][k] (k contiguous), base at (n0, k0).
-__device__ __forceinline__ void b_bf16(uint32_t (&b)[2], const bf16* base, int ld, int g, int t) {
-  const bf16* p = base + g * ld + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// c += A·B as an IEEE f32 add of the 16-term product: the tensor cores'
-// own f32 accumulation truncates, and over a long k it drifts from a
-// rounded sum (at H = 200..256 by ~1e-5 of the logits, measured); adding
-// each step's product apart keeps the sum as accurate as a plain f32 one.
-__device__ __forceinline__ void mma_add(float (&c)[4], const uint32_t (&a)[4],
-                                        const uint32_t (&b)[2]) {
-  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma(p, a, b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += p[i];
-}
-
-// logσ(−o) = −softplus(o), as torch's log_sigmoid.
-__device__ __forceinline__ float logsig_neg(float o) {
-  return -(fmaxf(o, 0.0f) + log1pf(expf(-fabsf(o))));
-}
-
-// Sum over the four lanes of a quad (lanes 4g..4g+3); every lane gets it.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-
 struct Weights {
   const bf16* w1;   // (16, H1p)   (in, out)
-  const bf16* w1t;  // (H1p, 16)   (out, in)
   const bf16* w2;   // (H1p, H2p)
-  const bf16* w2t;  // (H2p, H1p)
   const bf16* w3;   // (H2p, Dp)
-  const bf16* w3t;  // (Dp, H2p)
   const float* b1;  // (H1,)
   const float* b2;  // (H2,)
   const float* b3;  // (D,)
@@ -147,169 +97,6 @@ struct Weights {
 struct Shape {
   int n, k, s, d, h1, h2, dd, h1p, h2p, ddp;
 };
-
-// ------------------------------------------------------------- forward
-
-struct FwdArgs {
-  const float* __restrict__ z;  // (S·N·K, d)
-  const float* __restrict__ y;  // (N, H2)
-  const float* __restrict__ c;  // (N,)
-  float* ll;                    // (S·N·K,)
-  Weights w;
-  Shape sh;
-  long long rows;
-};
-
-// One block: 64 rows (4 m-tiles). Warp w takes all 4 m-tiles and the
-// n8-tiles j = w + 8q of each product, so each weight fragment is read from
-// L2 once per block and used for 4 products.
-__global__ void __launch_bounds__(kFwdThreads) decoder_fwd(FwdArgs a) {
-  constexpr int TM = kFwdRows, MT = TM / 16, NW = kFwdThreads / 32, NQ = 4;
-  const Shape& sh = a.sh;
-  const Weights& w = a.w;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* zb = reinterpret_cast<bf16*>(smem_raw);   // (TM, 16)
-  bf16* h1b = zb + TM * kDP;                       // (TM, H1p)
-  bf16* h2b = h1b + TM * sh.h1p;                   // (TM, H2p)
-  float* tpart = reinterpret_cast<float*>(h2b + TM * sh.h2p);  // (TM, NW)
-  float* rpart = tpart + TM * NW;                  // (TM, NW)
-  int* rown = reinterpret_cast<int*>(rpart + TM * NW);  // (TM,) n, or −1
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const long long r0 = static_cast<long long>(blockIdx.x) * TM;
-  for (int idx = tid; idx < TM * kDP; idx += blockDim.x) {
-    const int row = idx / kDP, col = idx % kDP;
-    const long long r = r0 + row;
-    const float v = (r < a.rows && col < sh.d) ? a.z[r * sh.d + col] : 0.0f;
-    zb[idx] = __float2bfloat16_rn(v);
-  }
-  for (int row = tid; row < TM; row += blockDim.x) {
-    const long long r = r0 + row;
-    rown[row] = r < a.rows ? static_cast<int>((r / sh.k) % sh.n) : -1;
-  }
-  __syncthreads();
-
-  float acc[MT][NQ][4];
-  // acc[mt][q] += A(mt) · B(j_q) over the k-steps, A from bf16 shared memory
-  // (ld lda), B from bf16 global memory laid out [n][k] (ld ldb).
-  auto gemm = [&](const bf16* as, int lda, const bf16* bs, int ldb, int ksteps, int jq0,
-                  int ntiles) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][q][i] = 0.0f;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t fa[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) a_bf16(fa[m], as + m * 16 * lda + ks * 16, lda, g, t);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int j = warp + NW * (jq0 + q);
-        if (j < ntiles) {
-          uint32_t fb[2];
-          b_bf16(fb, bs + static_cast<size_t>(j) * 8 * ldb + ks * 16, ldb, g, t);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) mma_add(acc[m][q], fa[m], fb);
-        }
-      }
-    }
-  };
-  // The lane's element e of tile (m, q): row m·16 + g (+8), column j·8 + 2t (+1).
-  auto row_of = [&](int m, int e) { return m * 16 + g + (e < 2 ? 0 : 8); };
-
-  // h1 = tanh(z W1 + b1), stored bf16.
-  const int n1 = sh.h1p / 8;
-  gemm(zb, kDP, w.w1t, kDP, 1, 0, n1);
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int j = warp + NW * q;
-    if (j < n1) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * 8 + 2 * t + (e & 1);
-          const float v = col < sh.h1 ? tanhf(acc[m][q][e] + w.b1[col]) : 0.0f;
-          h1b[row_of(m, e) * sh.h1p + col] = __float2bfloat16_rn(v);
-        }
-    }
-  }
-  __syncthreads();
-
-  // h2 = tanh(h1 W2 + b2), stored bf16; the t-term ⟨h2, y_n⟩ from the f32 h2.
-  const int n2 = sh.h2p / 8;
-  gemm(h1b, sh.h1p, w.w2t, sh.h1p, sh.h1p / 16, 0, n2);
-  {
-    float tr[MT][2] = {};
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int j = warp + NW * q;
-      if (j < n2) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = row_of(m, e), col = j * 8 + 2 * t + (e & 1), nn = rown[row];
-            float v = 0.0f;
-            if (col < sh.h2) {
-              v = tanhf(acc[m][q][e] + w.b2[col]);
-              if (nn >= 0) tr[m][e / 2] += v * a.y[static_cast<size_t>(nn) * sh.h2 + col];
-            }
-            h2b[row * sh.h2p + col] = __float2bfloat16_rn(v);
-          }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float v = quad_sum(tr[m][h]);
-        if (t == 0) tpart[(m * 16 + g + 8 * h) * NW + warp] = v;
-      }
-  }
-  __syncthreads();
-
-  // o = h2 W3 + b3 over the D columns, NQ n8-tiles at a time; Σ logσ(−o).
-  const int n3 = sh.ddp / 8;
-  float rs[MT][2] = {};
-  for (int qb = 0; warp + NW * NQ * qb < n3; ++qb) {
-    gemm(h2b, sh.h2p, w.w3t, sh.h2p, sh.h2p / 16, qb * NQ, n3);
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int j = warp + NW * (qb * NQ + q);
-      if (j < n3) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = j * 8 + 2 * t + (e & 1);
-            if (col < sh.dd) rs[m][e / 2] += logsig_neg(acc[m][q][e] + w.b3[col]);
-          }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v = quad_sum(rs[m][h]);
-      if (t == 0) rpart[(m * 16 + g + 8 * h) * NW + warp] = v;
-    }
-  __syncthreads();
-
-  for (int row = tid; row < TM; row += blockDim.x) {
-    const int nn = rown[row];
-    if (nn < 0) continue;
-    float tsum = 0.0f, rsum = 0.0f;
-    for (int q = 0; q < NW; ++q) {
-      tsum += tpart[row * NW + q];
-      rsum += rpart[row * NW + q];
-    }
-    a.ll[r0 + row] = (tsum + a.c[nn]) + rsum;
-  }
-}
 
 // ------------------------------------------------------------ backward
 
@@ -441,29 +228,25 @@ __host__ __device__ inline size_t rows_smem(const Shape& sh) {
          (sizeof(float) + sizeof(int)) * TM;
 }
 
-template <int KPMAX>
-__global__ void __launch_bounds__(CfgRowsOf<KPMAX>::THREADS, CfgRowsOf<KPMAX>::MINB) mlp_rows(BwdArgs a) {
-  using CfgRows = CfgRowsOf<KPMAX>;
-  constexpr int kNQ = CfgRows::NQ, TM = CfgRows::TM;
-  const Shape& sh = a.sh;
-  const Weights& w = a.w;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld1 = sh.h1p + ll::kPad, ld2 = sh.h2p + ll::kPad, ldf = sh.h2p + 4;
-  bf16* zb = reinterpret_cast<bf16*>(smem_raw);  // [TM][kLdz]
-  bf16* hs = zb + TM * kLdz;                      // [TM][ld2]: bf16(h2), the engine's H
-  bf16* region = hs + TM * ld2;
-  bf16* w1s = region;                             // [16][ld1]
-  bf16* h1s = w1s + kDP * ld1;                    // [TM][ld1]
-  bf16* w2c = h1s + TM * ld1;                     // 2 × [kKC][ld2] W2 chunks
-  float* h2t = reinterpret_cast<float*>(region);  // [TM][ldf] f32 h2
-  bf16* ws = region;                              // the engine's slabs, then do parts
-  bf16* ds = ws + CfgRows::ws_elems(sh.h2p, 1);
-  bf16* pt = region;                              // [TM][ld2] one part of dpre2
-  float* srow = reinterpret_cast<float*>(region + rows_region<CfgRows>(sh));  // [TM] dll
-  int* srn = reinterpret_cast<int*>(srow + TM);                              // [TM] point n
-  PHASE_START;
-  const long long r0 = static_cast<long long>(blockIdx.x) * TM;
-
+// The hidden layers of the TM = Cfg::TM rows from r0 (mlp_rows and
+// decoder_fwd): W1 staged whole and W2 in double-buffered kKC-deep chunks,
+// both into `region`; z as bf16 into zb (stage_z); setup() runs once those
+// copies are issued (the caller's per-row loads, in before the first
+// product); h1 = tanh(z W1 + b1) as bf16 into the region at h1s = region +
+// 16·ld1; then acc = h1 W2 (before b2 and tanh), this warp's tiles of
+// rows_product's layout. On return every W2 chunk is read: the region past
+// h1s's rows is free. The clocks charge the staging and h1 to slot
+// `mark_h1` and the W2 product to `mark_h2`.
+template <class Cfg, class Setup>
+__device__ __forceinline__ void hidden_layers(float (&acc)[1][Cfg::NQ][2][4], const float* z,
+                                              long long rows, const Shape& sh, const Weights& w,
+                                              long long r0, bf16* zb, bf16* region, Setup setup,
+                                              int mark_h1, int mark_h2) {
+  constexpr int kNQ = Cfg::NQ, TM = Cfg::TM;
+  const int ld1 = sh.h1p + ll::kPad, ld2 = sh.h2p + ll::kPad;
+  bf16* w1s = region;           // [16][ld1]
+  bf16* h1s = w1s + kDP * ld1;  // [TM][ld1]
+  bf16* w2c = h1s + TM * ld1;   // 2 × [kKC][ld2] W2 chunks
   // W2's rows [c·kKC, (c + 1)·kKC) (zero past H1p) into chunk buffer c % 2.
   auto load_w2 = [&](int c) {
     ll::stage(w2c + (c % 2) * kKC * ld2, ld2, w.w2 + static_cast<size_t>(c) * kKC * sh.h2p,
@@ -473,25 +256,19 @@ __global__ void __launch_bounds__(CfgRowsOf<KPMAX>::THREADS, CfgRowsOf<KPMAX>::M
   ll::stage(w1s, ld1, w.w1, sh.h1p, kDP, sh.h1p, kDP, sh.h1p);
   ll::cp_async_commit();
   load_w2(0);
-  stage_z<TM>(zb, a.z, r0, a.rows, sh.d);
-  for (int row = threadIdx.x; row < TM; row += blockDim.x) {
-    const long long r = r0 + row;
-    srow[row] = r < a.rows ? a.dll[r] : 0.0f;
-    srn[row] = r < a.rows ? static_cast<int>((r / sh.k) % sh.n) : 0;
-  }
+  stage_z<TM>(zb, z, r0, rows, sh.d);
+  setup();
   ll::cp_async_wait<1>();
   __syncthreads();
 
-  float acc[1][kNQ][2][4];
   // h1 = tanh(z W1 + b1) → bf16.
-  rows_product<CfgRows>(acc, zb, kLdz, w1s, ld1, sh.h1p, 1);
-  rows_each<CfgRows>(acc, sh.h1p, [&](int row, int col, float v) {
+  rows_product<Cfg>(acc, zb, kLdz, w1s, ld1, sh.h1p, 1);
+  rows_each<Cfg>(acc, sh.h1p, [&](int row, int col, float v) {
     h1s[row * ld1 + col] = __float2bfloat16_rn(col < sh.h1 ? tanhf(v + w.b1[col]) : 0.0f);
   });
   __syncthreads();
-  PHASE_MARK(0);
-  // h2 = tanh(h1 W2 + b2) → bf16 (the engine's H and mlp_wbar's) and f32,
-  // W2 in double-buffered kKC-deep chunks.
+  PHASE_MARK(mark_h1);
+  // acc = h1 W2, W2 in double-buffered kKC-deep chunks.
   const int chunks = (sh.h1p + kKC - 1) / kKC;
   ll::zero(acc);
   for (int c = 0; c < chunks; ++c) {
@@ -505,11 +282,44 @@ __global__ void __launch_bounds__(CfgRowsOf<KPMAX>::THREADS, CfgRowsOf<KPMAX>::M
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int ks = (sh.h1p - c * kKC < kKC ? sh.h1p - c * kKC : kKC) / 16;
     ll::warp_mma<1, kNQ, 1, 1, false, true, false>(
-        acc, h1s + c * kKC, ld1, 0, (warp % CfgRows::WM) * 16, 0, 1, w2c + (c % 2) * kKC * ld2,
-        ld2, 0, (warp / CfgRows::WM) * 16, CfgRows::WN * 16, pairs_of<CfgRows>(sh.h2p, warp), ks,
-        lane);
+        acc, h1s + c * kKC, ld1, 0, (warp % Cfg::WM) * 16, 0, 1, w2c + (c % 2) * kKC * ld2, ld2,
+        0, (warp / Cfg::WM) * 16, Cfg::WN * 16, pairs_of<Cfg>(sh.h2p, warp), ks, lane);
     __syncthreads();  // the chunk is read
   }
+  PHASE_MARK(mark_h2);
+}
+
+template <int KPMAX>
+__global__ void __launch_bounds__(CfgRowsOf<KPMAX>::THREADS, CfgRowsOf<KPMAX>::MINB) mlp_rows(BwdArgs a) {
+  using CfgRows = CfgRowsOf<KPMAX>;
+  constexpr int kNQ = CfgRows::NQ, TM = CfgRows::TM;
+  const Shape& sh = a.sh;
+  const Weights& w = a.w;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld1 = sh.h1p + ll::kPad, ld2 = sh.h2p + ll::kPad, ldf = sh.h2p + 4;
+  bf16* zb = reinterpret_cast<bf16*>(smem_raw);  // [TM][kLdz]
+  bf16* hs = zb + TM * kLdz;                      // [TM][ld2]: bf16(h2), the engine's H
+  bf16* region = hs + TM * ld2;                   // hidden_layers' W1, h1 and W2 chunks
+  bf16* h1s = region + kDP * ld1;                 // [TM][ld1] bf16(h1)
+  float* h2t = reinterpret_cast<float*>(region);  // [TM][ldf] f32 h2
+  bf16* ws = region;                              // the engine's slabs, then do parts
+  bf16* ds = ws + CfgRows::ws_elems(sh.h2p, 1);
+  bf16* pt = region;                              // [TM][ld2] one part of dpre2
+  float* srow = reinterpret_cast<float*>(region + rows_region<CfgRows>(sh));  // [TM] dll
+  int* srn = reinterpret_cast<int*>(srow + TM);                              // [TM] point n
+  PHASE_START;
+  const long long r0 = static_cast<long long>(blockIdx.x) * TM;
+
+  // h1 → bf16 in the region; acc = h1 W2.
+  float acc[1][kNQ][2][4];
+  hidden_layers<CfgRows>(acc, a.z, a.rows, sh, w, r0, zb, region, [&] {
+    for (int row = threadIdx.x; row < TM; row += blockDim.x) {
+      const long long r = r0 + row;
+      srow[row] = r < a.rows ? a.dll[r] : 0.0f;
+      srn[row] = r < a.rows ? static_cast<int>((r / sh.k) % sh.n) : 0;
+    }
+  }, 0, 1);
+  // h2 = tanh(h1 W2 + b2) → bf16 (the engine's H and mlp_wbar's) and f32.
   store_rows<TM>(a.h1b, h1s, ld1, r0, a.rows, sh.h1p);
   __syncthreads();  // h1 is stored: the region takes the f32 h2
   rows_each<CfgRows>(acc, sh.h2p, [&](int row, int col, float v) {
@@ -553,6 +363,124 @@ __global__ void __launch_bounds__(CfgRowsOf<KPMAX>::THREADS, CfgRowsOf<KPMAX>::M
     __syncthreads();
   }
   PHASE_MARK(3);
+}
+
+// ------------------------------------------------------------- forward
+
+// The forward's configurations, by the widest padded hidden width (as the
+// backward's) and the rows a block takes (64; 32 where 64-row blocks would
+// not fill the card twice over, as at the mnist shape): the hidden layers
+// in rows_product's layout (CfgA), the last layer as engine block (f) over
+// double-buffered 64-column W3 slabs in the region the hidden layers used;
+// 8 warps; at 224 two blocks an SM, registers capped at 128.
+template <int KPMAX, int TM>
+struct FwdCfg {
+  static constexpr int MINB = KPMAX == 224 ? 2 : 1;
+  using Rows = ll::CfgA<TM, 64, 2, KPMAX, 8, MINB>;
+  using F = ll::CfgF<TM, 64, 2, KPMAX, 8, MINB, TM / 32>;
+};
+constexpr long long kFwdSmallRows = 2LL * 132 * 64;  // below: 32-row blocks (at 224)
+
+struct FwdArgs {
+  const float* z;  // (S·N·K, d)
+  const float* y;  // (N, H2)
+  const float* c;  // (N,)
+  float* ll;       // (S·N·K,)
+  Weights w;
+  Shape sh;
+  long long rows;
+};
+
+// bf16 elements of the region: hidden_layers' W1, h1 and W2 chunks, then
+// block (f)'s W3 slabs.
+template <class C>
+__host__ __device__ inline size_t fwd_region(const Shape& sh) {
+  const size_t ld1 = sh.h1p + ll::kPad, ld2 = sh.h2p + ll::kPad;
+  const size_t hidden = (kDP + C::Rows::TM) * ld1 + 2 * kKC * ld2;
+  const size_t slabs = C::F::ws_elems(sh.h2p, 1);
+  return hidden > slabs ? hidden : slabs;
+}
+
+// Shared memory of decoder_fwd (bytes): zb, bf16(h2), the region, the
+// t-term and row-sum partials and the rows' points.
+template <class C>
+__host__ __device__ inline size_t fwd_smem(const Shape& sh) {
+  constexpr int TM = C::Rows::TM;
+  return sizeof(bf16) * (static_cast<size_t>(TM) * (kLdz + sh.h2p + ll::kPad) + fwd_region<C>(sh)) +
+         sizeof(double) * C::F::RED + sizeof(float) * TM * C::Rows::WN + sizeof(int) * TM;
+}
+
+// ll for one tile of TM rows: hidden_layers, then h2's epilogue (bf16(h2)
+// into shared memory, the t-term from the f32 h2) while the first W3 slab
+// comes in, then engine block (f) with H = bf16(h2) and W = W3 (1 part).
+template <int KPMAX, int TM>
+__global__ void __launch_bounds__(FwdCfg<KPMAX, TM>::F::THREADS, FwdCfg<KPMAX, TM>::MINB)
+    decoder_fwd(FwdArgs a) {
+  using C = FwdCfg<KPMAX, TM>;
+  using Rows = typename C::Rows;
+  using F = typename C::F;
+  const Shape& sh = a.sh;
+  const Weights& w = a.w;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld2 = sh.h2p + ll::kPad;
+  bf16* zb = reinterpret_cast<bf16*>(smem_raw);  // [TM][kLdz]
+  bf16* hs = zb + TM * kLdz;                      // [TM][ld2] bf16(h2): block (f)'s H
+  bf16* region = hs + TM * ld2;                   // hidden_layers', then the W3 slabs
+  double* red = reinterpret_cast<double*>(region + fwd_region<C>(sh));  // F::RED
+  float* tred = reinterpret_cast<float*>(red + F::RED);                   // [TM][Rows::WN]
+  int* rown = reinterpret_cast<int*>(tred + TM * Rows::WN);               // [TM] point n, −1 past M
+  PHASE_START;
+  const long long r0 = static_cast<long long>(blockIdx.x) * TM;
+
+  float acc[1][Rows::NQ][2][4];
+  hidden_layers<Rows>(acc, a.z, a.rows, sh, w, r0, zb, region, [&] {
+    for (int row = threadIdx.x; row < TM; row += blockDim.x) {
+      const long long r = r0 + row;
+      rown[row] = r < a.rows ? static_cast<int>((r / sh.k) % sh.n) : -1;
+    }
+  }, 16, 17);
+  ll::stage_slab<F::SN, F::ST, 1>(region, w.w3, 0, sh.h2p, sh.ddp, 0);
+  // h2 = tanh(h1 W2 + b2) → bf16; the t-term ⟨h2, y_n⟩ from the f32 h2, a
+  // lane's two rows (lane/4 and +8 of its m-tile) apart.
+  float tr0 = 0.0f, tr1 = 0.0f;
+  rows_each<Rows>(acc, sh.h2p, [&](int row, int col, float v) {
+    float h = 0.0f;
+    if (col < sh.h2) {
+      h = tanhf(v + w.b2[col]);
+      const int nn = rown[row];
+      const float t = nn >= 0 ? h * a.y[static_cast<size_t>(nn) * sh.h2 + col] : 0.0f;
+      if (row & 8) {
+        tr1 += t;
+      } else {
+        tr0 += t;
+      }
+    }
+    hs[row * ld2 + col] = __float2bfloat16_rn(h);
+  });
+  {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int row0 = (warp % Rows::WM) * 16 + (lane >> 2), q = warp / Rows::WM;
+    const float v0 = ll::quad_sum(tr0), v1 = ll::quad_sum(tr1);
+    if ((lane & 3) == 0) {
+      tred[row0 * Rows::WN + q] = v0;
+      tred[(row0 + 8) * Rows::WN + q] = v1;
+    }
+  }
+  PHASE_MARK(18);
+  // Σ_D logσ(−(h2 W3 + b3)) per row (its first barrier covers hs and tred).
+  float rs[F::FMI][2], rc[F::FMI][2];
+  ll::rowsum_slabs<F, 1, 1, false>(rs, rc, hs, 0, region, w.w3, 0, sh.h2p, sh.dd, w.b3,
+                                   [](float o) { return ll::logsig_neg_fast(o); });
+  ll::row_totals<F>(rs, rc, red);
+  for (int row = threadIdx.x; row < TM; row += blockDim.x) {
+    const int nn = rown[row];
+    if (nn < 0) continue;
+    float tsum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < Rows::WN; ++q) tsum += tred[row * Rows::WN + q];
+    a.ll[r0 + row] = (tsum + a.c[nn]) + ll::row_total<F>(red, row);
+  }
+  PHASE_MARK(19);
 }
 
 // Shared memory of mlp_tail (bytes): zb, W1, W2 (staged once a block),
@@ -791,6 +719,20 @@ Scratch scratch_of(const Shape& sh) {
   return c;
 }
 
+// decoder_fwd over the row tiles of one configuration.
+template <int KPMAX, int TM>
+cudaError_t forward(const FwdArgs& a, cudaStream_t st) {
+  using C = FwdCfg<KPMAX, TM>;
+  const size_t bytes = fwd_smem<C>(a.sh);
+  if (bytes > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
+  static int opted = 0;
+  const cudaError_t err = opt_in(decoder_fwd<KPMAX, TM>, bytes, opted);
+  if (err != cudaSuccess) return err;
+  decoder_fwd<KPMAX, TM><<<static_cast<unsigned>((a.rows + TM - 1) / TM), C::F::THREADS, bytes,
+                           st>>>(a);
+  return cudaGetLastError();
+}
+
 // mlp_rows, mlp_tail and the two mlp_wbar grids for one width class.
 template <int KPMAX>
 cudaError_t backward(const BwdArgs& a, const Scratch& c, float* scratch, cudaStream_t st) {
@@ -862,43 +804,50 @@ long long decoder_mlp_scratch_floats(int n, int k, int s, int d, int h1, int h2,
   return shape_ok(sh) ? scratch_of(sh).total : 0;
 }
 
+// Dynamic shared memory of the forward's decoder_fwd block at these shapes
+// (0: outside the class).
+long long decoder_mlp_forward_smem_bytes(int n, int k, int s, int d, int h1, int h2, int dd) {
+  const Shape sh = make_shape(n, k, s, d, h1, h2, dd);
+  if (!shape_ok(sh)) return 0;
+  const long long rows = static_cast<long long>(n) * k * s;
+  if (sh.h1p > 224 || sh.h2p > 224) return static_cast<long long>(fwd_smem<FwdCfg<kMaxHidden, 64>>(sh));
+  return static_cast<long long>(rows < kFwdSmallRows ? fwd_smem<FwdCfg<224, 32>>(sh)
+                                                     : fwd_smem<FwdCfg<224, 64>>(sh));
+}
+
 // Forward: ll (S·N·K) from z (S·N·K, d), the padded bf16 weights, the f32
 // biases, y (N, H2) and c (N).
 int decoder_mlp_forward(const float* z, int n, int k, int s, int d, int h1, int h2, int dd,
-                        const bf16* w1, const bf16* w1t, const bf16* w2, const bf16* w2t,
-                        const bf16* w3, const bf16* w3t, const float* b1, const float* b2,
-                        const float* b3, const float* y, const float* c, float* ll,
-                        void* stream) {
+                        const bf16* w1, const bf16* w2, const bf16* w3, const float* b1,
+                        const float* b2, const float* b3, const float* y, const float* c,
+                        float* ll, void* stream) {
   const Shape sh = make_shape(n, k, s, d, h1, h2, dd);
   if (!shape_ok(sh)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int NW = kFwdThreads / 32;
-  const size_t bytes = static_cast<size_t>(kFwdRows) * (kDP + sh.h1p + sh.h2p) * sizeof(bf16) +
-                       static_cast<size_t>(kFwdRows) * (2 * NW * sizeof(float) + sizeof(int));
-  static int opted = 0;
-  cudaError_t err = opt_in(decoder_fwd, bytes, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  FwdArgs a{z, y, c, ll, Weights{w1, w1t, w2, w2t, w3, w3t, b1, b2, b3}, sh,
-            static_cast<long long>(n) * k * s};
-  const long long blocks = (a.rows + kFwdRows - 1) / kFwdRows;
-  decoder_fwd<<<static_cast<unsigned>(blocks), kFwdThreads, bytes,
-                static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const FwdArgs a{z, y, c, ll, Weights{w1, w2, w3, b1, b2, b3}, sh,
+                  static_cast<long long>(n) * k * s};
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (sh.h1p > 224 || sh.h2p > 224) {
+    err = forward<kMaxHidden, 64>(a, st);
+  } else {
+    err = a.rows < kFwdSmallRows ? forward<224, 32>(a, st) : forward<224, 64>(a, st);
+  }
+  return static_cast<int>(err);
 }
 
 // Backward: from dll (S·N·K), the cotangents dz (S·N·K, d) (bf16-valued),
 // dy (N, H2), dc (N), dW1 (d, H1), db1, dW2 (H1, H2), db2, dW3 (H2, D),
 // db3; dW rounded to bf16. `scratch` holds decoder_mlp_scratch_floats.
 int decoder_mlp_backward(const float* z, const float* dll, int n, int k, int s, int d, int h1,
-                         int h2, int dd, const bf16* w1, const bf16* w1t, const bf16* w2,
-                         const bf16* w2t, const bf16* w3, const bf16* w3t, const float* b1,
-                         const float* b2, const float* b3, const float* y, float* dz, float* dy,
-                         float* dc, float* scratch, float* dw1, float* db1, float* dw2,
-                         float* db2, float* dw3, float* db3, void* stream) {
+                         int h2, int dd, const bf16* w1, const bf16* w2, const bf16* w3,
+                         const float* b1, const float* b2, const float* b3, const float* y,
+                         float* dz, float* dy, float* dc, float* scratch, float* dw1, float* db1,
+                         float* dw2, float* db2, float* dw3, float* db3, void* stream) {
   const Shape sh = make_shape(n, k, s, d, h1, h2, dd);
   if (!shape_ok(sh)) return static_cast<int>(cudaErrorInvalidValue);
   const Scratch c = scratch_of(sh);
   const long long m = static_cast<long long>(n) * k * s;
-  BwdArgs a{z, dll, y, Weights{w1, w1t, w2, w2t, w3, w3t, b1, b2, b3}, sh, m,
+  BwdArgs a{z, dll, y, Weights{w1, w2, w3, b1, b2, b3}, sh, m,
             reinterpret_cast<bf16*>(scratch + c.h1b), reinterpret_cast<bf16*>(scratch + c.h2b),
             scratch + c.h2f, reinterpret_cast<bf16*>(scratch + c.dp2), dz, scratch + c.pw1,
             scratch + c.pb1};

@@ -1,9 +1,10 @@
-// lastlayer_bwd: the tensor-core engine shared by the decoders' last-layer
-// backward (decoder.cu's row sum, decoder_mlp.cu's MLP decoder).
+// lastlayer: the tensor-core engine shared by the decoders' last layer,
+// forward and backward (decoder.cu's row sum, decoder_mlp.cu's MLP decoder).
 //
-// Both backwards take rows H (M, K), a last layer W (K, D), a bias b (D) and
-// a per-row scale s (M) and form, without writing the (M, D) logits,
-//   o = H W + b,  do = −s·σ(o),  H̄ = do Wᵀ,  W̄ = Hᵀ do,  b̄ = Σ_m do.
+// All of them take rows H (M, K), a last layer W (K, D) and a bias b (D)
+// and, without writing the (M, D) logits o = H W + b, form either the row
+// sums Σ_D logσ(−o) (the forwards) or, from a per-row scale s (M), the
+// backward's do = −s·σ(o), H̄ = do Wᵀ, W̄ = Hᵀ do, b̄ = Σ_m do.
 // They differ only in where operands are rounded, so every product here is
 // templated on the number of bf16 parts of each operand: 1 (rounded to bf16,
 // round-to-nearest-even as torch's casts), 2 (hi + lo: 16 bits, within
@@ -19,12 +20,15 @@
 // are of order 2⁻²⁴ of the product, as in an f32 FMA's rounding).
 //
 // Products are mma.sync m16n8k16 bf16 → f32, fed by ldmatrix from shared
-// memory: every operand is staged there already in its bf16 parts, by
-// cp.async 16-byte copies from bf16 arrays in global memory (zero-padded to
-// multiples of 16 columns; rows past the end are zero-filled by the copy).
+// memory: every operand is staged there in its bf16 parts, by cp.async
+// 16-byte copies from bf16 arrays in global memory (zero-padded to
+// multiples of 16 columns; rows past the end are zero-filled by the copy),
+// or, for the row sum's H (f32 in global memory), split into its parts as
+// it is staged (stage_split).
 // Tile loops have compile-time trip counts (a warp's tiles past the end
 // repeat a valid one, unread), so each k-step is straight-line code.
-// Two building blocks, each the body of a kernel:
+// Three building blocks, each the body of a kernel; (a) and (f) share the
+// W-slab walk (stage_slab, walk_slabs) and the o product (slab_o):
 // (a) hbar_slabs: a block owns TM rows whose H tile is in shared memory; it
 //     walks D in slabs of SN columns, the W slab staged by cp.async
 //     (double-buffered where shared memory allows); per slab it forms o on
@@ -39,9 +43,16 @@
 //     into the chunk of W̄ in registers, and adds the f32 column sums of do
 //     into b̄ in row order. Each block writes one partial; the caller adds
 //     the partials in split order (no float atomics: reruns are bit-equal).
-// A configuration (CfgA, CfgB) sets the tile sizes, stages, warps and the
-// blocks an SM holds: with two, one block's σ epilogue and barriers overlap
-// the other's products (registers capped at 128 a thread).
+// (f) rowsum_slabs (the forwards): a block owns TM rows whose H tile is in
+//     shared memory; it walks D in slabs as (a) does, forms o per slab on the
+//     tensor cores and adds logσ(−(o + b)) (masked past D) into per-row f32
+//     registers by compensated (Kahan) sums; row_totals then adds each row's
+//     partials in f64 over the four lanes of a quad and across warps in a
+//     fixed order (no float atomics: reruns are bit-equal), so that a row
+//     sum is the f32 logσ values' sum rounded once.
+// A configuration (CfgA, CfgB, CfgF) sets the tile sizes, stages, warps and
+// the blocks an SM holds: with two, one block's epilogue and barriers
+// overlap the other's products (registers capped at 128 a thread).
 // The PTX helpers (mma, ldmatrix, cp.async) are the only inline assembly;
 // a CPU rehearsal (a g++ mock of the CUDA runtime, SKILL.md) defines
 // SVAX_MOCK_PTX and supplies scalar emulations with PTX's lane layouts.
@@ -140,6 +151,28 @@ __device__ __forceinline__ float sigmoid(float o) {
   }
 }
 
+// logσ(−o) = −(max(o, 0) + log1p(exp(−|o|))), stable for any o: torch's
+// log_sigmoid at −o.
+__device__ __forceinline__ float logsig_neg(float o) {
+  return -(fmaxf(o, 0.0f) + log1pf(expf(-fabsf(o))));
+}
+
+// logσ(−o) as logsig_neg with the special-function units' exp2 and log2
+// (__expf, __logf) and log(1 + e) formed without a log1p: at most a few
+// 1e-7 from logsig_neg for any o, for the bars that allow it (the bf16
+// row-sum mode, the MLP decoder; tests/test_torch_lastlayer.py).
+__device__ __forceinline__ float logsig_neg_fast(float o) {
+  return -(fmaxf(o, 0.0f) + __logf(1.0f + __expf(-fabsf(o))));
+}
+
+// Sum over the four lanes of a quad (lanes 4g..4g+3); every lane gets it.
+template <typename T>
+__device__ __forceinline__ T quad_sum(T v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
 // The do epilogue of a warp's o tiles: for its OMI m16 tiles at rows om.. and
 // the n16 pair at column on (of the slab or chunk c0..), do = −s·σ(o + b)
 // (0 past column d) into P parts at ds (row stride lds, part stride dps),
@@ -200,6 +233,54 @@ __device__ __forceinline__ void stage(bf16* s, int lds, const bf16* g, size_t ld
     const bool ok = r < rmax && c < cmax;
     cp_async16(s + r * lds + c, ok ? g + static_cast<size_t>(r) * ldg + c : g, ok ? 16 : 0);
   }
+}
+
+// An f32 (rows × cols) block at g (row stride ldg; rows below `rmax` and
+// columns below `cmax` valid, the rest zero) into P bf16 parts (split<P>) in
+// shared memory (row stride lds, parts `ps` apart), two columns a thread;
+// cols even. All threads call it; plain loads, so it is in on the next
+// __syncthreads().
+template <int P>
+__device__ __forceinline__ void stage_split(bf16* s, int lds, int ps, const float* g, size_t ldg,
+                                            int rows, int cols, int rmax, int cmax) {
+  const int per_row = cols / 2;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
+    const int r = idx / per_row, c = (idx % per_row) * 2;
+    const float* src = g + static_cast<size_t>(r) * ldg + c;
+    const float v0 = r < rmax && c < cmax ? src[0] : 0.0f;
+    const float v1 = r < rmax && c + 1 < cmax ? src[1] : 0.0f;
+    bf16 p0[P], p1[P];
+    split<P>(v0, p0);
+    split<P>(v1, p1);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      __nv_bfloat162 pair;
+      pair.x = p0[k];
+      pair.y = p1[k];
+      *reinterpret_cast<__nv_bfloat162*>(s + k * ps + r * lds + c) = pair;
+    }
+  }
+}
+
+// Slab s (columns s·SN..) of W's PW parts (global, `wps` apart, each [kp][np],
+// zero past np) by cp.async into stage s % ST of ws, each stage PW parts of
+// [kp][SN + kPad]; commits one group. All threads call it (blockDim.x a
+// multiple of SN / 8): a thread copies the same 16-byte column piece of
+// every blockDim.x / (SN / 8)-th row, with no division in the loop.
+template <int SN, int ST, int PW>
+__device__ __forceinline__ void stage_slab(bf16* ws, const bf16* w, size_t wps, int kp, int np,
+                                           int s) {
+  constexpr int kPer = SN / 8;  // 16-byte pieces a row
+  const int lds = SN + kPad, c = (threadIdx.x % kPer) * 8, step = blockDim.x / kPer;
+  const bool ok = s * SN + c < np;
+  bf16* dst = ws + (s % ST) * (PW * kp * lds) + c;
+  const bf16* src = w + s * SN + c;
+  for (int p = 0; p < PW; ++p)
+    for (int r = threadIdx.x / kPer; r < kp; r += step)
+      cp_async16(dst + p * kp * lds + r * lds, ok ? src + p * wps + static_cast<size_t>(r) * np : w,
+                 ok ? 16 : 0);
+  cp_async_commit();
 }
 
 // ------------------------------------------------------------- products
@@ -318,6 +399,19 @@ __device__ __forceinline__ void zero(float (&acc)[MI][NQ][2][4]) {
         for (int e = 0; e < 4; ++e) acc[i][q][h][e] = 0.0f;
 }
 
+// o (zeroed first) = H · W for a warp's MI m16 tiles at rows om + 16i and
+// the n16 pair at column on, over kp: H in PH parts (`hps` apart, [m][k],
+// row stride ldh), W in PW parts (`wps` apart, [k][n], row stride ldw).
+// The o product of blocks (a), (b) and (f).
+template <int MI, int PH, int PW, bool kChain>
+__device__ __forceinline__ void slab_o(float (&o)[MI][1][2][4], const bf16* h, int ldh, int hps,
+                                       int om, const bf16* w, int ldw, int wps, int on, int kp,
+                                       int lane) {
+  zero(o);
+  warp_mma<MI, 1, PH, PW, false, true, kChain>(o, h, ldh, hps, om, 16, MI, w, ldw, wps, on, 0, 1,
+                                               kp / 16, lane);
+}
+
 // The row and column (within the tile) of a lane's element e of half h of
 // a pair at column n0: row m0 + lane/4 (+8 for e ≥ 2), column n0 + 8h + 2(lane%4) + (e&1).
 __device__ __forceinline__ int frag_row(int m0, int lane, int e) {
@@ -325,6 +419,35 @@ __device__ __forceinline__ int frag_row(int m0, int lane, int e) {
 }
 __device__ __forceinline__ int frag_col(int n0, int h, int lane, int e) {
   return n0 + 8 * h + 2 * (lane & 3) + (e & 1);
+}
+
+// ------------------------------------------------------- the slab walk
+
+// The slab loop of blocks (a) and (f), over the slabs of SN columns of D:
+// slab 0 is issued by the caller (stage_slab). For each slab s it issues s +
+// 1 (ST = 2), waits for s, and runs body(s, slab) between two block
+// barriers; with one stage it issues s + 1 after the second. The phase
+// clocks charge the wait to slot `wait_mark` and the body with the barrier
+// after it to `end_mark`.
+template <int SN, int ST, int PW, class Body>
+__device__ __forceinline__ void walk_slabs(bf16* ws, const bf16* w, size_t wps, int kp, int d,
+                                           int wait_mark, int end_mark, Body body) {
+  const int np = round_up(d, 16), slabs = (d + SN - 1) / SN;
+  const int wsz = PW * kp * (SN + kPad);  // one stage
+  for (int s = 0; s < slabs; ++s) {
+    if (ST == 2 && s + 1 < slabs) {
+      stage_slab<SN, ST, PW>(ws, w, wps, kp, np, s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slab s is in
+    PHASE_MARK(wait_mark);
+    body(s, ws + (s % ST) * wsz);
+    __syncthreads();  // the slab (and what the body wrote) is free
+    PHASE_MARK(end_mark);
+    if (ST == 1 && s + 1 < slabs) stage_slab<SN, ST, PW>(ws, w, wps, kp, np, s + 1);
+  }
 }
 
 // ---------------------------------------------------- the (a) block: H̄
@@ -371,36 +494,17 @@ __device__ void hbar_slabs(float (&acc)[1][Cfg::NQ][2][4], const bf16* hs, int h
   constexpr int TM = Cfg::TM, SN = Cfg::SN, ST = Cfg::ST;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int np = round_up(d, 16), ldh = kp + kPad, lds = SN + kPad;
-  const int slabs = (d + SN - 1) / SN;
-  const int wsz = PW * kp * lds;  // one stage
-  auto load = [&](int s) {
-    bf16* dst = ws + (s % ST) * wsz;
-    for (int p = 0; p < PW; ++p)
-      stage(dst + p * kp * lds, lds, w + p * wps + s * SN, np, kp, SN, kp, np - s * SN);
-    cp_async_commit();
-  };
   zero(acc);
   const int hm = warp % Cfg::WM, hq0 = warp / Cfg::WM;
   const int hnq = (kp / 16 - hq0 + Cfg::WN - 1) / Cfg::WN;
-  load(0);
-  for (int s = 0; s < slabs; ++s) {
-    if (ST == 2 && s + 1 < slabs) {
-      load(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // slab s is in
-    PHASE_MARK(13);
-    const bf16* wsl = ws + (s % ST) * wsz;
+  stage_slab<SN, ST, PW>(ws, w, wps, kp, np, 0);
+  walk_slabs<SN, ST, PW>(ws, w, wps, kp, d, 13, 9, [&](int s, const bf16* wsl) {
     // o = H · W[:, slab] + b, do = −s·σ(o) into Ds (masked past D).
     for (int t = warp; t < Cfg::OJ; t += Cfg::WARPS) {
       constexpr int OMI = Cfg::OMI;
       const int om = (t % Cfg::OJM) * 16 * OMI, on = (t / Cfg::OJM) * 16;
       float o[OMI][1][2][4];
-      zero(o);
-      warp_mma<OMI, 1, PH, PW, false, true, kChainO>(o, hs, ldh, hps, om, 16, OMI, wsl, lds,
-                                                     kp * lds, on, 0, 1, kp / 16, lane);
+      slab_o<OMI, PH, PW, kChainO>(o, hs, ldh, hps, om, wsl, lds, kp * lds, on, kp, lane);
       PHASE_MARK(14);
       do_epilogue<OMI, PD, kTorchSigmoid, false>(o, om, on, s * SN, d, bias, srow, ds, lds,
                                                  TM * lds, nullptr, 0, lane);
@@ -420,10 +524,7 @@ __device__ void hbar_slabs(float (&acc)[1][Cfg::NQ][2][4], const bf16* hs, int h
     warp_mma<1, Cfg::NQ, PD, PW, false, false, kChainH>(acc, ds, lds, TM * lds, hm * 16, 0, 1, wsl,
                                                       lds, kp * lds, hq0 * 16, Cfg::WN * 16, hnq,
                                                       SN / 16, lane);
-    __syncthreads();  // the slab and Ds are free
-    PHASE_MARK(9);
-    if (ST == 1 && s + 1 < slabs) load(s + 1);
-  }
+  });
 }
 
 // ---------------------------------------------------- the (b) block: W̄
@@ -555,9 +656,7 @@ __device__ void wbar_tiles(const WbarArgs& a, unsigned char* smem_raw) {
         constexpr int OMI = Cfg::OMI;
         const int om = (ot % Cfg::OJM) * 16 * OMI, on = (ot / Cfg::OJM) * 16;
         float o[OMI][1][2][4];
-        zero(o);
-        warp_mma<OMI, 1, PH, PW, false, true, kChainO>(o, ht, ldh, TMB * ldh, om, 16, OMI, wc, lds,
-                                                       kp * lds, on, 0, 1, kp / 16, lane);
+        slab_o<OMI, PH, PW, kChainO>(o, ht, ldh, TMB * ldh, om, wc, lds, kp * lds, on, kp, lane);
         PHASE_MARK(15);
         do_epilogue<OMI, PD, kTorchSigmoid, true>(o, om, on, c0, a.d, a.bias, st, ds, lds,
                                                   TMB * lds, dsf, kLdf, lane);
@@ -632,6 +731,104 @@ __device__ void wbar_tiles(const WbarArgs& a, unsigned char* smem_raw) {
       }
   }
   if (tid < SNB && c0 + tid < np) a.pb[static_cast<size_t>(sp) * np + c0 + tid] = bacc;
+}
+
+// ------------------------------------------------- the (f) block: Σ logσ
+
+// Configurations: TM rows a block, SN columns a slab, ST stages of W slabs,
+// KPMAX the widest padded K, WARPS warps, MINB blocks an SM, and each warp's
+// o job FMI m16 tiles × one n16 pair: warp w takes rows JR·(w % JM).. (JR =
+// 16·FMI) of every slab and its pairs w / JM + WJ·j (j < JW).
+template <int TM_, int SN_, int ST_, int KPMAX_, int WARPS_, int MINB_, int FMI_>
+struct CfgF {
+  static constexpr int TM = TM_, SN = SN_, ST = ST_, KPMAX = KPMAX_, WARPS = WARPS_;
+  static constexpr int MINB = MINB_, FMI = FMI_, THREADS = 32 * WARPS;
+  static constexpr int JR = 16 * FMI, JM = TM / JR, WJ = WARPS / JM, JW = SN / 16 / WJ;
+  static_assert(JM * JR == TM && JM * WJ == WARPS && JW * WJ * 16 == SN, "jobs tile a slab");
+  // Shared memory (bf16 elements) of the slab stages.
+  __host__ __device__ static constexpr int ws_elems(int kp, int pw) {
+    return ST * pw * kp * (SN + kPad);
+  }
+  // Doubles of row_totals' buffer.
+  static constexpr int RED = TM * WJ;
+};
+
+// (f): this warp's per-row sums of f(o + b) over every slab of D (columns
+// below d), o = H · W over kp, for the block's TM rows whose H parts (PH,
+// `hps` apart, row stride kp + kPad) are in shared memory at `hs` (rows
+// past the end zero: their sums are left unread). W: PW parts (global,
+// `wps` apart, [kp][np], np = round16(d)); ws: the slab stages
+// (Cfg::ws_elems); slab 0 issued by the caller (stage_slab), so that it
+// overlaps the caller's staging of H. rs[i][r] sums rows JR·(warp % JM) +
+// 16i + lane/4 + 8r in f32 with a Kahan compensation kept in rc (the sum
+// is rs − rc); each lane adds its own columns, in slab order.
+template <class Cfg, int PH, int PW, bool kChainO, class F>
+__device__ void rowsum_slabs(float (&rs)[Cfg::FMI][2], float (&rc)[Cfg::FMI][2], const bf16* hs,
+                             int hps, bf16* ws, const bf16* w, size_t wps, int kp, int d,
+                             const float* bias, F f) {
+  constexpr int FMI = Cfg::FMI, SN = Cfg::SN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ldh = kp + kPad, lds = SN + kPad, om = (warp % Cfg::JM) * Cfg::JR;
+#pragma unroll
+  for (int i = 0; i < FMI; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) rs[i][r] = rc[i][r] = 0.0f;
+  walk_slabs<SN, Cfg::ST, PW>(ws, w, wps, kp, d, 24, 27, [&](int s, const bf16* wsl) {
+#pragma unroll 1
+    for (int j = 0; j < Cfg::JW; ++j) {
+      const int on = (warp / Cfg::JM + Cfg::WJ * j) * 16;
+      float o[FMI][1][2][4];
+      slab_o<FMI, PH, PW, kChainO>(o, hs, ldh, hps, om, wsl, lds, kp * lds, on, kp, lane);
+      PHASE_MARK(25);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = s * SN + on + 8 * h + 2 * (lane & 3) + jj;
+          if (col < d) {
+            const float bc = bias[col];
+#pragma unroll
+            for (int i = 0; i < FMI; ++i)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {  // Kahan: rs − rc is the sum
+                const float y = f(o[i][0][h][2 * r + jj] + bc) - rc[i][r];
+                const float t = rs[i][r] + y;
+                rc[i][r] = (t - rs[i][r]) - y;
+                rs[i][r] = t;
+              }
+          }
+        }
+      PHASE_MARK(26);
+    }
+  });
+}
+
+// (f)'s partials of each row, in f64, into red[row·WJ + q] for the WJ
+// warps q of its job row (each the sum over a quad's lanes of rs − rc);
+// all threads call it. row_total then adds a row's in order.
+template <class Cfg>
+__device__ __forceinline__ void row_totals(const float (&rs)[Cfg::FMI][2],
+                                           const float (&rc)[Cfg::FMI][2], double* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int om = (warp % Cfg::JM) * Cfg::JR, q = warp / Cfg::JM;
+#pragma unroll
+  for (int i = 0; i < Cfg::FMI; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const double v = quad_sum(static_cast<double>(rs[i][r]) - static_cast<double>(rc[i][r]));
+      if ((lane & 3) == 0) red[(om + 16 * i + (lane >> 2) + 8 * r) * Cfg::WJ + q] = v;
+    }
+  __syncthreads();
+  PHASE_MARK(28);
+}
+
+// Row `row`'s sum of (f), rounded to f32 once.
+template <class Cfg>
+__device__ __forceinline__ float row_total(const double* red, int row) {
+  double v = 0.0;
+#pragma unroll
+  for (int q = 0; q < Cfg::WJ; ++q) v += red[row * Cfg::WJ + q];
+  return static_cast<float>(v);
 }
 
 }  // namespace lastlayer

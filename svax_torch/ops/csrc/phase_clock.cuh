@@ -6,8 +6,9 @@
 // top; PHASE_MARK(slot) — in the kernel or in a device function it calls —
 // has thread 0 of the block add the clocks since its previous mark to the
 // slot, so a mark placed after a __syncthreads() charges the whole block's
-// time to the phase that just ended. Slots 0–7 are the kernels' own, 8–15
-// the engine's (lastlayer_bwd.cuh). Each source that includes this header
+// time to the phase that just ended. Slots 0–7 are the backward kernels'
+// own, 8–15 the engine's backward blocks (lastlayer.cuh), 16–23 the forward
+// kernels' own and 24–31 the engine's forward block. Each source that includes this header
 // owns its slots and reads them with the C entry SVAX_PHASE_ENTRY(name)
 // defines: int name(unsigned long long* out) copies the kPhaseSlots sums
 // to the host and zeroes them.
@@ -18,7 +19,7 @@
 
 #include <cuda_runtime.h>
 
-constexpr int kPhaseSlots = 16;
+constexpr int kPhaseSlots = 32;
 constexpr int kPhaseLast = 65536;  // thread 0's last clock, by block (mod)
 static __device__ unsigned long long g_phase_clocks[kPhaseSlots];
 static __device__ long long g_phase_last[kPhaseLast];

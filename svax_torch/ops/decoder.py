@@ -12,12 +12,12 @@ backward (H̄ = do Wᵀ, W̄ = Hᵀ do, b̄ = Σ_m do with do = −σ(o)·s̄), 
 neither direction writes the logits to device memory.
 
 Precision, as the reference kernel's ``precision`` argument
-(``_kernel_precision``): "highest" is f32 (the plain version, and the
-forward kernel, in f32 FMAs; the backward kernels on the tensor cores,
-each operand split exactly into three bf16 parts and the six terms of
-order < 3 summed: f32-accurate products); "default" rounds H, W and, in the backward, do to bf16 before
-each product and sums in f32 (a Mosaic dot at DEFAULT; b̄ sums the f32 do);
-"high" maps to "default".
+(``_kernel_precision``): "highest" is f32 (the plain version in f32; the
+kernels, forward and backward, on the tensor cores, each operand split
+exactly into three bf16 parts and the six terms of order < 3 summed:
+f32-accurate products); "default" rounds H, W and, in the backward, do to
+bf16 before each product and sums in f32 (a Mosaic dot at DEFAULT; b̄ sums
+the f32 do); "high" maps to "default".
 
 * On CUDA tensors ``rowsum_logsig_neg`` launches the kernels, or raises;
   there is no fallback.
@@ -35,6 +35,13 @@ BF16 = torch.bfloat16
 PRECISIONS = ("highest", "high", "default")
 MAX_HIDDEN = 512  # Dh: the kernels keep a 64 × Dh H̄ tile and a Dh × 64 W̄ chunk on chip
 
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into (sm_90)
+# The forward block's configurations (csrc/decoder.cu: Narrow<P>::F and
+# Wide<P>::F, lastlayer.cuh: CfgF): (TM, SN, ST, KPMAX, WARPS, FMI) by mode
+# (bf16), and the wide one both modes take past the narrow one.
+FWD_NARROW = {True: (64, 64, 2, 224, 8, 2), False: (64, 64, 1, 224, 16, 1)}
+FWD_WIDE = (32, 16, 1, 512, 2, 1)
+
 launches = 0  # forward kernel launches made by rowsum_logsig_neg (plain int)
 backward_launches = 0  # backward launches (each runs decoder.cu's three kernels)
 
@@ -44,6 +51,25 @@ def bernoulli_loglik_reference(h, w, b, x):
     logits = torch.einsum("nrh,hd->nrd", h, w) + b
     xe = x[:, None, :]
     return (xe * F.logsigmoid(logits) + (1.0 - xe) * F.logsigmoid(-logits)).sum(dim=-1)
+
+
+def _fwd_block_bytes(cfg: tuple, kp: int, parts: int) -> int:
+    """Bytes of one forward block (decoder.cu: fwd_smem): the H tile and the
+    W slab stages in their bf16 parts, the f64 row partials."""
+    tm, sn, st, _, warps, fmi = cfg
+    wj = warps // (tm // (16 * fmi))
+    return 2 * (parts * tm * (kp + 8) + st * parts * kp * (sn + 8)) + 8 * tm * wj
+
+
+def forward_smem_bytes(dh: int, bf16: bool) -> int:
+    """Dynamic shared memory of the forward's block at width Dh (decoder.cu:
+    rowsum_forward_smem_bytes): the narrow configuration where it takes the
+    width and fits, else the wide one."""
+    kp, parts = -(-dh // 16) * 16, 1 if bf16 else 3
+    narrow = _fwd_block_bytes(FWD_NARROW[bf16], kp, parts)
+    if kp <= FWD_NARROW[bf16][3] and narrow <= SMEM_LIMIT:
+        return narrow
+    return _fwd_block_bytes(FWD_WIDE, kp, parts)
 
 
 def _bf16_mode(precision: str) -> bool:
@@ -94,17 +120,8 @@ class _RowsumKernel(torch.autograd.Function):
     def forward(ctx, h2, w, b, bf16):
         global launches
         from svax_torch.ops import _build
-        ptr = _build.ptr
 
-        lib = _build.load()
-        m, dh = h2.shape
-        d = w.shape[1]
-        s = torch.empty((m,), device=h2.device, dtype=torch.float32)
-        stream = torch.cuda.current_stream(h2.device).cuda_stream
-        with torch.cuda.device(h2.device):
-            err = lib.rowsum_forward(ptr(h2), ptr(w), ptr(b), m, dh, d, int(bf16), ptr(s),
-                                     ctypes.c_void_p(stream))
-        _build.check(lib, err, "rowsum_forward")
+        s = forward_call(_build.load(), h2, w, b, bf16)
         launches += 1
         ctx.save_for_backward(h2, w, b)
         ctx.bf16 = bf16
@@ -120,6 +137,26 @@ class _RowsumKernel(torch.autograd.Function):
                               ctx.bf16)
         backward_launches += 1
         return (*grads, None)
+
+
+def forward_call(lib, h2, w, b, bf16: bool):
+    """s (M,) from ``lib``'s C entry ``rowsum_forward`` (the kernel library,
+    or another build of ``decoder.cu``): contiguous float32 CUDA tensors h2
+    (M, Dh), w (Dh, D), b (D,)."""
+    from svax_torch.ops import _build
+    ptr = _build.ptr
+
+    m, dh = h2.shape
+    d = w.shape[1]
+    kw = dict(device=h2.device, dtype=torch.float32)
+    s = torch.empty((m,), **kw)
+    scratch = torch.empty((lib.rowsum_forward_scratch_floats(dh, d, int(bf16)),), **kw)
+    stream = torch.cuda.current_stream(h2.device).cuda_stream
+    with torch.cuda.device(h2.device):
+        err = lib.rowsum_forward(ptr(h2), ptr(w), ptr(b), m, dh, d, int(bf16), ptr(s),
+                                 ptr(scratch), ctypes.c_void_p(stream))
+    _build.check(lib, err, "rowsum_forward")
+    return s
 
 
 def backward_call(lib, h2, w, b, sbar, bf16: bool):

@@ -47,6 +47,9 @@ BF16 = torch.bfloat16
 MAX_LATENT = 16
 MAX_HIDDEN = 256
 
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into (sm_90)
+FWD_SMALL_ROWS = 2 * 132 * 64  # fewer rows: 32-row forward blocks (csrc: kFwdSmallRows)
+
 launches = 0  # forward kernel launches made by bernoulli_mlp_loglik_fused (plain int)
 backward_launches = 0  # backward kernel launches (plain int)
 
@@ -101,6 +104,22 @@ def unsupported_reason(params: list, latent_dim: int, activation: str = "tanh") 
 # ------------------------------------------------------------- the kernels
 
 
+def forward_smem_bytes(h1: int, h2: int, rows: int) -> int:
+    """Dynamic shared memory of the forward's block (csrc/decoder_mlp.cu:
+    fwd_smem, decoder_mlp_forward_smem_bytes) for hidden widths h1, h2 and
+    S·N·K rows: z, bf16(h2), the region that holds the hidden layers' W1,
+    h1 and two 32-deep W2 chunks and then two 64-column W3 slabs, the f64
+    row-sum partials of 4 warps a row, the t-term partials and the rows'
+    points. 64-row blocks, or 32 below FWD_SMALL_ROWS at padded widths ≤
+    224; 8 warps."""
+    h1p, h2p = _round_up(h1, 16), _round_up(h2, 16)
+    tm = 64 if max(h1p, h2p) > 224 or rows >= FWD_SMALL_ROWS else 32
+    ld1, ld2 = h1p + 8, h2p + 8
+    region = max((MAX_LATENT + tm) * ld1 + 2 * 32 * ld2, 2 * h2p * (64 + 8))
+    wn = 8 // (tm // 16)  # warps sharing an m-tile of the hidden layers
+    return 2 * (tm * (MAX_LATENT + 8 + ld2) + region) + 8 * tm * 4 + 4 * tm * wn + 4 * tm
+
+
 def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """w rounded to bf16 in a zero (rows, cols) block."""
     out = torch.zeros((rows, cols), dtype=BF16, device=w.device)
@@ -109,14 +128,14 @@ def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _bf16_weights(w1, w2, w3) -> list[torch.Tensor]:
-    """The bf16 operands the kernels read, zero-padded (d, the hidden widths
-    and D to multiples of 16): each matrix in its (in, out) layout and
-    transposed, so every fragment load reads two neighbouring bf16."""
+    """The bf16 operands the kernels read, each in its (in, out) layout,
+    zero-padded (d, the hidden widths and D to multiples of 16) so that
+    every row is staged in 16-byte copies; the kernels read the transposed
+    products' operands from the same arrays (ldmatrix .trans)."""
     d, h1 = w1.shape
     h2, dd = w3.shape
     dp, h1p, h2p, ddp = MAX_LATENT, _round_up(h1, 16), _round_up(h2, 16), _round_up(dd, 16)
-    return [_padded(w1, dp, h1p), _padded(w1.T, h1p, dp), _padded(w2, h1p, h2p),
-            _padded(w2.T, h2p, h1p), _padded(w3, h2p, ddp), _padded(w3.T, ddp, h2p)]
+    return [_padded(w1, dp, h1p), _padded(w2, h1p, h2p), _padded(w3, h2p, ddp)]
 
 
 class _DecoderKernel(torch.autograd.Function):
@@ -127,19 +146,9 @@ class _DecoderKernel(torch.autograd.Function):
     def forward(ctx, z, w1, b1, w2, b2, w3, b3, y, c):
         global launches
         from svax_torch.ops import _build
-        ptr = _build.ptr
 
-        lib = _build.load()
-        s, n, k, d = z.shape
-        h1, h2, dd = w1.shape[1], w2.shape[1], w3.shape[1]
         wb = _bf16_weights(w1, w2, w3)
-        ll = torch.empty((s, n, k), device=z.device, dtype=torch.float32)
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        with torch.cuda.device(z.device):
-            err = lib.decoder_mlp_forward(
-                ptr(z), n, k, s, d, h1, h2, dd, *(ptr(t) for t in wb),
-                ptr(b1), ptr(b2), ptr(b3), ptr(y), ptr(c), ptr(ll), ctypes.c_void_p(stream))
-        _build.check(lib, err, "decoder_mlp_forward")
+        ll = forward_call(_build.load(), z, (w1, b1, w2, b2, w3, b3), y, c, wb)
         launches += 1
         ctx.save_for_backward(z, w1, b1, w2, b2, w3, b3, y, *wb)
         return ll
@@ -154,6 +163,27 @@ class _DecoderKernel(torch.autograd.Function):
                               dll.to(torch.float32).contiguous())
         backward_launches += 1
         return grads
+
+
+def forward_call(lib, z, params, y, c, wb):
+    """ll (S, N, K) from ``lib``'s C entry ``decoder_mlp_forward`` (the kernel
+    library, or another build of ``decoder_mlp.cu``): params (w1, b1, w2,
+    b2, w3, b3), y (N, H2), c (N,), wb ``_bf16_weights(w1, w2, w3)``;
+    contiguous float32 CUDA tensors."""
+    from svax_torch.ops import _build
+    ptr = _build.ptr
+
+    w1, b1, w2, b2, w3, b3 = params
+    s, n, k, d = z.shape
+    h1, h2, dd = w1.shape[1], w2.shape[1], w3.shape[1]
+    ll = torch.empty((s, n, k), device=z.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    with torch.cuda.device(z.device):
+        err = lib.decoder_mlp_forward(
+            ptr(z), n, k, s, d, h1, h2, dd, *(ptr(t) for t in wb),
+            ptr(b1), ptr(b2), ptr(b3), ptr(y), ptr(c), ptr(ll), ctypes.c_void_p(stream))
+    _build.check(lib, err, "decoder_mlp_forward")
+    return ll
 
 
 def backward_call(lib, z, params, y, wb, dll):

@@ -1,6 +1,7 @@
 """The fused MLP-decoder CUDA kernels on the card: forward and recompute
-backward against their plain version at small, ragged, multi-block and
-bigk shapes, bit-equal reruns, the launch counters, and the wrapper raising
+backward against their plain version at small, ragged, multi-block, shard
+and bigk shapes, bit-equal reruns, the launch counters, the forward
+block's shared memory against its Python mirror, and the wrapper raising
 (not falling back) outside its shape class.
 
 Every test needs a CUDA device and skips without one. The file imports no
@@ -24,12 +25,16 @@ pytestmark = pytest.mark.requires_cuda
 # (the wider width class). The engine's edges: rows one past a 64-row tile
 # and D not a multiple of the 64-column slab or chunk; fewer points (3)
 # than mlp_tail's blocks, with d = 1; both hidden widths at the cap with
-# D = 784; one width in each class (112 and 240 padded).
+# D = 784; one width in each class (112 and 240 padded). The forward's
+# 64-row blocks: one rank's bigk shard on a 1x2 comp mesh (K = 50) and one
+# on a 2x1 data mesh (N = 512), and rows (16,900) not a multiple of 64, with D
+# not a multiple of the 64-column slab.
 SHAPES = [(2, 40, 5, 3, 16, 16, 24), (1, 37, 7, 3, 24, 40, 50), (2, 300, 5, 3, 16, 16, 24),
           (1, 256, 10, 8, 200, 200, 784), (1, 1024, 100, 10, 200, 200, 784),
           (2, 150, 3, 16, 256, 256, 40), (1, 13, 5, 4, 200, 200, 100),
           (1, 3, 2, 1, 200, 200, 784), (1, 40, 5, 10, 256, 256, 784),
-          (1, 50, 6, 7, 100, 240, 300)]
+          (1, 50, 6, 7, 100, 240, 300), (1, 1024, 50, 10, 200, 200, 784),
+          (1, 512, 100, 10, 200, 200, 784), (1, 4225, 4, 10, 200, 200, 777)]
 
 
 @pytest.fixture
@@ -69,6 +74,19 @@ def test_reruns_are_bit_equal(dev):
 
     for a, b in zip(run(), run()):
         assert torch.equal(a, b)
+
+
+def test_forward_smem_matches_the_mirror(dev):
+    """The C entry's shared memory of the forward block equals the Python
+    mirror the CPU tests hold within the card's limit."""
+    from svax_torch.ops import _build
+
+    lib = _build.load()
+    for s, n, k, h1, h2, dd in ((1, 256, 10, 200, 200, 784), (1, 1024, 100, 200, 200, 784),
+                                (1, 40, 5, 256, 256, 784), (1, 50, 6, 100, 240, 300),
+                                (2, 40, 5, 16, 16, 24)):
+        assert lib.decoder_mlp_forward_smem_bytes(n, k, s, 8, h1, h2, dd) == \
+            decoder_mlp.forward_smem_bytes(h1, h2, s * n * k), (s, n, k, h1, h2, dd)
 
 
 def test_wrapper_raises_outside_the_shape_class(dev):
