@@ -168,8 +168,9 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    the fastest f32-accurate product on the tensor cores (three TF32
    passes) and the special-function rate — counted from this run's shapes;
    the decoder and row-sum kernels' times are CUDA-event times, the other
-   per-call kernels' profiler device times (a profiled kernel that
-   launched and reads no time fails its phase);
+   per-call kernels' profiler device times, each taken in a fresh process
+   (``timed_fresh``; a profiled kernel that launched and reads no time
+   fails its phase);
    the component-parallel kernels' launches are phase I (b)'s first run's,
    both ranks; the row-sum kernels' phase K (b)'s, with their times in the
    f32 mode at bigk beside the unfused f32 row sum's) — the card line, and
@@ -193,6 +194,37 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def timed_fresh(func: str, n: int, k: int, d: int, s: int) -> dict:
+    """``svax_torch.measure_mnist.<func>(cuda:0, n, k, d, s)`` in a fresh
+    process from this checkout, which loads the kernel library phase 2
+    built. torch.profiler has dropped all of a short profile's device
+    events late in a long process, so the per-call profiles are taken in a
+    process of their own. A child whose profile still read no device time
+    for a kernel it launched is run once more; any other failure raises."""
+    from pathlib import Path
+
+    code = ("import json, sys, torch\n"
+            "from svax_torch import measure_mnist\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "t = getattr(measure_mnist, sys.argv[1])(torch.device('cuda', 0), "
+            "*map(int, sys.argv[2:]))\n"
+            "print('RESULT ' + json.dumps(t))\n")
+    for attempt in range(2):
+        out = subprocess.run([sys.executable, "-c", code, func, *map(str, (n, k, d, s))],
+                             cwd=Path(__file__).resolve().parent, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode == 0:
+            return json.loads([ln for ln in out.stdout.splitlines()
+                               if ln.startswith("RESULT ")][-1][len("RESULT "):])
+        if attempt == 0 and "recorded no device time" in out.stderr:
+            print(f"{func} at N={n} K={k} d={d} S={s}: the profile read no device time; "
+                  "once more in another fresh process", flush=True)
+            continue
+        raise RuntimeError(f"{func} at N={n} K={k} d={d} S={s} in a fresh process exited "
+                           f"{out.returncode}:\n{out.stderr[-4000:]}")
+    raise AssertionError("unreachable")
 
 
 def flat(tree: dict) -> list:
@@ -614,7 +646,7 @@ def combine_phase(card: str) -> list:
     import numpy as np
     import torch
 
-    from svax_torch.measure_mnist import combine_bound, combine_inputs, time_combine
+    from svax_torch.measure_mnist import combine_bound, combine_inputs
     from svax_torch.models import svae
     from svax_torch.ops import combine
     from svax_torch.pgm import gmm
@@ -704,7 +736,7 @@ def combine_phase(card: str) -> list:
         if label == "bigk data shard":
             print(f"{line}; {card}", flush=True)
             continue
-        t = time_combine(dev, n, k, d, s)
+        t = timed_fresh("time_combine", n, k, d, s)
         fb, bb = combine_bound(n, k, d, s, False), combine_bound(n, k, d, s, True)
         print(f"{line}; device ms per call: forward "
               f"{t['kernel_fwd_device']:.4f} (plain {t['plain_fwd_device']:.4f}), backward "
@@ -1076,7 +1108,7 @@ def rho_phase(card: str) -> list:
     import numpy as np
     import torch
 
-    from svax_torch.measure_mnist import combine_bound, combine_inputs, rho_bound, time_comp
+    from svax_torch.measure_mnist import combine_bound, combine_inputs, rho_bound
     from svax_torch.ops import combine
     from svax_torch.pgm import gmm
 
@@ -1215,7 +1247,7 @@ def rho_phase(card: str) -> list:
           + "; " + "; ".join(lines), flush=True)
 
     n, k, d, s = 1024, 50, 10, 1  # one bigk K-shard of two
-    t = time_comp(dev, n, k, d, s)
+    t = timed_fresh("time_comp", n, k, d, s)
     bounds = {"log_rho_fwd": rho_bound(n, k, d, False), "log_rho_bwd": rho_bound(n, k, d, True),
               "combine_fwd_norm": combine_bound(n, k, d, s, False, norm=True),
               "combine_bwd_norm": combine_bound(n, k, d, s, True, norm=True)}
