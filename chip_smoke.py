@@ -47,23 +47,29 @@ B. the auto-svae main path: ``svax_torch.train_svae --config auto-svae
    more than 4 nats, the best of seeds 0–3 above −12.3
    (tests/test_auto_quality_pin.py's bar); then 50 steps on the plain
    engine for its rate;
-C. the combine kernels against their plain version at the mnist shape
+C. ptxas's line for every combine_fwd and combine_bwd_* instantiation
+   (each d, both modes; the phase fails on a missing line or a spill);
+   the combine kernels against their plain version at the mnist shape
    (N=256, K=10, d=8, S=1), the bigk shape (N=1024, K=100, d=10, S=1) and
    one rank's shape on phase I's 2x1 data mesh (N=512, K=100, d=10, S=1):
    values at tests/test_combine_kernel.py's bars (2e-5 for z, log r̃, μ̃;
    2e-4 for the local row and the statistics), the gradients to the
    potentials and every expected-parameter field through each of the five
-   cotangent paths alone and all together (5e-4 of each gradient's largest
-   entry), bit-equal reruns of forward and backward; the in-kernel ε
+   cotangent paths alone and all together (configuration (b): the
+   backward with dw), and the potentials' gradients from the train step's
+   cotangents (z, log r̃, the local row; configuration (a):
+   combine_bwd_lean), 5e-4 of each gradient's largest entry, bit-equal
+   reruns of forward and backward; the in-kernel ε
    recovered as L̃ᵀ(z − μ̃): |mean| < 0.005 and |var − 1| < 0.01 at bigk,
    the same seed and step bit-equal, another step or seed different, and
    the seeded gradients equal to those with the recovered ε injected; then,
-   at mnist and bigk, forward, backward and both timed against the plain
-   version;
+   at mnist and bigk, the forward and the backward in both configurations
+   timed (kernel and cross-block sum apart) against the plain version;
 D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    --steps 2000`` (the config's 1000 warmup steps, then chunks of 200 on
    the per-step engine with the combine kernels) for seeds 0 and 1, each
-   twice: the combine kernels launched, the runs bit-equal, and each seed
+   twice: the combine kernels launched (every backward the train step's
+   call, on combine_bwd_lean), the runs bit-equal, and each seed
    held to tests/test_mnist_quality_pin.py's floors — test ELBO/pt up by
    more than 100 nats, cluster purity of the test set above 0.7, at least
    6 of 10 components in use (computed here from the returned state; the
@@ -112,13 +118,14 @@ H. the component-parallel kernels (``ops/combine.py: log_rho_fused`` and
    d=2, S=4) shapes: log ρ at 2e-5 and its gradients at 5e-4 of each
    largest entry; one shard's log_norm combine against the plain version
    with the normaliser from both shards' ρ-kernels (values at phase C's
-   bars, every cotangent path alone and together, dn among them); the
+   bars, every cotangent path alone and together, dn among them, and the
+   train step's configuration (a) on combine_bwd_lean); the
    identity log_norm = lse(log ρ) against the softmax combine, and two
    shards' ρ-kernels, cross-shard lse and log_norm combines put together
    against the unsharded combine, values and gradients
    (tests/test_combine_kernel.py:223-262); reruns bit-equal; then the four
-   kernels timed at one bigk shard against their plain versions, with
-   their bounds;
+   kernels timed at one bigk shard against their plain versions (the
+   log_norm backward in both configurations), with their bounds;
 I. the parallel paths on the card, every rank on cuda:0 over gloo (named
    explicitly: NCCL refuses two ranks on one card): (a)
    ``parallel.dryrun.dryrun_multichip(4)`` on a 2x2 data x comp mesh —
@@ -171,9 +178,13 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    per-call kernels' profiler device times, each taken in a fresh process
    (``timed_fresh``; a profiled kernel that launched and reads no time
    fails its phase);
-   the component-parallel kernels' launches are phase I (b)'s first run's,
-   both ranks; the row-sum kernels' phase K (b)'s, with their times in the
-   f32 mode at bigk beside the unfused f32 row sum's) — the card line, and
+   the combine backwards' entries are the train step's call (combine_bwd_lean,
+   configuration (a): its launches, time and bound), with the backward for
+   every cotangent and dw beside them (``full_ms``, ``full_plain_ms``,
+   ``full_bound_ms``); the component-parallel kernels' launches are phase
+   I (b)'s first run's, both ranks; the row-sum kernels' phase K (b)'s,
+   with their times in the f32 mode at bigk beside the unfused f32 row
+   sum's) — the card line, and
    last {"ok": true, "device": {...}}.
 """
 
@@ -302,28 +313,11 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
 
 
-def kernel_resources(log: str, name: str) -> list[str]:
-    """ptxas's registers and spill bytes for each instantiation of the
-    kernel ``name`` in an nvcc -Xptxas -v log, one string each."""
-    out, entry, spill = [], None, ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif entry and "spill stores" in line:
-            spill = line.strip()
-        elif entry and "Used" in line and "registers" in line:
-            if name in entry:
-                args = re.findall(r"Li(\d+)E", entry[entry.index(name):].split("Ev")[0])
-                out.append(f"{name}<{', '.join(args)}>: "
-                           f"{line.split('Used')[1].split(',')[0].strip()}, {spill}")
-            entry = None
-    return out
-
-
 def forward_ptxas(name: str, phase: str) -> None:
     """Print ptxas's line for each instantiation of the forward kernel
     ``name`` in the kernel library's build log; raise if there is none or
     one spills."""
+    from svax_torch.measure_mnist import kernel_resources
     from svax_torch.ops import _build
 
     _build.build()  # the kernel library, built in phase 2: sets build_log to its log
@@ -335,6 +329,50 @@ def forward_ptxas(name: str, phase: str) -> None:
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill is None or int(spill.group(1)) != 0:
             raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
+
+
+COMBINE_INSTANCES = {(name, d, mode) for name in ("combine_fwd", "combine_bwd_lean",
+                                                 "combine_bwd_sample", "combine_bwd_local")
+                     for d in (2, 3, 4, 6, 8, 10) for mode in (0, 1)}
+
+
+def combine_ptxas(phase: str) -> None:
+    """Print ptxas's line for every combine_fwd and combine_bwd_*
+    instantiation (each d of the shape class, both modes) in the kernel
+    library's build log; raise if one is missing or spills."""
+    from svax_torch.measure_mnist import kernel_resources
+    from svax_torch.ops import _build
+
+    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
+    seen = set()
+    for line in (kernel_resources(_build.build_log, "combine_fwd")
+                 + kernel_resources(_build.build_log, "combine_bwd")):
+        print(f"phase {phase}: ptxas {line}", flush=True)
+        m = re.match(r"(\w+)<(\d+), (\d)>", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill is None or int(spill.group(1)) != 0:
+            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
+        if m:
+            seen.add((m.group(1), int(m.group(2)), int(m.group(3))))
+    missing = COMBINE_INSTANCES - seen
+    if missing:
+        raise RuntimeError(f"phase {phase}: no ptxas line for {sorted(missing)}")
+
+
+def combine_times_line(t: dict, prefix: str, fb, ab, bb) -> str:
+    """Phases C and H: the combine's per-call device times (``time_combine``'s
+    keys after ``prefix``) in both configurations, kernel and cross-block
+    sum apart, beside the plain version's and the bounds."""
+    def part(key, bound):
+        return (f"{t[f'kernel_{prefix}{key}_device']:.4f} (kernel "
+                f"{t[f'kernel_{prefix}{key}_kernel']:.4f} + reduce "
+                f"{t[f'kernel_{prefix}{key}_reduce']:.4f}; plain "
+                f"{t[f'plain_{prefix}{key}_device']:.4f}; CUDA events "
+                f"{t[f'kernel_{prefix}{key}_call']:.4f}; bound {bound[0] * 1e3:.3f} us, "
+                f"{bound[1]})")
+    return (f"device ms per call: forward {part('fwd', fb)}; backward (a), the train "
+            f"step's {part('bwd_a', ab)}; backward (b), every cotangent and dw "
+            f"{part('bwd_b', bb)}")
 
 
 def mixture_phases(card: str) -> list:
@@ -497,6 +535,7 @@ def auto_phases(card: str) -> dict:
     from svax_torch import train_svae
     from svax_torch.data import load_dataset
     from svax_torch.measure_auto import step_fmas
+    from svax_torch.measure_mnist import kernel_resources
     from svax_torch.models.svae import SvaeConfig
     from svax_torch.ops import flexstep
     from svax_torch.pgm import gmm
@@ -651,6 +690,8 @@ def combine_phase(card: str) -> list:
     from svax_torch.ops import combine
     from svax_torch.pgm import gmm
 
+    combine_ptxas("C")
+
     dev = torch.device("cuda", 0)
     value_tol = {"z": 2e-5, "log_resp": 2e-5, "mean": 2e-5, "local": 2e-4, "stats": 2e-4}
     fields = ["pot_h", "pot_p", *gmm.GmmExpected._fields]
@@ -666,6 +707,13 @@ def combine_phase(card: str) -> list:
         outs = outputs(fn(leaves[0], leaves[1], gmm.GmmExpected(*leaves[2:])))
         loss = sum((outs[name] * ct).sum() for name, ct in cts.items())
         return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    def pot_grads(fn, pot_h, pot_p, exp, cts):
+        """Configuration (a), the train step's: the potentials only."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in (pot_h, pot_p)]
+        outs = outputs(fn(leaves[0], leaves[1], exp))
+        loss = sum((outs[name] * ct).sum() for name, ct in cts.items())
+        return torch.autograd.grad(loss, leaves)
 
     entries = []
     # "bigk data shard": one rank's combine on phase I's 2x1 data mesh.
@@ -699,6 +747,22 @@ def combine_phase(card: str) -> list:
                                                              step=3), pot_h, pot_p, exp, cts)
                  for _ in range(2)]
         assert all(torch.equal(a_, b_) for a_, b_ in zip(*twice)), f"{label}: reruns differ"
+        # Configuration (a): the cotangents of z, log r̃ and the local row,
+        # no dw — combine_bwd_lean.
+        main = {name: cts[name] for name in ("z", "log_resp", "local")}
+        lean0 = combine.lean_backward_launches
+        e_lean = 0.0
+        for g, w, what in zip(pot_grads(kern, pot_h, pot_p, exp, main),
+                              pot_grads(plain, pot_h, pot_p, exp, main), fields):
+            scale = float(w.abs().max())
+            err = close(f"combine {label} (a) d{what}", g, w, 5e-4, 5e-4 * scale)
+            e_lean = max(e_lean, err / scale)
+            e_grad_abs = max(e_grad_abs, err)
+        assert combine.lean_backward_launches == lean0 + 1, f"{label}: (a) did not run lean"
+        twice = [pot_grads(lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=7,
+                                                                 step=3), pot_h, pot_p, exp, main)
+                 for _ in range(2)]
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(*twice)), f"{label}: (a) reruns differ"
         again = outputs(combine.combine_fused(pot_h, pot_p, exp, eps, s, scale=2.5))
         assert all(torch.equal(got[name], again[name]) for name in got), label
 
@@ -729,8 +793,9 @@ def combine_phase(card: str) -> list:
 
         line = (f"phase C: combine vs plain at {label} N={n} K={k} d={d} S={s}: "
                 + ", ".join(f"{name} max abs err {v:.3e}" for name, v in e_val.items())
-                + f" (bars {value_tol}); gradients, 5 paths alone and together, max abs err "
-                f"{e_grad_abs:.3e}, / max|grad| {e_grad:.3e} (bar 5e-4); reruns bit-equal; "
+                + f" (bars {value_tol}); gradients, 5 paths alone and together (b) and the "
+                f"train step's (a), max abs err {e_grad_abs:.3e}, / max|grad| {e_grad:.3e} "
+                f"(b), {e_lean:.3e} (a) (bar 5e-4); reruns bit-equal; "
                 f"in-kernel eps recovered: mean {mean:.5f} var {var:.5f}, same seed "
                 f"bit-equal, seeded vs injected gradients {e_rng:.3e}")
         if label == "bigk data shard":
@@ -738,28 +803,24 @@ def combine_phase(card: str) -> list:
             continue
         t = timed_fresh("time_combine", n, k, d, s)
         fb, bb = combine_bound(n, k, d, s, False), combine_bound(n, k, d, s, True)
-        print(f"{line}; device ms per call: forward "
-              f"{t['kernel_fwd_device']:.4f} (plain {t['plain_fwd_device']:.4f}), backward "
-              f"{t['kernel_bwd_device']:.4f} (plain {t['plain_bwd_device']:.4f}); CUDA-event "
-              f"ms per call: forward {t['kernel_fwd_call']:.4f} (plain "
-              f"{t['plain_fwd_call']:.4f}), backward {t['kernel_bwd_call']:.4f} (plain "
-              f"{t['plain_bwd_call']:.4f}); bound forward {fb[0] * 1e3:.3f} us ({fb[1]}), "
-              f"backward {bb[0] * 1e3:.3f} us ({bb[1]}); {card}", flush=True)
+        ab = combine_bound(n, k, d, s, True, main_path=True)
+        print(f"{line}; " + combine_times_line(t, "", fb, ab, bb) + f"; {card}", flush=True)
         if label == "mnist":
-            max_abs = max(e_val.values())
             entries = [
                 {"name": "combine_forward", "route": "cuda",
                  "source": "svax_torch/ops/csrc/combine.cu",
-                 "replaces": "svax/ops/combine_pallas.py:431", "max_abs_err": max_abs,
+                 "replaces": "svax/ops/combine_pallas.py:431", "max_abs_err": max(e_val.values()),
                  "ms": t["kernel_fwd_device"], "plain_ms": t["plain_fwd_device"],
-                 "bound_ms": fb[0],
-                 "bound_by": fb[1], "library_ms": None},
+                 "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None,
+                 "kernel_ms": t["kernel_fwd_kernel"], "reduce_ms": t["kernel_fwd_reduce"]},
                 {"name": "combine_backward", "route": "cuda",
-                 "source": "svax_torch/ops/csrc/combine.cu",
+                 "source": "svax_torch/ops/csrc/combine_bwd.cu",
                  "replaces": "svax/ops/combine_pallas.py:588", "max_abs_err": e_grad_abs,
-                 "ms": t["kernel_bwd_device"], "plain_ms": t["plain_bwd_device"],
-                 "bound_ms": bb[0],
-                 "bound_by": bb[1], "library_ms": None},
+                 "ms": t["kernel_bwd_a_device"], "plain_ms": t["plain_bwd_a_device"],
+                 "bound_ms": ab[0], "bound_by": ab[1], "library_ms": None,
+                 "full_ms": t["kernel_bwd_b_device"], "full_plain_ms": t["plain_bwd_b_device"],
+                 "full_bound_ms": bb[0],
+                 "full_source": "svax_torch/ops/csrc/combine_bwd_full.cu"},
             ]
     return entries
 
@@ -777,11 +838,15 @@ def mnist_phase(card: str) -> tuple[int, int]:
     for seed in (0, 1):
         argv = ["--config", "mnist-svae", "--steps", "2000", "--device", "cuda",
                 "--seed", str(seed), "--iw-samples", "100" if seed == 0 else "0"]
-        combine.launches = combine.backward_launches = 0
+        combine.launches = combine.backward_launches = combine.lean_backward_launches = 0
+        combine.backward_paths.clear()
         run1 = train_svae.main(argv)
-        fwd, bwd = combine.launches, combine.backward_launches
+        fwd, bwd = combine.launches, combine.lean_backward_launches
         assert run1["kernel"] == "per-step" and fwd > 0 and bwd > 0, \
             f"combine launched {fwd} / {bwd} times on the mnist-svae main path"
+        # The train step's backward is combine_bwd_lean's call: z̄, lr̄, local̄.
+        assert combine.backward_launches == bwd and set(combine.backward_paths) == {
+            "dz+dlr+dlocal"}, (combine.backward_launches, combine.backward_paths)
         if launches is None:
             launches = (fwd, bwd)
         rows = run1["rows"]
@@ -793,7 +858,8 @@ def mnist_phase(card: str) -> tuple[int, int]:
             f"two mnist-svae runs at seed {seed} differ"
         start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
         purity, used = quality(run1, seed)
-        lines.append(f"seed {seed}: {fwd} forward / {bwd} backward combine launches, "
+        lines.append(f"seed {seed}: {fwd} forward / {bwd} backward combine launches (the "
+                     f"backward's cotangents {combine.backward_paths}), "
                      f"warmup {run1['warmup']['seconds']:.1f} s (seed occupancy "
                      f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} "
                      f"steps/s, test ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, "
@@ -906,12 +972,15 @@ def bigk_phase(card: str) -> tuple[int, int]:
     argv = ["--config", "bigk-dp", "--warmup-steps", "300", "--steps", "600", "--device",
             "cuda", "--seed", "0", "--iw-samples", "0"]
     decoder_mlp.launches = decoder_mlp.backward_launches = 0
-    combine.launches = combine.backward_launches = 0
+    combine.launches = combine.backward_launches = combine.lean_backward_launches = 0
+    combine.backward_paths.clear()
     run1 = train_svae.main(argv)
     launches = (decoder_mlp.launches, decoder_mlp.backward_launches)
-    comb = (combine.launches, combine.backward_launches)
+    comb = (combine.launches, combine.lean_backward_launches)
     assert run1["kernel"] == "per-step" and min(launches) > 0 and min(comb) > 0, \
         f"bigk-dp main path: decoder {launches}, combine {comb} launches"
+    paths = dict(combine.backward_paths)
+    assert combine.backward_launches == comb[1] and set(paths) == {"dz+dlr+dlocal"}, paths
     rows = run1["rows"]
     assert [r["step"] for r in rows] == [1, 200, 400, 600], [r["step"] for r in rows]
     assert all(math.isfinite(v) for r in rows for v in r.values())
@@ -924,7 +993,8 @@ def bigk_phase(card: str) -> tuple[int, int]:
     print(f"phase F: bigk-dp main path (300 warmup + 600 joint steps of the config's 1000 + "
           f"5000, seed 0; synthetic data {run1['meta']['synthetic']}): decoder "
           f"{launches[0]} forward / {launches[1]} backward launches, combine {comb[0]} / "
-          f"{comb[1]}, warmup {run1['warmup']['seconds']:.1f} s (seed occupancy "
+          f"{comb[1]} (the backward's cotangents {paths}), warmup "
+          f"{run1['warmup']['seconds']:.1f} s (seed occupancy "
           f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} steps/s, test "
           f"ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 100 components "
           f"in use, runs bit-equal; {card}", flush=True)
@@ -1183,6 +1253,21 @@ def rho_phase(card: str) -> list:
                 f"norm combine {label} {name}", got[name], want[name], tol, tol))
         again = outputs(norm_k(pot_h, pot_p, *e0, lse))
         assert all(torch.equal(got[m], again[m]) for m in got), "norm combine reruns differ"
+        # Configuration (a), the train step's on a K-shard: the cotangents of
+        # z, log r̃ and the local row; the potentials' and dn, no dw.
+        main = {m: torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32, device=dev)
+                for m, t in want.items() if m in ("z", "log_resp", "local")}
+        main_loss = lambda out: sum((outputs(out)[m] * main[m]).sum() for m in main)  # noqa: E731
+        lean_k = lambda a, b, nrm: norm_k(a, b, *e0, nrm)  # noqa: E731
+        lean0 = combine.norm_lean_backward_launches
+        gk = grads(lean_k, (pot_h, pot_p, lse), main_loss)
+        assert combine.norm_lean_backward_launches == lean0 + 1, "(a) did not run lean"
+        errs["combine_bwd_norm"] = max(errs["combine_bwd_norm"], held(
+            f"norm combine {label} (a)", gk,
+            grads(lambda a, b, nrm: norm_p(a, b, *e0, nrm), (pot_h, pot_p, lse), main_loss),
+            5e-4))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(gk, grads(lean_k, (pot_h, pot_p, lse), main_loss))), "(a) reruns differ"
         cts = {m: torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32, device=dev)
                for m, t in want.items()}
         for paths in [list(cts)] + [[m] for m in cts]:
@@ -1248,24 +1333,37 @@ def rho_phase(card: str) -> list:
 
     n, k, d, s = 1024, 50, 10, 1  # one bigk K-shard of two
     t = timed_fresh("time_comp", n, k, d, s)
-    bounds = {"log_rho_fwd": rho_bound(n, k, d, False), "log_rho_bwd": rho_bound(n, k, d, True),
-              "combine_fwd_norm": combine_bound(n, k, d, s, False, norm=True),
-              "combine_bwd_norm": combine_bound(n, k, d, s, True, norm=True)}
-    keys = {"log_rho_fwd": "rho_fwd", "log_rho_bwd": "rho_bwd",
-            "combine_fwd_norm": "norm_fwd", "combine_bwd_norm": "norm_bwd"}
-    replaces = {"log_rho_fwd": 288, "log_rho_bwd": 342, "combine_fwd_norm": 431,
-                "combine_bwd_norm": 588}
+    fb, bb = (combine_bound(n, k, d, s, b_, norm=True) for b_ in (False, True))
+    ab = combine_bound(n, k, d, s, True, norm=True, main_path=True)
+    rb = {part: rho_bound(n, k, d, part == "bwd") for part in ("fwd", "bwd")}
     print(f"phase H: device ms per call at the bigk shard N={n} K={k} d={d} S={s}: "
-          + ", ".join(f"{name} {t['kernel_' + key + '_device']:.4f} (plain "
-                      f"{t['plain_' + key + '_device']:.4f}, CUDA events "
-                      f"{t['kernel_' + key + '_call']:.4f}; bound "
-                      f"{bounds[name][0] * 1e3:.3f} us, {bounds[name][1]})"
-                      for name, key in keys.items()) + f"; {card}", flush=True)
-    return [{"name": name, "route": "cuda", "source": "svax_torch/ops/csrc/combine.cu",
-             "replaces": f"svax/ops/combine_pallas.py:{replaces[name]}",
-             "max_abs_err": errs[name], "ms": t[f"kernel_{key}_device"],
-             "plain_ms": t[f"plain_{key}_device"], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1], "library_ms": None} for name, key in keys.items()]
+          + ", ".join(f"log_rho_{part} {t[f'kernel_rho_{part}_device']:.4f} (plain "
+                      f"{t[f'plain_rho_{part}_device']:.4f}, CUDA events "
+                      f"{t[f'kernel_rho_{part}_call']:.4f}; bound {rb[part][0] * 1e3:.3f} us, "
+                      f"{rb[part][1]})" for part in ("fwd", "bwd"))
+          + "; the log_norm combine's " + combine_times_line(t, "norm_", fb, ab, bb)
+          + f"; {card}", flush=True)
+    base = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "log_rho_fwd", "source": "svax_torch/ops/csrc/combine.cu",
+         "replaces": "svax/ops/combine_pallas.py:288", "max_abs_err": errs["log_rho_fwd"],
+         "ms": t["kernel_rho_fwd_device"], "plain_ms": t["plain_rho_fwd_device"],
+         "bound_ms": rb["fwd"][0], "bound_by": rb["fwd"][1], **base},
+        {"name": "log_rho_bwd", "source": "svax_torch/ops/csrc/combine.cu",
+         "replaces": "svax/ops/combine_pallas.py:342", "max_abs_err": errs["log_rho_bwd"],
+         "ms": t["kernel_rho_bwd_device"], "plain_ms": t["plain_rho_bwd_device"],
+         "bound_ms": rb["bwd"][0], "bound_by": rb["bwd"][1], **base},
+        {"name": "combine_fwd_norm", "source": "svax_torch/ops/csrc/combine.cu",
+         "replaces": "svax/ops/combine_pallas.py:431", "max_abs_err": errs["combine_fwd_norm"],
+         "ms": t["kernel_norm_fwd_device"], "plain_ms": t["plain_norm_fwd_device"],
+         "bound_ms": fb[0], "bound_by": fb[1], **base},
+        {"name": "combine_bwd_norm", "source": "svax_torch/ops/csrc/combine_bwd.cu",
+         "replaces": "svax/ops/combine_pallas.py:588", "max_abs_err": errs["combine_bwd_norm"],
+         "ms": t["kernel_norm_bwd_a_device"], "plain_ms": t["plain_norm_bwd_a_device"],
+         "bound_ms": ab[0], "bound_by": ab[1], **base,
+         "full_ms": t["kernel_norm_bwd_b_device"], "full_plain_ms": t["plain_norm_bwd_b_device"],
+         "full_bound_ms": bb[0], "full_source": "svax_torch/ops/csrc/combine_bwd_full.cu"},
+    ]
 
 
 def covered_us(ranges) -> float:
@@ -1326,6 +1424,7 @@ def _bigk_rank(rank: int, world: int, dev, state, steps: int) -> dict:
                                            comp_group=m.comp_group, **kw)
             combine.rho_launches = combine.rho_backward_launches = 0
             combine.norm_launches = combine.norm_backward_launches = 0
+            combine.norm_lean_backward_launches = 0
             st, m1 = runner(st, x, 1, seed=0)
             nat1 = svae_step.nat_to(convert.gather_nat(st.pgm_nat, m.comp_group), "cpu")
             torch.cuda.synchronize()
@@ -1333,8 +1432,10 @@ def _bigk_rank(rank: int, world: int, dev, state, steps: int) -> dict:
             st, mets = runner(st, x, steps - 1, seed=0)
             torch.cuda.synchronize()
             rate = (steps - 1) / (time.perf_counter() - t0)
+            # The train step's log_norm backward is combine_bwd_lean's call.
+            assert combine.norm_backward_launches == combine.norm_lean_backward_launches
             launches = [combine.rho_launches, combine.rho_backward_launches,
-                        combine.norm_launches, combine.norm_backward_launches]
+                        combine.norm_launches, combine.norm_lean_backward_launches]
             nat = convert.gather_nat(st.pgm_nat, m.comp_group)
             row = {"nat1": nat1, "launches": launches, "steps_per_s": rate,
                    "elbo": [float(m1["elbo"][0]), float(mets["elbo"][-1])],
@@ -1643,6 +1744,7 @@ def main() -> int:
 
     from svax_torch import train_svae
     from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.measure_mnist import kernel_resources
     from svax_torch.models.svae import SvaeConfig
     from svax_torch.ops import _build, tinystep
     from svax_torch.pgm import gmm

@@ -2,19 +2,24 @@
 behind PERF.md's mnist-svae and bigk-dp breakdowns.
 
     python -m svax_torch.measure_mnist [--config mnist-svae|bigk-dp] [--fused-decoder] > measure.txt
+    python -m svax_torch.measure_mnist --combine [--parent DIR] > combine.txt
 
 Run from the root of a checkout; needs one CUDA device and nvcc.
 ``--config bigk-dp`` measures the decoder kernels and the bigk entry
 (``measure_bigk``); ``--fused-decoder`` the row-sum kernels and the big-K
-f32 step with and without them (``measure_fused_decoder``). The default prints the card, then two parts (every
+f32 step with and without them (``measure_fused_decoder``); ``--combine``
+the combine kernels alone at COMBINE_SHAPES in both configurations of the
+backward, this tree against another checkout in turns
+(``measure_combine``). The default prints the card, then two parts (every
 time a median of 3):
 
 1. the combine kernels at the mnist shape (N=256, K=10, d=8, S=1) and the
    bigk shape (N=1024, K=100, d=10, S=1): ms per call of the forward (in-
    kernel ε, as the main path runs it) and of the backward alone (autograd's
-   backward over a retained graph), as device time under the profiler and
-   as CUDA-event time per call, beside the plain version's (injected ε),
-   and each beside its bound (``combine_bound``);
+   backward over a retained graph) in both COMBINE_CONFIGS, as device time
+   under the profiler (split into the combine kernels' own and the
+   cross-block sums') and as CUDA-event time per call, beside the plain
+   version's (injected ε), and each beside its bound (``combine_bound``);
 2. ``train_svae --config mnist-svae`` without the warmup: 1000 steps on
    the kernel engine and 40 on the plain engine for their rates, then 200
    and 10 steps under ``torch.profiler``: wall time, device time (the sum
@@ -25,7 +30,10 @@ time a median of 3):
 
 from __future__ import annotations
 
+import json
+import re
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,7 +46,7 @@ MEM_BYTES_PER_S = 3.35e12
 
 
 def combine_bound(n: int, k: int, d: int, s: int, backward: bool,
-                  norm: bool = False) -> tuple[float, str]:
+                  norm: bool = False, main_path: bool = False) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time for the combine forward
     (or its backward) at these shapes — each input read once, each output
     written once, in float32; operations per (n, k) counted from the
@@ -47,10 +55,18 @@ def combine_bound(n: int, k: int, d: int, s: int, backward: bool,
     backward recomputes the forward (without writing it) and adds ~2d³ +
     (2S + 8)d² for the Cholesky backward, Σ̃Σ̄Σ̃ and the dw row. ``norm``:
     the log_norm mode, which also reads the (N,) normaliser (and, backward,
-    writes its cotangent)."""
+    writes its cotangent). ``main_path``: the backward of the train step's
+    call (COMBINE_CONFIGS "a"), which reads the cotangents of z, log r̃ and
+    the local row only and writes no dw; it needs only diag G and h̃̄: ~d³
+    for diag(Σ̃Σ̄Σ̃) and (3S + 6)d² for the samples' term, μ̄ and Σ̃μ̄."""
     f, w = 1 + d + d * d, 3 + d + d * d
     fwd_ops = d ** 3 + (2 * s + 8) * d * d + 20 * d
-    if backward:
+    if backward and main_path:
+        ops = n * k * (fwd_ops + d ** 3 + (3 * s + 6) * d * d)
+        nbytes = 4 * (2 * n * d + k * w                     # pot_h, pot_p, w
+                      + s * n * k * d + n * k + n           # dz, dlr, dlocal
+                      + 2 * n * d)                          # dpot_h, dpot_p
+    elif backward:
         ops = n * k * (fwd_ops + 2 * d ** 3 + (2 * s + 8) * d * d)
         nbytes = 4 * (2 * n * d + k * w                     # pot_h, pot_p, w
                       + s * n * k * d + n * k + n * k * d + n + k * f  # cotangents
@@ -110,101 +126,195 @@ def combine_inputs(dev, n: int, k: int, d: int, s: int, seed: int = 0):
     return pot_h, pot_p, exp, eps
 
 
-def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
-    """ms per call of the forward and of the backward alone (autograd over a
-    retained graph), for the kernels (in-kernel ε) and the plain version
-    (injected ε): ``*_device`` is the card's kernel time per call under
-    ``torch.profiler`` (for the kernels, combine.cu's own: combine_fwd or
-    combine_bwd and its reduce_blocks), ``*_call`` the CUDA-event time per
-    call, which includes the host's gaps between launches. The plain
-    version, thousands of small kernels a call, runs a quarter of the
-    repetitions."""
+# The two calls of the combine backward that are timed: "a", the train
+# step's — it differentiates the network's parameters only, so the backward
+# receives the cotangents of z, log r̃ and the local row and owes no dw (the
+# statistics go to the CVI update detached); "b", every output's cotangent
+# and every input's gradient, dw and (log_norm mode) dn included.
+COMBINE_CONFIGS = ("a", "b")
+
+
+def _combine_case(dev, n: int, k: int, d: int, s: int, log_norm: bool):
+    """Seeded inputs and, per configuration and side ("kernel" with the
+    in-kernel ε, "plain" with injected ε), the leaves to differentiate and
+    a function of them returning the scalar whose backward is timed."""
     from svax_torch.ops import combine
 
     pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
-    leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p, *exp)]
+    norm = (torch.logsumexp(combine.log_rho_plain(pot_h, pot_p, exp), dim=-1) + 0.5
+            if log_norm else None)
+
+    def make(side: str, config: str):
+        leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p)]
+        e = exp
+        if config == "b":
+            e = type(exp)(*(t.clone().requires_grad_(True) for t in exp))
+            leaves += list(e)
+        nrm = None if norm is None else norm.clone().requires_grad_(True)
+        if nrm is not None:
+            leaves.append(nrm)
+
+        def run():
+            if side == "kernel":
+                return combine.combine_fused(leaves[0], leaves[1], e, None, s, seed=1, step=0,
+                                             log_norm=nrm)
+            return combine.combine_fused_plain(leaves[0], leaves[1], e, eps, s, log_norm=nrm)
+
+        def loss_of(out):
+            z, lr, mean, local, st = out
+            loss = z.sum() + lr.sum() + local.sum()
+            if config == "b":
+                loss = (loss + mean.sum() + st.counts.sum() + st.mean_stat.sum()
+                        + st.scatter_stat.sum())
+            return loss
+
+        return leaves, run, loss_of
+
+    return make
+
+
+def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20,
+                 log_norm: bool = False, plain: bool = True) -> dict:
+    """ms per call of the combine forward (``log_norm``: its log_norm mode)
+    and of its backward alone (autograd over a retained graph) in each of
+    COMBINE_CONFIGS, for the kernels (in-kernel ε) and the plain version
+    (injected ε). Keys ``{kernel,plain}_fwd_{device,call}`` and
+    ``{kernel,plain}_bwd_{a,b}_{device,call}``: ``*_device`` is the card's
+    kernel time per call under ``torch.profiler``, ``*_call`` the
+    CUDA-event time per call (the host's gaps between launches included).
+    For the kernels the device time is split as well: ``*_kernel`` the
+    combine kernels' own (names holding combine_fwd or combine_bwd),
+    ``*_reduce`` the cross-block sums (names holding "reduce"). The plain
+    version, thousands of small kernels a call, runs a quarter of the
+    repetitions (``plain=False``: not at all)."""
+    make = _combine_case(dev, n, k, d, s, log_norm)
     out = {}
-    for name, fn, n_rep in (
-            ("kernel", lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=1, step=0),
-             reps),
-            ("plain", lambda a, b, e: combine.combine_fused_plain(a, b, e, eps, s),
-             max(1, reps // 4))):
-        args = (leaves[0], leaves[1], type(exp)(*leaves[2:]))
-        z, lr, mean, local, st = fn(*args)
-        loss = (z.sum() + lr.sum() + mean.sum() + local.sum() + st.counts.sum()
-                + st.mean_stat.sum() + st.scatter_stat.sum())
+    sides = (("kernel", reps), ("plain", max(1, reps // 4)))
+    for side, n_rep in sides if plain else sides[:1]:
+        calls = {}
+        for config in COMBINE_CONFIGS:
+            leaves, run, loss_of = make(side, config)
+            loss = loss_of(run())
+            if config == "a":
+                def forward(run=run):
+                    with torch.no_grad():
+                        run()
+                calls["fwd"] = (forward, "combine_fwd")
 
-        def forward():
-            with torch.no_grad():
-                fn(*args)
-
-        def backward():
-            torch.autograd.grad(loss, leaves, retain_graph=True)
-
-        for part, call, kernel_name in (("fwd", forward, "combine_fwd"),
-                                        ("bwd", backward, "combine_bwd")):
-            out[f"{name}_{part}_call"] = device_ms(call, n_rep)
+            def backward(loss=loss, leaves=leaves):
+                torch.autograd.grad(loss, leaves, retain_graph=True)
+            calls[f"bwd_{config}"] = (backward, "combine_bwd")
+        for part, (call, kernel_name) in calls.items():
+            out[f"{side}_{part}_call"] = device_ms(call, n_rep)
             _, prof = profiled(lambda: [call() for _ in range(n_rep)])
-            if name == "kernel":
-                busy = launched_us(prof, kernel_name) + device_us(prof, "reduce_blocks")
+            if side == "kernel":
+                own = launched_us(prof, kernel_name) / 1e3 / n_rep
+                red = device_us(prof, "reduce") / 1e3 / n_rep
+                out[f"kernel_{part}_kernel"], out[f"kernel_{part}_reduce"] = own, red
+                out[f"kernel_{part}_device"] = own + red
             else:
-                busy = device_us(prof)
-            out[f"{name}_{part}_device"] = busy / 1e3 / n_rep
+                out[f"plain_{part}_device"] = device_us(prof) / 1e3 / n_rep
     return out
 
 
 def time_comp(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
     """ms per call of the component-parallel kernels at one K-shard: the
-    ρ-kernel's forward and backward (``log_rho_fused``) and the combine's
-    log_norm mode, forward and backward, against their plain versions, as
-    ``time_combine`` times the softmax mode (``*_device``: the card's
-    kernel time under the profiler; ``*_call``: CUDA events)."""
+    ρ-kernel's forward and backward (``log_rho_fused``;
+    ``{kernel,plain}_rho_{fwd,bwd}_{device,call}``) and the combine's
+    log_norm mode (``time_combine(log_norm=True)``'s keys with ``norm_``
+    after the side, e.g. ``kernel_norm_bwd_a_device``), against their plain
+    versions (``*_device``: the card's kernel time under the profiler;
+    ``*_call``: CUDA events)."""
     from svax_torch.ops import combine
 
-    pot_h, pot_p, exp, eps = combine_inputs(dev, n, k, d, s)
+    pot_h, pot_p, exp, _ = combine_inputs(dev, n, k, d, s)
     leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p, *exp)]
     args = (leaves[0], leaves[1], type(exp)(*leaves[2:]))
-    norm = torch.logsumexp(combine.log_rho_plain(pot_h, pot_p, exp), dim=-1) + 0.5
-    norm_leaf = norm.clone().requires_grad_(True)
-    cases = {
-        "rho": (lambda a, b, e: combine.log_rho_fused(a, b, e),
-                lambda a, b, e: combine.log_rho_plain(a, b, e), "log_rho"),
-        "norm": (lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=1,
-                                                       log_norm=norm_leaf),
-                 lambda a, b, e: combine.combine_fused_plain(a, b, e, eps, s,
-                                                             log_norm=norm_leaf),
-                 "combine"),
-    }
     out = {}
-    for case, (kernel_fn, plain_fn, prefix) in cases.items():
-        for name, fn, n_rep in (("kernel", kernel_fn, reps),
-                                ("plain", plain_fn, max(1, reps // 4))):
-            res = fn(*args)
-            if case == "rho":
-                loss = res.sum()
-                grad_of = leaves
-            else:
-                z, lr, mean, local, st = res
-                loss = (z.sum() + lr.sum() + mean.sum() + local.sum() + st.counts.sum()
-                        + st.mean_stat.sum() + st.scatter_stat.sum())
-                grad_of = leaves + [norm_leaf]
+    for name, fn, n_rep in (("kernel", combine.log_rho_fused, reps),
+                            ("plain", combine.log_rho_plain, max(1, reps // 4))):
+        loss = fn(*args).sum()
 
-            def forward(fn=fn):
-                with torch.no_grad():
-                    fn(*args)
+        def forward(fn=fn):
+            with torch.no_grad():
+                fn(*args)
 
-            def backward(loss=loss, grad_of=grad_of):
-                torch.autograd.grad(loss, grad_of, retain_graph=True)
+        def backward(loss=loss):
+            torch.autograd.grad(loss, leaves, retain_graph=True)
 
-            for part, call in (("fwd", forward), ("bwd", backward)):
-                out[f"{name}_{case}_{part}_call"] = device_ms(call, n_rep)
-                _, prof = profiled(lambda: [call() for _ in range(n_rep)])
-                if name == "kernel":
-                    busy = (launched_us(prof, f"{prefix}_{part}")
-                            + device_us(prof, "reduce_blocks"))
-                else:
-                    busy = device_us(prof)
-                out[f"{name}_{case}_{part}_device"] = busy / 1e3 / n_rep
+        for part, call in (("fwd", forward), ("bwd", backward)):
+            out[f"{name}_rho_{part}_call"] = device_ms(call, n_rep)
+            _, prof = profiled(lambda: [call() for _ in range(n_rep)])
+            busy = (launched_us(prof, f"log_rho_{part}") + device_us(prof, "reduce")
+                    if name == "kernel" else device_us(prof))
+            out[f"{name}_rho_{part}_device"] = busy / 1e3 / n_rep
+    for key, val in time_combine(dev, n, k, d, s, reps, log_norm=True).items():
+        side, rest = key.split("_", 1)
+        out[f"{side}_norm_{rest}"] = val
+    return out
+
+
+# The shapes at which the combine is timed (N, K, d, S):
+# the two configs' batches, one rank's batch on bigk-dp's 2x1 data mesh and
+# one rank's K-shard on its 1x2 comp mesh (log_norm mode).
+COMBINE_SHAPES = {"bigk": (1024, 100, 10, 1), "mnist": (256, 10, 8, 1),
+                  "bigk data shard": (512, 100, 10, 1), "bigk K-shard": (1024, 50, 10, 1)}
+
+
+def combine_times() -> dict:
+    """``time_combine`` at COMBINE_SHAPES (the K-shard in its log_norm mode)
+    with the svax_torch this process imports, and the combine kernels'
+    ptxas lines from its build log: {"times": {shape: {...}}, "ptxas":
+    [...]}. ``--combine`` runs it in a child process per tree."""
+    from svax_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times = {label: time_combine(dev, *shape, log_norm=label == "bigk K-shard", plain=False)
+             for label, shape in COMBINE_SHAPES.items()}
+    return {"times": times, "ptxas": [line for name in COMBINE_KERNELS
+                                      for line in kernel_resources(_build.build_log, name)]}
+
+
+def kernel_resources(log: str, name: str) -> list[str]:
+    """ptxas's registers and spill bytes for each instantiation of the
+    kernels whose names begin with ``name`` in an nvcc -Xptxas -v log (such
+    as ``_build.build_log``), one string each: "kernel<its integer and
+    boolean template arguments>: N registers, <the spill line>". Kept here,
+    not in ``_build``, so that ``combine_times`` can read another tree's
+    log."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"\d+({name}\w*?)I", line)
+            entry = None
+            if m:
+                args = re.findall(r"L[ib](\d+)E", line[m.start(1):].split("Ev")[0])
+                entry = f"{m.group(1)}<{', '.join(args)}>"
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            out.append(f"{entry}: {line.split('Used')[1].split(',')[0].strip()}, {spill}")
+            entry = None
+    return out
+
+
+COMBINE_KERNELS = ("combine_fwd", "combine_bwd")
+
+
+def combine_paths(steps: int = 3) -> dict:
+    """The cotangents the combine backward receives on the mnist-svae and
+    bigk-dp train steps (``ops.combine.backward_paths`` after ``steps``
+    steps of each entry on the card, without the warmup)."""
+    from svax_torch import train_svae
+    from svax_torch.ops import combine
+
+    out = {}
+    for config in ("mnist-svae", "bigk-dp"):
+        combine.backward_paths.clear()
+        train_svae.main(["--config", config, "--steps", str(steps), "--warmup-steps", "0",
+                         "--device", "cuda", "--iw-samples", "0"])
+        out[config] = dict(combine.backward_paths)
     return out
 
 
@@ -624,10 +734,11 @@ def profile_entry(argv: list[str]) -> dict:
 
     wall, prof = profiled(run)
     busy = device_us(prof) / 1e3
-    # combine.cu's kernels: combine_fwd, combine_bwd and their reduce_blocks;
-    # decoder_mlp.cu's: decoder_fwd, the backward's mlp_* kernels and
-    # reduce_partials.
-    comb = (device_us(prof, "combine_") + device_us(prof, "reduce_blocks")) / 1e3
+    # The combine's kernels: combine_fwd, combine_bwd_* and their
+    # reduce_planes (the ρ-kernels' reduce_blocks); decoder_mlp.cu's:
+    # decoder_fwd, the backward's mlp_* kernels and reduce_partials.
+    comb = (device_us(prof, "combine_") + device_us(prof, "reduce_planes")
+            + device_us(prof, "reduce_blocks")) / 1e3
     dec = (device_us(prof, "decoder_") + device_us(prof, "mlp_")
            + device_us(prof, "reduce_partials")) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "idle": 1.0 - busy / wall,
@@ -677,6 +788,51 @@ def _entry_profiles(config: str, runs) -> None:
               flush=True)
 
 
+COMBINE_CHILD = f"""
+import json, runpy
+mod = runpy.run_path({str(Path(__file__).resolve())!r}, run_name="measure_mnist_child")
+print("RESULT " + json.dumps(mod["combine_times"]()), flush=True)
+"""
+
+
+def measure_combine(card: str, parent: Path | None) -> int:
+    """``--combine``: the combine kernels at COMBINE_SHAPES in both
+    configurations, each tree in a child process of its own through its own
+    wrappers (``combine_times``), in turns parent, this tree, this tree,
+    parent (this tree twice without ``--parent``); each number beside its
+    bound. Then the ptxas lines of each tree's combine kernels and the
+    cotangents the train steps pass (``combine_paths``, this tree)."""
+    from svax_torch.measure_steps import run_child
+
+    root = Path(__file__).resolve().parents[1]
+    trees = [("new", root), ("new", root)]
+    if parent is not None:
+        trees = [("parent", parent.resolve()), *trees, ("parent", parent.resolve())]
+    per: dict = {}
+    ptxas: dict = {}
+    for who, tree in trees:
+        res = run_child(tree, COMBINE_CHILD, [])
+        ptxas.setdefault(who, res["ptxas"])
+        for label, t in res["times"].items():
+            for key, val in t.items():
+                per.setdefault(label, {}).setdefault(key, {}).setdefault(who, []).append(val)
+    for label, keys in per.items():
+        n, k, d, s = COMBINE_SHAPES[label]
+        norm = label == "bigk K-shard"
+        bounds = {"fwd": combine_bound(n, k, d, s, False, norm),
+                  "bwd_a": combine_bound(n, k, d, s, True, norm, main_path=True),
+                  "bwd_b": combine_bound(n, k, d, s, True, norm)}
+        print(json.dumps({"combine": label, "shape": [n, k, d, s], "log_norm": norm,
+                          "ms": keys, "bound_ms": {p: b[0] for p, b in bounds.items()},
+                          "bound_by": {p: b[1] for p, b in bounds.items()}, "card": card}),
+              flush=True)
+    for who, lines in ptxas.items():
+        for line in lines:
+            print(f"ptxas ({who}): {line}", flush=True)
+    print(json.dumps({"backward_paths": combine_paths(), "card": card}), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -686,6 +842,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--fused-decoder", action="store_true",
                    help="the row-sum kernels and the big-K f32 step with and without "
                         "them (measure_fused_decoder)")
+    p.add_argument("--combine", action="store_true",
+                   help="the combine kernels alone, in both configurations "
+                        "(measure_combine)")
+    p.add_argument("--parent", type=Path, default=None,
+                   help="with --combine: another checkout, timed in turns with this one")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_mnist: needs a CUDA device")
@@ -697,6 +858,8 @@ def main(argv: list[str] | None = None) -> int:
                           timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
+    if args.combine:
+        return measure_combine(card, args.parent)
     if args.fused_decoder:
         return measure_fused_decoder(dev)
     if args.config == "bigk-dp":
@@ -704,11 +867,13 @@ def main(argv: list[str] | None = None) -> int:
     for label, shape in (("mnist", (256, 10, 8, 1)), ("bigk", (1024, 100, 10, 1)),
                          ("mnist again", (256, 10, 8, 1))):
         t = time_combine(dev, *shape)
-        fb, bb = combine_bound(*shape, backward=False), combine_bound(*shape, backward=True)
+        fb = combine_bound(*shape, backward=False)
+        ba = combine_bound(*shape, backward=True, main_path=True)
+        bb = combine_bound(*shape, backward=True)
         print(f"combine {label} N,K,d,S={shape}: " + ", ".join(
             f"{key} {val:.4f} ms" for key, val in t.items())
-            + f"; bound fwd {fb[0] * 1e3:.3f} us ({fb[1]}), bwd {bb[0] * 1e3:.3f} us "
-            f"({bb[1]})", flush=True)
+            + f"; bound fwd {fb[0] * 1e3:.3f} us ({fb[1]}), bwd (a) {ba[0] * 1e3:.3f} us "
+            f"({ba[1]}), bwd (b) {bb[0] * 1e3:.3f} us ({bb[1]})", flush=True)
     _entry_profiles("mnist-svae", (("kernel", 1000, 200), ("plain", 40, 10)))
     return 0
 

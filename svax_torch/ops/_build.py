@@ -58,8 +58,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.estep_stats.restype = i
-    lib.combine_blocks.argtypes = [i, i]
-    lib.combine_blocks.restype = i
+    lib.combine_grid.argtypes = [i, i, i, i]  # n, k, d, kind
+    lib.combine_grid.restype = i
+    lib.rho_blocks.argtypes = [i, i]  # n, k
+    lib.rho_blocks.restype = i
     lib.combine_forward.argtypes = [
         p, p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, norm, n, k, d, s
         ctypes.c_ulonglong, ctypes.c_uint,  # seed, step (the Philox stream)

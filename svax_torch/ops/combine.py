@@ -61,16 +61,109 @@ MAX_COMPONENTS = 128
 
 # Kernel launches (plain ints), each counted where its kernel is launched.
 launches = 0  # combine forward, softmax over K
-backward_launches = 0  # combine backward, softmax over K
+backward_launches = 0  # combine backward, softmax over K (either variant)
+lean_backward_launches = 0  # of those, combine_bwd_lean's (no dstats, no dw)
 norm_launches = 0  # combine forward with log_norm
-norm_backward_launches = 0  # combine backward with log_norm
+norm_backward_launches = 0  # combine backward with log_norm (either variant)
+norm_lean_backward_launches = 0  # of those, combine_bwd_lean's
 rho_launches = 0  # log_rho forward
 rho_backward_launches = 0  # log_rho backward
+# What each combine backward was asked for, counted by key: the cotangents
+# it received (of "dz", "dlr", "dmu", "dlocal", "dstats") and the gradients
+# it had to give beyond the potentials' ("dw", "dn"), joined by "+".
+backward_paths: dict[str, int] = {}
 
 
 def stats_width(d: int) -> int:
     """F = 1 + d + d²: [count, μ̃ (d), Σ̃ + μ̃μ̃ᵀ (d×d)] per component."""
     return 1 + d + d * d
+
+
+# ------------------------------------------------ the kernels' block plan
+#
+# A mirror of csrc/combine_core.cuh's plan, which the CPU tests hold to its
+# contract: a block holds R rows of K, one thread per (n, k); the row groups
+# are dealt to the blocks in contiguous runs; each block adds its rows'
+# terms in row order into one partial, and the partials are added in a
+# fixed two-level order (reduce_planes: REDUCE_GROUPS contiguous runs of
+# partials, each in order, then the runs in order).
+
+BLOCK_THREADS = 256  # the forward and the train step's backward
+FULL_THREADS = 128  # the backward with dw
+REDUCE_GROUPS = 16
+
+
+def rows_per_block(n: int, k: int, threads: int, sms: int) -> int:
+    """R for N points and K components on a card of ``sms`` SMs: at least
+    128 // K rows (four warps, one for each of an SM's schedulers), more
+    where N would leave blocks queueing for SMs (ceil(N / SMs)), at most
+    threads // K."""
+    most = 1 if k >= threads else threads // k
+    least = 1 if k >= 128 else 128 // k
+    return min(most, max(least, -(-n // sms)))
+
+
+def row_groups(n: int, k: int, threads: int, sms: int) -> int:
+    return -(-n // rows_per_block(n, k, threads, sms))
+
+
+def run_begin(b: int, groups: int, blocks: int) -> int:
+    """Block b of ``blocks`` owns the row groups [run_begin(b), run_begin(b + 1))."""
+    return (b * groups) // blocks
+
+
+def grid_blocks(n: int, k: int, threads: int, sms: int, capacity: int) -> int:
+    """The grid (and partial count): the row groups, at most the blocks that
+    fit on the card at once (``capacity``: SMs × blocks an SM)."""
+    return min(row_groups(n, k, threads, sms), capacity)
+
+
+def block_rows(b: int, n: int, k: int, threads: int, sms: int, blocks: int) -> list[list[int]]:
+    """The rows each thread row r of block b walks, in order: [[n, ...] for
+    r in range(R)]; rows past N (the last group's padding) are left out."""
+    r_count = rows_per_block(n, k, threads, sms)
+    groups = row_groups(n, k, threads, sms)
+    runs = range(run_begin(b, groups, blocks), run_begin(b + 1, groups, blocks))
+    return [[g * r_count + r for g in runs if g * r_count + r < n] for r in range(r_count)]
+
+
+def plan_sum(terms: torch.Tensor, k: int, threads: int, sms: int, blocks: int) -> torch.Tensor:
+    """Σ_n terms[n] in the kernels' order: per block, each thread row adds
+    its rows in order, the block adds its R thread rows in order; then
+    REDUCE_GROUPS contiguous runs of blocks, each in order, and the runs in
+    order. ``terms`` (N, ...)."""
+    n = terms.shape[0]
+    partials = []
+    for b in range(blocks):
+        acc = torch.zeros_like(terms[0])
+        for rows in block_rows(b, n, k, threads, sms, blocks):
+            own = torch.zeros_like(terms[0])
+            for row in rows:
+                own = own + terms[row]
+            acc = acc + own
+        partials.append(acc)
+    total = torch.zeros_like(terms[0])
+    for grp in range(REDUCE_GROUPS):
+        part = torch.zeros_like(terms[0])
+        for b in range(run_begin(grp, blocks, REDUCE_GROUPS),
+                       run_begin(grp + 1, blocks, REDUCE_GROUPS)):
+            part = part + partials[b]
+        total = total + part
+    return total
+
+
+def partial_planes(d: int) -> int:
+    """The forward's partial rows per component: [count, μ̃ (d), the lower
+    triangle of Σ̃ + μ̃μ̃ᵀ (d(d+1)/2)]."""
+    return 1 + d + d * (d + 1) // 2
+
+
+def backward_variant(has_dstats: bool, need_w: bool) -> str:
+    """The backward kernel a call runs: "lean" (combine_bwd_lean: h̃̄ and
+    diag G only) for the train step's call, which passes no statistics'
+    cotangent and needs no dw; "full" (combine_bwd_full.cu's two halves)
+    for any other."""
+    return "full" if has_dstats or need_w else "lean"
 
 
 def slot_width(d: int) -> int:
@@ -263,6 +356,133 @@ def combine_grads_manual(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None,
     return dph, dpp, dw, -lrbar.sum(-1)
 
 
+def _forward_parts(pot_h, pot_p, w, log_norm=None) -> dict:
+    """The forward per (n, k) as the kernels recompute it: L̃⁻¹, Σ̃ =
+    L̃⁻ᵀL̃⁻¹, μ̃, h̃, log r̃, r̃ and a_nk (the local-KL term's per-pair part),
+    for the mirrors below."""
+    n, d = pot_h.shape
+    exp = unpack_expected(w, d)
+    prec, pm = exp.prec[None], exp.prec_mean[None]
+    eye = torch.eye(d, dtype=w.dtype, device=w.device)
+    jt = prec + torch.diag_embed(pot_p)[:, None]
+    ht = pm + pot_h[:, None]
+    chol = torch.linalg.cholesky(jt)
+    li = torch.linalg.solve_triangular(chol, eye.expand_as(jt), upper=False)
+    cov = li.mT @ li
+    mu = (cov @ ht[..., None])[..., 0]
+    logdet_j = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    log_rho = (exp.log_pi + 0.5 * exp.logdet - 0.5 * exp.quad
+               + 0.5 * (mu * ht).sum(-1) - 0.5 * logdet_j)
+    log_resp = (torch.log_softmax(log_rho, dim=-1) if log_norm is None
+                else log_rho - log_norm[:, None])
+    ezz = cov + mu[..., :, None] * mu[..., None, :]
+    g_k = 0.5 * exp.logdet - 0.5 * d * _LOG_2PI - 0.5 * exp.quad
+    e_log_pbar = (exp.log_pi + g_k + (pm * mu).sum(-1) - 0.5 * (prec * ezz).sum((-2, -1)))
+    a_nk = log_resp - 0.5 * d * (1.0 + _LOG_2PI) + 0.5 * logdet_j - e_log_pbar
+    return {"li": li, "cov": cov, "mu": mu, "ht": ht, "resp": torch.exp(log_resp),
+            "a": a_nk, "ezz": ezz, "sprec": _sym(prec), "pm": pm}
+
+
+def _rhobar(lrbar, resp, log_norm):
+    """ρ̄ from lr̄: the softmax's Jacobian, or none under log_norm."""
+    return lrbar if log_norm is not None else lrbar - resp * lrbar.sum(-1, keepdim=True)
+
+
+def _chol_term(li, eps, v) -> torch.Tensor:
+    """M = L̃⁻ᵀΦ(L̃ᵀL̄)L̃⁻¹ for L̄ = −Σ_s tril(u vᵀ), u = L̃⁻ᵀε, as the
+    kernels form it: L̃ᵀu = ε makes Φ(L̃ᵀL̄)_ab = −Σ_s φ_ab ε_a v_b, so M =
+    −Σ_s Aᵀ P with A_ai = L̃⁻¹_ai ε_a and P_aj = Σ_{b < a} v_b L̃⁻¹_bj +
+    ½ v_a L̃⁻¹_aj (a prefix sum down each column of L̃⁻¹). eps, v (S, N, K, d)."""
+    vy = v[..., :, None] * li  # (S, N, K, a, j)
+    pre = torch.cumsum(vy, dim=-2) - 0.5 * vy
+    amat = li * eps[..., :, None]
+    return -(amat.mT @ pre).sum(0)
+
+
+def combine_grads_lean(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None, dlocal=None,
+                       log_norm=None):
+    """The train step's backward (no statistics' cotangent, no dw) as
+    csrc/combine_bwd.cu computes it: per (n, k) only h̃̄ and diag G, with
+    diag(Σ̃ sym(E[Λ]) Σ̃) as a quadratic form in each column of Σ̃ and the
+    Cholesky term's diagonal from ``_chol_term``'s construction, never
+    through L̃. Cotangents as ``combine_grads_manual`` takes them (None is
+    zero); returns (dpot_h, dpot_p) and, with ``log_norm``, dn."""
+    n, d = pot_h.shape
+    k, s = w.shape[0], eps.shape[0]
+    f = _forward_parts(pot_h, pot_p, w, log_norm)
+    zeros = lambda *shape: torch.zeros(shape, dtype=w.dtype, device=w.device)  # noqa: E731
+    dz = zeros(s, n, k, d) if dz is None else dz
+    dlr = zeros(n, k) if dlr is None else dlr
+    dmu = zeros(n, k, d) if dmu is None else dmu
+    dlocal = zeros(n) if dlocal is None else dlocal
+    li, cov, mu, resp = f["li"], f["cov"], f["mu"], f["resp"]
+    omega = dlocal[:, None] * resp
+    lrbar = dlr + omega + dlocal[:, None] * f["a"] * resp
+    rhobar = _rhobar(lrbar, resp, log_norm)
+    mubar = (dmu + dz.sum(0) + omega[..., None] * ((f["sprec"] @ mu[..., None])[..., 0] - f["pm"])
+             + 0.5 * rhobar[..., None] * f["ht"])
+    cmb = (li.mT @ (li @ mubar[..., None]))[..., 0]
+    v = (li @ dz[..., None])[..., 0]
+    mdiag = torch.diagonal(_chol_term(li, eps, v), dim1=-2, dim2=-1)
+    quad = torch.einsum("nkai,nkab,nkbi->nki", cov, f["sprec"].expand_as(cov), cov)
+    gdiag = ((0.5 * omega - 0.5 * rhobar)[..., None] * torch.diagonal(cov, dim1=-2, dim2=-1)
+             - cmb * mu - 0.5 * omega[..., None] * quad + mdiag)
+    dph = (cmb + 0.5 * rhobar[..., None] * mu).sum(1)
+    if log_norm is None:
+        return dph, gdiag.sum(1)
+    return dph, gdiag.sum(1), -lrbar.sum(-1)
+
+
+def combine_grads_split(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None, dlocal=None,
+                        dstats=None, log_norm=None):
+    """The backward with dw as csrc/combine_bwd_full.cu splits it: (the
+    sampling half's grads from the cotangents of z, log r̃ and μ̃ — its
+    Cholesky term ``_chol_term`` — , the local/statistics half's from those
+    of the local row and the statistics — Σ̃Σ̄Σ̃ with Σ̄ = ½ω sym(E[Λ]) +
+    r̃ sym(s̄₂)), each (dpot_h, dpot_p, dw[, dn]) as ``combine_grads_manual``
+    returns them; the two add up to it."""
+    n, d = pot_h.shape
+    k, s = w.shape[0], eps.shape[0]
+    f = _forward_parts(pot_h, pot_p, w, log_norm)
+    zeros = lambda *shape: torch.zeros(shape, dtype=w.dtype, device=w.device)  # noqa: E731
+    dz = zeros(s, n, k, d) if dz is None else dz
+    dlr = zeros(n, k) if dlr is None else dlr
+    dmu = zeros(n, k, d) if dmu is None else dmu
+    dlocal = zeros(n) if dlocal is None else dlocal
+    dstats = zeros(k, stats_width(d)) if dstats is None else dstats
+    li, cov, mu, resp, ezz = f["li"], f["cov"], f["mu"], f["resp"], f["ezz"]
+
+    def half(lrbar, omega, mubar, g_extra):
+        rhobar = _rhobar(lrbar, resp, log_norm)
+        mubar = mubar + 0.5 * rhobar[..., None] * f["ht"]
+        cmb = (cov @ mubar[..., None])[..., 0]
+        htbar = cmb + 0.5 * rhobar[..., None] * mu
+        g = ((0.5 * omega - 0.5 * rhobar)[..., None, None] * cov
+             - _sym(cmb[..., :, None] * mu[..., None, :]) + g_extra)
+        diag_g = torch.diagonal(g, dim1=-2, dim2=-1)
+        jbar = torch.tril(2.0 * g, diagonal=-1) + torch.diag_embed(diag_g)
+        dprec = (jbar + 0.5 * omega[..., None, None] * ezz).sum(0)
+        dw = torch.cat([(rhobar - omega).sum(0)[:, None],
+                        (0.5 * (rhobar - omega)).sum(0)[:, None],
+                        (0.5 * (omega - rhobar)).sum(0)[:, None],
+                        (htbar - omega[..., None] * mu).sum(0),
+                        dprec.reshape(k, d * d)], dim=1)
+        out = (htbar.sum(1), diag_g.sum(1), dw)
+        return out if log_norm is None else (*out, -lrbar.sum(-1))
+
+    v = (li @ dz[..., None])[..., 0]
+    sample = half(dlr, zeros(n, k), dmu + dz.sum(0), _sym(_chol_term(li, eps, v)))
+    ds0, ds1 = dstats[:, 0], dstats[:, 1:1 + d]
+    ds2 = _sym(dstats[:, 1 + d:].reshape(k, d, d))
+    omega = dlocal[:, None] * resp
+    rbar = (dlocal[:, None] * f["a"] + ds0 + (ds1 * mu).sum(-1) + (ds2 * ezz).sum((-2, -1)))
+    mubar = (omega[..., None] * ((f["sprec"] @ mu[..., None])[..., 0] - f["pm"])
+             + resp[..., None] * (ds1 + 2.0 * (ds2 @ mu[..., None])[..., 0]))
+    covbar = 0.5 * omega[..., None, None] * f["sprec"] + resp[..., None, None] * ds2
+    local = half(omega + rbar * resp, omega, mubar, -cov @ covbar @ cov)
+    return sample, local
+
+
 def log_rho_grads_manual(pot_h, pot_p, w, drho):
     """The backward of ``log_rho_plain`` (on the packed ``w``) written out
     by hand, as the ρ-kernel's backward transcribes it: per (n, k), log ρ =
@@ -309,6 +529,18 @@ def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(torch.float32).contiguous()
 
 
+def _grid(lib, n: int, k: int, d: int, kind: int) -> int:
+    """The kernels' partial count (``combine_grid``; kind 0/1 the forward,
+    2/3 the backward with dw, odd kinds the log_norm mode), on the current
+    device."""
+    from svax_torch.ops import _build
+
+    blocks = lib.combine_grid(n, k, d, kind)
+    if blocks < 1:
+        _build.check(lib, -blocks, "combine_grid")
+    return blocks
+
+
 class _CombineKernel(torch.autograd.Function):
     """The forward and recompute-backward kernels as one differentiable
     function of (pot_h, pot_p, w) and, in the log_norm mode, of the
@@ -323,17 +555,16 @@ class _CombineKernel(torch.autograd.Function):
         lib = _build.load()
         n, d = ph.shape
         k = w.shape[0]
-        f = stats_width(d)
-        blocks = lib.combine_blocks(n, k)
         kw = dict(device=ph.device, dtype=torch.float32)
         z = torch.empty((num_samples, n, k, d), **kw)
         log_resp = torch.empty((n, k), **kw)
         mean = torch.empty((n, k, d), **kw)
         local = torch.empty((n,), **kw)
-        partial = torch.empty((blocks, k, f), **kw)
-        raw = torch.empty((k, f), **kw)
+        raw = torch.empty((k, stats_width(d)), **kw)
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):
+            blocks = _grid(lib, n, k, d, 0 if norm is None else 1)
+            partial = torch.empty((blocks, partial_planes(d), k), **kw)
             err = lib.combine_forward(
                 ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, num_samples,
                 seed & 0xFFFFFFFFFFFFFFFF, step & 0xFFFFFFFF,
@@ -352,6 +583,7 @@ class _CombineKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz, dlr, dmu, dlocal, dstats):
         global backward_launches, norm_backward_launches
+        global lean_backward_launches, norm_lean_backward_launches
         from svax_torch.ops import _build
         ptr = _build.ptr
 
@@ -362,6 +594,9 @@ class _CombineKernel(torch.autograd.Function):
         cts = [_f32(t) for t in (dz, dlr, dmu, dlocal, dstats)]
         if all(t is None for t in cts) or not (need_pot or need_w or need_norm):
             return (None,) * 8
+        key = "+".join([name for name, t in zip(("dz", "dlr", "dmu", "dlocal", "dstats"), cts)
+                        if t is not None] + ["dw"] * need_w + ["dn"] * need_norm)
+        backward_paths[key] = backward_paths.get(key, 0) + 1
         lib = _build.load()
         n, d = ph.shape
         k = w.shape[0]
@@ -370,11 +605,13 @@ class _CombineKernel(torch.autograd.Function):
         dpp = torch.empty((n, d), **kw)
         dn = None if norm is None else torch.empty((n,), **kw)
         dw = partial = None
-        if need_w:
-            partial = torch.empty((lib.combine_blocks(n, k), k, slot_width(d)), **kw)
-            dw = torch.empty((k, slot_width(d)), **kw)
+        lean = backward_variant(dstats is not None, need_w) == "lean"
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):
+            if need_w:
+                blocks = _grid(lib, n, k, d, 2 if norm is None else 3)
+                partial = torch.empty((2, blocks, slot_width(d), k), **kw)
+                dw = torch.empty((k, slot_width(d)), **kw)
             err = lib.combine_backward(
                 ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, ctx.num_samples,
                 ctx.seed & 0xFFFFFFFFFFFFFFFF, ctx.step & 0xFFFFFFFF,
@@ -383,8 +620,10 @@ class _CombineKernel(torch.autograd.Function):
         _build.check(lib, err, "combine_backward")
         if norm is None:
             backward_launches += 1
+            lean_backward_launches += lean
         else:
             norm_backward_launches += 1
+            norm_lean_backward_launches += lean
         return dph, dpp, dw, dn, None, None, None, None
 
 
@@ -428,7 +667,7 @@ class _RhoKernel(torch.autograd.Function):
         dpp = torch.empty((n, d), **kw)
         dw = partial = None
         if ctx.needs_input_grad[2]:
-            partial = torch.empty((lib.combine_blocks(n, k), k, slot_width(d)), **kw)
+            partial = torch.empty((lib.rho_blocks(n, k), k, slot_width(d)), **kw)
             dw = torch.empty((k, slot_width(d)), **kw)
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):

@@ -1,32 +1,33 @@
-// combine: the fused SIN combine, forward and recompute backward.
+// combine: the fused SIN combine's forward, the cross-block sums and the
+// component-parallel ρ-kernels; the C entries of the combine.
 //
 // Replaces the TPU kernels of svax/ops/combine_pallas.py: _fwd_call
-// (pallas_call at :431) and _bwd_call's two recompute kernels (:588, :637),
-// entry combine_fused (:754). Per (n, k), with no N·K·d·d tensor in device
+// (pallas_call at :431; combine_fwd here) and _bwd_call's two recompute
+// kernels (:588, :637; combine_bwd.cu and combine_bwd_full.cu), entry
+// combine_fused (:754). Per (n, k), with no N·K·d·d tensor in device
 // memory: J̃ = diag(Pₙ) + E[Λ_k] → L̃ = chol(J̃) → μ̃, log|J̃| → log ρ →
-// softmax over K → Σ̃ = J̃⁻¹ → the local-KL row → z = μ̃ + L̃⁻ᵀε (S samples)
-// → the (K, 1 + d + d²) statistics Σ_n r̃·[1, μ̃, Σ̃ + μ̃μ̃ᵀ]. The backward
-// recomputes the forward per (n, k) and applies the hand-derived VJP of
-// svax_torch/ops/combine.py: combine_grads_manual (tested there against
-// autograd), giving the cotangents of pot_h, pot_p and the packed expected
-// parameters w from those of z, log r̃, μ̃, the local row and the statistics.
+// softmax over K → z = μ̃ + L̃⁻ᵀε (S samples) → L̃⁻¹ → the local-KL row →
+// the (K, 1 + d + d²) statistics Σ_n r̃·[1, μ̃, Σ̃ + μ̃μ̃ᵀ] (Σ̃ = L̃⁻ᵀL̃⁻¹).
+// z, log r̃ and μ̃ are computed in combine_tile.cuh's order (tile_core,
+// solve_upper), so their bits do not depend on this kernel's layout.
 //
 // Bound: at bigk (N = 1024, K = 100, d = 10, S = 1) the forward writes z,
-// μ̃ (4.1 MB each) and log r̃ (0.4 MB) and does ~0.2 GFLOP, so bytes and
-// operations are within a factor of ~1.5 of each other (a few µs); at mnist
-// (N = 256, K = 10, d = 8) the work is ~100 KB and the kernels are latency-
-// bound: a launch plus one dependent chain of ~d³ operations per thread.
-// Design: one thread per (n, k) runs the combine_tile.cuh device functions
-// on register arrays (d a template parameter; at d = 10 the L̃, L̃⁻¹, Σ̃ and
-// backward arrays spill to local memory, which L1 holds). A block holds R =
-// 128 / K whole rows of K (K ≤ 128), so the softmax over K and the sums over
-// k for the potentials' cotangents stay in shared memory. The (K, F)
-// statistics and the (K, 3 + d + d²) dw are sums over n: each block writes
-// its partial sum (rows added in order) and a second kernel adds the
-// partials in block order, as estep.cu does. No float atomics: reruns are
+// μ̃ (4.1 MB each) and log r̃ (0.4 MB) and does ~0.2 GFLOP: a few µs either
+// way; at mnist (N = 256, K = 10, d = 8) the work is ~100 KB and the kernel
+// is latency-bound: one dependent chain of ~d³ operations per thread.
+// Design (combine_core.cuh): one thread per (n, k) on packed triangles (L̃,
+// then L̃⁻¹ in place; Σ̃ formed entry by entry), no spills at any d; the
+// component rows staged once per block, k-minor; R rows of K a block (at
+// most 256 / K; the softmax over K in shared memory; rows_per_block); the
+// row groups dealt to a grid of
+// the card's capacity in contiguous runs, so each block adds its rows'
+// statistics (the lower triangle only: Σ̃ + μ̃μ̃ᵀ is symmetric) in row
+// order into per-thread sums in shared memory and writes one (1 + d +
+// d(d+1)/2, K) partial; reduce_planes adds the partials in a fixed
+// two-level order and mirrors the triangle. No float atomics: reruns are
 // bit-equal. ε comes from the caller, or from Philox4x32-10 + Box–Muller
-// (philox.cuh) keyed (seed, step) and counted by ((s·N + n)·K + k)·d + i, so
-// the backward regenerates the forward's numbers whatever the tiling.
+// (philox.cuh) keyed (seed, step) and counted by ((s·N + n)·K + k)·d + i,
+// so the backward regenerates the forward's numbers whatever the tiling.
 //
 // Component parallelism (log_rho_fused, combine_pallas.py:722, and
 // combine_fused's log_norm mode, _tile_core's norm=): with the mixture's K
@@ -34,21 +35,18 @@
 // (replaces _rho_fwd_call's pallas_call, :288) writes this shard's
 // pre-softmax log ρ (N, K); the caller takes the logsumexp across shards;
 // combine_fwd<D, true> then reads that normaliser (N,) in place of its
-// in-block softmax: log r̃ = log ρ − norm[n], r̃ = exp(log r̃), and
-// combine_bwd<D, true> drops the softmax Jacobian (ρ̄ = lr̄) and writes the
-// normaliser's cotangent dn[n] = −Σ_k lr̄ (the extra output of
-// _fused_core_bwd, :682-697), which flows back through the lse into
-// log_rho_bwd (replaces _rho_bwd_call's pallas_call, :342): per (n, k),
-// log ρ = E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ − ½log|J̃| gives
-// h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ + μ̃μ̃ᵀ) — the
-// tile_core_bwd formulas of combine_tile.cuh with no sample or local-KL
-// cotangent — read back as combine_bwd reads its G. The mode is a template
-// parameter, so the unsharded kernels keep their arithmetic (their outputs
-// are bit-equal to those of the build before the mode existed). The
-// ρ-kernels are bound by operations, as the combine is: at the bigk shard
-// (N = 1024, K = 50, d = 10) ~32 MFLOP forward and ~80 backward, 0.5 and
-// 1.2 µs at the card's f32 rate, against ~0.4 MB moved; one thread's
-// dependent Cholesky chain and the launch set their time.
+// in-block softmax (log r̃ = log ρ − norm[n]), and the backwards drop the
+// softmax Jacobian (ρ̄ = lr̄) and write the normaliser's cotangent dn[n] =
+// −Σ_k lr̄ (_fused_core_bwd's extra output, :682-697), which flows back
+// through the lse into log_rho_bwd (replaces _rho_bwd_call's pallas_call,
+// :342): per (n, k), log ρ = E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ −
+// ½log|J̃| gives h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ +
+// μ̃μ̃ᵀ), read back through the Cholesky's lower triangle. The ρ-kernels
+// keep their first layout (combine_tile.cuh's register arrays, R = 128 / K
+// rows a block, a partial per block summed by reduce_blocks; rho_blocks
+// sizes it): they are bound by operations (~32 MFLOP forward and ~80
+// backward at the bigk shard, N = 1024, K = 50, d = 10) and by one
+// thread's dependent Cholesky chain.
 //
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
 
@@ -57,57 +55,197 @@
 #include <cmath>
 #include <cstdint>
 
+#include "combine_core.cuh"
 #include "combine_tile.cuh"
-#include "philox.cuh"
 
 namespace {
 
-using namespace svax;
+using svax::comb::BwdArgs;
+using svax::comb::FwdArgs;
+using svax::comb::Planes;
+using svax::comb::tidx;
+using svax::comb::tri;
 
-constexpr int kThreads = 128;  // threads per block: R rows × K
-constexpr int kMaxK = 128;
+template <int D, bool kNorm>
+__global__ void __launch_bounds__(svax::comb::kBlockThreads, 1) combine_fwd(FwdArgs a) {
+  namespace c = svax::comb;
+  using P = Planes<D>;
+  constexpr int T = tri(D), FP = 1 + D + T;
+  const int K = a.k, R = a.rows, NT = R * K;
+  const int tid = threadIdx.x, r = tid / K, k = tid % K;
+  extern __shared__ float smem[];
+  float* s_w = smem;                 // (P::COUNT, K) the component rows
+  float* s_rho = s_w + P::COUNT * K;  // (NT) log ρ
+  float* s_ex = s_rho + NT;           // (NT) exp(log ρ − the row's max)
+  float* s_loc = s_ex + NT;           // (NT) local-KL terms
+  float* s_acc = s_loc + NT;          // (FP, NT) this thread's statistics
+  c::stage<D>(a.w, nullptr, K, s_w);
+#pragma unroll
+  for (int f = 0; f < FP; ++f) s_acc[f * NT + tid] = 0.0f;
+  __syncthreads();
 
-__host__ __device__ inline int rows_per_block(int k) { return k >= kThreads ? 1 : kThreads / k; }
-__host__ __device__ inline int blocks_for(int n, int k) {
-  const int r = rows_per_block(k);
-  return (n + r - 1) / r;
+  const int g1 = c::run_begin(blockIdx.x + 1, a.groups, a.blocks);
+  for (int g = c::run_begin(blockIdx.x, a.groups, a.blocks); g < g1; ++g) {
+    const int n = g * R + r;
+    const bool valid = n < a.n;
+    float p[D], h[D];
+    c::load_row<D>(a.ph, a.pp, n, valid, p, h);
+    float L[T], ht[D], mu[D], logdet_j, log_rho;
+    c::recompute<D, true>(s_w, K, k, p, h, L, ht, mu, logdet_j, log_rho);
+    float log_resp, resp;
+    c::responsibility<kNorm>(s_rho, s_ex, K, r, a.norm, n, valid, log_rho, log_resp, resp);
+
+    const size_t nk = static_cast<size_t>(n) * K + k;
+    if (valid) {
+      a.log_resp[nk] = log_resp;
+#pragma unroll
+      for (int i = 0; i < D; ++i) a.mean[nk * D + i] = mu[i];
+      for (int s = 0; s < a.s; ++s) {
+        const size_t base = ((static_cast<size_t>(s) * a.n + n) * K + k) * D;
+        float ev[D], u[D];  // u = L̃⁻ᵀε by back substitution (solve_upper's order)
+        c::noise<D>(a.eps, a.seed, a.stream, base, ev);
+#pragma unroll
+        for (int i = D - 1; i >= 0; --i) {
+          float acc = ev[i];
+#pragma unroll
+          for (int j = i + 1; j < D; ++j) acc -= L[tidx(j, i)] * u[j];
+          u[i] = acc / L[tidx(i, i)];
+          a.z[base + i] = mu[i] + u[i];
+        }
+      }
+    }
+    c::invert<D>(L);  // L holds L̃⁻¹ from here
+
+    // The local-KL term and the statistics r̃·[1, μ̃, Σ̃ + μ̃μ̃ᵀ], Σ̃ + μ̃μ̃ᵀ
+    // formed once per entry of its lower triangle for both.
+    const float rr = valid ? resp : 0.0f;
+    float cross = 0.0f, trq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      c::no_hoist();
+      cross += s_w[(P::PM + i) * K + k] * mu[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        const float ez = c::cov<D>(L, i, j) + mu[i] * mu[j];
+        const float e = s_w[(P::ES + tidx(i, j)) * K + k];
+        trq += (i == j ? e : 2.0f * e) * ez;
+        if (valid) s_acc[(1 + D + tidx(i, j)) * NT + tid] += rr * ez;
+      }
+    }
+    if (valid) {
+      s_acc[tid] += rr;
+#pragma unroll
+      for (int i = 0; i < D; ++i) s_acc[(1 + i) * NT + tid] += rr * mu[i];
+    }
+    const float gk = 0.5f * s_w[P::LOGDET * K + k] - 0.5f * D * c::kLog2Pi -
+                     0.5f * s_w[P::QUAD * K + k];
+    const float e_log_pbar = s_w[P::LOGPI * K + k] + gk + cross - 0.5f * trq;
+    const float a_nk = log_resp - 0.5f * D * (1.0f + c::kLog2Pi) + 0.5f * logdet_j - e_log_pbar;
+    s_loc[tid] = rr * a_nk;
+    __syncthreads();
+    if (valid && k == 0) {
+      float acc = 0.0f;
+      for (int c2 = 0; c2 < K; ++c2) acc += s_loc[r * K + c2];
+      a.local[n] = acc;
+    }
+  }
+  __syncthreads();
+  // This block's partial: each (plane, k) summed over the R rows in order;
+  // thread (r, k) takes planes r, r + R, … of component k.
+  float* out = a.partial + static_cast<size_t>(blockIdx.x) * FP * K;
+  for (int f = r; f < FP; f += R) {
+    float acc = 0.0f;
+    for (int r2 = 0; r2 < R; ++r2) acc += s_acc[f * NT + r2 * K + k];
+    out[f * K + k] = acc;
+  }
 }
 
-struct FwdArgs {
-  const float* __restrict__ ph;   // (N, D)
-  const float* __restrict__ pp;   // (N, D)
-  const float* __restrict__ w;    // (K, 3 + D + D²)
-  const float* __restrict__ eps;  // (S, N, K, D) or null: in-kernel Philox
-  const float* __restrict__ norm;  // (N,) log-normaliser (kNorm) or null
-  int n, k, s;
-  unsigned long long seed;
-  uint32_t stream;
-  float* z;         // (S, N, K, D)
-  float* log_resp;  // (N, K)
-  float* mean;      // (N, K, D)
-  float* local;     // (N,)
-  float* partial;   // (blocks, K, F)
-};
+constexpr int kReduceLanes = 32, kReduceGroups = 16;
 
-struct BwdArgs {
-  const float* __restrict__ ph;
-  const float* __restrict__ pp;
-  const float* __restrict__ w;
-  const float* __restrict__ eps;
-  const float* __restrict__ norm;  // (N,) (kNorm) or null
-  int n, k, s;
-  unsigned long long seed;
-  uint32_t stream;
-  const float* __restrict__ dz;      // (S, N, K, D) or null
-  const float* __restrict__ dlr;     // (N, K) or null
-  const float* __restrict__ dmu;     // (N, K, D) or null
-  const float* __restrict__ dlocal;  // (N,) or null
-  const float* __restrict__ dstats;  // (K, F) or null
-  float* dph;                        // (N, D)
-  float* dpp;                        // (N, D)
-  float* partial;                    // (blocks, K, 3 + D + D²) or null: no dw
-  float* dn;                         // (N,) (kNorm) or null
-};
+// out = Σ_b partial[b] over `blocks` partials of `planes` × K floats: lane
+// e of each of kReduceGroups warps adds its contiguous run of partials in
+// order, then warp 0 adds the groups in order. mirror: the forward's packed
+// planes [count, μ̃ (d), lower triangle] → raw (K, 1 + d + d²), the triangle
+// written to both halves; else out is (K, planes).
+__global__ void __launch_bounds__(kReduceLanes* kReduceGroups)
+    reduce_planes(const float* __restrict__ partial, int blocks, int planes, int k, int d,
+                  int mirror, float* out) {
+  extern __shared__ float smem[];  // (kReduceGroups, kReduceLanes) the runs' sums
+  const int lane = threadIdx.x % kReduceLanes, grp = threadIdx.x / kReduceLanes;
+  const int len = planes * k, e = blockIdx.x * kReduceLanes + lane;
+  float acc = 0.0f;
+  if (e < len) {
+    const int b1 = svax::comb::run_begin(grp + 1, blocks, kReduceGroups);
+    for (int b = svax::comb::run_begin(grp, blocks, kReduceGroups); b < b1; ++b)
+      acc += partial[static_cast<size_t>(b) * len + e];
+  }
+  smem[grp * kReduceLanes + lane] = acc;
+  __syncthreads();
+  if (grp != 0 || e >= len) return;
+  float s = 0.0f;
+  for (int g = 0; g < kReduceGroups; ++g) s += smem[g * kReduceLanes + lane];
+  const int pl = e / k, kk = e % k;
+  if (!mirror) {
+    out[static_cast<size_t>(kk) * planes + pl] = s;
+    return;
+  }
+  float* row = out + static_cast<size_t>(kk) * (1 + d + d * d);
+  if (pl < 1 + d) {
+    row[pl] = s;
+  } else {
+    int i, j;
+    svax::comb::untri(pl - 1 - d, i, j);
+    row[1 + d + i * d + j] = s;
+    row[1 + d + j * d + i] = s;
+  }
+}
+
+template <int D>
+size_t fwd_bytes(int k, int nt) {
+  return sizeof(float) * (static_cast<size_t>(Planes<D>::COUNT) * k +
+                          static_cast<size_t>(nt) * (3 + 1 + D + tri(D)));
+}
+
+// The forward's plan for N, K: rows a block and the grid.
+template <int D, bool kNorm>
+cudaError_t forward_plan(int n, int k, int& rows, int& blocks) {
+  namespace c = svax::comb;
+  static c::LaunchCache cache;
+  int sms = 0, cap = 0;
+  cudaError_t err = c::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  rows = c::rows_per_block(n, k, c::kBlockThreads, sms);
+  err = c::capacity(combine_fwd<D, kNorm>, k, rows, fwd_bytes<D>(k, rows * k), sms, cache, cap);
+  if (err != cudaSuccess) return err;
+  const int groups = c::row_groups(n, rows);
+  blocks = groups < cap ? groups : cap;
+  return cudaSuccess;
+}
+
+template <int D, bool kNorm>
+cudaError_t forward_d(FwdArgs a, float* stats, cudaStream_t st) {
+  namespace c = svax::comb;
+  cudaError_t err = forward_plan<D, kNorm>(a.n, a.k, a.rows, a.blocks);
+  if (err != cudaSuccess) return err;
+  a.groups = c::row_groups(a.n, a.rows);
+  const int threads = a.rows * a.k;
+  combine_fwd<D, kNorm><<<a.blocks, threads, fwd_bytes<D>(a.k, threads), st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return c::launch_reduce(a.partial, a.blocks, 1 + D + tri(D), a.k, D, true, stats, st);
+}
+
+// ---------------------------------------------------------- the ρ-kernels
+
+using namespace svax;
+
+constexpr int kThreads = 128;  // threads per block of the ρ-kernels: R rows × K
+
+__host__ __device__ inline int rho_rows(int k) { return k >= kThreads ? 1 : kThreads / k; }
+__host__ __device__ inline int rho_groups(int n, int k) {
+  const int r = rho_rows(k);
+  return (n + r - 1) / r;
+}
 
 struct RhoArgs {
   const float* __restrict__ ph;    // (N, D)
@@ -121,325 +259,6 @@ struct RhoArgs {
   float* partial;  // (blocks, K, 3 + D + D²) or null: no dw
 };
 
-// The potentials of row n; rows past N get unit precision and zero h, so
-// J̃ = I + E[Λ] stays PSD and every value they produce is finite.
-template <int D>
-__device__ __forceinline__ void load_row(const float* ph, const float* pp, int n, bool valid,
-                                         float (&p)[D], float (&h)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    p[i] = valid ? pp[static_cast<size_t>(n) * D + i] : 1.0f;
-    h[i] = valid ? ph[static_cast<size_t>(n) * D + i] : 0.0f;
-  }
-}
-
-// log r̃ and r̃ of this thread from the row's log ρ in shared memory.
-__device__ __forceinline__ void softmax_row(const float* row, int k, float log_rho,
-                                            float& log_resp, float& resp) {
-  float mx = -INFINITY;
-  for (int c = 0; c < k; ++c) mx = fmaxf(mx, row[c]);
-  float den = 0.0f;
-  for (int c = 0; c < k; ++c) den += expf(row[c] - mx);
-  log_resp = log_rho - (mx + logf(den));
-  resp = expf(log_rho - mx) / den;
-}
-
-// log r̃ and r̃ against an external normaliser; rows past N take their own
-// log ρ (r̃ = 1, finite; the callers zero what such rows add).
-template <bool kNorm>
-__device__ __forceinline__ void resp_of(const float* s_row, int k, const float* norm, int n,
-                                        bool valid, float log_rho, float& log_resp,
-                                        float& resp) {
-  if constexpr (kNorm) {
-    log_resp = log_rho - (valid ? norm[n] : log_rho);
-    resp = expf(log_resp);
-  } else {
-    softmax_row(s_row, k, log_rho, log_resp, resp);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void noise(const float* eps, unsigned long long seed, uint32_t stream,
-                                      size_t base, float (&e)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-    e[i] = eps ? eps[base + i] : philox_normal(seed, stream, static_cast<uint32_t>(base + i));
-}
-
-template <int D, bool kNorm>
-__global__ void __launch_bounds__(kThreads) combine_fwd(FwdArgs a) {
-  constexpr int F = 1 + D + D * D;
-  const int K = a.k, R = rows_per_block(K);
-  const int tid = threadIdx.x, row = tid / K, kk = tid % K;
-  const int n = blockIdx.x * R + row;
-  const bool valid = n < a.n;
-  extern __shared__ float smem[];
-  float* s_rho = smem;        // (R, K) log ρ
-  float* s_loc = s_rho + R * K;  // (R, K) local-KL terms
-  float* s_st = s_loc + R * K;   // (R, K, F) statistics terms
-
-  const float* e = a.w + static_cast<size_t>(kk) * Slot<D>::SIZE;
-  float p[D], h[D];
-  load_row<D>(a.ph, a.pp, n, valid, p, h);
-  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
-  tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
-  if constexpr (!kNorm) {
-    s_rho[tid] = log_rho;
-    __syncthreads();
-  }
-  float log_resp, resp;
-  resp_of<kNorm>(s_rho + row * K, K, a.norm, n, valid, log_rho, log_resp, resp);
-
-  const size_t nk = static_cast<size_t>(n) * K + kk;
-  if (valid) {
-    a.log_resp[nk] = log_resp;
-#pragma unroll
-    for (int i = 0; i < D; ++i) a.mean[nk * D + i] = mu[i];
-    for (int s = 0; s < a.s; ++s) {
-      const size_t base = ((static_cast<size_t>(s) * a.n + n) * K + kk) * D;
-      float ev[D], u[D];
-      noise<D>(a.eps, a.seed, a.stream, base, ev);
-      solve_upper<D>(L, ev, u);
-#pragma unroll
-      for (int i = 0; i < D; ++i) a.z[base + i] = mu[i] + u[i];
-    }
-  }
-
-  float Li[D][D], C[D][D];
-  tri_inverse<D>(L, Li);
-  cov_from_inverse<D>(Li, C);
-  const float r = valid ? resp : 0.0f;
-  const float a_nk = log_resp - 0.5f * D * (1.0f + kTileLog2Pi) + local_a0<D>(e, mu, C, logdet_j);
-  s_loc[tid] = r * a_nk;
-  float* st = s_st + static_cast<size_t>(tid) * F;
-  st[0] = r;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    st[1 + i] = r * mu[i];
-#pragma unroll
-    for (int j = 0; j < D; ++j) st[1 + D + i * D + j] = r * (C[i][j] + mu[i] * mu[j]);
-  }
-  __syncthreads();
-
-  if (valid && kk == 0) {
-    float acc = 0.0f;
-    for (int c = 0; c < K; ++c) acc += s_loc[row * K + c];
-    a.local[n] = acc;
-  }
-  float* out = a.partial + static_cast<size_t>(blockIdx.x) * K * F;
-  for (int idx = tid; idx < K * F; idx += blockDim.x) {
-    float acc = 0.0f;
-    for (int r2 = 0; r2 < R; ++r2) acc += s_st[static_cast<size_t>(r2 * K) * F + idx];
-    out[idx] = acc;
-  }
-}
-
-template <int D, bool kNorm>
-__global__ void __launch_bounds__(kThreads) combine_bwd(BwdArgs a) {
-  using S = Slot<D>;
-  constexpr int F = 1 + D + D * D, W = S::SIZE, P = 2 * D;
-  const int K = a.k, R = rows_per_block(K);
-  const int tid = threadIdx.x, row = tid / K, kk = tid % K;
-  const int n = blockIdx.x * R + row;
-  const bool valid = n < a.n;
-  extern __shared__ float smem[];
-  float* s_rho = smem;            // (R, K) log ρ
-  float* s_lrb = s_rho + R * K;   // (R, K) lr̄
-  float* s_pot = s_lrb + R * K;   // (R, K, 2D) [h̃̄, diag G]
-  float* s_dw = s_pot + R * K * P;  // (R, K, W) dw terms
-
-  const float* e = a.w + static_cast<size_t>(kk) * W;
-  float p[D], h[D];
-  load_row<D>(a.ph, a.pp, n, valid, p, h);
-  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
-  tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
-  if constexpr (!kNorm) {
-    s_rho[tid] = log_rho;
-    __syncthreads();
-  }
-  float log_resp, resp;
-  resp_of<kNorm>(s_rho + row * K, K, a.norm, n, valid, log_rho, log_resp, resp);
-  float Li[D][D], C[D][D];
-  tri_inverse<D>(L, Li);
-  cov_from_inverse<D>(Li, C);
-  const float a_nk = log_resp - 0.5f * D * (1.0f + kTileLog2Pi) + local_a0<D>(e, mu, C, logdet_j);
-
-  // Rows past N read no cotangent, so every term they add below is zero.
-  const size_t nk = static_cast<size_t>(n) * K + kk;
-  const float lb = (valid && a.dlocal) ? a.dlocal[n] : 0.0f;
-  const float omega = lb * resp;
-  const float* ds = (valid && a.dstats) ? a.dstats + static_cast<size_t>(kk) * F : nullptr;
-  float rbar = lb * a_nk;
-  if (ds) {
-    rbar += ds[0];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      rbar += ds[1 + i] * mu[i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) rbar += ds[1 + D + i * D + j] * (C[i][j] + mu[i] * mu[j]);
-    }
-  }
-  const float lrbar = ((valid && a.dlr) ? a.dlr[nk] : 0.0f) + omega + rbar * resp;
-  s_lrb[tid] = lrbar;
-  __syncthreads();
-  float rhobar;
-  if constexpr (kNorm) {
-    // log r̃ = log ρ − norm: no softmax Jacobian; the normaliser's cotangent
-    // is −Σ_k lr̄.
-    rhobar = lrbar;
-    if (valid && kk == 0) {
-      float lsum = 0.0f;
-      for (int c = 0; c < K; ++c) lsum += s_lrb[row * K + c];
-      a.dn[n] = -lsum;
-    }
-  } else {
-    float lsum = 0.0f;
-    for (int c = 0; c < K; ++c) lsum += s_lrb[row * K + c];
-    rhobar = lrbar - resp * lsum;
-  }
-
-  // μ̄: the mean output, the local KL, the statistics and ½μ̃ᵀh̃ in log ρ.
-  float mb[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float sp = 0.0f;
-#pragma unroll
-    for (int j = 0; j < D; ++j) sp += 0.5f * (e[S::PREC + i * D + j] + e[S::PREC + j * D + i]) * mu[j];
-    mb[i] = omega * (sp - e[S::PM + i]) + 0.5f * rhobar * ht[i];
-    if (valid && a.dmu) mb[i] += a.dmu[nk * D + i];
-    if (ds) {
-      float t = ds[1 + i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) t += (ds[1 + D + i * D + j] + ds[1 + D + j * D + i]) * mu[j];
-      mb[i] += resp * t;
-    }
-  }
-  // Samples: z̄ reaches μ̃ directly and L̃ as L̄ = −Σ_s tril(u vᵀ), u = L̃⁻ᵀε,
-  // v = L̃⁻¹z̄ (lower triangle kept).
-  float Lb[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) Lb[i][j] = 0.0f;
-  if (valid && a.dz) {
-    for (int s = 0; s < a.s; ++s) {
-      const size_t base = ((static_cast<size_t>(s) * a.n + n) * K + kk) * D;
-      float ev[D], u[D], zb[D], v[D];
-      noise<D>(a.eps, a.seed, a.stream, base, ev);
-      solve_upper<D>(L, ev, u);
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        zb[i] = a.dz[base + i];
-        mb[i] += zb[i];
-      }
-      lower_times<D>(Li, zb, v);
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int j = 0; j <= i; ++j) Lb[i][j] -= u[i] * v[j];
-    }
-  }
-  const float ldbar = 0.5f * omega - 0.5f * rhobar;
-  float cmb[D], htb[D];  // Σ̃μ̄ and h̃̄
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < D; ++j) acc += C[i][j] * mb[j];
-    cmb[i] = acc;
-    htb[i] = acc + 0.5f * rhobar * mu[i];
-  }
-
-  // Cholesky backward: X = Φ(L̃ᵀL̄) then Y = X L̃⁻¹, both in place in Lb (lower);
-  // M = L̃⁻ᵀY.
-#pragma unroll
-  for (int r2 = 0; r2 < D; ++r2)
-#pragma unroll
-    for (int c = 0; c <= r2; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = r2; m < D; ++m) acc += L[m][r2] * Lb[m][c];
-      Lb[r2][c] = r2 == c ? 0.5f * acc : acc;
-    }
-#pragma unroll
-  for (int r2 = 0; r2 < D; ++r2)
-#pragma unroll
-    for (int c = 0; c <= r2; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = c; m <= r2; ++m) acc += Lb[r2][m] * Li[m][c];
-      Lb[r2][c] = acc;
-    }
-  // T = Σ̄Σ̃ with Σ̄ = ½ω sym(E[Λ]) + r̃ sym(s̄₂).
-  float T[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int b = 0; b < D; ++b) {
-        float sb = 0.5f * omega * 0.5f * (e[S::PREC + i * D + b] + e[S::PREC + b * D + i]);
-        if (ds) sb += resp * 0.5f * (ds[1 + D + i * D + b] + ds[1 + D + b * D + i]);
-        acc += sb * C[b][j];
-      }
-      T[i][j] = acc;
-    }
-
-  // G (lower triangle), the symmetric derivative in J̃, read back through
-  // the Cholesky's lower triangle: P̄ₙ += diag G, E[Λ]‾ += tril(2G, −1) +
-  // diag G, plus the local KL's direct ½ω(Σ̃ + μ̃μ̃ᵀ).
-  float* dwt = s_dw + static_cast<size_t>(tid) * W;
-  float* pot = s_pot + static_cast<size_t>(tid) * P;
-  dwt[S::LOGPI] = rhobar - omega;
-  dwt[S::LOGDET] = 0.5f * (rhobar - omega);
-  dwt[S::QUAD] = 0.5f * (omega - rhobar);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    dwt[S::PM + i] = htb[i] - omega * mu[i];
-    pot[i] = htb[i];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float gl = 0.0f;
-      if (j <= i) {
-        float m_ij = 0.0f, m_ji = 0.0f;
-#pragma unroll
-        for (int m = i; m < D; ++m) m_ij += Li[m][i] * Lb[m][j];
-#pragma unroll
-        for (int m = i; m < D; ++m) m_ji += Li[m][j] * Lb[m][i];
-        float cpc = 0.0f;
-#pragma unroll
-        for (int b = 0; b < D; ++b) cpc += C[i][b] * T[b][j];
-        const float g = ldbar * C[i][j] - 0.5f * (cmb[i] * mu[j] + cmb[j] * mu[i]) - cpc +
-                        0.5f * (m_ij + m_ji);
-        gl = i == j ? g : 2.0f * g;
-        if (i == j) pot[D + i] = g;
-      }
-      dwt[S::PREC + i * D + j] = gl + 0.5f * omega * (C[i][j] + mu[i] * mu[j]);
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < R * P; idx += blockDim.x) {
-    const int r2 = idx / P, c = idx % P, n2 = blockIdx.x * R + r2;
-    if (n2 >= a.n) continue;
-    float acc = 0.0f;
-    for (int c2 = 0; c2 < K; ++c2) acc += s_pot[static_cast<size_t>(r2 * K + c2) * P + c];
-    if (c < D)
-      a.dph[static_cast<size_t>(n2) * D + c] = acc;
-    else
-      a.dpp[static_cast<size_t>(n2) * D + c - D] = acc;
-  }
-  if (a.partial) {
-    float* out = a.partial + static_cast<size_t>(blockIdx.x) * K * W;
-    for (int idx = tid; idx < K * W; idx += blockDim.x) {
-      float acc = 0.0f;
-      for (int r2 = 0; r2 < R; ++r2) acc += s_dw[static_cast<size_t>(r2 * K) * W + idx];
-      out[idx] = acc;
-    }
-  }
-}
-
 // log ρ per (n, k): one thread each.
 template <int D>
 __global__ void __launch_bounds__(kThreads) log_rho_fwd(RhoArgs a) {
@@ -447,21 +266,21 @@ __global__ void __launch_bounds__(kThreads) log_rho_fwd(RhoArgs a) {
   if (idx >= a.n * a.k) return;
   const int n = idx / a.k, kk = idx % a.k;
   float p[D], h[D];
-  load_row<D>(a.ph, a.pp, n, true, p, h);
+  comb::load_row<D>(a.ph, a.pp, n, true, p, h);
   float L[D][D], ht[D], mu[D], logdet_j, log_rho;
   tile_core<D>(a.w + static_cast<size_t>(kk) * Slot<D>::SIZE, p, h, L, ht, mu, logdet_j,
                log_rho);
   a.log_rho[idx] = log_rho;
 }
 
-// The recompute backward of log_rho_fwd, laid out as combine_bwd: a block
-// holds R whole rows of K, sums its rows' dph, dpp over k in shared memory
-// and writes its (K, 3 + D + D²) dw partial for reduce_blocks.
+// The recompute backward of log_rho_fwd: a block holds R whole rows of K,
+// sums its rows' dph, dpp over k in shared memory and writes its
+// (K, 3 + D + D²) dw partial for reduce_blocks.
 template <int D>
 __global__ void __launch_bounds__(kThreads) log_rho_bwd(RhoArgs a) {
   using S = Slot<D>;
   constexpr int W = S::SIZE, P = 2 * D;
-  const int K = a.k, R = rows_per_block(K);
+  const int K = a.k, R = rho_rows(K);
   const int tid = threadIdx.x, row = tid / K, kk = tid % K;
   const int n = blockIdx.x * R + row;
   const bool valid = n < a.n;
@@ -471,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) log_rho_bwd(RhoArgs a) {
 
   const float* e = a.w + static_cast<size_t>(kk) * W;
   float p[D], h[D];
-  load_row<D>(a.ph, a.pp, n, valid, p, h);
+  comb::load_row<D>(a.ph, a.pp, n, valid, p, h);
   float L[D][D], ht[D], mu[D], logdet_j, log_rho;
   tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
   float Li[D][D], C[D][D];
@@ -527,55 +346,6 @@ __global__ void reduce_blocks(const float* partial, int blocks, int len, float* 
   out[e] = s;
 }
 
-template <typename Kernel, typename Args>
-cudaError_t launch(Kernel kernel, const Args& a, int blocks, int threads, size_t bytes,
-                   int& opted, cudaStream_t st) {
-  if (static_cast<int>(bytes) > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    opted = static_cast<int>(bytes);
-  }
-  kernel<<<blocks, threads, bytes, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D, bool kNorm>
-cudaError_t forward_d(const FwdArgs& a, float* stats, cudaStream_t st) {
-  constexpr int F = 1 + D + D * D;
-  static int opted = 0;
-  const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
-  const size_t bytes = static_cast<size_t>(threads) * (2 + F) * sizeof(float);
-  cudaError_t err = launch(combine_fwd<D, kNorm>, a, blocks, threads, bytes, opted, st);
-  if (err != cudaSuccess) return err;
-  const int len = a.k * F;
-  reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, stats);
-  return cudaGetLastError();
-}
-
-template <int D, bool kNorm>
-cudaError_t backward_d(const BwdArgs& a, float* dw, cudaStream_t st) {
-  constexpr int W = Slot<D>::SIZE;
-  static int opted = 0;
-  const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
-  const size_t bytes = static_cast<size_t>(threads) * (2 + 2 * D + W) * sizeof(float);
-  cudaError_t err = launch(combine_bwd<D, kNorm>, a, blocks, threads, bytes, opted, st);
-  if (err != cudaSuccess || !a.partial) return err;
-  const int len = a.k * W;
-  reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, dw);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t forward_mode(const FwdArgs& a, float* stats, cudaStream_t st) {
-  return a.norm ? forward_d<D, true>(a, stats, st) : forward_d<D, false>(a, stats, st);
-}
-
-template <int D>
-cudaError_t backward_mode(const BwdArgs& a, float* dw, cudaStream_t st) {
-  return a.norm ? backward_d<D, true>(a, dw, st) : backward_d<D, false>(a, dw, st);
-}
-
 template <int D>
 cudaError_t rho_forward_d(const RhoArgs& a, cudaStream_t st) {
   const int total = a.n * a.k;
@@ -587,18 +357,34 @@ template <int D>
 cudaError_t rho_backward_d(const RhoArgs& a, float* dw, cudaStream_t st) {
   constexpr int W = Slot<D>::SIZE;
   static int opted = 0;
-  const int threads = rows_per_block(a.k) * a.k, blocks = blocks_for(a.n, a.k);
+  const int threads = rho_rows(a.k) * a.k, blocks = rho_groups(a.n, a.k);
   const size_t bytes = static_cast<size_t>(threads) * (2 * D + W) * sizeof(float);
-  cudaError_t err = launch(log_rho_bwd<D>, a, blocks, threads, bytes, opted, st);
+  if (static_cast<int>(bytes) > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        log_rho_bwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    opted = static_cast<int>(bytes);
+  }
+  log_rho_bwd<D><<<blocks, threads, bytes, st>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !a.partial) return err;
   const int len = a.k * W;
   reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, dw);
   return cudaGetLastError();
 }
 
-bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= kMaxK && s >= 1; }
+bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= comb::kMaxK && s >= 1; }
 
 }  // namespace
+
+cudaError_t svax::comb::launch_reduce(const float* partial, int blocks, int planes, int k, int d,
+                                      bool mirror, float* out, cudaStream_t st) {
+  const int len = planes * k;
+  reduce_planes<<<(len + kReduceLanes - 1) / kReduceLanes, kReduceLanes * kReduceGroups,
+                  sizeof(float) * kReduceLanes * kReduceGroups, st>>>(partial, blocks, planes, k,
+                                                                      d, mirror ? 1 : 0, out);
+  return cudaGetLastError();
+}
 
 // The switch over d in the kernels' shape class: CALL(D) for each.
 #define SVAX_BY_DIM(d, err, CALL)         \
@@ -614,24 +400,43 @@ bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= kMaxK && s 
 
 extern "C" {
 
-// Blocks for N points and K components: the partial buffers hold
-// blocks·K·F (forward) and blocks·K·(3 + d + d²) (backward) floats, for
-// the combine and the ρ-kernel alike.
-int combine_blocks(int n, int k) { return blocks_for(n, k); }
+// The combine's partial count for N points and K components at latent d:
+// kind 0 the forward (softmax), 1 its log_norm mode — (blocks, 1 + d +
+// d(d+1)/2, K) floats; 2 the backward with dw, 3 its log_norm mode — (2,
+// blocks, 3 + d + d², K). Negative: a CUDA error code, negated.
+int combine_grid(int n, int k, int d, int kind) {
+  if (!shape_ok(n, k, 1) || kind < 0 || kind > 3) return -static_cast<int>(cudaErrorInvalidValue);
+  int rows = 0, blocks = 0;
+  cudaError_t err;
+  if (kind >= 2) {
+    err = comb::full_grid(n, k, d, kind == 3, blocks);
+  } else {
+#define SVAX_CALL(D) \
+  (kind ? forward_plan<D, true>(n, k, rows, blocks) : forward_plan<D, false>(n, k, rows, blocks))
+    SVAX_BY_DIM(d, err, SVAX_CALL)
+#undef SVAX_CALL
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The ρ-kernels' blocks for N points and K components: rho_backward's
+// partial holds blocks·K·(3 + d + d²) floats.
+int rho_blocks(int n, int k) { return rho_groups(n, k); }
 
 // Forward: z (S, N, K, d), log r̃ (N, K), μ̃ (N, K, d), the local row (N,)
 // and the raw statistics (K, 1 + d + d²), unscaled and unsymmetrised.
 // norm (N,) null: the softmax over this K; else log r̃ = log ρ − norm.
+// partial: combine_grid(n, k, d, norm ? 1 : 0) · (1 + d + d(d+1)/2) · K floats.
 int combine_forward(const float* ph, const float* pp, const float* w, const float* eps,
                     const float* norm, int n, int k, int d, int s, unsigned long long seed,
                     unsigned int stream_id, float* z, float* log_resp, float* mean, float* local,
                     float* partial, float* stats, void* stream) {
   if (!shape_ok(n, k, s)) return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a{ph,       pp,   w,    eps,   norm,  n,      k,
-                  s,        seed, stream_id, z, log_resp, mean, local, partial};
+  const FwdArgs a{ph, pp, w, eps, norm, n, k, s, seed, stream_id, 0, 0, 0,
+                  z,  log_resp, mean, local, partial};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define SVAX_CALL(D) forward_mode<D>(a, stats, st)
+#define SVAX_CALL(D) (norm ? forward_d<D, true>(a, stats, st) : forward_d<D, false>(a, stats, st))
   SVAX_BY_DIM(d, err, SVAX_CALL)
 #undef SVAX_CALL
   return static_cast<int>(err);
@@ -639,22 +444,26 @@ int combine_forward(const float* ph, const float* pp, const float* w, const floa
 
 // Backward: the cotangents of pot_h, pot_p (N, d) and, when dw is not
 // null, of w (K, 3 + d + d²), from those of the forward's outputs (each
-// may be null: zero); with norm, also the normaliser's dn (N,).
+// may be null: zero); with norm, also the normaliser's dn (N,). A call with
+// no dstats and no dw (the train step's) runs combine_bwd_lean, which forms
+// only h̃̄ and diag G; any other the two halves of combine_bwd_full.cu.
+// partial (with dw): 2 · combine_grid(n, k, d, norm ? 3 : 2) · (3 + d + d²)
+// · K floats.
 int combine_backward(const float* ph, const float* pp, const float* w, const float* eps,
                      const float* norm, int n, int k, int d, int s, unsigned long long seed,
                      unsigned int stream_id, const float* dz, const float* dlr, const float* dmu,
                      const float* dlocal, const float* dstats, float* dph, float* dpp,
                      float* dn, float* partial, float* dw, void* stream) {
   if (!shape_ok(n, k, s) || (dw == nullptr) != (partial == nullptr) ||
-      (norm == nullptr) != (dn == nullptr))
+      (norm == nullptr) != (dn == nullptr) || (d != 2 && d != 3 && d != 4 && d != 6 &&
+                                               d != 8 && d != 10))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{ph,     pp,  w,      eps,    norm, n,   k,       s,  seed,
-                  stream_id, dz, dlr, dmu, dlocal, dstats, dph, dpp, partial, dn};
+  const BwdArgs a{ph, pp,  w,   eps, norm,   n,      k,   s,   seed,    stream_id, 0,
+                  0,  0,   dz,  dlr, dmu,    dlocal, dstats, dph, dpp, partial, dn};
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define SVAX_CALL(D) backward_mode<D>(a, dw, st)
-  SVAX_BY_DIM(d, err, SVAX_CALL)
-#undef SVAX_CALL
+  const cudaError_t err = (dstats == nullptr && dw == nullptr)
+                              ? comb::backward_lean(a, d, st)
+                              : comb::backward_full(a, d, dw, st);
   return static_cast<int>(err);
 }
 
@@ -672,7 +481,8 @@ int rho_forward(const float* ph, const float* pp, const float* w, int n, int k, 
 }
 
 // Its backward: the cotangents of pot_h, pot_p (N, d) and, when dw is not
-// null, of w (K, 3 + d + d²) from drho (N, K).
+// null, of w (K, 3 + d + d²) from drho (N, K); partial: rho_blocks(n, k) ·
+// K · (3 + d + d²) floats.
 int rho_backward(const float* ph, const float* pp, const float* w, const float* drho, int n,
                  int k, int d, float* dph, float* dpp, float* partial, float* dw, void* stream) {
   if (!shape_ok(n, k, 1) || (dw == nullptr) != (partial == nullptr))

@@ -9,6 +9,14 @@ reference, and its hand-written backward against autograd.
   that test's ``_scalar_through`` functional, at its 5e-4;
 * ``combine_grads_manual`` (the formulas the CUDA backward transcribes)
   against autograd in float64 at d = 2, 3, 4, 8, 10, at 1e-10;
+* the mirrors of the redesigned kernels' formulas in float64:
+  ``combine_grads_lean`` (the train step's backward, h̃̄ and diag G only)
+  against autograd at d = 2, 8, 10, and ``combine_grads_split`` (the two
+  halves of the backward with dw) adding up to ``combine_grads_manual``;
+* the Python mirror of the kernels' block plan: every row owned once, the
+  partial counts the wrapper allocates, and the forward's statistics summed
+  in the plan's order from the kernel's per-pair terms (the lower triangle,
+  mirrored) equal to the plain version's;
 * ``svae.forward``'s fused branch against the JAX forward with the kernel
   bodies interpreted: values, NN gradients and the descriptive error;
 * ``eps=None`` without a seed raises.
@@ -154,6 +162,145 @@ def test_manual_backward_matches_autograd(n, k, d, s):
             np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-10,
                                        atol=1e-10 * float(ref.abs().max()),
                                        err_msg=f"{what} through paths {list(paths)}")
+
+
+def _f64_case(n, k, d, s, seed):
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    pot_h = torch.tensor(rng.standard_normal((n, d)), dtype=f64)
+    pot_p = torch.tensor(0.3 + rng.random((n, d)), dtype=f64)
+    prior = gmm.make_prior(k, d, dtype=f64)
+    nat = gmm.init_variational(torch.Generator().manual_seed(seed), prior)
+    w = combine.pack_expected(gmm.expected_params(nat))
+    eps = torch.tensor(rng.standard_normal((s, n, k, d)), dtype=f64)
+    shapes = [(s, n, k, d), (n, k), (n, k, d), (n,), (k, combine.stats_width(d))]
+    cts = [torch.tensor(rng.standard_normal(sh), dtype=f64) for sh in shapes]
+    return pot_h, pot_p, w, eps, cts
+
+
+@pytest.mark.parametrize("n,k,d,s", [(7, 3, 2, 2), (4, 3, 8, 1), (3, 4, 10, 2)])
+def test_lean_backward_mirror_matches_autograd(n, k, d, s):
+    """combine_grads_lean (combine_bwd_lean's formulas: h̃̄ and diag G, the
+    Cholesky term from ε and L̃⁻¹z̄ alone) against autograd of
+    combine_fused_plain in float64, with the train step's cotangents (z,
+    log r̃, the local row), with μ̃'s added, and each alone."""
+    pot_h, pot_p, w, eps, cts = _f64_case(n, k, d, s, d + 10)
+    exp = combine.unpack_expected(w, d)
+    for paths in ([0, 1, 3], [0, 1, 2, 3], [0], [1], [2], [3]):
+        c = [cts[j] if j in paths else None for j in range(4)]
+        leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p)]
+        z, lr, mean, local, _ = combine.combine_fused_plain(leaves[0], leaves[1], exp, eps, s)
+        loss = sum((o * ct).sum() for o, ct in zip((z, lr, mean, local), c) if ct is not None)
+        want = torch.autograd.grad(loss, leaves)
+        got = combine.combine_grads_lean(pot_h, pot_p, w, eps, *c)
+        for g, ref, what in zip(got, want, ("pot_h", "pot_p")):
+            np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-10,
+                                       atol=1e-10 * float(ref.abs().max()),
+                                       err_msg=f"{what} through paths {paths}")
+
+
+@pytest.mark.parametrize("n,k,d,s", [(7, 3, 2, 2), (4, 3, 8, 1), (3, 4, 10, 2)])
+def test_split_backward_halves_add_up_to_the_manual_backward(n, k, d, s):
+    """combine_grads_split's sampling half (z̄, lr̄, μ̄; its Cholesky term as
+    −AᵀP) and local/statistics half (local̄, s̄; Σ̃Σ̄Σ̃ with Σ̄ = ½ω sym(E[Λ])
+    + r̃ sym(s̄₂)) add up to combine_grads_manual, every path and all
+    together, in float64."""
+    pot_h, pot_p, w, eps, cts = _f64_case(n, k, d, s, d + 20)
+    for paths in [range(5)] + [[j] for j in range(5)]:
+        c = [cts[j] if j in paths else None for j in range(5)]
+        sample, local = combine.combine_grads_split(pot_h, pot_p, w, eps, *c)
+        want = combine.combine_grads_manual(pot_h, pot_p, w, eps, *c)
+        for a, b, ref, what in zip(sample, local, want, ("pot_h", "pot_p", "w")):
+            np.testing.assert_allclose((a + b).numpy(), ref.numpy(), rtol=1e-10,
+                                       atol=1e-10 * float(ref.abs().max()),
+                                       err_msg=f"{what} through paths {list(paths)}")
+
+
+@pytest.mark.parametrize("threads", [combine.BLOCK_THREADS, combine.FULL_THREADS])
+def test_block_plan_owns_every_row_once(threads):
+    """Every row is walked by exactly one thread row of one block, each
+    block's rows are one contiguous run of row groups in order, R·K fits
+    the block and fills four warps where K allows, the grid is the row
+    groups capped by the card's capacity, and the last group's padding
+    (rows past N) is left out."""
+    for n, k, sms, cap in [(1024, 100, 132, 132), (1024, 100, 132, 2000), (256, 10, 132, 264),
+                           (512, 100, 132, 132), (1024, 50, 132, 264), (77, 13, 3, 6),
+                           (5, 128, 2, 3), (400, 5, 132, 1), (1, 1, 1, 10), (5000, 3, 8, 16)]:
+        blocks = combine.grid_blocks(n, k, threads, sms, cap)
+        r_count = combine.rows_per_block(n, k, threads, sms)
+        assert r_count * k <= max(threads, k) and (r_count * k >= 128 or k * (r_count + 1) > 128)
+        assert blocks == min(-(-n // r_count), cap)
+        owned = []
+        for b in range(blocks):
+            rows = combine.block_rows(b, n, k, threads, sms, blocks)
+            assert len(rows) == r_count
+            groups = sorted({row // r_count for rr in rows for row in rr})
+            assert groups == list(range(groups[0], groups[-1] + 1))
+            for rr in rows:
+                assert rr == sorted(rr)
+                owned += rr
+        assert sorted(owned) == list(range(n))
+
+
+@pytest.mark.parametrize("d", [2, 8, 10])
+def test_forward_statistics_in_the_plans_order(d):
+    """The forward's partial holds [count, μ̃, the lower triangle of Σ̃ +
+    μ̃μ̃ᵀ] per component (partial_planes rows; the wrapper allocates grid ×
+    partial_planes(d) × K floats); those per-pair terms, summed in the plan's
+    order and the triangle mirrored, give the plain version's raw
+    statistics (float64), and the order's sum is deterministic in float32."""
+    n, k, s = 45, 7, 1
+    pot_h, pot_p, w, eps, _ = _f64_case(n, k, d, s, d)
+    raw = combine.combine_raw_plain(pot_h, pot_p, w, eps)[4]
+    post = svae.sin_combine(pot_h, pot_p, combine.unpack_expected(w, d))
+    resp = torch.exp(post.log_resp)
+    ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
+    rows, cols = torch.tril_indices(d, d)
+    terms = torch.cat([resp[..., None], resp[..., None] * post.mean,
+                       resp[..., None] * ezz[..., rows, cols]], dim=-1)  # (N, K, planes)
+    assert terms.shape[-1] == combine.partial_planes(d) == 1 + d + d * (d + 1) // 2
+    for sms, cap in ((1, 1), (2, 3), (132, 264)):
+        blocks = combine.grid_blocks(n, k, combine.BLOCK_THREADS, sms, cap)
+        summed = combine.plan_sum(terms, k, combine.BLOCK_THREADS, sms, blocks)  # (K, planes)
+        scatter = torch.zeros((k, d, d), dtype=torch.float64)
+        scatter[:, rows, cols] = summed[:, 1 + d:]
+        scatter[:, cols, rows] = summed[:, 1 + d:]
+        got = torch.cat([summed[:, :1 + d], scatter.flatten(1)], dim=1)
+        np.testing.assert_allclose(got.numpy(), raw.numpy(), rtol=1e-12, atol=1e-12)
+        t32 = terms.float()
+        assert torch.equal(combine.plan_sum(t32, k, combine.BLOCK_THREADS, sms, blocks),
+                           combine.plan_sum(t32, k, combine.BLOCK_THREADS, sms, blocks))
+
+
+def test_kernel_resources_reads_each_instantiation():
+    """measure_mnist.kernel_resources (what chip_smoke.py's ptxas checks
+    read) names each instantiation with its integer and boolean template
+    arguments and pairs it with its own spill and register lines."""
+    from svax_torch.measure_mnist import kernel_resources
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1_10_combine_cu_2"
+        "16combine_bwd_leanILi10ELb1EEEvN4svax4comb7BwdArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 221 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111combine_fwdILi8ELb0EEEvN4s"
+        "vax4comb7FwdArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110rowsum_fwdIN9lastlayer4CfgFI"
+        "Li32ELi16EEELi3EEEvPKf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 52 registers, used 1 barriers"])
+    assert kernel_resources(log, "combine_bwd") == [
+        "combine_bwd_lean<10, 1>: 221 registers, 32 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads"]
+    assert kernel_resources(log, "combine_fwd") == [
+        "combine_fwd<8, 0>: 128 registers, 0 bytes stack frame, 4 bytes spill stores, "
+        "8 bytes spill loads"]
+    assert kernel_resources(log, "rowsum_fwd") == [
+        "rowsum_fwd<32, 16, 3>: 52 registers, 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads"]
 
 
 def test_raw_statistics_and_packing():

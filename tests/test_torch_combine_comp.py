@@ -12,7 +12,11 @@ against autograd.
   the softmax mode;
 * ``combine_grads_manual(log_norm=)``, including the normaliser's
   cotangent dn, and ``log_rho_grads_manual`` (the formulas the CUDA
-  kernels transcribe) against autograd in float64 at 1e-10.
+  kernels transcribe) against autograd in float64 at 1e-10;
+* in the log_norm mode, the mirrors of the redesigned backwards:
+  ``combine_grads_lean(log_norm=)`` against autograd (dn among the
+  gradients) at d = 2, 8, 10, and ``combine_grads_split(log_norm=)``'s
+  halves adding up to ``combine_grads_manual(log_norm=)``.
 """
 
 import jax
@@ -198,6 +202,49 @@ def test_manual_log_norm_backward_matches_autograd(n, k, d, s):
                 for g, t in zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
         got = combine.combine_grads_manual(pot_h, pot_p, w, eps, *c, log_norm=log_norm)
         _assert_grads(got, want, ("pot_h", "pot_p", "w", "dn"),
+                      f"through paths {list(paths)}")
+
+
+@pytest.mark.parametrize("n,k,d,s", [(7, 3, 2, 2), (4, 3, 8, 1), (3, 4, 10, 2)])
+def test_lean_log_norm_backward_mirror_matches_autograd(n, k, d, s):
+    """combine_grads_lean(log_norm=) (combine_bwd_lean's log_norm mode: h̃̄,
+    diag G and dn = −Σ_k lr̄) against autograd of combine_fused_plain in
+    float64, with the train step's cotangents (z, log r̃, the local row) and
+    each alone."""
+    rng, pot_h, pot_p, w, eps = _f64_inputs(n, k, d, s, d + 3)
+    exp = combine.unpack_expected(w, d)
+    log_norm = (torch.logsumexp(combine.log_rho_plain(pot_h, pot_p, exp), -1)
+                + torch.tensor(rng.random(n)))
+    shapes = [(s, n, k, d), (n, k), (n, k, d), (n,)]
+    cts = [torch.tensor(rng.standard_normal(sh), dtype=torch.float64) for sh in shapes]
+    for paths in ([0, 1, 3], [0, 1, 2, 3], [0], [1], [3]):
+        c = [cts[j] if j in paths else None for j in range(4)]
+        leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p, log_norm)]
+        z, lr, mean, local, _ = combine.combine_fused_plain(leaves[0], leaves[1], exp, eps, s,
+                                                            log_norm=leaves[2])
+        loss = sum((o * ct).sum() for o, ct in zip((z, lr, mean, local), c) if ct is not None)
+        want = [torch.zeros_like(t) if g is None else g
+                for g, t in zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
+        got = combine.combine_grads_lean(pot_h, pot_p, w, eps, *c, log_norm=log_norm)
+        _assert_grads(got, want, ("pot_h", "pot_p", "dn"), f"through paths {paths}")
+
+
+@pytest.mark.parametrize("n,k,d,s", [(7, 3, 2, 2), (4, 3, 8, 1), (3, 4, 10, 2)])
+def test_split_log_norm_backward_halves_add_up(n, k, d, s):
+    """combine_grads_split(log_norm=)'s two halves add up to
+    combine_grads_manual(log_norm=), dn included, every path and all
+    together, in float64."""
+    rng, pot_h, pot_p, w, eps = _f64_inputs(n, k, d, s, d + 4)
+    log_norm = (torch.logsumexp(combine.log_rho_plain(pot_h, pot_p,
+                                                      combine.unpack_expected(w, d)), -1)
+                + torch.tensor(rng.random(n)))
+    shapes = [(s, n, k, d), (n, k), (n, k, d), (n,), (k, combine.stats_width(d))]
+    cts = [torch.tensor(rng.standard_normal(sh), dtype=torch.float64) for sh in shapes]
+    for paths in [range(5)] + [[j] for j in range(5)]:
+        c = [cts[j] if j in paths else None for j in range(5)]
+        sample, local = combine.combine_grads_split(pot_h, pot_p, w, eps, *c, log_norm=log_norm)
+        want = combine.combine_grads_manual(pot_h, pot_p, w, eps, *c, log_norm=log_norm)
+        _assert_grads([a + b for a, b in zip(sample, local)], want, ("pot_h", "pot_p", "w", "dn"),
                       f"through paths {list(paths)}")
 
 

@@ -1,7 +1,10 @@
 """The combine CUDA kernels on the card: forward and backward against their
 plain version at d ∈ {2, 3, 4, 6, 8, 10} (the mnist and bigk shapes among
-them), bit-equal reruns, the in-kernel ε, and the wrapper raising (not
-falling back) outside its shape class.
+them), the train step's backward (combine_bwd_lean: the cotangents of z,
+log r̃ and the local row only, no dw) at every d at the mnist, bigk and a
+ragged shape, which calls take which backward, the grid against the
+Python mirror of the block plan, bit-equal reruns, the in-kernel ε, and
+the wrapper raising (not falling back) outside its shape class.
 
 Every test needs a CUDA device and skips without one. The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from svax_torch.models import svae
-from svax_torch.ops import combine
+from svax_torch.ops import _build, combine
 from svax_torch.pgm import gmm
 
 torch.set_num_threads(1)
@@ -99,6 +102,93 @@ def test_kernel_matches_plain(dev, n, k, d, s):
             _close(g, w, GRAD_TOL, GRAD_TOL * scale, f"{what} through {paths}")
     torch.cuda.synchronize()
     assert combine.backward_launches > before[1]
+
+
+def _pot_grads(fn, pot_h, pot_p, exp, cts):
+    """Gradients of Σ_i ⟨output_i, ct_i⟩ w.r.t. pot_h and pot_p only (the
+    expected parameters constant, as in the train step)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (pot_h, pot_p)]
+    outs = _outputs(fn(leaves[0], leaves[1], exp))
+    loss = sum((outs[name] * ct).sum() for name, ct in cts.items())
+    return torch.autograd.grad(loss, leaves)
+
+
+MAIN_PATH = ("z", "log_resp", "local")  # the outputs the train step differentiates
+
+
+@pytest.mark.parametrize("d", combine.LATENT_DIMS)
+@pytest.mark.parametrize("n,k", [(256, 10), (1024, 100), (77, 13)], ids=["mnist", "bigk", "ragged"])
+def test_main_path_backward_matches_plain(dev, n, k, d):
+    """The train step's call (cotangents of z, log r̃ and the local row; no
+    dw) runs combine_bwd_lean and matches the plain version, with injected
+    and with in-kernel ε; reruns are bit-equal."""
+    s = 1
+    pot_h, pot_p, exp, eps = _inputs(dev, n, k, d, s, seed=d)
+    rng = np.random.default_rng(d)
+    shapes = {"z": (s, n, k, d), "log_resp": (n, k), "local": (n,)}
+    cts = {name: torch.tensor(rng.standard_normal(sh), dtype=torch.float32, device=dev)
+           for name, sh in shapes.items()}
+    before = (combine.lean_backward_launches, combine.backward_launches)
+    got = _pot_grads(lambda a, b, e: combine.combine_fused(a, b, e, eps, s),
+                     pot_h, pot_p, exp, cts)
+    torch.cuda.synchronize()
+    assert (combine.lean_backward_launches, combine.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _pot_grads(lambda a, b, e: combine.combine_fused_plain(a, b, e, eps, s),
+                      pot_h, pot_p, exp, cts)
+    for g, w, what in zip(got, want, ("pot_h", "pot_p")):
+        _close(g, w, GRAD_TOL, GRAD_TOL * float(w.abs().max()), what)
+    seeded = [_pot_grads(lambda a, b, e: combine.combine_fused(a, b, e, None, s, seed=5, step=2),
+                         pot_h, pot_p, exp, cts) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*seeded))
+    z = combine.combine_fused(pot_h, pot_p, exp, None, s, seed=5, step=2)[0]
+    post = svae.sin_combine(pot_h.double(), pot_p.double(),
+                            gmm.GmmExpected(*(t.double() for t in exp)))
+    rec = (post.prec_chol.mT @ (z[0].double() - post.mean)[..., None])[..., 0]
+    recovered = _pot_grads(lambda a, b, e: combine.combine_fused(a, b, e, rec[None].float(), s),
+                           pot_h, pot_p, exp, cts)
+    for g, w, what in zip(seeded[0], recovered, ("pot_h", "pot_p")):
+        _close(g, w, GRAD_TOL, GRAD_TOL * float(w.abs().max()), f"seeded {what}")
+
+
+def test_calls_with_dstats_or_dw_take_the_full_backward(dev):
+    n, k, d, s = 64, 7, 4, 1
+    pot_h, pot_p, exp, eps = _inputs(dev, n, k, d, s)
+    rng = np.random.default_rng(0)
+    want = _outputs(combine.combine_fused_plain(pot_h, pot_p, exp, eps, s))
+    cts = {name: torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32, device=dev)
+           for name, t in want.items()}
+    kern = lambda a, b, e: combine.combine_fused(a, b, e, eps, s)  # noqa: E731
+    main = {name: cts[name] for name in MAIN_PATH}
+    for grads, sub, variant in ((_pot_grads, main, "lean"),
+                                (_pot_grads, {**main, "mean": cts["mean"]}, "lean"),
+                                (_pot_grads, {**main, "stats": cts["stats"]}, "full"),
+                                (_grads, main, "full"), (_grads, cts, "full")):
+        before = (combine.lean_backward_launches, combine.backward_launches)
+        grads(kern, pot_h, pot_p, exp, sub)
+        torch.cuda.synchronize()
+        assert combine.backward_launches == before[1] + 1
+        assert combine.lean_backward_launches == before[0] + (variant == "lean"), (sub, variant)
+        assert combine.backward_variant("stats" in sub, grads is _grads) == variant
+
+
+@pytest.mark.parametrize("d", [2, 8, 10])
+def test_grid_is_the_plans(dev, d):
+    """combine_grid's partial counts follow the Python plan: the row groups
+    of R = rows_per_block(N, K, threads, SMs) rows, or fewer where the card
+    cannot hold them all at once — then a whole number of blocks an SM."""
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind in range(4):
+        threads = combine.BLOCK_THREADS if kind < 2 else combine.FULL_THREADS
+        for k in (1, 5, 10, 13, 50, 100, 128):
+            for n in (1, 7, 77, 256, 512, 1024, 5000, 1 << 20):
+                blocks = lib.combine_grid(n, k, d, kind)
+                groups = combine.row_groups(n, k, threads, sms)
+                assert 1 <= blocks <= groups, (kind, k, n, blocks, groups)
+                assert blocks == groups or blocks % sms == 0, (kind, k, n, blocks, sms)
+            assert lib.combine_grid(1 << 20, k, d, kind) < combine.row_groups(1 << 20, k,
+                                                                              threads, sms)
 
 
 def test_reruns_are_bit_equal(dev):

@@ -2,8 +2,12 @@
 (``log_rho_fused``, forward and backward) and the combine's log_norm mode
 (forward and backward, with the normaliser's cotangent) against their plain
 versions at the bigk (N = 1024, K = 100 in shards of 50, d = 10, S = 1) and
-pinwheel (N = 400, K = 10 in shards of 5, d = 2, S = 4) shard shapes,
-bit-equal reruns, and the wrappers raising outside their shape class.
+pinwheel (N = 400, K = 10 in shards of 5, d = 2, S = 4) shard shapes; the
+log_norm mode's train-step backward (combine_bwd_lean: the cotangents of
+z, log r̃ and the local row, dn among the gradients, no dw) at every d at
+those shards, the mnist and bigk shapes and a ragged one; bit-equal
+reruns, and the wrappers raising
+outside their shape class.
 
 Every test needs a CUDA device and skips without one. The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -164,6 +168,41 @@ def test_two_shards_equal_the_unsharded_combine(dev, label):
 
     _held(_grads(sharded, (pot_h, pot_p, *exp), scalar),
           _grads(whole, (pot_h, pot_p, *exp), scalar), f"{label} sharded gradients")
+
+
+@pytest.mark.parametrize("d", combine.LATENT_DIMS)
+@pytest.mark.parametrize("n,k", [(1024, 50), (400, 5), (256, 10), (1024, 100), (77, 13)],
+                         ids=["bigk shard", "pinwheel shard", "mnist", "bigk", "ragged"])
+def test_main_path_log_norm_backward_matches_plain(dev, n, k, d):
+    """The train step's call on a K-shard (cotangents of z, log r̃ and the
+    local row; the potentials' and the normaliser's gradients, no dw) runs
+    the log_norm mode's combine_bwd_lean and matches the plain version;
+    reruns are bit-equal."""
+    s = 1
+    pot_h, pot_p, exp, eps, rng = _inputs(dev, n, k, d, s, seed=d)
+    # The normaliser of a wider mixture: this shard's lse plus the others'.
+    lse = (torch.logsumexp(combine.log_rho_plain(pot_h, pot_p, exp), dim=-1)
+           + torch.tensor(rng.random(n), dtype=torch.float32, device=dev))
+    shapes = {"z": (s, n, k, d), "log_resp": (n, k), "local": (n,)}
+    cts = {m: torch.tensor(rng.standard_normal(sh), dtype=torch.float32, device=dev)
+           for m, sh in shapes.items()}
+    loss = lambda out: sum((_outputs(out)[m] * cts[m]).sum() for m in cts)  # noqa: E731
+
+    def kern(a, b, nrm, e=eps):
+        return combine.combine_fused(a, b, exp, e, s, log_norm=nrm)
+
+    before = (combine.norm_lean_backward_launches, combine.norm_backward_launches)
+    got = _grads(kern, (pot_h, pot_p, lse), loss)
+    torch.cuda.synchronize()
+    assert (combine.norm_lean_backward_launches, combine.norm_backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _grads(lambda a, b, nrm: combine.combine_fused_plain(a, b, exp, eps, s, log_norm=nrm),
+                  (pot_h, pot_p, lse), loss)
+    _held(got, want, f"n={n} k={k} d={d} main-path log_norm backward")
+    seeded = lambda a, b, nrm: combine.combine_fused(  # noqa: E731
+        a, b, exp, None, s, seed=3, step=1, log_norm=nrm)
+    assert all(torch.equal(x, y) for x, y in zip(_grads(seeded, (pot_h, pot_p, lse), loss),
+                                                 _grads(seeded, (pot_h, pot_p, lse), loss)))
 
 
 def test_wrappers_raise_outside_the_shape_class(dev):
