@@ -25,9 +25,14 @@ else. Phases (any failure raises and the exit code is non-zero):
    k-means++ state, at tests/test_mixstep_kernel.py's tolerances; then
    both timed per step (the kernel in chunks of 10,000 steps, the plain
    version in chunks of 100);
-7. the estep kernel against its plain version at N=400, K=10, d=2 and at
-   N=65,536, K=128, d=10 (seeded numpy data as in
-   benchmarks/bench_estep.py), at bench_estep.py's bars; then both timed;
+7. ptxas's line for every estep_tiles instantiation (the phase fails on
+   a missing line or a spill); the estep kernel against its plain version
+   at N=400, K=10, d=2 and at N=65,536, K=128, d=10 (seeded numpy data as
+   in benchmarks/bench_estep.py), at bench_estep.py's bars, reruns
+   bit-equal; then, in a fresh process (``measure_mixture.estep_times``),
+   the kernel alone (profiler device time of every launch of a call), the
+   kernels a call launches (one at N=400, or the phase fails), the wrapper
+   and the plain version, beside the bound at both shapes;
 8. the mixture main paths: ``svax_torch.train_gmm --config pinwheel-gmm
    --init kmeanspp`` on the kernel engine twice (mixstep launched, every
    value finite, the elbo not falling across the rows, the runs
@@ -207,34 +212,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_fresh(func: str, n: int, k: int, d: int, s: int) -> dict:
-    """``svax_torch.measure_mnist.<func>(cuda:0, n, k, d, s)`` in a fresh
-    process from this checkout, which loads the kernel library phase 2
-    built. torch.profiler has dropped all of a short profile's device
-    events late in a long process, so the per-call profiles are taken in a
-    process of their own. A child whose profile still read no device time
-    for a kernel it launched is run once more; any other failure raises."""
+def timed_fresh(func: str, *args: int, module: str = "measure_mnist") -> dict:
+    """``svax_torch.<module>.<func>(cuda:0, *args)`` in a fresh process from
+    this checkout, which loads the kernel library phase 2 built (no
+    arguments: ``<func>()``). torch.profiler has dropped all of a short
+    profile's device events late in a long process, so the per-call
+    profiles are taken in a process of their own. A child whose profile
+    still read no device time for a kernel it launched is run once more;
+    any other failure raises."""
     from pathlib import Path
 
     code = ("import json, sys, torch\n"
-            "from svax_torch import measure_mnist\n"
+            f"from svax_torch import {module} as mod\n"
             "torch.backends.cuda.matmul.allow_tf32 = False\n"
-            "t = getattr(measure_mnist, sys.argv[1])(torch.device('cuda', 0), "
-            "*map(int, sys.argv[2:]))\n"
+            "a = [int(v) for v in sys.argv[2:]]\n"
+            "t = getattr(mod, sys.argv[1])(*([torch.device('cuda', 0), *a] if a else []))\n"
             "print('RESULT ' + json.dumps(t))\n")
+    what = f"{func}{tuple(args) if args else ''}"
     for attempt in range(2):
-        out = subprocess.run([sys.executable, "-c", code, func, *map(str, (n, k, d, s))],
+        out = subprocess.run([sys.executable, "-c", code, func, *map(str, args)],
                              cwd=Path(__file__).resolve().parent, capture_output=True,
                              text=True, timeout=600)
         if out.returncode == 0:
             return json.loads([ln for ln in out.stdout.splitlines()
                                if ln.startswith("RESULT ")][-1][len("RESULT "):])
         if attempt == 0 and "recorded no device time" in out.stderr:
-            print(f"{func} at N={n} K={k} d={d} S={s}: the profile read no device time; "
-                  "once more in another fresh process", flush=True)
+            print(f"{what}: the profile read no device time; once more in another fresh "
+                  "process", flush=True)
             continue
-        raise RuntimeError(f"{func} at N={n} K={k} d={d} S={s} in a fresh process exited "
-                           f"{out.returncode}:\n{out.stderr[-4000:]}")
+        raise RuntimeError(f"{what} in a fresh process exited {out.returncode}:\n"
+                           f"{out.stderr[-4000:]}")
     raise AssertionError("unreachable")
 
 
@@ -359,6 +366,39 @@ def combine_ptxas(phase: str) -> None:
         raise RuntimeError(f"phase {phase}: no ptxas line for {sorted(missing)}")
 
 
+ESTEP_INSTANCES = {(kq, fm) for kq in (1, 2, 4, 8) for fm in range(1, 6)}
+
+
+def estep_ptxas(phase: str) -> None:
+    """Print ptxas's line for every estep_tiles instantiation (component
+    pairs × feature tiles) and for estep_reduce; raise if one is missing or
+    spills."""
+    from svax_torch.measure_mnist import kernel_resources
+    from svax_torch.ops import _build
+
+    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
+    lines = kernel_resources(_build.build_log, "estep_tiles")
+    seen = set()
+    for line in lines:
+        print(f"phase {phase}: ptxas {line}", flush=True)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill is None or int(spill.group(1)) != 0:
+            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
+        m = re.match(r"estep_tiles<(\d+), (\d+)>", line)
+        if m:
+            seen.add((int(m.group(1)), int(m.group(2))))
+    missing = ESTEP_INSTANCES - seen
+    if missing:
+        raise RuntimeError(f"phase {phase}: no ptxas line for estep_tiles{sorted(missing)}")
+    # estep_reduce is not a template: its entry, then its spill and register lines.
+    m = re.search(r"Compiling entry function '\w*estep_reduce\w*'.*?(\d+) bytes spill stores"
+                  r".*?Used (\d+) registers", _build.build_log, re.S)
+    if m is None or int(m.group(1)) != 0:
+        raise RuntimeError(f"phase {phase}: estep_reduce: no ptxas line, or it spills")
+    print(f"phase {phase}: ptxas estep_reduce: {m.group(2)} registers, 0 bytes spill stores",
+          flush=True)
+
+
 def combine_times_line(t: dict, prefix: str, fb, ab, bb) -> str:
     """Phases C and H: the combine's per-call device times (``time_combine``'s
     keys after ``prefix``) in both configurations, kernel and cross-block
@@ -377,11 +417,11 @@ def combine_times_line(t: dict, prefix: str, fb, ab, bb) -> str:
 
 def mixture_phases(card: str) -> list:
     """Phases 6–8; returns the mixstep and estep entries of the kernels line."""
-    import numpy as np
     import torch
 
     from svax_torch import train_gmm, train_smm
     from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.measure_mixture import ESTEP_SHAPES, estep_bound, estep_inputs
     from svax_torch.models.gmm_baseline import GmmTrainState
     from svax_torch.models.smm_baseline import SmmTrainState
     from svax_torch.ops import estep, mixstep
@@ -422,13 +462,10 @@ def mixture_phases(card: str) -> list:
               f"{times[name][1]:.4f} ms (chunks of {t_plain}); {card}")
 
     # 7. estep against plain, pinwheel shape and the design shape
-    est = {}
-    for n, k, d in ((400, 10, 2), (65536, 128, 10)):
-        rng = np.random.default_rng(0)
-        xe = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        pe = gmm.make_prior(k, d, device=dev)
-        exp = gmm.expected_params(gmm.init_variational(gen, pe, xe))
+    estep_ptxas("7")
+    est_err, est = {}, {}
+    for n, k, d in ESTEP_SHAPES.values():
+        xe, exp = estep_inputs(dev, n, k, d)
         stats, ev = estep.e_step_stats_fused(xe, exp)
         torch.cuda.synchronize()
         ref, ref_ev = estep.e_step_stats_reference(xe, exp)
@@ -442,20 +479,26 @@ def mixture_phases(card: str) -> list:
         again, ev2 = estep.e_step_stats_fused(xe, exp)
         assert all(torch.equal(a_, b_) for a_, b_ in zip(stats, again)) and \
             torch.equal(ev, ev2), "two estep calls differ"
-        reps = 20
-        w = estep.pack_coeffs(exp, dtype=torch.float32).contiguous()
-        raw_ms = time_per_step(lambda: [estep.stats_kernel(xe, w) for _ in range(reps)],
-                               reps)
-        k_ms = time_per_step(lambda: [estep.e_step_stats_fused(xe, exp)
-                                      for _ in range(reps)], reps)
-        p_ms = time_per_step(lambda: [estep.e_step_stats_reference(xe, exp)
-                                      for _ in range(reps)], reps)
-        est[(n, k, d)] = (abs_err, k_ms, p_ms)
+        est_err[(n, k, d)] = (abs_err, rel, ev_err)
+    # The times from a fresh process (the kernel alone under torch.profiler,
+    # the wrapper and the plain version by CUDA events), as phases C and H.
+    etimes = timed_fresh("estep_times", module="measure_mixture")
+    for label, (n, k, d) in ESTEP_SHAPES.items():
+        t, b = etimes[label], estep_bound(n, k, d)
+        abs_err, rel, ev_err = est_err[(n, k, d)]
+        if n == 400 and (t["kernels"] != 1 or t["estep_kernels"] != 1):
+            raise AssertionError(f"estep at N=400: {t['kernels']} device kernels a call "
+                                 f"({t['estep_kernels']} of estep), not one launch")
+        est[label] = (t, b)
         print(f"phase 7: estep vs plain at N={n} K={k} d={d}: stats max err / max|ref| "
               f"{rel:.3e} (bar 5e-5), max abs err {abs_err:.3e}, evidence max abs err "
-              f"{ev_err:.3e} (bar 1e-3), reruns bit-equal; per call: kernel "
-              f"{k_ms:.4f} ms (the kernel call alone {raw_ms:.4f} ms), plain "
-              f"{p_ms:.4f} ms; {card}")
+              f"{ev_err:.3e} (bar 1e-3), reruns bit-equal; per call: the kernel alone "
+              f"{t['kernel_ms']:.4f} ms (profiler, {t['estep_kernels']:g} launches, "
+              f"{t['kernels']:g} device kernels a call), the wrapper {t['wrapper_ms']:.4f} ms "
+              f"(CUDA events, back to back), plain {t['plain_ms']:.4f} ms (events; its "
+              f"kernels {t['plain_device_ms']:.4f} ms); bound {b['ms'] * 1e3:.4g} us, "
+              f"{b['by']} (three TF32 passes over F' = {1 + d + d * (d + 1) // 2}; f32 FMAs "
+              f"over F = {1 + d + d * d}: {b['f32_fma_ms'] * 1e3:.4g} us); {card}")
 
     # 8. the mixture main paths
     argv = ["--config", "pinwheel-gmm", "--init", "kmeanspp", "--device", "cuda"]
@@ -497,7 +540,8 @@ def mixture_phases(card: str) -> list:
           f"{smm_launches} mixstep launches, {smm_run['steps_per_s']:.1f} steps/s, "
           f"final elbo {smm_run['rows'][-1]['elbo']:.4f}; {card}")
 
-    abs_err, k_ms, p_ms = est[(400, 10, 2)]
+    abs_err = est_err[ESTEP_SHAPES["pinwheel"]][0]
+    (t_e, b_e), (t_design, b_design) = est["pinwheel"], est["design"]
     # mixstep, per GMM step at N=400, K=10, d=2 (chunks of 10,000): per (n, k)
     # log ρ (2(d² + 2d) + 4), its exp and normalisation (3) and the weighted
     # statistics (2(1 + d + d(d+1)/2)); x, the naturals and the prior read and
@@ -507,13 +551,6 @@ def mixture_phases(card: str) -> list:
         n_mix * k_mix * (2 * (d_mix ** 2 + 2 * d_mix) + 4 + 3
                          + 2 * (1 + d_mix + d_mix * (d_mix + 1) // 2)),
         4 * (n_mix * d_mix + 3 * k_mix * 9) / t_mix + 4)
-    # estep, per call at N=400, K=10, d=2: the two products 2·N·F·K each,
-    # F = 1 + d + d², and the softmax (~5 per (n, k)); x and W read, the
-    # (F, K) statistics and the evidence written.
-    n_e, k_e, d_e = 400, 10, 2
-    f_e = 1 + d_e + d_e * d_e
-    est_bound = bound(4 * n_e * f_e * k_e + 5 * n_e * k_e,
-                      4 * (n_e * d_e + 2 * f_e * k_e + n_e))
     return [
         {"name": "mixstep", "route": "cuda", "source": "svax_torch/ops/csrc/mixstep.cu",
          "replaces": "svax/ops/mixstep_pallas.py:163", "launches": mix_launches,
@@ -522,8 +559,10 @@ def mixture_phases(card: str) -> list:
          "library_ms": None},
         {"name": "estep", "route": "cuda", "source": "svax_torch/ops/csrc/estep.cu",
          "replaces": "svax/ops/estep_pallas.py:161", "launches": est_launches,
-         "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": est_bound[0],
-         "bound_by": est_bound[1], "library_ms": None},
+         "max_abs_err": abs_err, "ms": t_e["kernel_ms"], "plain_ms": t_e["plain_device_ms"],
+         "bound_ms": b_e["ms"], "bound_by": b_e["by"], "library_ms": None,
+         "wrapper_ms": t_e["wrapper_ms"], "plain_call_ms": t_e["plain_ms"],
+         "design_ms": t_design["kernel_ms"], "design_bound_ms": b_design["ms"]},
     ]
 
 

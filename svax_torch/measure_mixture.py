@@ -2,16 +2,18 @@
 PERF.md's pinwheel-gmm breakdown.
 
     python -m svax_torch.measure_mixture > measure_mixture.txt
+    python -m svax_torch.measure_mixture --parent DIR > estep.txt
 
 Run from the root of a checkout; needs one CUDA device and nvcc. Prints
 the card, then three parts (every time is the median of 3, each part
 measured twice in a row):
 
 1. estep at N=400, K=10, d=2 and at N=65,536, K=128, d=10 (seeded numpy
-   data as in chip_smoke.py phase 7): ms per call of the raw C entry on
-   preallocated buffers, of ``stats_kernel`` (with its allocations), of
-   the wrapper ``e_step_stats_fused`` and of the plain version; then the
-   plain version's device time per call under ``torch.profiler``;
+   data as in chip_smoke.py phase 7; ``time_estep``): the kernel alone
+   (the card's time in the estep kernels per call, ``torch.profiler``), the
+   kernels a call launches, the wrapper ``e_step_stats_fused`` back to back
+   (CUDA events, the host's work between launches included) and the plain
+   version (events and profiler), beside the bound (``estep_bound``);
 2. mixstep µs/step by unroll, in chunks of 10,000 steps, in the order
    1 2 4 8 8 4 2 1, for the GMM and the SMM (dof 4);
 3. the entries (``train_gmm`` kernel engine, 300 steps; ``--engine plain
@@ -21,12 +23,18 @@ measured twice in a row):
    kernel times), the device's idle share 1 − device/wall, and the time
    in the mixstep and estep kernels. The profiler's own cost is in the
    wall time, so the rates here are below the entries' own.
+
+With ``--parent DIR`` it prints part 1 only, for this checkout and another
+one in turns (parent, this, this, parent), each in a fresh process of its
+own through its own wrappers (``estep_times``), then the steps/s of
+``train_gmm --engine plain --fused-kernel`` in each tree, in the same turns.
 """
 
 from __future__ import annotations
 
-import ctypes
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -68,42 +76,136 @@ def profiled(fn) -> tuple[float, torch.profiler.profile]:
     return wall, prof
 
 
-def measure_estep(dev) -> None:
-    from svax_torch.ops import _build, estep
+# One H100 SXM (data sheet): f32 outside the tensor cores, dense TF32 on
+# them, and device memory.
+F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+MEM_BYTES_PER_S = 3.35e12
+
+# The shapes estep is timed at: the pinwheel-gmm batch (the main path's)
+# and the design shape of benchmarks/bench_estep.py.
+ESTEP_SHAPES = {"pinwheel": (400, 10, 2), "design": (65536, 128, 10)}
+
+
+def estep_inputs(dev, n: int, k: int, d: int, seed: int = 0):
+    """Seeded numpy data and a prior-plus-pseudo-points q on ``dev``."""
     from svax_torch.pgm import gmm
 
-    lib = _build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    for n, k, d in ((400, 10, 2), (65536, 128, 10)):
-        rng = np.random.default_rng(0)
-        x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=dev)
-        prior = gmm.make_prior(k, d, device=dev)
-        exp = gmm.expected_params(gmm.init_variational(
-            torch.Generator(device=dev).manual_seed(0), prior, x))
-        w = estep.pack_coeffs(exp, dtype=torch.float32).contiguous()
-        f = w.shape[0]
-        kw = dict(device=dev, dtype=torch.float32)
-        bufs = [torch.empty(lib.estep_blocks(n) * f * k, **kw), torch.empty((f, k), **kw),
-                torch.empty((n,), **kw)]
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, w, *bufs)]
+    x = torch.tensor(np.random.default_rng(seed).standard_normal((n, d)),
+                     dtype=torch.float32, device=dev)
+    prior = gmm.make_prior(k, d, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return x, gmm.expected_params(gmm.init_variational(gen, prior, x))
 
-        def raw():
-            _build.check(lib, lib.estep_stats(ptrs[0], n, d, k, ptrs[1], *ptrs[2:],
-                                              stream), "estep_stats")
 
-        for label, fn in (("raw C entry", raw),
-                          ("stats_kernel", lambda: estep.stats_kernel(x, w)),
-                          ("e_step_stats_fused", lambda: estep.e_step_stats_fused(x, exp)),
-                          ("plain", lambda: estep.e_step_stats_reference(x, exp))):
-            print(f"estep N={n} K={k} d={d}: {label} ms/call "
-                  f"{[round(device_ms(fn), 5) for _ in range(2)]}", flush=True)
-        reps = 10
-        _, prof = profiled(lambda: [estep.e_step_stats_reference(x, exp)
-                                     for _ in range(reps)])
-        flops = 2 * 2 * n * f * k
-        print(f"estep N={n} K={k} d={d}: plain version's kernels "
-              f"{device_us(prof) / reps / 1e3:.4f} ms/call of device time; "
-              f"{flops / 1e9:.3f} GFLOP per call (both products)", flush=True)
+def estep_bound(n: int, k: int, d: int) -> dict:
+    """The least time for one estep call: its two products over the folded
+    features (2·2·N·F′·K, F′ = 1 + d + d(d+1)/2) as three TF32 passes on
+    the tensor cores (the fastest f32-accurate product the card has), the
+    softmax's ~5 operations per (n, k) beside them at the f32 rate, or its
+    bytes (x and the expected parameters read, the statistics and the
+    evidence written), whichever is longer. ``f32_fma_ms``: the same
+    products over the unfolded F = 1 + d + d² as f32 FMAs, the earlier
+    count."""
+    f_fold, f_full = 1 + d + d * (d + 1) // 2, 1 + d + d * d
+    ops_ms = (3 * 4 * n * f_fold * k / TF32_FLOPS + 5 * n * k / F32_FLOPS) * 1e3
+    nbytes = 4 * (n * d + k * (3 + d + d * d) + k * (1 + d + d * d) + n)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"ms": max(ops_ms, bytes_ms), "by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "f32_fma_ms": 4 * n * f_full * k / F32_FLOPS * 1e3}
+
+
+def time_estep(dev, n: int, k: int, d: int, reps: int = 20) -> dict:
+    """One shape: ``kernel_ms``, the card's time in the kernels whose names
+    hold "estep" per call (profiler: every launch of a call); ``kernels``,
+    the device kernels a call runs, and ``estep_kernels``, those of estep
+    (profiler, per call); ``wrapper_ms``, ``e_step_stats_fused`` back to
+    back (CUDA events); ``plain_ms`` and ``plain_device_ms``, the plain
+    version (events; profiler). Uses only the entries every tree has."""
+    from svax_torch.ops import estep
+
+    x, exp = estep_inputs(dev, n, k, d)
+    fused = lambda: estep.e_step_stats_fused(x, exp)  # noqa: E731
+    plain = lambda: estep.e_step_stats_reference(x, exp)  # noqa: E731
+    out = {"wrapper_ms": device_ms(fused, reps), "plain_ms": device_ms(plain, reps)}
+    # torch.profiler has dropped some of a profile's device events (a count
+    # of estep launches that is not a multiple of the calls): profile again.
+    for _ in range(3):
+        _, prof = profiled(lambda: [fused() for _ in range(reps)])
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launched = sum("estep" in e.name for e in events)
+        if launched > 0 and launched % reps == 0:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded {launched} estep kernels for {reps} calls "
+                           "three times: it recorded no device time for some")
+    out["kernel_ms"] = device_us(prof, "estep") / 1e3 / reps
+    out["kernels"] = len(events) / reps
+    out["estep_kernels"] = launched / reps
+    _, prof = profiled(lambda: [plain() for _ in range(reps)])
+    out["plain_device_ms"] = device_us(prof) / 1e3 / reps
+    return out
+
+
+def estep_times() -> dict:
+    """``time_estep`` at ESTEP_SHAPES with the svax_torch this process
+    imports; ``--parent`` runs it in a child process per tree."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {label: time_estep(dev, *shape) for label, shape in ESTEP_SHAPES.items()}
+
+
+def fused_entry_rate() -> dict:
+    """Steps/s of ``train_gmm --engine plain --fused-kernel`` (300 steps,
+    after one warm run) with the svax_torch this process imports."""
+    from svax_torch import train_gmm
+
+    argv = ["--config", "pinwheel-gmm", "--init", "kmeanspp", "--device", "cuda",
+            "--engine", "plain", "--fused-kernel"]
+    train_gmm.main(argv)
+    return {"steps_per_s": train_gmm.main(argv)["steps_per_s"]}
+
+
+def measure_estep(dev) -> None:
+    for label, (n, k, d) in ESTEP_SHAPES.items():
+        runs = [time_estep(dev, n, k, d) for _ in range(2)]
+        print(json.dumps({"estep": label, "shape": [n, k, d],
+                          "times": {key: [r[key] for r in runs] for key in runs[0]},
+                          "bound": estep_bound(n, k, d)}), flush=True)
+
+
+CHILD = f"""
+import json, runpy, sys
+mod = runpy.run_path({str(Path(__file__).resolve())!r}, run_name="measure_mixture_child")
+print("RESULT " + json.dumps(mod[sys.argv[1]]()), flush=True)
+"""
+
+
+def measure_parent(card: str, parent: Path) -> int:
+    """``--parent``: estep at ESTEP_SHAPES, then the ``--fused-kernel``
+    entry's rate, each tree in a fresh process through its own wrappers,
+    in turns parent, this tree, this tree, parent."""
+    from svax_torch.measure_steps import run_child
+
+    root = Path(__file__).resolve().parents[1]
+    trees = [("parent", parent.resolve()), ("new", root), ("new", root),
+             ("parent", parent.resolve())]
+    for func in ("estep_times", "fused_entry_rate"):
+        per: dict = {}
+        for who, tree in trees:
+            res = run_child(tree, CHILD, [func])
+            if func == "fused_entry_rate":
+                res = {"train_gmm --engine plain --fused-kernel": res}
+            for label, t in res.items():
+                for key, val in t.items():
+                    per.setdefault(label, {}).setdefault(key, {}).setdefault(who, []).append(val)
+        for label, keys in per.items():
+            row = {"estep": label, "shape": list(ESTEP_SHAPES[label]),
+                   "bound": estep_bound(*ESTEP_SHAPES[label])} if label in ESTEP_SHAPES \
+                else {"entry": label}
+            print(json.dumps({**row, "in_turns": keys, "card": card}), flush=True)
+    return 0
 
 
 def measure_unroll(dev) -> None:
@@ -153,9 +255,15 @@ def measure_entries() -> None:
               flush=True)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
     import subprocess
 
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--parent", type=Path, default=None,
+                   help="another checkout: estep and the --fused-kernel entry in turns with it")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_mixture: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,6 +272,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.parent is not None:
+        return measure_parent(card, args.parent)
     dev = torch.device("cuda", 0)
     measure_estep(dev)
     measure_unroll(dev)

@@ -50,11 +50,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # stream
     ]
     lib.mixstep_train_chunk.restype = i
-    lib.estep_blocks.argtypes = [i]
-    lib.estep_blocks.restype = i
+    lib.estep_capacity.argtypes = [i, i]  # d, k
+    lib.estep_capacity.restype = i
     lib.estep_stats.argtypes = [
-        p, i, i, i, p,  # x, n, d, k, w
-        p, p, p,  # partial, stats, evidence
+        p, i, i, i,  # x, n, d, k
+        p, p, p, p, p,  # log_pi, logdet, quad, prec_mean, prec
+        f, i,  # scale, blocks
+        p, p, p, p, p,  # counts, mean, scatter, evidence, partial
         p,  # stream
     ]
     lib.estep_stats.restype = i

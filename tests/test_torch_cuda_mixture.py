@@ -104,28 +104,64 @@ def test_mixstep_rejections(dev):
 
 def _estep_inputs(dev, n, k, d, seed=0):
     """Seeded numpy data and a prior-plus-pseudo-points q, as
-    benchmarks/bench_estep.py makes them."""
-    x = np.random.default_rng(seed).standard_normal((n, d))
+    benchmarks/bench_estep.py makes them (q from max(N, K) points, the
+    first N of them the data)."""
+    x = np.random.default_rng(seed).standard_normal((max(n, k), d))
     xt = torch.tensor(x, dtype=torch.float32, device=dev)
     prior = gmm.make_prior(k, d, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return xt, gmm.expected_params(gmm.init_variational(gen, prior, xt))
+    return xt[:n].contiguous(), gmm.expected_params(gmm.init_variational(gen, prior, xt))
 
 
-@pytest.mark.parametrize("n,k,d", [(400, 10, 2), (1000, 7, 3), (4097, 128, 10)])
+# tests/test_torch_estep.py's shapes (each N, K and d at least once, every
+# kernel instantiation), the pinwheel shape and the design shape.
+ESTEP_SHAPES = [(1, 1, 1), (63, 10, 2), (65, 128, 3), (400, 10, 2), (4097, 128, 10),
+                (400, 1, 10), (63, 128, 10), (4097, 10, 1), (130, 20, 5), (300, 40, 7),
+                (200, 70, 9), (1000, 7, 3), (65536, 128, 10)]
+
+
+@pytest.mark.parametrize("n,k,d", ESTEP_SHAPES)
 def test_estep_matches_plain(dev, n, k, d):
     x, exp = _estep_inputs(dev, n, k, d)
     before = estep.launches
-    stats, ev = estep.e_step_stats_fused(x, exp, scale=2.0)
+    stats, ev = estep.e_step_stats_fused(x, exp, scale=2.5)
     assert estep.launches == before + 1
-    ref, ref_ev = estep.e_step_stats_reference(x, exp, scale=2.0)
+    ref, ref_ev = estep.e_step_stats_reference(x, exp, scale=2.5)
     for got, want in zip(stats, ref):
         err = float((got - want).abs().max() / (want.abs().max() + 1e-30))
         assert err < 5e-5, err
     assert float((ev - ref_ev).abs().max()) < 1e-3
-    again, ev2 = estep.e_step_stats_fused(x, exp, scale=2.0)
+    assert torch.equal(stats.scatter_stat, stats.scatter_stat.mT)
+    again, ev2 = estep.e_step_stats_fused(x, exp, scale=2.5)
     assert all(torch.equal(p, q) for p, q in zip(stats, again))
     assert torch.equal(ev, ev2)
+
+
+@pytest.mark.parametrize("n,k,d", [(400, 10, 2), (65536, 128, 10)])
+def test_estep_launches_per_call(dev, n, k, d):
+    """One kernel a call at the pinwheel shape (the ticket's last block adds
+    the partials), as the plan says; at the design shape the plan's count."""
+    x, exp = _estep_inputs(dev, n, k, d)
+    estep.e_step_stats_fused(x, exp)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        estep.e_step_stats_fused(x, exp)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    cap = estep.card_capacity(x.device.index, d, k)
+    want = estep.launches_per_call(n, d, k, cap)
+    assert len(kernels) == want and all("estep" in name for name in kernels), kernels
+    if n == 400:
+        assert want == 1
+
+
+def test_estep_capacity_is_sms_times_blocks_an_sm(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, k in ((2, 10), (10, 128), (1, 1), (7, 40)):
+        cap = estep.card_capacity(torch.cuda.current_device(), d, k)
+        assert cap >= sms and cap % sms == 0, (d, k, cap)
 
 
 def test_estep_rejections(dev):
