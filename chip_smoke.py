@@ -20,7 +20,9 @@ else. Phases (any failure raises and the exit code is non-zero):
    2 chunks of 1000 steps on the kernel with in-kernel noise, twice: every
    value finite, the kernel launched, the training ELBO improved, the two
    runs bit-equal; then 50 steps on the plain engine for its rate;
-6. the mixstep kernel against its plain version at full pinwheel-gmm
+6. ptxas's line for every mixstep_kernel instantiation (both priors, each
+   unroll; the phase fails on a missing line or a spill); the mixstep
+   kernel against its plain version at full pinwheel-gmm
    width (N=400, K=10, d=2), GMM and SMM (dof 4), T=20, ρ=0.3 from a
    k-means++ state, at tests/test_mixstep_kernel.py's tolerances; then
    both timed per step (the kernel in chunks of 10,000 steps, the plain
@@ -116,12 +118,16 @@ G. tinystep's SMM branch (dof > 0, the Student-t mixture prior) against
    bit-equal, training ELBO and test ELBO/pt rising, the SMM IW line
    printed), and ``--config auto-svae --smm-dof 4 --steps 200`` twice on
    the per-step engine (finite, bit-equal);
-H. the component-parallel kernels (``ops/combine.py: log_rho_fused`` and
+H. ptxas's line for every log_rho_bwd instantiation (each d, with and
+   without dw; the phase fails on a missing line or a spill); the
+   component-parallel kernels (``ops/combine.py: log_rho_fused`` and
    ``combine_fused(log_norm=)``, combine.cu's ρ-kernels and log_norm
    mode) against their plain versions at the bigk (N=1024, K=100 and its
    two 50-shards, d=10, S=1) and pinwheel (N=400, K=10 in shards of 5,
    d=2, S=4) shapes: log ρ at 2e-5 and its gradients at 5e-4 of each
-   largest entry; one shard's log_norm combine against the plain version
+   largest entry, the backward in both configurations — (a) the train
+   step's call, the potentials' gradients only, and (b) with dw; one
+   shard's log_norm combine against the plain version
    with the normaliser from both shards' ρ-kernels (values at phase C's
    bars, every cotangent path alone and together, dn among them, and the
    train step's configuration (a) on combine_bwd_lean); the
@@ -130,7 +136,9 @@ H. the component-parallel kernels (``ops/combine.py: log_rho_fused`` and
    against the unsharded combine, values and gradients
    (tests/test_combine_kernel.py:223-262); reruns bit-equal; then the four
    kernels timed at one bigk shard against their plain versions (the
-   log_norm backward in both configurations), with their bounds;
+   ρ-kernel's and the log_norm combine's backwards in both configurations;
+   the phase fails unless (a) of the ρ-kernel is one kernel a call), with
+   their bounds;
 I. the parallel paths on the card, every rank on cuda:0 over gloo (named
    explicitly: NCCL refuses two ranks on one card): (a)
    ``parallel.dryrun.dryrun_multichip(4)`` on a 2x2 data x comp mesh —
@@ -138,8 +146,10 @@ I. the parallel paths on the card, every rank on cuda:0 over gloo (named
    within 1e-5 of the single-process step; (b) bigk-dp at full width from
    a 300-step warmup, 100 steps on a 1x2 comp mesh, twice: one launch per
    rank and step of each of the ρ-kernels and the log_norm combines, the
-   runs bit-equal, step 1's naturals within 1e-5 of the single-process
-   step's, the test ELBO/pt rising; (c) the same on a 2x1 data mesh
+   runs bit-equal, every ρ-kernel backward the train step's configuration
+   (a) (``ops.combine.rho_backward_paths``), step 1's naturals within 1e-5
+   of the single-process step's, the test ELBO/pt rising; (c) the same on
+   a 2x1 data mesh
    (step 1 against the single-process step on the same global batch);
    (d) ``svax_torch.train_gmm --dp --engine plain --fused-kernel`` on two
    ranks against the one-process run (300 estep launches per rank, rows
@@ -186,7 +196,8 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    the combine backwards' entries are the train step's call (combine_bwd_lean,
    configuration (a): its launches, time and bound), with the backward for
    every cotangent and dw beside them (``full_ms``, ``full_plain_ms``,
-   ``full_bound_ms``); the component-parallel kernels' launches are phase
+   ``full_bound_ms``), and so are the ρ-kernel backward's (configuration
+   (a) without dw, (b) with it); the component-parallel kernels' launches are phase
    I (b)'s first run's, both ranks; the row-sum kernels' phase K (b)'s,
    with their times in the f32 mode at bigk beside the unfused f32 row
    sum's) — the card line, and
@@ -338,58 +349,42 @@ def forward_ptxas(name: str, phase: str) -> None:
             raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
 
 
-COMBINE_INSTANCES = {(name, d, mode) for name in ("combine_fwd", "combine_bwd_lean",
-                                                 "combine_bwd_sample", "combine_bwd_local")
-                     for d in (2, 3, 4, 6, 8, 10) for mode in (0, 1)}
-
-
-def combine_ptxas(phase: str) -> None:
-    """Print ptxas's line for every combine_fwd and combine_bwd_*
-    instantiation (each d of the shape class, both modes) in the kernel
+def instances_ptxas(phase: str, name: str, want: set) -> None:
+    """Print ptxas's line for every instantiation of kernel ``name`` (its
+    template arguments as a tuple of ints in ``want``) in the kernel
     library's build log; raise if one is missing or spills."""
     from svax_torch.measure_mnist import kernel_resources
     from svax_torch.ops import _build
 
     _build.build()  # the kernel library, built in phase 2: sets build_log to its log
     seen = set()
-    for line in (kernel_resources(_build.build_log, "combine_fwd")
-                 + kernel_resources(_build.build_log, "combine_bwd")):
+    for line in kernel_resources(_build.build_log, name):
         print(f"phase {phase}: ptxas {line}", flush=True)
-        m = re.match(r"(\w+)<(\d+), (\d)>", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill is None or int(spill.group(1)) != 0:
             raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
+        m = re.match(rf"{name}<([\d, ]+)>", line)
         if m:
-            seen.add((m.group(1), int(m.group(2)), int(m.group(3))))
-    missing = COMBINE_INSTANCES - seen
+            seen.add(tuple(int(v) for v in m.group(1).split(", ")))
+    missing = want - seen
     if missing:
-        raise RuntimeError(f"phase {phase}: no ptxas line for {sorted(missing)}")
+        raise RuntimeError(f"phase {phase}: no ptxas line for {name}{sorted(missing)}")
 
 
-ESTEP_INSTANCES = {(kq, fm) for kq in (1, 2, 4, 8) for fm in range(1, 6)}
+def combine_ptxas(phase: str) -> None:
+    """ptxas's line for every combine_fwd and combine_bwd_* instantiation
+    (each d of the shape class, both modes)."""
+    for name in ("combine_fwd", "combine_bwd_lean", "combine_bwd_sample", "combine_bwd_local"):
+        instances_ptxas(phase, name, {(d, mode) for d in (2, 3, 4, 6, 8, 10) for mode in (0, 1)})
 
 
 def estep_ptxas(phase: str) -> None:
-    """Print ptxas's line for every estep_tiles instantiation (component
-    pairs × feature tiles) and for estep_reduce; raise if one is missing or
+    """ptxas's line for every estep_tiles instantiation (component pairs ×
+    feature tiles) and for estep_reduce; raise if one is missing or
     spills."""
-    from svax_torch.measure_mnist import kernel_resources
     from svax_torch.ops import _build
 
-    _build.build()  # the kernel library, built in phase 2: sets build_log to its log
-    lines = kernel_resources(_build.build_log, "estep_tiles")
-    seen = set()
-    for line in lines:
-        print(f"phase {phase}: ptxas {line}", flush=True)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        if spill is None or int(spill.group(1)) != 0:
-            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
-        m = re.match(r"estep_tiles<(\d+), (\d+)>", line)
-        if m:
-            seen.add((int(m.group(1)), int(m.group(2))))
-    missing = ESTEP_INSTANCES - seen
-    if missing:
-        raise RuntimeError(f"phase {phase}: no ptxas line for estep_tiles{sorted(missing)}")
+    instances_ptxas(phase, "estep_tiles", {(kq, fm) for kq in (1, 2, 4, 8) for fm in range(1, 6)})
     # estep_reduce is not a template: its entry, then its spill and register lines.
     m = re.search(r"Compiling entry function '\w*estep_reduce\w*'.*?(\d+) bytes spill stores"
                   r".*?Used (\d+) registers", _build.build_log, re.S)
@@ -431,6 +426,7 @@ def mixture_phases(card: str) -> list:
     dev = torch.device("cuda", 0)
 
     # 6. mixstep against plain at full pinwheel-gmm width
+    instances_ptxas("6", "mixstep_kernel", {(smm, u) for smm in (0, 1) for u in (1, 2, 4, 8)})
     train, _ = load_pinwheel(seed=0)
     x = torch.tensor(train, dtype=torch.float32, device=dev)
     prior_cpu = gmm.make_prior(10, 2, alpha=1.0, kappa=0.05)
@@ -1251,6 +1247,7 @@ def rho_phase(card: str) -> list:
             err = max(err, close(f"{what} d{name}", g, w, bar, bar * scale))
         return err
 
+    instances_ptxas("H", "log_rho_bwd", {(d, dw) for d in combine.LATENT_DIMS for dw in (0, 1)})
     errs = {"log_rho_fwd": 0.0, "log_rho_bwd": 0.0, "combine_fwd_norm": 0.0,
             "combine_bwd_norm": 0.0}
     lines = []
@@ -1268,11 +1265,22 @@ def rho_phase(card: str) -> list:
             assert torch.equal(got, combine.log_rho_fused(pot_h, pot_p, e)), "rho reruns differ"
             drho = torch.tensor(rng.standard_normal((n, kk)), dtype=torch.float32, device=dev)
             loss = lambda out: (out * drho).sum()  # noqa: E731
+            # (a), the train step's call: the expected parameters constant.
+            rho_ka = lambda a, b: combine.log_rho_fused(a, b, e)  # noqa: E731
+            rho_pa = lambda a, b: combine.log_rho_plain(a, b, e)  # noqa: E731
+            combine.rho_backward_paths.clear()
+            ga = grads(rho_ka, (pot_h, pot_p), loss)
+            assert combine.rho_backward_paths == {"dpot": 1}, combine.rho_backward_paths
+            errs["log_rho_bwd"] = max(errs["log_rho_bwd"], held(
+                f"log rho {label} K={kk} (a)", ga, grads(rho_pa, (pot_h, pot_p), loss), 5e-4))
+            assert all(torch.equal(a, b) for a, b in
+                       zip(ga, grads(rho_ka, (pot_h, pot_p), loss))), "rho bwd (a) reruns differ"
+            # (b), every gradient, dw included.
             rho_k = lambda a, b, *f: combine.log_rho_fused(a, b, gmm.GmmExpected(*f))  # noqa: E731
             rho_p = lambda a, b, *f: combine.log_rho_plain(a, b, gmm.GmmExpected(*f))  # noqa: E731
             gk = grads(rho_k, (pot_h, pot_p, *e), loss)
             errs["log_rho_bwd"] = max(errs["log_rho_bwd"], held(
-                f"log rho {label} K={kk}", gk, grads(rho_p, (pot_h, pot_p, *e), loss), 5e-4))
+                f"log rho {label} K={kk} (b)", gk, grads(rho_p, (pot_h, pot_p, *e), loss), 5e-4))
             assert all(torch.equal(a, b) for a, b in
                        zip(gk, grads(rho_k, (pot_h, pot_p, *e), loss))), "rho bwd reruns differ"
 
@@ -1372,14 +1380,21 @@ def rho_phase(card: str) -> list:
 
     n, k, d, s = 1024, 50, 10, 1  # one bigk K-shard of two
     t = timed_fresh("time_comp", n, k, d, s)
+    if t["kernel_rho_bwd_a_launches"] != 1:
+        raise AssertionError(f"log_rho_bwd (a): {t['kernel_rho_bwd_a_launches']:g} kernels a "
+                             "call, not one launch")
     fb, bb = (combine_bound(n, k, d, s, b_, norm=True) for b_ in (False, True))
     ab = combine_bound(n, k, d, s, True, norm=True, main_path=True)
-    rb = {part: rho_bound(n, k, d, part == "bwd") for part in ("fwd", "bwd")}
+    rb = {"fwd": rho_bound(n, k, d, False), "bwd_a": rho_bound(n, k, d, True, main_path=True),
+          "bwd_b": rho_bound(n, k, d, True)}
     print(f"phase H: device ms per call at the bigk shard N={n} K={k} d={d} S={s}: "
           + ", ".join(f"log_rho_{part} {t[f'kernel_rho_{part}_device']:.4f} (plain "
                       f"{t[f'plain_rho_{part}_device']:.4f}, CUDA events "
                       f"{t[f'kernel_rho_{part}_call']:.4f}; bound {rb[part][0] * 1e3:.3f} us, "
-                      f"{rb[part][1]})" for part in ("fwd", "bwd"))
+                      f"{rb[part][1]})" for part in ("fwd", "bwd_a", "bwd_b"))
+          + f" — bwd_a the train step's call ({t['kernel_rho_bwd_a_launches']:g} kernel a call),"
+          f" bwd_b with dw (kernel {t['kernel_rho_bwd_b_kernel']:.4f} + reduce "
+          f"{t['kernel_rho_bwd_b_reduce']:.4f}, {t['kernel_rho_bwd_b_launches']:g} kernels)"
           + "; the log_norm combine's " + combine_times_line(t, "norm_", fb, ab, bb)
           + f"; {card}", flush=True)
     base = {"route": "cuda", "library_ms": None}
@@ -1390,8 +1405,10 @@ def rho_phase(card: str) -> list:
          "bound_ms": rb["fwd"][0], "bound_by": rb["fwd"][1], **base},
         {"name": "log_rho_bwd", "source": "svax_torch/ops/csrc/combine.cu",
          "replaces": "svax/ops/combine_pallas.py:342", "max_abs_err": errs["log_rho_bwd"],
-         "ms": t["kernel_rho_bwd_device"], "plain_ms": t["plain_rho_bwd_device"],
-         "bound_ms": rb["bwd"][0], "bound_by": rb["bwd"][1], **base},
+         "ms": t["kernel_rho_bwd_a_device"], "plain_ms": t["plain_rho_bwd_a_device"],
+         "bound_ms": rb["bwd_a"][0], "bound_by": rb["bwd_a"][1], **base,
+         "full_ms": t["kernel_rho_bwd_b_device"], "full_plain_ms": t["plain_rho_bwd_b_device"],
+         "full_bound_ms": rb["bwd_b"][0]},
         {"name": "combine_fwd_norm", "source": "svax_torch/ops/csrc/combine.cu",
          "replaces": "svax/ops/combine_pallas.py:431", "max_abs_err": errs["combine_fwd_norm"],
          "ms": t["kernel_norm_fwd_device"], "plain_ms": t["plain_norm_fwd_device"],
@@ -1464,6 +1481,7 @@ def _bigk_rank(rank: int, world: int, dev, state, steps: int) -> dict:
             combine.rho_launches = combine.rho_backward_launches = 0
             combine.norm_launches = combine.norm_backward_launches = 0
             combine.norm_lean_backward_launches = 0
+            combine.rho_backward_paths.clear()
             st, m1 = runner(st, x, 1, seed=0)
             nat1 = svae_step.nat_to(convert.gather_nat(st.pgm_nat, m.comp_group), "cpu")
             torch.cuda.synchronize()
@@ -1477,6 +1495,7 @@ def _bigk_rank(rank: int, world: int, dev, state, steps: int) -> dict:
                         combine.norm_launches, combine.norm_lean_backward_launches]
             nat = convert.gather_nat(st.pgm_nat, m.comp_group)
             row = {"nat1": nat1, "launches": launches, "steps_per_s": rate,
+                   "rho_paths": dict(combine.rho_backward_paths),
                    "elbo": [float(m1["elbo"][0]), float(mets["elbo"][-1])],
                    "leaves": [t.cpu() for t in leaves(st)]}
             if run == 0:
@@ -1562,13 +1581,16 @@ def parallel_phase(card: str) -> list:
                                                       r["comp1"]["leaves"])), \
             "two comp-sharded bigk-dp runs differ"
         assert r["comp0"]["launches"] == [steps] * 4, r["comp0"]["launches"]
+        # The train step owes the ρ-kernel no dw: configuration (a) only.
+        assert r["comp0"]["rho_paths"] == {"dpot": steps}, r["comp0"]["rho_paths"]
         assert r["data0"]["launches"] == [0] * 4, r["data0"]["launches"]
     start, end = r0["test_elbo0"], r0["comp0"]["test_elbo"]
     assert end > start, f"comp-sharded bigk-dp: test ELBO/pt {start} -> {end}"
     print(f"phase I: bigk-dp at full width, {steps} steps from a 300-step warmup, two ranks "
           f"on cuda:0 over gloo: 1x2 comp mesh {r0['comp0']['steps_per_s']:.1f} steps/s "
           f"(runs bit-equal; per rank log_rho fwd/bwd, norm combine fwd/bwd launches "
-          f"{[r['comp0']['launches'] for r in ranks]}; step 1 naturals vs one process "
+          f"{[r['comp0']['launches'] for r in ranks]}; rho_backward_paths per rank "
+          f"{[r['comp0']['rho_paths'] for r in ranks]}; step 1 naturals vs one process "
           f"{r0['comp0']['nat1_err']:.3e}; test ELBO/pt {start:.4f} -> {end:.4f}); 2x1 data "
           f"mesh {r0['data0']['steps_per_s']:.1f} steps/s (step 1 naturals vs one process "
           f"{r0['data0']['nat1_err']:.3e}; training ELBO {r0['data0']['elbo'][0]:.1f} -> "

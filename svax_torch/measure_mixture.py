@@ -2,7 +2,7 @@
 PERF.md's pinwheel-gmm breakdown.
 
     python -m svax_torch.measure_mixture > measure_mixture.txt
-    python -m svax_torch.measure_mixture --parent DIR > estep.txt
+    python -m svax_torch.measure_mixture --parent DIR > mixture.txt
 
 Run from the root of a checkout; needs one CUDA device and nvcc. Prints
 the card, then three parts (every time is the median of 3, each part
@@ -24,10 +24,12 @@ measured twice in a row):
    in the mixstep and estep kernels. The profiler's own cost is in the
    wall time, so the rates here are below the entries' own.
 
-With ``--parent DIR`` it prints part 1 only, for this checkout and another
-one in turns (parent, this, this, parent), each in a fresh process of its
-own through its own wrappers (``estep_times``), then the steps/s of
-``train_gmm --engine plain --fused-kernel`` in each tree, in the same turns.
+With ``--parent DIR`` it times mixstep µs a step (U = 1, GMM and SMM, at
+N = 400 and N = 16,384, K = 10; ``mixstep_times``), part 1
+(``estep_times``) and the steps/s of ``train_gmm --engine plain
+--fused-kernel`` for this checkout and another one in turns (parent, this,
+this, parent), each in a fresh process of its own through its own wrappers,
+then prints each tree's ptxas lines for the mixstep kernels.
 """
 
 from __future__ import annotations
@@ -182,29 +184,82 @@ print("RESULT " + json.dumps(mod[sys.argv[1]]()), flush=True)
 """
 
 
+# mixstep is timed at the pinwheel-gmm batch (N=400, K=10) and at the
+# kernel's largest N (16,384 pinwheel points), GMM and SMM (dof 4), U = 1:
+# (N, dof, steps a chunk).
+MIXSTEP_CASES = {"gmm N=400": (400, 0.0, 10_000), "smm N=400": (400, 4.0, 10_000),
+                 "gmm N=16384": (16384, 0.0, 500), "smm N=16384": (16384, 4.0, 500)}
+
+
+def mixstep_inputs(dev, n: int, k: int = 10, seed: int = 0):
+    """pinwheel-gmm's prior and k-means++ naturals on N pinwheel points
+    (the config's 400 training points at N = 400), on ``dev``."""
+    from svax_torch.data.pinwheel import load_pinwheel, make_pinwheel_data
+    from svax_torch.pgm import gmm
+    from svax_torch.pgm.init import init_variational_kmeanspp
+
+    x = (load_pinwheel(seed=seed)[0] if n == 400 else
+         make_pinwheel_data(num_classes=5, num_per_class=-(-n // 5), seed=seed)[:n])
+    prior = gmm.make_prior(k, 2, alpha=1.0, kappa=0.05)
+    nat = init_variational_kmeanspp(prior, x, seed=seed)
+    to = lambda nt: type(nt)(nt.dir_nat.to(dev), type(nt.niw_nat)(  # noqa: E731
+        *(t.to(dev) for t in nt.niw_nat)))
+    return torch.tensor(x, dtype=torch.float32, device=dev), to(prior), to(nat)
+
+
+def mixstep_times() -> dict:
+    """µs per step of mixstep (U = 1, CUDA events around one chunk, the
+    median of 3) at MIXSTEP_CASES with the svax_torch this process imports,
+    and the ptxas lines of its mixstep kernels: {"us_per_step": {case: µs},
+    "ptxas": [...]}. Uses only the entries every tree has."""
+    from svax_torch.measure_mnist import kernel_resources
+    from svax_torch.models.gmm_baseline import GmmTrainState
+    from svax_torch.ops import _build, mixstep
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label, (n, dof, steps) in MIXSTEP_CASES.items():
+        x, prior, nat = mixstep_inputs(dev, n)
+        state = GmmTrainState(nat=nat, step=0)
+        out[label] = device_ms(lambda: mixstep.train_chunk(
+            state, prior, x, rho=0.3, t_steps=steps, dof=dof), reps=1) / steps * 1e3
+    return {"us_per_step": out, "ptxas": kernel_resources(_build.build_log, "mixstep_kernel")}
+
+
 def measure_parent(card: str, parent: Path) -> int:
-    """``--parent``: estep at ESTEP_SHAPES, then the ``--fused-kernel``
-    entry's rate, each tree in a fresh process through its own wrappers,
-    in turns parent, this tree, this tree, parent."""
+    """``--parent``: mixstep at MIXSTEP_CASES (``mixstep_times``), estep at
+    ESTEP_SHAPES and the ``--fused-kernel`` entry's rate, each tree in a
+    fresh process through its own wrappers, in turns parent, this tree,
+    this tree, parent; then each tree's ptxas lines for mixstep."""
     from svax_torch.measure_steps import run_child
 
     root = Path(__file__).resolve().parents[1]
     trees = [("parent", parent.resolve()), ("new", root), ("new", root),
              ("parent", parent.resolve())]
-    for func in ("estep_times", "fused_entry_rate"):
+    ptxas: dict = {}
+    for func in ("mixstep_times", "estep_times", "fused_entry_rate"):
         per: dict = {}
         for who, tree in trees:
             res = run_child(tree, CHILD, [func])
             if func == "fused_entry_rate":
                 res = {"train_gmm --engine plain --fused-kernel": res}
+            if func == "mixstep_times":
+                ptxas.setdefault(who, res["ptxas"])
+                res = {f"mixstep {case}": {"us_per_step": us}
+                       for case, us in res["us_per_step"].items()}
             for label, t in res.items():
                 for key, val in t.items():
                     per.setdefault(label, {}).setdefault(key, {}).setdefault(who, []).append(val)
         for label, keys in per.items():
-            row = {"estep": label, "shape": list(ESTEP_SHAPES[label]),
-                   "bound": estep_bound(*ESTEP_SHAPES[label])} if label in ESTEP_SHAPES \
-                else {"entry": label}
+            if label in ESTEP_SHAPES:
+                row = {"estep": label, "shape": list(ESTEP_SHAPES[label]),
+                       "bound": estep_bound(*ESTEP_SHAPES[label])}
+            else:
+                row = {"mixstep" if func == "mixstep_times" else "entry": label}
             print(json.dumps({**row, "in_turns": keys, "card": card}), flush=True)
+    for who, lines in ptxas.items():
+        for line in lines:
+            print(f"ptxas ({who}): {line}", flush=True)
     return 0
 
 
@@ -262,7 +317,8 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--parent", type=Path, default=None,
-                   help="another checkout: estep and the --fused-kernel entry in turns with it")
+                   help="another checkout: mixstep, estep and the --fused-kernel entry in "
+                        "turns with it")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_mixture: needs a CUDA device")

@@ -8,9 +8,9 @@ Run from the root of a checkout; needs one CUDA device and nvcc.
 ``--config bigk-dp`` measures the decoder kernels and the bigk entry
 (``measure_bigk``); ``--fused-decoder`` the row-sum kernels and the big-K
 f32 step with and without them (``measure_fused_decoder``); ``--combine``
-the combine kernels alone at COMBINE_SHAPES in both configurations of the
-backward, this tree against another checkout in turns
-(``measure_combine``). The default prints the card, then two parts (every
+the combine kernels alone at COMBINE_SHAPES and the ρ-kernel at RHO_SHAPE,
+each in both configurations of the backward, this tree against another
+checkout in turns (``measure_combine``). The default prints the card, then two parts (every
 time a median of 3):
 
 1. the combine kernels at the mnist shape (N=256, K=10, d=8, S=1) and the
@@ -80,14 +80,23 @@ def combine_bound(n: int, k: int, d: int, s: int, backward: bool,
     return _bound(ops, nbytes)
 
 
-def rho_bound(n: int, k: int, d: int, backward: bool) -> tuple[float, str]:
+def rho_bound(n: int, k: int, d: int, backward: bool,
+              main_path: bool = False) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time for the ρ-kernel (or its
     backward) — per (n, k) the Cholesky ~d³/3, the two solves for μ̃ 2d² and
-    the logs and dot ~10d; the backward recomputes that and adds L̃⁻¹ and Σ̃
-    (~d³/3 each) and the G and dw row (~3d²). Bytes: the potentials and w
-    read, log ρ written (backward: its cotangent read, dpot_h, dpot_p and dw
-    written)."""
+    the logs and dot ~10d; the backward with dw (RHO_CONFIGS "b") recomputes
+    that and adds L̃⁻¹ and Σ̃ (~d³/3 each) and the G and dw row (~3d²).
+    ``main_path``: the train step's backward (RHO_CONFIGS "a"), counted from
+    what it must compute — μ̃ (the Cholesky and two solves), diag Σ̃ (L̃⁻¹
+    ~d³/3 and its columns' squares d²), h̃̄ = ρ̄μ̃ and diag G = −½ρ̄(diag Σ̃ +
+    μ̃²) (4d), and their sums over K (2d): no logs, no dw. Bytes: the
+    potentials and w read, log ρ written (backward: its cotangent read,
+    dpot_h, dpot_p and, with dw, dw written)."""
     w = 3 + d + d * d
+    if backward and main_path:
+        ops = n * k * (2 * d ** 3 / 3 + 3 * d * d + 6 * d)
+        nbytes = 4 * (2 * n * d + k * w + n * k + 2 * n * d)
+        return _bound(ops, nbytes)
     ops = n * k * (d ** 3 / 3 + 2 * d * d + 10 * d)
     nbytes = 4 * (2 * n * d + k * w + n * k)
     if backward:
@@ -217,37 +226,70 @@ def time_combine(dev, n: int, k: int, d: int, s: int, reps: int = 20,
     return out
 
 
-def time_comp(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
-    """ms per call of the component-parallel kernels at one K-shard: the
-    ρ-kernel's forward and backward (``log_rho_fused``;
-    ``{kernel,plain}_rho_{fwd,bwd}_{device,call}``) and the combine's
-    log_norm mode (``time_combine(log_norm=True)``'s keys with ``norm_``
-    after the side, e.g. ``kernel_norm_bwd_a_device``), against their plain
-    versions (``*_device``: the card's kernel time under the profiler;
-    ``*_call``: CUDA events)."""
+# The two calls of the ρ-kernel's backward that are timed: "a", the train
+# step's — the expected parameters are constants of the step, so it owes
+# the potentials' cotangents only; "b", every input's gradient, dw included.
+RHO_CONFIGS = ("a", "b")
+
+
+def time_rho(dev, n: int, k: int, d: int, reps: int = 20) -> dict:
+    """ms per call of the ρ-kernel's forward and of its backward alone
+    (autograd over a retained graph, a seeded cotangent of log ρ) in each of
+    RHO_CONFIGS, for the kernels (``log_rho_fused``) and the plain version
+    (``log_rho_plain``). Keys ``{kernel,plain}_rho_fwd_{device,call}`` and
+    ``{kernel,plain}_rho_bwd_{a,b}_{device,call}``: ``*_device`` the card's
+    kernel time per call under ``torch.profiler``, ``*_call`` CUDA events;
+    for the kernels the backward's device time is split as well
+    (``*_kernel``: log_rho_bwd's own, ``*_reduce``: the cross-block sum's)
+    and ``kernel_rho_bwd_{a,b}_launches`` counts the device kernels a call
+    runs (those two). Uses only the entries every tree has."""
     from svax_torch.ops import combine
 
-    pot_h, pot_p, exp, _ = combine_inputs(dev, n, k, d, s)
-    leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p, *exp)]
-    args = (leaves[0], leaves[1], type(exp)(*leaves[2:]))
+    pot_h, pot_p, exp, _ = combine_inputs(dev, n, k, d, 1)
+    drho = torch.tensor(np.random.default_rng(1).standard_normal((n, k)), dtype=torch.float32,
+                        device=dev)
     out = {}
-    for name, fn, n_rep in (("kernel", combine.log_rho_fused, reps),
+    for side, fn, n_rep in (("kernel", combine.log_rho_fused, reps),
                             ("plain", combine.log_rho_plain, max(1, reps // 4))):
-        loss = fn(*args).sum()
-
         def forward(fn=fn):
             with torch.no_grad():
-                fn(*args)
+                fn(pot_h, pot_p, exp)
 
-        def backward(loss=loss):
-            torch.autograd.grad(loss, leaves, retain_graph=True)
-
-        for part, call in (("fwd", forward), ("bwd", backward)):
-            out[f"{name}_rho_{part}_call"] = device_ms(call, n_rep)
+        calls = {"fwd": forward}
+        for config in RHO_CONFIGS:
+            leaves = [t.clone().requires_grad_(True) for t in (pot_h, pot_p)]
+            e = exp
+            if config == "b":
+                e = type(exp)(*(t.clone().requires_grad_(True) for t in exp))
+                leaves += list(e)
+            rho = fn(leaves[0], leaves[1], e)
+            calls[f"bwd_{config}"] = (lambda rho=rho, leaves=leaves: torch.autograd.grad(
+                rho, leaves, grad_outputs=drho, retain_graph=True))
+        for part, call in calls.items():
+            out[f"{side}_rho_{part}_call"] = device_ms(call, n_rep)
             _, prof = profiled(lambda: [call() for _ in range(n_rep)])
-            busy = (launched_us(prof, f"log_rho_{part}") + device_us(prof, "reduce")
-                    if name == "kernel" else device_us(prof))
-            out[f"{name}_rho_{part}_device"] = busy / 1e3 / n_rep
+            if side == "plain":
+                out[f"plain_rho_{part}_device"] = device_us(prof) / 1e3 / n_rep
+                continue
+            own = launched_us(prof, f"log_rho_{part[:3]}")
+            out[f"kernel_rho_{part}_device"] = (own + device_us(prof, "reduce")) / 1e3 / n_rep
+            if part != "fwd":
+                out[f"kernel_rho_{part}_kernel"] = own / 1e3 / n_rep
+                out[f"kernel_rho_{part}_reduce"] = device_us(prof, "reduce") / 1e3 / n_rep
+                events = [ev for ev in prof.events()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA
+                          and ("log_rho" in ev.name or "reduce" in ev.name)]
+                out[f"kernel_rho_{part}_launches"] = len(events) / n_rep
+    return out
+
+
+def time_comp(dev, n: int, k: int, d: int, s: int, reps: int = 20) -> dict:
+    """ms per call of the component-parallel kernels at one K-shard: the
+    ρ-kernel's forward and its backward in both RHO_CONFIGS (``time_rho``'s
+    keys) and the combine's log_norm mode (``time_combine(log_norm=True)``'s
+    keys with ``norm_`` after the side, e.g. ``kernel_norm_bwd_a_device``),
+    against their plain versions."""
+    out = time_rho(dev, n, k, d, reps)
     for key, val in time_combine(dev, n, k, d, s, reps, log_norm=True).items():
         side, rest = key.split("_", 1)
         out[f"{side}_norm_{rest}"] = val
@@ -261,17 +303,23 @@ COMBINE_SHAPES = {"bigk": (1024, 100, 10, 1), "mnist": (256, 10, 8, 1),
                   "bigk data shard": (512, 100, 10, 1), "bigk K-shard": (1024, 50, 10, 1)}
 
 
+# The ρ-kernel is timed at one rank's K-shard on bigk-dp's 1x2 comp mesh.
+RHO_SHAPE = (1024, 50, 10)
+
+
 def combine_times() -> dict:
     """``time_combine`` at COMBINE_SHAPES (the K-shard in its log_norm mode)
-    with the svax_torch this process imports, and the combine kernels'
-    ptxas lines from its build log: {"times": {shape: {...}}, "ptxas":
-    [...]}. ``--combine`` runs it in a child process per tree."""
+    and ``time_rho`` at RHO_SHAPE (as "rho") with the svax_torch this
+    process imports, and the combine and ρ-kernels' ptxas lines from its
+    build log: {"times": {shape: {...}}, "ptxas": [...]}. ``--combine`` runs
+    it in a child process per tree."""
     from svax_torch.ops import _build
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     times = {label: time_combine(dev, *shape, log_norm=label == "bigk K-shard", plain=False)
              for label, shape in COMBINE_SHAPES.items()}
+    times["rho"] = time_rho(dev, *RHO_SHAPE)
     return {"times": times, "ptxas": [line for name in COMBINE_KERNELS
                                       for line in kernel_resources(_build.build_log, name)]}
 
@@ -299,7 +347,7 @@ def kernel_resources(log: str, name: str) -> list[str]:
     return out
 
 
-COMBINE_KERNELS = ("combine_fwd", "combine_bwd")
+COMBINE_KERNELS = ("combine_fwd", "combine_bwd", "log_rho_fwd", "log_rho_bwd")
 
 
 def combine_paths(steps: int = 3) -> dict:
@@ -735,10 +783,9 @@ def profile_entry(argv: list[str]) -> dict:
     wall, prof = profiled(run)
     busy = device_us(prof) / 1e3
     # The combine's kernels: combine_fwd, combine_bwd_* and their
-    # reduce_planes (the ρ-kernels' reduce_blocks); decoder_mlp.cu's:
-    # decoder_fwd, the backward's mlp_* kernels and reduce_partials.
-    comb = (device_us(prof, "combine_") + device_us(prof, "reduce_planes")
-            + device_us(prof, "reduce_blocks")) / 1e3
+    # reduce_planes; decoder_mlp.cu's: decoder_fwd, the backward's mlp_*
+    # kernels and reduce_partials.
+    comb = (device_us(prof, "combine_") + device_us(prof, "reduce_planes")) / 1e3
     dec = (device_us(prof, "decoder_") + device_us(prof, "mlp_")
            + device_us(prof, "reduce_partials")) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "idle": 1.0 - busy / wall,
@@ -796,12 +843,13 @@ print("RESULT " + json.dumps(mod["combine_times"]()), flush=True)
 
 
 def measure_combine(card: str, parent: Path | None) -> int:
-    """``--combine``: the combine kernels at COMBINE_SHAPES in both
-    configurations, each tree in a child process of its own through its own
-    wrappers (``combine_times``), in turns parent, this tree, this tree,
-    parent (this tree twice without ``--parent``); each number beside its
-    bound. Then the ptxas lines of each tree's combine kernels and the
-    cotangents the train steps pass (``combine_paths``, this tree)."""
+    """``--combine``: the combine kernels at COMBINE_SHAPES and the ρ-kernel
+    at RHO_SHAPE in both configurations, each tree in a child process of its
+    own through its own wrappers (``combine_times``), in turns parent, this
+    tree, this tree, parent (this tree twice without ``--parent``); each
+    number beside its bound. Then the ptxas lines of each tree's combine and
+    ρ-kernels and the cotangents the train steps pass (``combine_paths``,
+    this tree)."""
     from svax_torch.measure_steps import run_child
 
     root = Path(__file__).resolve().parents[1]
@@ -817,6 +865,16 @@ def measure_combine(card: str, parent: Path | None) -> int:
             for key, val in t.items():
                 per.setdefault(label, {}).setdefault(key, {}).setdefault(who, []).append(val)
     for label, keys in per.items():
+        if label == "rho":
+            n, k, d = RHO_SHAPE
+            bounds = {"fwd": rho_bound(n, k, d, False),
+                      "bwd_a": rho_bound(n, k, d, True, main_path=True),
+                      "bwd_b": rho_bound(n, k, d, True)}
+            print(json.dumps({"rho": "bigk K-shard", "shape": [n, k, d], "ms": keys,
+                              "bound_ms": {p: b[0] for p, b in bounds.items()},
+                              "bound_by": {p: b[1] for p, b in bounds.items()}, "card": card}),
+                  flush=True)
+            continue
         n, k, d, s = COMBINE_SHAPES[label]
         norm = label == "bigk K-shard"
         bounds = {"fwd": combine_bound(n, k, d, s, False, norm),

@@ -24,7 +24,10 @@ caller's logsumexp across the shards is ``log_norm`` (N,), and
 ``combine_fused(log_norm=)`` weights by log r̃ = log ρ − log_norm instead of
 the softmax over its own K, returning the normaliser's cotangent through
 autograd. ``log_rho_grads_manual`` and ``combine_grads_manual(log_norm=)``
-are the backwards the kernels transcribe.
+are the backwards written out; ``log_rho_grads_lean`` is the ρ-kernel's
+backward for the train step's call (no dw) as the kernel forms it, and
+``log_rho_dw_planes`` with ``rho_dw_from_planes`` its dw as the kernel
+sums and expands it.
 
 Expected parameters reach the kernel packed one row per component as
 ``pack_expected`` lays them out: [log π, E[log|Λ|], E[μᵀΛμ], E[Λμ] (d),
@@ -67,11 +70,16 @@ norm_launches = 0  # combine forward with log_norm
 norm_backward_launches = 0  # combine backward with log_norm (either variant)
 norm_lean_backward_launches = 0  # of those, combine_bwd_lean's
 rho_launches = 0  # log_rho forward
-rho_backward_launches = 0  # log_rho backward
+rho_backward_launches = 0  # log_rho backward (either configuration)
 # What each combine backward was asked for, counted by key: the cotangents
 # it received (of "dz", "dlr", "dmu", "dlocal", "dstats") and the gradients
 # it had to give beyond the potentials' ("dw", "dn"), joined by "+".
 backward_paths: dict[str, int] = {}
+# What each ρ-kernel backward had to give, counted by key: "dpot" (the
+# potentials' cotangents only: configuration (a), the train step's call,
+# one launch) and "dw" (the expected parameters' cotangent: configuration
+# (b)), joined by "+".
+rho_backward_paths: dict[str, int] = {}
 
 
 def stats_width(d: int) -> int:
@@ -88,7 +96,7 @@ def stats_width(d: int) -> int:
 # fixed two-level order (reduce_planes: REDUCE_GROUPS contiguous runs of
 # partials, each in order, then the runs in order).
 
-BLOCK_THREADS = 256  # the forward and the train step's backward
+BLOCK_THREADS = 256  # the forward, the train step's backward, the ρ-backward
 FULL_THREADS = 128  # the backward with dw
 REDUCE_GROUPS = 16
 
@@ -483,6 +491,59 @@ def combine_grads_split(pot_h, pot_p, w, eps, dz=None, dlr=None, dmu=None, dloca
     return sample, local
 
 
+def log_rho_grads_lean(pot_h, pot_p, w, drho):
+    """The ρ-kernel's backward without dw (the train step's call) as
+    csrc/combine.cu's log_rho_bwd forms it: per (n, k) only h̃̄ = ρ̄μ̃ and
+    diag G = −½ρ̄(diag Σ̃ + μ̃²), diag Σ̃ the column sums of squares of L̃⁻¹
+    (no full Σ̃), each summed over k in order. Returns the cotangents of
+    pot_h, pot_p (N, d)."""
+    d = pot_h.shape[-1]
+    exp = unpack_expected(w, d)
+    jt = exp.prec[None] + torch.diag_embed(pot_p)[:, None]
+    ht = exp.prec_mean[None] + pot_h[:, None]
+    chol = torch.linalg.cholesky(jt)
+    li = torch.linalg.solve_triangular(chol, torch.eye(d, dtype=w.dtype, device=w.device),
+                                       upper=False)
+    mu = torch.cholesky_solve(ht[..., None], chol)[..., 0]
+    diag_cov = (li * li).sum(-2)
+    hbar = drho[..., None] * mu
+    gdiag = -0.5 * drho[..., None] * (diag_cov + mu * mu)
+
+    dph, dpp = hbar[:, 0], gdiag[:, 0]
+    for c in range(1, w.shape[0]):
+        dph, dpp = dph + hbar[:, c], dpp + gdiag[:, c]
+    return dph, dpp
+
+
+def log_rho_dw_planes(pot_h, pot_p, w, drho):
+    """Per (n, k) the ρ-kernel's dw terms as its backward with dw adds them
+    (N, K, 1 + d + d(d+1)/2): [ρ̄, ρ̄μ̃, G's lower triangle, row-major], G =
+    −½ρ̄(Σ̃ + μ̃μ̃ᵀ)."""
+    d = pot_h.shape[-1]
+    exp = unpack_expected(w, d)
+    jt = exp.prec[None] + torch.diag_embed(pot_p)[:, None]
+    ht = exp.prec_mean[None] + pot_h[:, None]
+    cov = torch.cholesky_inverse(torch.linalg.cholesky(jt))
+    mu = (cov @ ht[..., None])[..., 0]
+    g = -0.5 * drho[..., None, None] * (cov + mu[..., :, None] * mu[..., None, :])
+    rows, cols = torch.tril_indices(d, d)
+    return torch.cat([drho[..., None], drho[..., None] * mu, g[..., rows, cols]], dim=-1)
+
+
+def rho_dw_from_planes(planes: torch.Tensor, d: int) -> torch.Tensor:
+    """The reduce's kRhoDw layout: summed planes (K, 1 + d + d(d+1)/2) → dw
+    (K, 3 + d + d²): [Σρ̄, ½Σρ̄, −½Σρ̄, Σρ̄μ̃, E[Λ]'s cotangent as the
+    Cholesky reads it: 2G below the diagonal, G on it, 0 above]."""
+    k = planes.shape[0]
+    rows, cols = torch.tril_indices(d, d)
+    g = torch.zeros((k, d, d), dtype=planes.dtype, device=planes.device)
+    g[:, rows, cols] = planes[:, 1 + d:]
+    jbar = torch.tril(2.0 * g, diagonal=-1) + torch.diag_embed(torch.diagonal(g, dim1=-2,
+                                                                              dim2=-1))
+    s = planes[:, :1]
+    return torch.cat([s, 0.5 * s, -0.5 * s, planes[:, 1:1 + d], jbar.reshape(k, d * d)], dim=1)
+
+
 def log_rho_grads_manual(pot_h, pot_p, w, drho):
     """The backward of ``log_rho_plain`` (on the packed ``w``) written out
     by hand, as the ρ-kernel's backward transcribes it: per (n, k), log ρ =
@@ -657,8 +718,12 @@ class _RhoKernel(torch.autograd.Function):
         ptr = _build.ptr
 
         ph, pp, w = ctx.saved_tensors
-        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+        need_pot = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        need_w = ctx.needs_input_grad[2]
+        if not (need_pot or need_w):
             return None, None, None
+        key = "+".join(["dpot"] * need_pot + ["dw"] * need_w)
+        rho_backward_paths[key] = rho_backward_paths.get(key, 0) + 1
         lib = _build.load()
         n, d = ph.shape
         k = w.shape[0]
@@ -666,11 +731,14 @@ class _RhoKernel(torch.autograd.Function):
         dph = torch.empty((n, d), **kw)
         dpp = torch.empty((n, d), **kw)
         dw = partial = None
-        if ctx.needs_input_grad[2]:
-            partial = torch.empty((lib.rho_blocks(n, k), k, slot_width(d)), **kw)
-            dw = torch.empty((k, slot_width(d)), **kw)
         stream = torch.cuda.current_stream(ph.device).cuda_stream
         with torch.cuda.device(ph.device):
+            if need_w:
+                blocks = lib.rho_blocks(n, k)
+                if blocks < 1:
+                    _build.check(lib, -blocks, "rho_blocks")
+                partial = torch.empty((blocks, k, slot_width(d)), **kw)
+                dw = torch.empty((k, slot_width(d)), **kw)
             err = lib.rho_backward(ptr(ph), ptr(pp), ptr(w), ptr(_f32(drho)), n, k, d,
                                    ptr(dph), ptr(dpp), ptr(partial), ptr(dw),
                                    ctypes.c_void_p(stream))

@@ -41,12 +41,25 @@
 // through the lse into log_rho_bwd (replaces _rho_bwd_call's pallas_call,
 // :342): per (n, k), log ρ = E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ −
 // ½log|J̃| gives h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ +
-// μ̃μ̃ᵀ), read back through the Cholesky's lower triangle. The ρ-kernels
-// keep their first layout (combine_tile.cuh's register arrays, R = 128 / K
-// rows a block, a partial per block summed by reduce_blocks; rho_blocks
-// sizes it): they are bound by operations (~32 MFLOP forward and ~80
-// backward at the bigk shard, N = 1024, K = 50, d = 10) and by one
-// thread's dependent Cholesky chain.
+// μ̃μ̃ᵀ), read back through the Cholesky's lower triangle. log_rho_fwd
+// keeps its first layout (combine_tile.cuh's register arrays, 128 threads
+// a block): its rounding of log ρ is the forward's. log_rho_bwd runs on
+// combine_core.cuh's layout (the combine's: one thread per (n, k), μ̃ by
+// recompute's products with the Cholesky's reciprocals, L̃⁻¹ packed and
+// inverted in place, R rows of K a block dealt to the card's capacity in
+// contiguous runs), with w's rows copied to shared memory as they lie
+// (16-byte loads, no index arithmetic; the odd row length keeps a warp's
+// reads on distinct banks), since it needs no symmetrised E[Λ]. The train step's
+// call owes no dw (the expected parameters are constants of the step), so
+// it forms only h̃̄ and diag G — diag Σ̃ as the column sums of squares of
+// L̃⁻¹, no full Σ̃ — and adds dpot_h, dpot_p over k in order in shared
+// memory: one launch. With dw each block also writes one partial of 1 + d
+// + d(d+1)/2 planes ([ρ̄, ρ̄μ̃, G's lower triangle]: the three scalar
+// columns of dw are ±½ or 1 times Σρ̄), which reduce_planes adds in its
+// fixed two-level order and expands into dw's (K, 3 + d + d²) row. Bound:
+// operations (~50 MFLOP for the train step's call, ~80 with dw, at the
+// bigk shard N = 1024, K = 50, d = 10): about a µs; the time is one
+// thread's dependent Cholesky and inversion chain.
 //
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
 
@@ -57,6 +70,7 @@
 
 #include "combine_core.cuh"
 #include "combine_tile.cuh"
+#include "phase_clock.cuh"
 
 namespace {
 
@@ -164,12 +178,18 @@ constexpr int kReduceLanes = 32, kReduceGroups = 16;
 
 // out = Σ_b partial[b] over `blocks` partials of `planes` × K floats: lane
 // e of each of kReduceGroups warps adds its contiguous run of partials in
-// order, then warp 0 adds the groups in order. mirror: the forward's packed
-// planes [count, μ̃ (d), lower triangle] → raw (K, 1 + d + d²), the triangle
-// written to both halves; else out is (K, planes).
+// order, then warp 0 adds the groups in order, and writes the sum in the
+// layout `layout` (comb::ReduceOut): kPlanes (K, planes); kStats, the
+// forward's packed planes [count, μ̃ (d), lower triangle] → raw (K, 1 + d +
+// d²), the triangle written to both halves; kRhoDw, the ρ-backward's [Σρ̄,
+// Σρ̄μ̃ (d), G's lower triangle] → dw (K, 3 + d + d²): [Σρ̄, ½Σρ̄, −½Σρ̄,
+// Σρ̄μ̃, E[Λ]'s cotangent as the Cholesky reads E[Λ]: 2G below the
+// diagonal, G on it, 0 above] (each factor a power of two, so the scaled
+// sums are the sums of the scaled terms).
 __global__ void __launch_bounds__(kReduceLanes* kReduceGroups)
     reduce_planes(const float* __restrict__ partial, int blocks, int planes, int k, int d,
-                  int mirror, float* out) {
+                  int layout, float* out) {
+  using svax::comb::ReduceOut;
   extern __shared__ float smem[];  // (kReduceGroups, kReduceLanes) the runs' sums
   const int lane = threadIdx.x % kReduceLanes, grp = threadIdx.x / kReduceLanes;
   const int len = planes * k, e = blockIdx.x * kReduceLanes + lane;
@@ -185,18 +205,28 @@ __global__ void __launch_bounds__(kReduceLanes* kReduceGroups)
   float s = 0.0f;
   for (int g = 0; g < kReduceGroups; ++g) s += smem[g * kReduceLanes + lane];
   const int pl = e / k, kk = e % k;
-  if (!mirror) {
+  if (layout == static_cast<int>(ReduceOut::kPlanes)) {
     out[static_cast<size_t>(kk) * planes + pl] = s;
     return;
   }
-  float* row = out + static_cast<size_t>(kk) * (1 + d + d * d);
-  if (pl < 1 + d) {
-    row[pl] = s;
+  const int head = layout == static_cast<int>(ReduceOut::kStats) ? 1 : 3;
+  float* row = out + static_cast<size_t>(kk) * (head + d + d * d);
+  if (pl == 0 && head == 3) {
+    row[0] = s;
+    row[1] = 0.5f * s;
+    row[2] = -0.5f * s;
+  } else if (pl < 1 + d) {
+    row[head - 1 + pl] = s;
   } else {
     int i, j;
     svax::comb::untri(pl - 1 - d, i, j);
-    row[1 + d + i * d + j] = s;
-    row[1 + d + j * d + i] = s;
+    if (head == 1) {
+      row[1 + d + i * d + j] = s;
+      row[1 + d + j * d + i] = s;
+    } else {
+      row[3 + d + i * d + j] = i == j ? s : 2.0f * s;
+      if (i != j) row[3 + d + j * d + i] = 0.0f;
+    }
   }
 }
 
@@ -232,20 +262,15 @@ cudaError_t forward_d(FwdArgs a, float* stats, cudaStream_t st) {
   combine_fwd<D, kNorm><<<a.blocks, threads, fwd_bytes<D>(a.k, threads), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return c::launch_reduce(a.partial, a.blocks, 1 + D + tri(D), a.k, D, true, stats, st);
+  return c::launch_reduce(a.partial, a.blocks, 1 + D + tri(D), a.k, D, c::ReduceOut::kStats,
+                         stats, st);
 }
 
 // ---------------------------------------------------------- the ρ-kernels
 
 using namespace svax;
 
-constexpr int kThreads = 128;  // threads per block of the ρ-kernels: R rows × K
-
-__host__ __device__ inline int rho_rows(int k) { return k >= kThreads ? 1 : kThreads / k; }
-__host__ __device__ inline int rho_groups(int n, int k) {
-  const int r = rho_rows(k);
-  return (n + r - 1) / r;
-}
+constexpr int kThreads = 128;  // threads per block of log_rho_fwd
 
 struct RhoArgs {
   const float* __restrict__ ph;    // (N, D)
@@ -256,7 +281,8 @@ struct RhoArgs {
   float* log_rho;  // (N, K) (forward)
   float* dph;      // (N, D) (backward)
   float* dpp;      // (N, D)
-  float* partial;  // (blocks, K, 3 + D + D²) or null: no dw
+  float* partial;  // (blocks, 1 + D + D(D+1)/2, K) or null: no dw
+  int rows, groups, blocks;  // the backward's rows a block, row groups and grid
 };
 
 // log ρ per (n, k): one thread each.
@@ -273,77 +299,109 @@ __global__ void __launch_bounds__(kThreads) log_rho_fwd(RhoArgs a) {
   a.log_rho[idx] = log_rho;
 }
 
-// The recompute backward of log_rho_fwd: a block holds R whole rows of K,
-// sums its rows' dph, dpp over k in shared memory and writes its
-// (K, 3 + D + D²) dw partial for reduce_blocks.
-template <int D>
-__global__ void __launch_bounds__(kThreads) log_rho_bwd(RhoArgs a) {
-  using S = Slot<D>;
-  constexpr int W = S::SIZE, P = 2 * D;
-  const int K = a.k, R = rho_rows(K);
-  const int tid = threadIdx.x, row = tid / K, kk = tid % K;
-  const int n = blockIdx.x * R + row;
-  const bool valid = n < a.n;
+// The recompute backward of log_rho_fwd on combine_core.cuh's plan: per
+// (n, k) μ̃ and L̃⁻¹ (packed, inverted in place), h̃̄ = ρ̄μ̃ and
+// diag G = −½ρ̄(diag Σ̃ + μ̃²), diag Σ̃ the column sums of squares of L̃⁻¹;
+// dpot_h, dpot_p summed over k in order in shared memory, row group by row
+// group. kDw: each thread also adds its rows' [ρ̄, ρ̄μ̃, G's lower
+// triangle] into its own column of shared memory, and the block writes
+// their sums over its R thread rows as one (1 + D + D(D+1)/2, K) partial.
+// At most 256 threads a block; without dw two blocks an SM (≤ 128
+// registers: every row group of the bigk K-shard at once, no spills), with
+// dw one (its dw terms need more).
+template <int D, bool kDw>
+__global__ void __launch_bounds__(comb::kBlockThreads, kDw ? 1 : 2) log_rho_bwd(RhoArgs a) {
+  namespace c = svax::comb;
+  using P = c::Planes<D>;
+  constexpr int T = c::tri(D), FP = 1 + D + T;
+  const int K = a.k, R = a.rows, NT = R * K, PS = NT | 1;
+  const int tid = threadIdx.x, r = tid / K, k = tid % K;
   extern __shared__ float smem[];
-  float* s_pot = smem;              // (R, K, 2D) [h̃̄, diag G]
-  float* s_dw = s_pot + R * K * P;  // (R, K, W) dw terms
-
-  const float* e = a.w + static_cast<size_t>(kk) * W;
+  float* s_w = smem;                  // (K, P::W) w's rows as they lie
+  float* s_pot = s_w + P::W * K;      // (2D, PS) h̃̄, diag G: an odd plane stride,
+                                      // so the sums' lanes hit distinct banks
+  float* s_acc = s_pot + 2 * D * PS;  // (FP, NT) kDw: this thread's dw terms
+  PHASE_START;
+  int g = c::run_begin(blockIdx.x, a.groups, a.blocks);
+  const int g1 = c::run_begin(blockIdx.x + 1, a.groups, a.blocks);
+  // The first row's potentials load while w is copied; each next row's
+  // while this one's inverse and sums are formed.
   float p[D], h[D];
-  comb::load_row<D>(a.ph, a.pp, n, valid, p, h);
-  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
-  tile_core<D>(e, p, h, L, ht, mu, logdet_j, log_rho);
-  float Li[D][D], C[D][D];
-  tri_inverse<D>(L, Li);
-  cov_from_inverse<D>(Li, C);
-  // Rows past N read no cotangent: every term they add is zero.
-  const float rb = valid ? a.drho[static_cast<size_t>(n) * K + kk] : 0.0f;
-
-  float* dwt = s_dw + static_cast<size_t>(tid) * W;
-  float* pot = s_pot + static_cast<size_t>(tid) * P;
-  dwt[S::LOGPI] = rb;
-  dwt[S::LOGDET] = 0.5f * rb;
-  dwt[S::QUAD] = -0.5f * rb;
+  c::load_row<D>(a.ph, a.pp, g * R + r, g * R + r < a.n, p, h);
+  c::copy_rows(a.w, K * P::W, s_w);
+  if constexpr (kDw) {
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    dwt[S::PM + i] = rb * mu[i];
-    pot[i] = rb * mu[i];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const float g = -0.5f * rb * (C[i][j] + mu[i] * mu[j]);
-      dwt[S::PREC + i * D + j] = j < i ? 2.0f * g : (j == i ? g : 0.0f);
-      if (i == j) pot[D + i] = g;
-    }
+    for (int f = 0; f < FP; ++f) s_acc[f * NT + tid] = 0.0f;
   }
   __syncthreads();
+  PHASE_MARK(0);
 
-  for (int idx = tid; idx < R * P; idx += blockDim.x) {
-    const int r2 = idx / P, c = idx % P, n2 = blockIdx.x * R + r2;
-    if (n2 >= a.n) continue;
-    float acc = 0.0f;
-    for (int c2 = 0; c2 < K; ++c2) acc += s_pot[static_cast<size_t>(r2 * K + c2) * P + c];
-    if (c < D)
-      a.dph[static_cast<size_t>(n2) * D + c] = acc;
-    else
-      a.dpp[static_cast<size_t>(n2) * D + c - D] = acc;
-  }
-  if (a.partial) {
-    float* out = a.partial + static_cast<size_t>(blockIdx.x) * K * W;
-    for (int idx = tid; idx < K * W; idx += blockDim.x) {
+  for (; g < g1; ++g) {
+    const int n = g * R + r;
+    const bool valid = n < a.n;
+    float L[T], ht[D], mu[D], dinv[D], logdet_j, log_rho;
+    c::recompute<D, false, true>(s_w, K, k, p, h, L, ht, mu, logdet_j, log_rho, dinv);
+    if (g + 1 < g1) c::load_row<D>(a.ph, a.pp, n + R, n + R < a.n, p, h);
+    PHASE_MARK(1);
+    c::invert<D>(L, dinv);  // L holds L̃⁻¹ from here
+    // Rows past N read no cotangent: every term they add is zero.
+    const float rb = valid ? a.drho[static_cast<size_t>(n) * K + k] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float cii = 0.0f;
+#pragma unroll
+      for (int m = i; m < D; ++m) cii += L[c::tidx(m, i)] * L[c::tidx(m, i)];
+      s_pot[i * PS + tid] = rb * mu[i];
+      s_pot[(D + i) * PS + tid] = -0.5f * rb * (cii + mu[i] * mu[i]);
+    }
+    if constexpr (kDw) {
+      if (valid) {
+        s_acc[tid] += rb;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          s_acc[(1 + i) * NT + tid] += rb * mu[i];
+#pragma unroll
+          for (int j = 0; j <= i; ++j)
+            s_acc[(1 + D + c::tidx(i, j)) * NT + tid] +=
+                -0.5f * rb * (c::cov<D>(L, i, j) + mu[i] * mu[j]);
+        }
+      }
+    }
+    PHASE_MARK(2);
+    __syncthreads();
+    PHASE_MARK(3);
+    // dpot_h, dpot_p of the group's rows: each (row, column) summed over k
+    // in order.
+    for (int idx = tid; idx < R * 2 * D; idx += NT) {
+      const int r2 = idx / (2 * D), col = idx % (2 * D), n2 = g * R + r2;
+      if (n2 >= a.n) continue;
       float acc = 0.0f;
-      for (int r2 = 0; r2 < R; ++r2) acc += s_dw[static_cast<size_t>(r2 * K) * W + idx];
-      out[idx] = acc;
+      for (int c2 = 0; c2 < K; ++c2) acc += s_pot[col * PS + r2 * K + c2];
+      if (col < D)
+        a.dph[static_cast<size_t>(n2) * D + col] = acc;
+      else
+        a.dpp[static_cast<size_t>(n2) * D + col - D] = acc;
+    }
+    __syncthreads();
+    PHASE_MARK(4);
+  }
+  if constexpr (kDw) {
+    // This block's partial: each (plane, k) summed over the R rows in order;
+    // thread (r, k) takes planes r, r + R, … of component k.
+    float* out = a.partial + static_cast<size_t>(blockIdx.x) * FP * K;
+    for (int f = r; f < FP; f += R) {
+      float acc = 0.0f;
+      for (int r2 = 0; r2 < R; ++r2) acc += s_acc[f * NT + r2 * K + k];
+      out[f * K + k] = acc;
     }
   }
 }
 
-// out[e] = Σ_b partial[b·len + e], b in order.
-__global__ void reduce_blocks(const float* partial, int blocks, int len, float* out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= len) return;
-  float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * len + e];
-  out[e] = s;
+template <int D, bool kDw>
+size_t rho_bwd_bytes(int k, int nt) {
+  return sizeof(float) * (static_cast<size_t>(comb::Planes<D>::W) * k +
+                          static_cast<size_t>(nt | 1) * 2 * D +
+                          static_cast<size_t>(nt) * (kDw ? 1 + D + comb::tri(D) : 0));
 }
 
 template <int D>
@@ -353,36 +411,48 @@ cudaError_t rho_forward_d(const RhoArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The backward's plan and launches: configuration (a) (no dw) is one launch;
+// with dw, launch_reduce adds the partials and writes dw's (K, 3 + D + D²).
+template <int D, bool kDw>
+cudaError_t rho_backward_dw(RhoArgs a, float* dw, cudaStream_t st) {
+  static comb::LaunchCache cache;
+  int sms = 0, cap = 0;
+  cudaError_t err = comb::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  a.rows = comb::rows_per_block(a.n, a.k, comb::kBlockThreads, sms);
+  const int threads = a.rows * a.k;
+  const size_t bytes = rho_bwd_bytes<D, kDw>(a.k, threads);
+  err = comb::capacity(log_rho_bwd<D, kDw>, a.k, a.rows, bytes, sms, cache, cap);
+  if (err != cudaSuccess) return err;
+  a.groups = comb::row_groups(a.n, a.rows);
+  a.blocks = a.groups < cap ? a.groups : cap;
+  log_rho_bwd<D, kDw><<<a.blocks, threads, bytes, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kDw) return err;
+  return comb::launch_reduce(a.partial, a.blocks, 1 + D + comb::tri(D), a.k, D,
+                             comb::ReduceOut::kRhoDw, dw, st);
+}
+
 template <int D>
 cudaError_t rho_backward_d(const RhoArgs& a, float* dw, cudaStream_t st) {
-  constexpr int W = Slot<D>::SIZE;
-  static int opted = 0;
-  const int threads = rho_rows(a.k) * a.k, blocks = rho_groups(a.n, a.k);
-  const size_t bytes = static_cast<size_t>(threads) * (2 * D + W) * sizeof(float);
-  if (static_cast<int>(bytes) > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        log_rho_bwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    opted = static_cast<int>(bytes);
-  }
-  log_rho_bwd<D><<<blocks, threads, bytes, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !a.partial) return err;
-  const int len = a.k * W;
-  reduce_blocks<<<(len + 255) / 256, 256, 0, st>>>(a.partial, blocks, len, dw);
-  return cudaGetLastError();
+  return a.partial ? rho_backward_dw<D, true>(a, dw, st) : rho_backward_dw<D, false>(a, dw, st);
 }
 
 bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= comb::kMaxK && s >= 1; }
 
 }  // namespace
 
+// Phase clocks of log_rho_bwd (slots 0–4; compiled in only with
+// -DSVAX_PHASE_CLOCKS): staging, the recompute, the inverse and the terms,
+// the barrier's wait, the sums over k.
+SVAX_PHASE_ENTRY(rho_phase_clocks)
+
 cudaError_t svax::comb::launch_reduce(const float* partial, int blocks, int planes, int k, int d,
-                                      bool mirror, float* out, cudaStream_t st) {
+                                      ReduceOut layout, float* out, cudaStream_t st) {
   const int len = planes * k;
   reduce_planes<<<(len + kReduceLanes - 1) / kReduceLanes, kReduceLanes * kReduceGroups,
-                  sizeof(float) * kReduceLanes * kReduceGroups, st>>>(partial, blocks, planes, k,
-                                                                      d, mirror ? 1 : 0, out);
+                  sizeof(float) * kReduceLanes * kReduceGroups, st>>>(
+      partial, blocks, planes, k, d, static_cast<int>(layout), out);
   return cudaGetLastError();
 }
 
@@ -419,9 +489,17 @@ int combine_grid(int n, int k, int d, int kind) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// The ρ-kernels' blocks for N points and K components: rho_backward's
-// partial holds blocks·K·(3 + d + d²) floats.
-int rho_blocks(int n, int k) { return rho_groups(n, k); }
+// The ρ-kernels' blocks for N points and K components: at least the
+// backward's grid at any d, so rho_backward's partial fits in
+// rho_blocks(n, k)·K·(3 + d + d²) floats (it uses blocks·K·(1 + d +
+// d(d+1)/2)). Negative: a CUDA error code, negated.
+int rho_blocks(int n, int k) {
+  if (!shape_ok(n, k, 1)) return -static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t err = comb::sm_count(sms);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return comb::row_groups(n, comb::rows_per_block(n, k, comb::kBlockThreads, sms));
+}
 
 // Forward: z (S, N, K, d), log r̃ (N, K), μ̃ (N, K, d), the local row (N,)
 // and the raw statistics (K, 1 + d + d²), unscaled and unsymmetrised.
@@ -471,7 +549,7 @@ int combine_backward(const float* ph, const float* pp, const float* w, const flo
 int rho_forward(const float* ph, const float* pp, const float* w, int n, int k, int d,
                 float* log_rho, void* stream) {
   if (!shape_ok(n, k, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const RhoArgs a{ph, pp, w, nullptr, n, k, log_rho, nullptr, nullptr, nullptr};
+  const RhoArgs a{ph, pp, w, nullptr, n, k, log_rho, nullptr, nullptr, nullptr, 0, 0, 0};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define SVAX_CALL(D) rho_forward_d<D>(a, st)
@@ -482,12 +560,12 @@ int rho_forward(const float* ph, const float* pp, const float* w, int n, int k, 
 
 // Its backward: the cotangents of pot_h, pot_p (N, d) and, when dw is not
 // null, of w (K, 3 + d + d²) from drho (N, K); partial: rho_blocks(n, k) ·
-// K · (3 + d + d²) floats.
+// K · (3 + d + d²) floats. Without dw (the train step's call) one launch.
 int rho_backward(const float* ph, const float* pp, const float* w, const float* drho, int n,
                  int k, int d, float* dph, float* dpp, float* partial, float* dw, void* stream) {
   if (!shape_ok(n, k, 1) || (dw == nullptr) != (partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RhoArgs a{ph, pp, w, drho, n, k, nullptr, dph, dpp, partial};
+  const RhoArgs a{ph, pp, w, drho, n, k, nullptr, dph, dpp, partial, 0, 0, 0};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define SVAX_CALL(D) rho_backward_d<D>(a, dw, st)

@@ -404,7 +404,8 @@ cudaError_t full_d(BwdArgs a, float* dw, cudaStream_t st) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   combine_bwd_local<D, kNorm><<<a.blocks, threads, bytes, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || !a.partial) return err;
-  return c::launch_reduce(a.partial, 2 * a.blocks, Planes<D>::W, a.k, D, false, dw, st);
+  return c::launch_reduce(a.partial, 2 * a.blocks, Planes<D>::W, a.k, D, c::ReduceOut::kPlanes,
+                         dw, st);
 }
 
 }  // namespace

@@ -1,14 +1,15 @@
 // The fused SIN combine's shared parts: the block plan, the staged
 // component rows, the per-(n, k) recompute on packed triangles, the noise
-// and the host-side grid sizing. Included by combine.cu (the forward and
-// the cross-block sums), combine_bwd.cu (the train step's backward) and
-// combine_bwd_full.cu (the backward for every cotangent, dw included).
+// and the host-side grid sizing. Included by combine.cu (the forward, the
+// cross-block sums and the ρ-kernel's backward), combine_bwd.cu (the train
+// step's backward) and combine_bwd_full.cu (the backward for every
+// cotangent, dw included).
 //
 // Layout. A block holds R rows of K components, one thread per (n, k):
 // thread t owns row t / K of each row group and component t % K. The row
 // groups (R consecutive rows each) are dealt to the blocks in contiguous
 // runs, so a block adds its rows' terms in row order into one partial: the
-// forward's statistics and the backward's dw need one partial per block,
+// forward's statistics and the backwards' dw need one partial per block,
 // and the grid is sized from the SM count and the kernel's blocks an SM.
 // Every block first stages the K component rows of w in shared memory,
 // plane by plane with k the fastest index ([plane][k]), so a warp's lanes
@@ -35,9 +36,9 @@ namespace svax {
 namespace comb {
 
 constexpr int kMaxK = 128;
-// Threads a block may hold: the forward and the train step's backward at
-// most 256, the backward with dw (whose per-thread dw sums fill shared
-// memory) at most 128. The kernels declare these with a minimum of one
+// Threads a block may hold: the forward, the train step's backward and the
+// ρ-kernel's backward at most 256, the backward with dw (whose per-thread dw
+// sums fill shared memory) at most 128. The kernels declare these with a minimum of one
 // block an SM: without it ptxas held some of them to 64 or 128 registers
 // (two or four blocks an SM) and spilled 4–84 bytes a thread.
 constexpr int kBlockThreads = 256;
@@ -141,6 +142,26 @@ __device__ __forceinline__ void stage(const float* __restrict__ w, const float* 
   if (ds) stage_rows<D, P::F, 1 + D>(ds, K, s, P::DS0, -1, P::DS2);
 }
 
+// Copy `count` floats of w to shared memory as they lie — (K, 3 + D + D²)
+// rows, read by recompute<…, kRaw> — in 16-byte loads where w allows. The
+// caller synchronises.
+__device__ __forceinline__ void copy_rows(const float* __restrict__ src, int count, float* s) {
+  const int n4 = (reinterpret_cast<uintptr_t>(src) & 15u) == 0 ? count / 4 : 0;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < n4; q += blockDim.x)
+    reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(src)[q];
+  for (int e = 4 * n4 + threadIdx.x; e < count; e += blockDim.x) s[e] = src[e];
+}
+
+// Entry (plane, k) of the staged component rows: planes sw[plane·K + k]
+// (stage), or with kRaw w's rows as copied (copy_rows), entry `raw` of row
+// k — an odd row length, so a warp's lanes on consecutive k hit distinct
+// banks.
+template <int D, bool kRaw>
+__device__ __forceinline__ float row_at(const float* sw, int K, int k, int plane, int raw) {
+  return kRaw ? sw[k * Planes<D>::W + raw] : sw[plane * K + k];
+}
+
 // The potentials of row n; rows past N get unit precision and zero h, so
 // J̃ = I + E[Λ] stays PSD and every value they produce is finite.
 template <int D>
@@ -160,21 +181,22 @@ __device__ __forceinline__ void load_row(const float* ph, const float* pp, int n
 // carry tile_core's exact bits (a downstream check, chip_smoke.py's phase
 // K, compares two decoders over three steps from these bits, and moved
 // when z's bits changed); else (the backwards, whose recomputed μ̃ is never
-// output) products with the Cholesky's reciprocals.
-template <int D, bool kDivide = false>
+// output) products with the Cholesky's reciprocals. kRaw: sw holds w's rows
+// as copy_rows left them. dinv: the reciprocals 1 / L̃_ii.
+template <int D, bool kDivide = false, bool kRaw = false>
 __device__ __forceinline__ void recompute(const float* sw, int K, int k, const float (&p)[D],
                                           const float (&h)[D], float (&L)[tri(D)],
                                           float (&ht)[D], float (&mu)[D], float& logdet_j,
-                                          float& log_rho) {
+                                          float& log_rho, float (&dinv)[D]) {
   using P = Planes<D>;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    ht[i] = sw[(P::PM + i) * K + k] + h[i];
+    ht[i] = row_at<D, kRaw>(sw, K, k, P::PM + i, 3 + i) + h[i];
 #pragma unroll
     for (int j = 0; j <= i; ++j)
-      L[tidx(i, j)] = sw[(P::EL + tidx(i, j)) * K + k] + (i == j ? p[i] : 0.0f);
+      L[tidx(i, j)] = row_at<D, kRaw>(sw, K, k, P::EL + tidx(i, j), 3 + D + i * D + j) +
+                      (i == j ? p[i] : 0.0f);
   }
-  float dinv[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     float acc = L[tidx(i, i)];
@@ -213,17 +235,27 @@ __device__ __forceinline__ void recompute(const float* sw, int K, int k, const f
     logdet_j += 2.0f * logf(L[tidx(i, i)]);
     dot += mu[i] * ht[i];
   }
-  log_rho = sw[P::LOGPI * K + k] + 0.5f * sw[P::LOGDET * K + k] - 0.5f * sw[P::QUAD * K + k] +
-            0.5f * dot - 0.5f * logdet_j;
+  log_rho = row_at<D, kRaw>(sw, K, k, P::LOGPI, 0) +
+            0.5f * row_at<D, kRaw>(sw, K, k, P::LOGDET, 1) -
+            0.5f * row_at<D, kRaw>(sw, K, k, P::QUAD, 2) + 0.5f * dot - 0.5f * logdet_j;
+}
+
+template <int D, bool kDivide = false, bool kRaw = false>
+__device__ __forceinline__ void recompute(const float* sw, int K, int k, const float (&p)[D],
+                                          const float (&h)[D], float (&L)[tri(D)],
+                                          float (&ht)[D], float (&mu)[D], float& logdet_j,
+                                          float& log_rho) {
+  float dinv[D];
+  recompute<D, kDivide, kRaw>(sw, K, k, p, h, L, ht, mu, logdet_j, log_rho, dinv);
 }
 
 // L (packed lower) → L⁻¹ in place, row by row: row i of L⁻¹ needs row i of
-// L and the rows of L⁻¹ above it.
+// L and the rows of L⁻¹ above it; dinv holds 1 / L_ii (recompute's).
 template <int D>
-__device__ __forceinline__ void invert(float (&L)[tri(D)]) {
+__device__ __forceinline__ void invert(float (&L)[tri(D)], const float (&dinv)[D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    const float dii = 1.0f / L[tidx(i, i)];
+    const float dii = dinv[i];
 #pragma unroll
     for (int j = 0; j < i; ++j) {
       float acc = 0.0f;
@@ -233,6 +265,14 @@ __device__ __forceinline__ void invert(float (&L)[tri(D)]) {
     }
     L[tidx(i, i)] = dii;
   }
+}
+
+template <int D>
+__device__ __forceinline__ void invert(float (&L)[tri(D)]) {
+  float dinv[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) dinv[i] = 1.0f / L[tidx(i, i)];
+  invert<D>(L, dinv);
 }
 
 // Σ̃_ij = Σ_{m ≥ max(i, j)} L⁻¹_mi L⁻¹_mj from the packed L⁻¹.
@@ -414,11 +454,15 @@ cudaError_t capacity(Kernel kernel, int k, int rows, size_t bytes, int sms, Laun
   return cudaSuccess;
 }
 
-// Σ_b partial[b][plane][k] over `blocks` partials (a fixed two-level order)
-// into (K, planes) — or, with mirror, the forward's (K, 1 + D + D²) raw
-// statistics from its packed planes. Defined in combine.cu.
+// What launch_reduce writes: the sums as (K, planes); the forward's (K, 1 +
+// D + D²) raw statistics from its packed planes; or the ρ-backward's dw (K,
+// 3 + D + D²) from its packed planes.
+enum class ReduceOut { kPlanes, kStats, kRhoDw };
+
+// Σ_b partial[b][plane][k] over `blocks` partials (a fixed two-level order),
+// written in the layout `layout`. Defined in combine.cu.
 cudaError_t launch_reduce(const float* partial, int blocks, int planes, int k, int d,
-                          bool mirror, float* out, cudaStream_t st);
+                          ReduceOut layout, float* out, cudaStream_t st);
 
 // The backwards (combine_bwd.cu, combine_bwd_full.cu): the train step's
 // (no dstats, no dw) and the one for every cotangent.

@@ -20,11 +20,9 @@
 // w block): [log π, E[log|Λ|], E[μᵀΛμ], E[Λμ] (D), E[Λ] (D×D row-major)].
 // Matrices are [D][D] arrays of which only the lower triangle is used where
 // the comment says so; D is a template parameter so everything unrolls
-// into registers. Shared by flexstep.cu and combine.cu (the combine_fused
-// port, whose kernel writes out the full backward, including J̄'s off-
-// diagonal, the statistics' cotangent and dw, on top of these functions,
-// and whose ρ-kernels — the log_rho_fused port — run tile_core and, for
-// the backward, tri_inverse and cov_from_inverse).
+// into registers. Shared by flexstep.cu and combine.cu (the combine
+// forward's μ̃ and z follow tile_core's and solve_upper's order, and the
+// ρ-kernel's forward — the log_rho_fused port — runs tile_core).
 #pragma once
 
 namespace svax {

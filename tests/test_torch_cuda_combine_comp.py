@@ -1,5 +1,7 @@
 """The component-parallel CUDA kernels on the card: the ρ-kernel
-(``log_rho_fused``, forward and backward) and the combine's log_norm mode
+(``log_rho_fused``, forward and backward; the backward in both
+configurations — the train step's, without dw, and with dw — at every d)
+and the combine's log_norm mode
 (forward and backward, with the normaliser's cotangent) against their plain
 versions at the bigk (N = 1024, K = 100 in shards of 50, d = 10, S = 1) and
 pinwheel (N = 400, K = 10 in shards of 5, d = 2, S = 4) shard shapes; the
@@ -203,6 +205,38 @@ def test_main_path_log_norm_backward_matches_plain(dev, n, k, d):
         a, b, exp, None, s, seed=3, step=1, log_norm=nrm)
     assert all(torch.equal(x, y) for x, y in zip(_grads(seeded, (pot_h, pot_p, lse), loss),
                                                  _grads(seeded, (pot_h, pot_p, lse), loss)))
+
+
+@pytest.mark.parametrize("d", combine.LATENT_DIMS)
+@pytest.mark.parametrize("n,k", [(1024, 50), (400, 5), (1024, 100), (77, 13), (1, 1)],
+                         ids=["bigk shard", "pinwheel shard", "bigk", "ragged", "one"])
+def test_log_rho_backward_configurations_match_plain(dev, n, k, d):
+    """The ρ-kernel's backward in both configurations at every d: (a) the
+    train step's call — the expected parameters constant, the potentials'
+    cotangents only, one launch — and (b) every gradient, dw included;
+    each against the plain version, reruns bit-equal, and (a)'s potentials'
+    gradients equal to (b)'s bit for bit (the same arithmetic)."""
+    pot_h, pot_p, exp, _, rng = _inputs(dev, n, k, d, 1, seed=d + 7)
+    drho = torch.tensor(rng.standard_normal((n, k)), dtype=torch.float32, device=dev)
+    loss = lambda out: (out * drho).sum()  # noqa: E731
+    kern_a = lambda a, b: combine.log_rho_fused(a, b, exp)  # noqa: E731
+    kern_b = lambda a, b, *f: combine.log_rho_fused(a, b, gmm.GmmExpected(*f))  # noqa: E731
+    plain_a = lambda a, b: combine.log_rho_plain(a, b, exp)  # noqa: E731
+    plain_b = lambda a, b, *f: combine.log_rho_plain(a, b, gmm.GmmExpected(*f))  # noqa: E731
+    combine.rho_backward_paths.clear()
+    before = combine.rho_backward_launches
+    got_a = _grads(kern_a, (pot_h, pot_p), loss)
+    torch.cuda.synchronize()
+    assert combine.rho_backward_launches == before + 1
+    assert combine.rho_backward_paths == {"dpot": 1}
+    _held(got_a, _grads(plain_a, (pot_h, pot_p), loss), f"n={n} k={k} d={d} (a)")
+    got_b = _grads(kern_b, (pot_h, pot_p, *exp), loss)
+    assert combine.rho_backward_paths == {"dpot": 1, "dpot+dw": 1}
+    _held(got_b, _grads(plain_b, (pot_h, pot_p, *exp), loss), f"n={n} k={k} d={d} (b)")
+    assert all(torch.equal(x, y) for x, y in zip(got_a, _grads(kern_a, (pot_h, pot_p), loss)))
+    assert all(torch.equal(x, y) for x, y in
+               zip(got_b, _grads(kern_b, (pot_h, pot_p, *exp), loss)))
+    assert torch.equal(got_a[0], got_b[0]) and torch.equal(got_a[1], got_b[1])
 
 
 def test_wrappers_raise_outside_the_shape_class(dev):

@@ -1,5 +1,6 @@
 """The mixstep and estep CUDA kernels on the card: against their plain
-versions, at a ragged N, the gates, the launch counters and bit-equal
+versions, at a ragged N, mixstep at every unroll and both priors and at the
+edges of its shape class, the gates, the launch counters and bit-equal
 reruns.
 
 Every test needs a CUDA device and skips without one. The file imports no
@@ -84,6 +85,42 @@ def test_mixstep_reruns_chunk_splits_and_unrolls(dev, dof):
         for p, q in zip(_leaves(a.nat), _leaves(u.nat)):
             np.testing.assert_allclose(p.cpu().numpy(), q.cpu().numpy(),
                                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+@pytest.mark.parametrize("dof", [0.0, 4.0])
+def test_mixstep_every_unroll_matches_plain(dev, dof, unroll):
+    """Each of U = 1, 2, 4, 8 for both priors at the pinwheel-gmm shape
+    (N = 400, K = 10) against the plain version, reruns bit-equal."""
+    cls = SmmTrainState if dof else GmmTrainState
+    state, prior, x = _setup(dev, n=400, cls=cls)
+    kw = dict(rho=0.3, t_steps=8, dof=dof, unroll=unroll)
+    st_k, m_k = mixstep.train_chunk(state, prior, x, **kw)
+    st_p, m_p = mixstep.train_chunk_plain(state, prior, x, **kw)
+    for a, b in zip(_leaves(st_k.nat), _leaves(st_p.nat)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **NAT_TOL)
+    np.testing.assert_allclose(m_k["local_evidence"].cpu().numpy(),
+                               m_p["local_evidence"].cpu().numpy(), **EVID_TOL)
+    again, m_again = mixstep.train_chunk(state, prior, x, **kw)
+    assert all(torch.equal(p, q) for p, q in zip(_leaves(st_k.nat), _leaves(again.nat)))
+    assert torch.equal(m_k["local_evidence"], m_again["local_evidence"])
+
+
+@pytest.mark.parametrize("dof", [0.0, 4.0])
+@pytest.mark.parametrize("n,k", [(1, 1), (31, 10), (513, 64), (16384, 10), (2000, 64)])
+def test_mixstep_shape_class_edges_match_plain(dev, n, k, dof):
+    """The shape class's edges (N = 1 … 16,384, K = 1 … 64: one or 32 point
+    batches a thread, 1 to 16 groups of statistics) against the plain
+    version."""
+    cls = SmmTrainState if dof else GmmTrainState
+    state, prior, x = _setup(dev, n=n, k=k, cls=cls)
+    kw = dict(rho=0.3, t_steps=4, dof=dof)
+    st_k, m_k = mixstep.train_chunk(state, prior, x, **kw)
+    st_p, m_p = mixstep.train_chunk_plain(state, prior, x, **kw)
+    for a, b in zip(_leaves(st_k.nat), _leaves(st_p.nat)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **NAT_TOL)
+    np.testing.assert_allclose(m_k["local_evidence"].cpu().numpy(),
+                               m_p["local_evidence"].cpu().numpy(), **EVID_TOL)
 
 
 def test_mixstep_rejections(dev):
