@@ -118,8 +118,9 @@ G. tinystep's SMM branch (dof > 0, the Student-t mixture prior) against
    bit-equal, training ELBO and test ELBO/pt rising, the SMM IW line
    printed), and ``--config auto-svae --smm-dof 4 --steps 200`` twice on
    the per-step engine (finite, bit-equal);
-H. ptxas's line for every log_rho_bwd instantiation (each d, with and
-   without dw; the phase fails on a missing line or a spill); the
+H. ptxas's line for every log_rho_fwd instantiation (each d) and every
+   log_rho_bwd instantiation (each d, with and without dw; the phase fails
+   on a missing line or a spill); the
    component-parallel kernels (``ops/combine.py: log_rho_fused`` and
    ``combine_fused(log_norm=)``, combine.cu's ρ-kernels and log_norm
    mode) against their plain versions at the bigk (N=1024, K=100 and its
@@ -137,8 +138,10 @@ H. ptxas's line for every log_rho_bwd instantiation (each d, with and
    (tests/test_combine_kernel.py:223-262); reruns bit-equal; then the four
    kernels timed at one bigk shard against their plain versions (the
    ρ-kernel's and the log_norm combine's backwards in both configurations;
-   the phase fails unless (a) of the ρ-kernel is one kernel a call), with
-   their bounds;
+   the phase fails unless the ρ-kernel's forward and its (a) are one
+   kernel a call), with their bounds; log ρ equal bit for bit to the
+   log_norm combine's log r̃ at a zero normaliser at both shapes, each
+   shard and every d (N=1024, K=50);
 I. the parallel paths on the card, every rank on cuda:0 over gloo (named
    explicitly: NCCL refuses two ranks on one card): (a)
    ``parallel.dryrun.dryrun_multichip(4)`` on a 2x2 data x comp mesh —
@@ -1247,6 +1250,7 @@ def rho_phase(card: str) -> list:
             err = max(err, close(f"{what} d{name}", g, w, bar, bar * scale))
         return err
 
+    instances_ptxas("H", "log_rho_fwd", {(d,) for d in combine.LATENT_DIMS})
     instances_ptxas("H", "log_rho_bwd", {(d, dw) for d in combine.LATENT_DIMS for dw in (0, 1)})
     errs = {"log_rho_fwd": 0.0, "log_rho_bwd": 0.0, "combine_fwd_norm": 0.0,
             "combine_bwd_norm": 0.0}
@@ -1263,6 +1267,10 @@ def rho_phase(card: str) -> list:
             errs["log_rho_fwd"] = max(errs["log_rho_fwd"], close(
                 f"log rho {label} K={kk}", got, want, 2e-5, 2e-5))
             assert torch.equal(got, combine.log_rho_fused(pot_h, pot_p, e)), "rho reruns differ"
+            # log ρ is the log_norm combine's log r̃ at a zero normaliser, bit for bit.
+            lr0 = combine.combine_fused(pot_h, pot_p, e, eps[:, :, :kk].contiguous(), s,
+                                        log_norm=torch.zeros(n, device=dev))[1]
+            assert torch.equal(got, lr0), f"log rho {label} K={kk} differs from the combine's"
             drho = torch.tensor(rng.standard_normal((n, kk)), dtype=torch.float32, device=dev)
             loss = lambda out: (out * drho).sum()  # noqa: E731
             # (a), the train step's call: the expected parameters constant.
@@ -1373,6 +1381,19 @@ def rho_phase(card: str) -> list:
                     grads(chain(False), (pot_h, pot_p, *exp), scalar), 5e-4)
         lines.append(f"{label} N={n} K={k} (2 shards of {k // 2}) d={d} S={s}: identity "
                      f"gradients {e_id:.3e}, 2 shards vs unsharded gradients {e_sh:.3e}")
+    # Every d at one bigk K-shard: log ρ within 2e-5 of the plain version and
+    # equal to the log_norm combine's log r̃ at a zero normaliser.
+    for d in combine.LATENT_DIMS:
+        pot_h, pot_p, exp, eps = combine_inputs(dev, 1024, 50, d, 1, seed=d)
+        got = combine.log_rho_fused(pot_h, pot_p, exp)
+        errs["log_rho_fwd"] = max(errs["log_rho_fwd"], close(
+            f"log rho K=50 d={d}", got, combine.log_rho_plain(pot_h, pot_p, exp), 2e-5, 2e-5))
+        lr0 = combine.combine_fused(pot_h, pot_p, exp, eps, 1,
+                                    log_norm=torch.zeros(1024, device=dev))[1]
+        assert torch.equal(got, lr0), f"log rho K=50 d={d} differs from the combine's"
+    lines.append("log rho equal to the log_norm combine's log r̃ at a zero normaliser bit for "
+                 f"bit at every d ({', '.join(map(str, combine.LATENT_DIMS))}) at N=1024 K=50 "
+                 "and at each shape and shard above")
     print("phase H: rho-kernel and log_norm combine vs plain (values 2e-5, local and stats "
           "2e-4, gradients 5e-4 of each largest entry, every cotangent path, reruns "
           "bit-equal): max abs err " + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
@@ -1380,9 +1401,10 @@ def rho_phase(card: str) -> list:
 
     n, k, d, s = 1024, 50, 10, 1  # one bigk K-shard of two
     t = timed_fresh("time_comp", n, k, d, s)
-    if t["kernel_rho_bwd_a_launches"] != 1:
-        raise AssertionError(f"log_rho_bwd (a): {t['kernel_rho_bwd_a_launches']:g} kernels a "
-                             "call, not one launch")
+    for part in ("fwd", "bwd_a"):
+        if t[f"kernel_rho_{part}_launches"] != 1:
+            raise AssertionError(f"log_rho_{part}: {t[f'kernel_rho_{part}_launches']:g} kernels "
+                                 "a call, not one launch")
     fb, bb = (combine_bound(n, k, d, s, b_, norm=True) for b_ in (False, True))
     ab = combine_bound(n, k, d, s, True, norm=True, main_path=True)
     rb = {"fwd": rho_bound(n, k, d, False), "bwd_a": rho_bound(n, k, d, True, main_path=True),

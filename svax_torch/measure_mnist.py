@@ -8,7 +8,7 @@ Run from the root of a checkout; needs one CUDA device and nvcc.
 ``--config bigk-dp`` measures the decoder kernels and the bigk entry
 (``measure_bigk``); ``--fused-decoder`` the row-sum kernels and the big-K
 f32 step with and without them (``measure_fused_decoder``); ``--combine``
-the combine kernels alone at COMBINE_SHAPES and the ρ-kernel at RHO_SHAPE,
+the combine kernels alone at COMBINE_SHAPES and the ρ-kernel at RHO_SHAPES,
 each in both configurations of the backward, this tree against another
 checkout in turns (``measure_combine``). The default prints the card, then two parts (every
 time a median of 3):
@@ -241,8 +241,9 @@ def time_rho(dev, n: int, k: int, d: int, reps: int = 20) -> dict:
     kernel time per call under ``torch.profiler``, ``*_call`` CUDA events;
     for the kernels the backward's device time is split as well
     (``*_kernel``: log_rho_bwd's own, ``*_reduce``: the cross-block sum's)
-    and ``kernel_rho_bwd_{a,b}_launches`` counts the device kernels a call
-    runs (those two). Uses only the entries every tree has."""
+    and ``kernel_rho_{fwd,bwd_a,bwd_b}_launches`` counts the device kernels of
+    the ρ-kernels (and their cross-block sum) a call runs. Uses only the
+    entries every tree has."""
     from svax_torch.ops import combine
 
     pot_h, pot_p, exp, _ = combine_inputs(dev, n, k, d, 1)
@@ -273,13 +274,13 @@ def time_rho(dev, n: int, k: int, d: int, reps: int = 20) -> dict:
                 continue
             own = launched_us(prof, f"log_rho_{part[:3]}")
             out[f"kernel_rho_{part}_device"] = (own + device_us(prof, "reduce")) / 1e3 / n_rep
+            events = [ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and ("log_rho" in ev.name or "reduce" in ev.name)]
+            out[f"kernel_rho_{part}_launches"] = len(events) / n_rep
             if part != "fwd":
                 out[f"kernel_rho_{part}_kernel"] = own / 1e3 / n_rep
                 out[f"kernel_rho_{part}_reduce"] = device_us(prof, "reduce") / 1e3 / n_rep
-                events = [ev for ev in prof.events()
-                          if ev.device_type == torch.autograd.DeviceType.CUDA
-                          and ("log_rho" in ev.name or "reduce" in ev.name)]
-                out[f"kernel_rho_{part}_launches"] = len(events) / n_rep
     return out
 
 
@@ -303,13 +304,14 @@ COMBINE_SHAPES = {"bigk": (1024, 100, 10, 1), "mnist": (256, 10, 8, 1),
                   "bigk data shard": (512, 100, 10, 1), "bigk K-shard": (1024, 50, 10, 1)}
 
 
-# The ρ-kernel is timed at one rank's K-shard on bigk-dp's 1x2 comp mesh.
-RHO_SHAPE = (1024, 50, 10)
+# The ρ-kernel is timed at one rank's K-shard on bigk-dp's 1x2 comp mesh
+# and at bigk-dp's whole K (N, K, d).
+RHO_SHAPES = {"bigk K-shard": (1024, 50, 10), "bigk": (1024, 100, 10)}
 
 
 def combine_times() -> dict:
     """``time_combine`` at COMBINE_SHAPES (the K-shard in its log_norm mode)
-    and ``time_rho`` at RHO_SHAPE (as "rho") with the svax_torch this
+    and ``time_rho`` at RHO_SHAPES (as "rho <label>") with the svax_torch this
     process imports, and the combine and ρ-kernels' ptxas lines from its
     build log: {"times": {shape: {...}}, "ptxas": [...]}. ``--combine`` runs
     it in a child process per tree."""
@@ -319,7 +321,8 @@ def combine_times() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     times = {label: time_combine(dev, *shape, log_norm=label == "bigk K-shard", plain=False)
              for label, shape in COMBINE_SHAPES.items()}
-    times["rho"] = time_rho(dev, *RHO_SHAPE)
+    for label, shape in RHO_SHAPES.items():
+        times[f"rho {label}"] = time_rho(dev, *shape)
     return {"times": times, "ptxas": [line for name in COMBINE_KERNELS
                                       for line in kernel_resources(_build.build_log, name)]}
 
@@ -844,7 +847,7 @@ print("RESULT " + json.dumps(mod["combine_times"]()), flush=True)
 
 def measure_combine(card: str, parent: Path | None) -> int:
     """``--combine``: the combine kernels at COMBINE_SHAPES and the ρ-kernel
-    at RHO_SHAPE in both configurations, each tree in a child process of its
+    at RHO_SHAPES in both configurations, each tree in a child process of its
     own through its own wrappers (``combine_times``), in turns parent, this
     tree, this tree, parent (this tree twice without ``--parent``); each
     number beside its bound. Then the ptxas lines of each tree's combine and
@@ -865,12 +868,12 @@ def measure_combine(card: str, parent: Path | None) -> int:
             for key, val in t.items():
                 per.setdefault(label, {}).setdefault(key, {}).setdefault(who, []).append(val)
     for label, keys in per.items():
-        if label == "rho":
-            n, k, d = RHO_SHAPE
+        if label.startswith("rho "):
+            n, k, d = RHO_SHAPES[label[len("rho "):]]
             bounds = {"fwd": rho_bound(n, k, d, False),
                       "bwd_a": rho_bound(n, k, d, True, main_path=True),
                       "bwd_b": rho_bound(n, k, d, True)}
-            print(json.dumps({"rho": "bigk K-shard", "shape": [n, k, d], "ms": keys,
+            print(json.dumps({"rho": label[len("rho "):], "shape": [n, k, d], "ms": keys,
                               "bound_ms": {p: b[0] for p, b in bounds.items()},
                               "bound_by": {p: b[1] for p, b in bounds.items()}, "card": card}),
                   flush=True)

@@ -135,6 +135,21 @@ def block_rows(b: int, n: int, k: int, threads: int, sms: int, blocks: int) -> l
     return [[g * r_count + r for g in runs if g * r_count + r < n] for r in range(r_count)]
 
 
+def rho_fwd_smem_bytes(k: int, d: int, rows: int) -> int:
+    """log_rho_fwd's shared memory (csrc/combine.cu: rho_fwd_bytes): w's K
+    rows padded to 16 bytes, its mbarrier (16 bytes), then two row groups of
+    ``rows`` rows' potentials (2d floats a row)."""
+    return 4 * (-(-k * slot_width(d) // 4) * 4 + 4 + 4 * d * rows)
+
+
+def rho_fwd_copies(k: int, d: int) -> tuple[range, range]:
+    """w's copy into log_rho_fwd's shared memory (combine_core.cuh:
+    bulk_body): the floats of its one TMA bulk copy (whole 16-byte pieces
+    from w's start) and those of the tail that the threads copy."""
+    count = k * slot_width(d)
+    return range(0, count & ~3), range(count & ~3, count)
+
+
 def plan_sum(terms: torch.Tensor, k: int, threads: int, sms: int, blocks: int) -> torch.Tensor:
     """Σ_n terms[n] in the kernels' order: per block, each thread row adds
     its rows in order, the block adds its R thread rows in order; then

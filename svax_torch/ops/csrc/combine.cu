@@ -41,15 +41,24 @@
 // through the lse into log_rho_bwd (replaces _rho_bwd_call's pallas_call,
 // :342): per (n, k), log ρ = E[log π] + ½E[log|Λ|] − ½E[μᵀΛμ] + ½μ̃ᵀh̃ −
 // ½log|J̃| gives h̃̄ = ρ̄μ̃ and the symmetric derivative in J̃, G = −½ρ̄(Σ̃ +
-// μ̃μ̃ᵀ), read back through the Cholesky's lower triangle. log_rho_fwd
-// keeps its first layout (combine_tile.cuh's register arrays, 128 threads
-// a block): its rounding of log ρ is the forward's. log_rho_bwd runs on
-// combine_core.cuh's layout (the combine's: one thread per (n, k), μ̃ by
-// recompute's products with the Cholesky's reciprocals, L̃⁻¹ packed and
-// inverted in place, R rows of K a block dealt to the card's capacity in
-// contiguous runs), with w's rows copied to shared memory as they lie
-// (16-byte loads, no index arithmetic; the odd row length keeps a warp's
-// reads on distinct banks), since it needs no symmetrised E[Λ]. The train step's
+// μ̃μ̃ᵀ), read back through the Cholesky's lower triangle. Both ρ-kernels
+// run on combine_core.cuh's layout (the combine's: one thread per (n, k),
+// packed triangles, R rows of K a block dealt to the card's capacity in
+// contiguous runs, two blocks an SM), with w's rows copied to shared memory
+// as they lie (no index arithmetic; the odd row length keeps a warp's reads
+// on distinct banks), since neither needs a symmetrised E[Λ]. log_rho_fwd
+// takes the copy from the copy engine (one TMA bulk copy a block, issued by
+// one thread), its potentials by cp.async into shared memory (held in
+// registers across the chain, they spilled at d = 10), and divides in the
+// solves (recompute<D, kDivide>, the combine forward's arithmetic): its log
+// ρ equals combine_fwd<D, true>'s log r̃ at a zero normaliser bit for bit.
+// Bound: operations (~30 MFLOP at the bigk shard): under a µs; the time is
+// the copy's latency and the SM's issue rate over the chain's ~1.4K
+// instructions a thread (divisions, square roots and logarithms to IEEE
+// rounding) on the SMs that hold two blocks.
+// log_rho_bwd copies w with the block's threads (16-byte loads) and takes μ̃
+// by recompute's products with the Cholesky's reciprocals, L̃⁻¹ packed and
+// inverted in place. The train step's
 // call owes no dw (the expected parameters are constants of the step), so
 // it forms only h̃̄ and diag G — diag Σ̃ as the column sums of squares of
 // L̃⁻¹, no full Σ̃ — and adds dpot_h, dpot_p over k in order in shared
@@ -69,7 +78,6 @@
 #include <cstdint>
 
 #include "combine_core.cuh"
-#include "combine_tile.cuh"
 #include "phase_clock.cuh"
 
 namespace {
@@ -270,8 +278,6 @@ cudaError_t forward_d(FwdArgs a, float* stats, cudaStream_t st) {
 
 using namespace svax;
 
-constexpr int kThreads = 128;  // threads per block of log_rho_fwd
-
 struct RhoArgs {
   const float* __restrict__ ph;    // (N, D)
   const float* __restrict__ pp;    // (N, D)
@@ -282,33 +288,66 @@ struct RhoArgs {
   float* dph;      // (N, D) (backward)
   float* dpp;      // (N, D)
   float* partial;  // (blocks, 1 + D + D(D+1)/2, K) or null: no dw
-  int rows, groups, blocks;  // the backward's rows a block, row groups and grid
+  int rows, groups, blocks;  // rows a block, row groups and the grid
 };
 
-// log ρ per (n, k): one thread each.
+// log ρ per (n, k) on combine_core.cuh's plan: thread (r, k) of R rows of
+// K; the row groups dealt to the blocks in contiguous runs. w's rows are
+// copied to shared memory as they lie — one bulk copy by the copy engine,
+// its tail of at most three floats by threads; faster than the block's
+// threads copying it (copy_rows) or each thread reading its row from device
+// memory, and than one copy a cluster multicast to its CTAs (PERF.md §6)
+// — and read at the odd row stride; each row group's potentials are
+// copied to shared memory by cp.async, the next group's while this one's
+// chain runs (no registers held across the chain). recompute<D, kDivide>
+// divides in the solves as combine_fwd does, so log ρ carries the
+// combine's bits; the stores of a row group are consecutive. No sums: one
+// launch, no atomics.
 template <int D>
-__global__ void __launch_bounds__(kThreads) log_rho_fwd(RhoArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.n * a.k) return;
-  const int n = idx / a.k, kk = idx % a.k;
-  float p[D], h[D];
-  comb::load_row<D>(a.ph, a.pp, n, true, p, h);
-  float L[D][D], ht[D], mu[D], logdet_j, log_rho;
-  tile_core<D>(a.w + static_cast<size_t>(kk) * Slot<D>::SIZE, p, h, L, ht, mu, logdet_j,
-               log_rho);
-  a.log_rho[idx] = log_rho;
+__global__ void __launch_bounds__(comb::kBlockThreads, 2) log_rho_fwd(RhoArgs a) {
+  namespace c = svax::comb;
+  using P = c::Planes<D>;
+  const int K = a.k, R = a.rows, tid = threadIdx.x, r = tid / K, k = tid % K;
+  const int count = K * P::W, body = c::bulk_body(count), pad = (count + 3) & ~3;
+  extern __shared__ __align__(16) float rho_smem[];  // w's rows, the barrier, the potentials
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rho_smem + pad);
+  float* s_pot = rho_smem + pad + 4;  // (2, R, 2D): two row groups' [h, p]
+  PHASE_START;
+  int g = c::run_begin(blockIdx.x, a.groups, a.blocks);
+  const int g1 = c::run_begin(blockIdx.x + 1, a.groups, a.blocks);
+  if (tid == 0) {
+    c::bar_init(bar, 1);
+    c::bar_expect(bar, 4u * body);
+    c::bulk_copy(rho_smem, a.w, 4u * body, bar);
+  }
+  for (int e = body + tid; e < count; e += blockDim.x) rho_smem[e] = a.w[e];
+  if (g < g1) c::stage_potentials<D>(a.ph, a.pp, a.n, g * R, R, s_pot);
+  c::cp_async_wait_all();
+  __syncthreads();
+  c::bar_wait(bar, 0);
+  PHASE_MARK(16);
+
+  for (int it = 0; g < g1; ++g, ++it) {
+    const float* row = s_pot + ((it & 1) * R + r) * 2 * D;
+    if (g + 1 < g1)
+      c::stage_potentials<D>(a.ph, a.pp, a.n, (g + 1) * R, R, s_pot + ((it + 1) & 1) * R * 2 * D);
+    float p[D], h[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      h[i] = row[i];
+      p[i] = row[D + i];
+    }
+    const int n = g * R + r;
+    float L[c::tri(D)], ht[D], mu[D], logdet_j, log_rho;
+    c::recompute<D, true, true>(rho_smem, K, k, p, h, L, ht, mu, logdet_j, log_rho);
+    PHASE_MARK(17);
+    if (n < a.n) a.log_rho[static_cast<size_t>(n) * K + k] = log_rho;
+    c::cp_async_wait_all();
+    __syncthreads();
+    PHASE_MARK(18);
+  }
 }
 
-// The recompute backward of log_rho_fwd on combine_core.cuh's plan: per
-// (n, k) μ̃ and L̃⁻¹ (packed, inverted in place), h̃̄ = ρ̄μ̃ and
-// diag G = −½ρ̄(diag Σ̃ + μ̃²), diag Σ̃ the column sums of squares of L̃⁻¹;
-// dpot_h, dpot_p summed over k in order in shared memory, row group by row
-// group. kDw: each thread also adds its rows' [ρ̄, ρ̄μ̃, G's lower
-// triangle] into its own column of shared memory, and the block writes
-// their sums over its R thread rows as one (1 + D + D(D+1)/2, K) partial.
-// At most 256 threads a block; without dw two blocks an SM (≤ 128
-// registers: every row group of the bigk K-shard at once, no spills), with
-// dw one (its dw terms need more).
 template <int D, bool kDw>
 __global__ void __launch_bounds__(comb::kBlockThreads, kDw ? 1 : 2) log_rho_bwd(RhoArgs a) {
   namespace c = svax::comb;
@@ -404,10 +443,31 @@ size_t rho_bwd_bytes(int k, int nt) {
                           static_cast<size_t>(nt) * (kDw ? 1 + D + comb::tri(D) : 0));
 }
 
+// log_rho_fwd's shared memory: w's rows padded to 16 bytes, its mbarrier
+// (16 bytes), two row groups' potentials.
 template <int D>
-cudaError_t rho_forward_d(const RhoArgs& a, cudaStream_t st) {
-  const int total = a.n * a.k;
-  log_rho_fwd<D><<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(a);
+size_t rho_fwd_bytes(int k, int rows) {
+  const size_t count = static_cast<size_t>(comb::Planes<D>::W) * k;
+  return sizeof(float) * (((count + 3) & ~static_cast<size_t>(3)) + 4 + 4 * D * rows);
+}
+
+// The forward's plan and its one launch: R rows of K a block, the row
+// groups dealt to the blocks that fit on the card at once.
+template <int D>
+cudaError_t rho_forward_d(RhoArgs a, cudaStream_t st) {
+  static comb::LaunchCache cache;
+  int sms = 0, cap = 0;
+  cudaError_t err = comb::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  if ((reinterpret_cast<uintptr_t>(a.w) & 15u) != 0)
+    return cudaErrorMisalignedAddress;  // the bulk copy reads 16-byte pieces
+  a.rows = comb::rows_per_block(a.n, a.k, comb::kBlockThreads, sms);
+  a.groups = comb::row_groups(a.n, a.rows);
+  const size_t bytes = rho_fwd_bytes<D>(a.k, a.rows);
+  err = comb::capacity(log_rho_fwd<D>, a.k, a.rows, bytes, sms, cache, cap);
+  if (err != cudaSuccess) return err;
+  a.blocks = a.groups < cap ? a.groups : cap;
+  log_rho_fwd<D><<<a.blocks, a.rows * a.k, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -442,9 +502,11 @@ bool shape_ok(int n, int k, int s) { return n >= 1 && k >= 1 && k <= comb::kMaxK
 
 }  // namespace
 
-// Phase clocks of log_rho_bwd (slots 0–4; compiled in only with
-// -DSVAX_PHASE_CLOCKS): staging, the recompute, the inverse and the terms,
-// the barrier's wait, the sums over k.
+// Phase clocks of the ρ-kernels (compiled in only with -DSVAX_PHASE_CLOCKS):
+// log_rho_bwd's slots 0–4 — staging, the recompute, the inverse and the
+// terms, the barrier's wait, the sums over k — and log_rho_fwd's 16–18 — the
+// copy of w (with the first row's potentials), the chain (recompute and the
+// next row's potentials), the store.
 SVAX_PHASE_ENTRY(rho_phase_clocks)
 
 cudaError_t svax::comb::launch_reduce(const float* partial, int blocks, int planes, int k, int d,

@@ -1,7 +1,7 @@
 // The fused SIN combine's shared parts: the block plan, the staged
 // component rows, the per-(n, k) recompute on packed triangles, the noise
 // and the host-side grid sizing. Included by combine.cu (the forward, the
-// cross-block sums and the ρ-kernel's backward), combine_bwd.cu (the train
+// cross-block sums and the ρ-kernels), combine_bwd.cu (the train
 // step's backward) and combine_bwd_full.cu (the backward for every
 // cotangent, dw included).
 //
@@ -151,6 +151,79 @@ __device__ __forceinline__ void copy_rows(const float* __restrict__ src, int cou
   for (int q = threadIdx.x; q < n4; q += blockDim.x)
     reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(src)[q];
   for (int e = 4 * n4 + threadIdx.x; e < count; e += blockDim.x) s[e] = src[e];
+}
+
+// w's K·W floats as the copy engine takes them: a body of whole 16-byte
+// chunks, one TMA bulk copy, and a tail of at most three floats, copied by
+// threads.
+__host__ __device__ inline int bulk_body(int count) { return count & ~3; }
+
+// The copy engine's PTX and cp.async (a g++ rehearsal defines SVAX_MOCK_PTX
+// and supplies these as plain copies and barriers).
+#ifndef SVAX_MOCK_PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// An mbarrier in shared memory expecting `count` arrivals, made visible to
+// the copy engine.
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// One arrival that also expects `bytes` of bulk copies to land.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// src to shared dst by the copy engine, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// One float from global to shared memory without a register (cp.async), and
+// the wait for this thread's.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+#endif
+
+// The potentials of rows n0 … n0 + R − 1 into s (R, 2D): [h (D), p (D)] a
+// row, by cp.async; rows past N get p = 1, h = 0 (load_row's). The caller
+// waits (cp_async_wait_all) and synchronises.
+template <int D>
+__device__ __forceinline__ void stage_potentials(const float* ph, const float* pp, int n,
+                                                 int n0, int R, float* s) {
+  for (int t = threadIdx.x; t < R * 2 * D; t += blockDim.x) {
+    const int row = n0 + t / (2 * D), col = t % (2 * D);
+    if (row >= n)
+      s[t] = col < D ? 0.0f : 1.0f;
+    else if (col < D)
+      cp_async4(s + t, ph + static_cast<size_t>(row) * D + col);
+    else
+      cp_async4(s + t, pp + static_cast<size_t>(row) * D + col - D);
+  }
 }
 
 // Entry (plane, k) of the staged component rows: planes sw[plane·K + k]

@@ -20,9 +20,10 @@
 // w block): [log π, E[log|Λ|], E[μᵀΛμ], E[Λμ] (D), E[Λ] (D×D row-major)].
 // Matrices are [D][D] arrays of which only the lower triangle is used where
 // the comment says so; D is a template parameter so everything unrolls
-// into registers. Shared by flexstep.cu and combine.cu (the combine
-// forward's μ̃ and z follow tile_core's and solve_upper's order, and the
-// ρ-kernel's forward — the log_rho_fused port — runs tile_core).
+// into registers. Used by flexstep.cu (the whole-step kernel's combine and
+// its backward). combine_core.cuh's recompute<D, kDivide = true> keeps
+// tile_core's order, so the combine forward's μ̃, z and log r̃ and the
+// ρ-kernel's forward log ρ (combine.cu) carry tile_core's arithmetic.
 #pragma once
 
 namespace svax {

@@ -1,5 +1,7 @@
 """The component-parallel CUDA kernels on the card: the ρ-kernel
-(``log_rho_fused``, forward and backward; the backward in both
+(``log_rho_fused``, forward and backward; the forward, at every d and K
+in {1, 50, 128}, bit-equal to the log_norm combine's log r̃ at a zero
+normaliser and one device kernel a call; the backward in both
 configurations — the train step's, without dw, and with dw — at every d)
 and the combine's log_norm mode
 (forward and backward, with the normaliser's cotangent) against their plain
@@ -237,6 +239,42 @@ def test_log_rho_backward_configurations_match_plain(dev, n, k, d):
     assert all(torch.equal(x, y) for x, y in
                zip(got_b, _grads(kern_b, (pot_h, pot_p, *exp), loss)))
     assert torch.equal(got_a[0], got_b[0]) and torch.equal(got_a[1], got_b[1])
+
+
+@pytest.mark.parametrize("d", combine.LATENT_DIMS)
+@pytest.mark.parametrize("k", [1, 50, 128])
+def test_log_rho_forward_equals_the_log_norm_combine(dev, k, d):
+    """The forward's log ρ at a ragged N: within 2e-5 of the plain version
+    and, bit for bit, the log_norm combine's log r̃ at a zero normaliser (the
+    same recompute, the same divisions); one launch, reruns bit-equal."""
+    n = 1031
+    pot_h, pot_p, exp, eps, _ = _inputs(dev, n, k, d, 1, seed=k + d)
+    before = combine.rho_launches
+    got = combine.log_rho_fused(pot_h, pot_p, exp)
+    torch.cuda.synchronize()
+    assert combine.rho_launches == before + 1
+    want = combine.log_rho_plain(pot_h, pot_p, exp)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    lr0 = combine.combine_fused(pot_h, pot_p, exp, eps, 1, log_norm=torch.zeros(n, device=dev))[1]
+    assert torch.equal(got, lr0)
+    assert torch.equal(got, combine.log_rho_fused(pot_h, pot_p, exp))
+
+
+def test_log_rho_forward_is_one_device_kernel(dev):
+    """At the bigk K-shard a forward call runs one device kernel of the
+    ρ-kernels (no cross-block sum)."""
+    pot_h, pot_p, exp, _, _ = _inputs(dev, 1024, 50, 10, 1)
+    w = combine.pack_expected(exp)
+    combine.log_rho_fused(pot_h, pot_p, exp)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.no_grad():
+            combine._RhoKernel.apply(pot_h, pot_p, w)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "log_rho_fwd" in names[0], names
 
 
 def test_wrappers_raise_outside_the_shape_class(dev):
