@@ -83,7 +83,31 @@ D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    entry prints none); then 40 steps on the plain engine for its rate, and
    50 steps of the kernel engine and 10 of the plain one, without the
    warmup, under ``torch.profiler`` for the device's idle share and the
-   combine's share of device time;
+   combine's share of device time; seed 0's first run writes its final
+   state as a serving bundle (``--bundle-dir``) for phase L;
+L. the training harness and the serving layer (``train.trainer``,
+   ``train.checkpoint``, ``serve``): (1) ``train_svae --config
+   pinwheel-svae`` 2000 steps against 1000 and ``--resume`` to 2000
+   (tinystep), final checkpoints bit-equal; (2) ``SvaeTrainer`` on
+   auto-svae, 1000 steps against 500 and a fresh trainer resuming
+   (flexstep), bit-equal, the ``best`` summary's keys, one step under
+   ``best/``; (3) ``SvaeTrainer`` at mnist-svae's width on the per-step
+   engine with the combine and MLP-decoder kernels, 100 warmup + 200
+   steps against 100 + 100 and a resume that skips the warmup, bit-equal;
+   (4) ``GmmTrainer`` from a k-means++ start, 300 steps against 200 and a
+   resume (mixstep), bit-equal, then ``fused=True`` on the per-step engine
+   (one estep launch a step); (5) phase D's bundle on ``cuda``: requests
+   of 1, 33, 512 and 8193 rows (padding invisible), the ``cpu`` server's
+   encode within tests/test_torch_serve.py's rtol/atol 1e-5 and its
+   components equal but for near ties, the cluster purity phase D reports,
+   the mean score at 100 samples within 3 standard errors of the entry's
+   IW bound, impute in both modes keeping observed pixels bit for bit,
+   finite ``generate(12)``; (6) ``export_serving`` at buckets (32, 512) on
+   ``cuda``, served by a fresh process whose import of the model modules
+   raises: encode, reconstruct and impute within 1e-6 of the live server,
+   score and components bit-equal; the ms a step of each resume leg and
+   each endpoint's live and exported latency at each bucket, beside the
+   card line;
 E. the fused MLP-decoder kernels against their plain version at the bigk
    (S=1, N=1024, K=100, d=10, 200-200, D=784), mnist (N=256, K=10, d=8)
    and a ragged shape (N=37, K=7, d=3, 24-40, D=50), and at one rank's
@@ -213,9 +237,11 @@ import ctypes
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def card_line() -> str:
@@ -234,8 +260,6 @@ def timed_fresh(func: str, *args: int, module: str = "measure_mnist") -> dict:
     profiles are taken in a process of their own. A child whose profile
     still read no device time for a kernel it launched is run once more;
     any other failure raises."""
-    from pathlib import Path
-
     code = ("import json, sys, torch\n"
             f"from svax_torch import {module} as mod\n"
             "torch.backends.cuda.matmul.allow_tf32 = False\n"
@@ -863,19 +887,22 @@ def combine_phase(card: str) -> list:
     return entries
 
 
-def mnist_phase(card: str) -> tuple[int, int]:
+def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
     """Phase D; returns the combine forward and backward launches of the
-    main path's first run (seed 0)."""
+    main path's first run (seed 0), and that run's purity and IW bound,
+    whose final state it writes as a serving bundle to ``bundle`` (phase L)."""
     import torch
 
     from svax_torch import train_svae
     from svax_torch.measure_mnist import profile_entry, quality
     from svax_torch.ops import combine
 
-    launches, lines = None, []
+    launches, lines, served = None, [], {}
     for seed in (0, 1):
         argv = ["--config", "mnist-svae", "--steps", "2000", "--device", "cuda",
                 "--seed", str(seed), "--iw-samples", "100" if seed == 0 else "0"]
+        if seed == 0:
+            argv += ["--bundle-dir", bundle]
         combine.launches = combine.backward_launches = combine.lean_backward_launches = 0
         combine.backward_paths.clear()
         run1 = train_svae.main(argv)
@@ -896,6 +923,9 @@ def mnist_phase(card: str) -> tuple[int, int]:
             f"two mnist-svae runs at seed {seed} differ"
         start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
         purity, used = quality(run1, seed)
+        if seed == 0:
+            served = {"bundle": bundle, "purity": purity, "state": run1["state"],
+                      "iw": run1["final_test_iw_loglik_per_point"]}
         lines.append(f"seed {seed}: {fwd} forward / {bwd} backward combine launches (the "
                      f"backward's cotangents {combine.backward_paths}), "
                      f"warmup {run1['warmup']['seconds']:.1f} s (seed occupancy "
@@ -922,7 +952,7 @@ def mnist_phase(card: str) -> tuple[int, int]:
               f"{r['device_ms']:.3f} ms, idle share {100 * r['idle']:.1f}%, combine "
               f"kernels {r['combine_ms']:.3f} ms ({100 * r['combine_ms'] / r['device_ms']:.1f}%"
               f" of device time); {card}", flush=True)
-    return launches
+    return launches, served
 
 
 def decoder_phase(card: str) -> list:
@@ -1816,6 +1846,336 @@ def fused_decoder_phase(card: str) -> tuple[int, int]:
     return launches
 
 
+# Phase L's child: serves the exported artifacts in a process whose import
+# of the model modules raises; prints the latencies and saves the answers.
+_EXPORTED_CHILD = """
+import importlib.abc, json, sys, time
+
+BLOCKED = ("svax_torch.models", "svax_torch.nets", "svax_torch.pgm", "svax_torch.train",
+           "svax_torch.ops", "svax_torch.expfam")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.startswith(BLOCKED) or name == "jax" or name.startswith("jax."):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from svax_torch import serve
+
+srv = serve.load_exported(sys.argv[1])
+data = np.load(sys.argv[2])
+out, lat = {}, {}
+for b in srv._buckets:
+    x, mask = data[f"x{b}"], data[f"mask{b}"]
+    calls = {"encode": lambda: srv.encode(x), "reconstruct": lambda: srv.reconstruct(x),
+             "impute": lambda: srv.impute(x, mask), "score": lambda: srv.score(x, seed=3)}
+    for name, call in calls.items():
+        got = call()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        lat[f"{name}_{b}"] = sorted(times)[2] * 1e3
+        for key, value in (got.items() if isinstance(got, dict) else [("", got)]):
+            out[f"{name}_{b}_{key}"] = value
+np.savez(sys.argv[3], **out)
+try:
+    import svax_torch.models
+    blocked = False
+except ImportError:
+    blocked = True
+print("RESULT " + json.dumps({"latency_ms": lat, "models_blocked": blocked,
+                              "device": str(srv.device)}))
+"""
+
+
+def _median_ms(call, repeats: int = 5) -> float:
+    """Median wall milliseconds of ``call()`` after one warm call (every
+    endpoint returns host arrays, so the time includes the device's work and
+    the copy back)."""
+    call()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def _same_state(path_a: Path, path_b: Path) -> bool:
+    import torch
+
+    a = torch.load(path_a, weights_only=True)["state"]
+    b = torch.load(path_b, weights_only=True)["state"]
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _near_ties(resp, margin: float):
+    """Rows whose two largest responsibilities lie within ``margin``."""
+    import numpy as np
+
+    top = -np.sort(-np.asarray(resp), axis=-1)
+    return (top[:, 0] - top[:, 1]) < margin
+
+
+def harness_phase(card: str, served: dict, work: Path) -> None:
+    """Phase L: the training harness (checkpoint/resume through every kernel
+    engine, JSONL rows, best tracking) and the serving layer (phase D's
+    mnist-svae bundle live on the card, against the CPU, and its exported
+    tier in a child process without the model modules)."""
+    import numpy as np
+    import torch
+
+    from svax_torch import serve, train_svae
+    from svax_torch.data import load_dataset, load_mnist
+    from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.models import evaluation
+    from svax_torch.models.gmm_baseline import GmmTrainState
+    from svax_torch.models.svae import SvaeConfig, sin_combine
+    from svax_torch.nets import mlp as nets
+    from svax_torch.ops import combine, decoder_mlp, estep, flexstep, mixstep, tinystep
+    from svax_torch.pgm import gmm
+    from svax_torch.pgm.init import init_variational_kmeanspp
+    from svax_torch.train.checkpoint import Checkpointer
+    from svax_torch.train.metrics import read_jsonl
+    from svax_torch.train.trainer import GmmTrainer, SvaeTrainer, TrainerConfig
+    from svax_torch.utils.tree import flatten
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                   for (_, x), (_, y) in zip(flatten(a), flatten(b)))
+
+    # 1. the entry's resume through tinystep (pinwheel-svae, full width)
+    argv = ["--config", "pinwheel-svae", "--device", "cuda", "--seed", "0", "--iw-samples",
+            "0"]
+    tinystep.launches = 0
+    a = train_svae.main(argv + ["--steps", "2000", "--checkpoint-dir", str(work / "A")])
+    b1 = train_svae.main(argv + ["--steps", "1000", "--checkpoint-dir", str(work / "B")])
+    b2 = train_svae.main(argv + ["--steps", "2000", "--checkpoint-dir", str(work / "B"),
+                                 "--resume", "--logfile", str(work / "B.jsonl")])
+    launches = tinystep.launches
+    assert a["kernel"] == "tinystep" and launches == 4, (a["kernel"], launches)
+    assert _same_state(work / "A" / "step_2000.pt", work / "B" / "step_2000.pt"), \
+        "pinwheel-svae: the resumed run's final checkpoint differs from the whole run's"
+    assert same(a["state"], b2["state"]) and read_jsonl(work / "B.jsonl") == b2["rows"]
+    assert b2["rows"][-1]["test_elbo_per_point"] == a["rows"][-1]["test_elbo_per_point"]
+    print(f"phase L: train_svae pinwheel-svae 2000 steps vs 1000 + --resume 1000 (tinystep, "
+          f"{launches} launches): final checkpoints bit-equal; ms a step: whole "
+          f"{1e3 / a['steps_per_s']:.4f}, first leg {1e3 / b1['steps_per_s']:.4f}, resumed "
+          f"leg {1e3 / b2['steps_per_s']:.4f} (chunks of 1000, each row's evaluation "
+          f"included); {card}", flush=True)
+
+    # 2. SvaeTrainer's resume through flexstep (auto-svae, full width)
+    train, test, _ = load_dataset("auto", seed=0)
+    mc = SvaeConfig(latent_dim=4, num_components=10, num_samples=4, num_total=len(train))
+
+    def auto_fit(steps, ck):
+        tc = TrainerConfig(steps=steps, batch_size=64, lr=1e-3, rho=0.2, rho_decay=0.001,
+                           eval_every=500, scan_chunk=500, encoder_hidden=(100, 100),
+                           decoder_hidden=(100, 100), engine="kernel",
+                           checkpoint_dir=str(work / ck))
+        trainer = SvaeTrainer(mc, tc, input_dim=train.shape[1])
+        t0 = time.perf_counter()
+        state = trainer.fit(train.astype(np.float32), test.astype(np.float32))
+        return trainer, state, (time.perf_counter() - t0) * 1e3 / (steps - trainer._start)
+
+    flexstep.launches = 0
+    whole, s_whole, ms_whole = auto_fit(1000, "C")
+    _, _, ms_first = auto_fit(500, "D")
+    resumed, s_res, ms_res = auto_fit(1000, "D")
+    assert whole.kernel == resumed.kernel == "flexstep" and flexstep.launches == 4
+    assert same(s_whole, s_res), "auto-svae: SvaeTrainer's resumed fit differs"
+    assert set(whole.best) == {"metric", "best_value", "best_step", "best_wall_s", "target",
+                               "target_step", "target_wall_s", "stopped_early", "steps_run",
+                               "total_wall_s"}
+    assert len(Checkpointer(work / "C" / "best").all_steps()) == 1
+    print(f"phase L: SvaeTrainer auto-svae 1000 steps vs 500 + resume (flexstep, "
+          f"{flexstep.launches} launches): bit-equal, best {whole.best['metric']} "
+          f"{whole.best['best_value']:.4f} at step {whole.best['best_step']}; ms a step "
+          f"(fit wall over its steps, evaluations included): whole {ms_whole:.4f}, first leg "
+          f"{ms_first:.4f}, resumed leg {ms_res:.4f}; {card}", flush=True)
+
+    # 3. the per-step engine at mnist-svae's width: combine and decoder kernels
+    train, test, meta = load_dataset("mnist", seed=0)
+    mc = SvaeConfig(latent_dim=8, num_components=10, num_samples=1, num_total=len(train),
+                    likelihood="bernoulli", nn_compute_dtype="bfloat16", fused_combine=True,
+                    kernel_rng=True, fused_mlp_decoder=True)
+
+    def mnist_fit(steps, ck):
+        tc = TrainerConfig(steps=steps, batch_size=256, lr=1e-3, rho=0.1, rho_decay=0.001,
+                           eval_every=100, scan_chunk=100, encoder_hidden=(200, 200),
+                           decoder_hidden=(200, 200), warmup_steps=100,
+                           checkpoint_dir=str(work / ck))
+        trainer = SvaeTrainer(mc, tc, input_dim=784)
+        t0 = time.perf_counter()
+        state = trainer.fit(train.astype(np.float32), test.astype(np.float32))
+        return trainer, state, (time.perf_counter() - t0) * 1e3 / steps
+
+    combine.launches = decoder_mlp.launches = 0
+    whole, s_whole, ms_whole = mnist_fit(200, "E")
+    fwd, dec = combine.launches, decoder_mlp.launches
+    _, _, ms_first = mnist_fit(100, "F")
+    resumed, s_res, ms_res = mnist_fit(200, "F")
+    assert fwd > 0 and dec > 0, (fwd, dec)
+    assert whole.warmup_info is not None and resumed.warmup_info is None
+    assert same(s_whole, s_res), "mnist width: the per-step engine's resumed fit differs"
+    print(f"phase L: SvaeTrainer mnist-svae width (per-step engine, fused combine and MLP "
+          f"decoder: {fwd} combine / {dec} decoder forward launches in the whole fit), "
+          f"100 warmup + 200 steps vs 100 warmup + 100 + resume 100 (no second warmup): "
+          f"bit-equal; ms a step (fit wall over its steps, warmup and evaluations "
+          f"included): whole {ms_whole:.3f}, first leg {ms_first:.3f}, resumed leg "
+          f"{ms_res:.3f}; {card}", flush=True)
+
+    # 4. GmmTrainer: mixstep from a k-means++ start, then the estep kernel
+    train, test = load_pinwheel(num_classes=5, num_per_class=100, seed=0)
+    prior = gmm.make_prior(10, 2, kappa=0.05, device=dev)
+    start = GmmTrainState(nat=init_variational_kmeanspp(prior, train, seed=0), step=0)
+
+    def gmm_fit(steps, ck, **kw):
+        tc = TrainerConfig(steps=steps, eval_every=100, rho=1.0,
+                           checkpoint_dir=str(work / ck) if ck else "", **kw)
+        trainer = GmmTrainer(tc, 10, 2, prior=prior, fused=kw.get("engine") == "step")
+        t0 = time.perf_counter()
+        state = trainer.fit(train.astype(np.float32), test.astype(np.float32), state=start)
+        return trainer, state, (time.perf_counter() - t0) * 1e3 / (steps - trainer._start)
+
+    mixstep.launches = 0
+    whole, s_whole, ms_whole = gmm_fit(300, "G", engine="kernel")
+    _, _, ms_first = gmm_fit(200, "H", engine="kernel")
+    _, s_res, ms_res = gmm_fit(300, "H", engine="kernel")
+    mix = mixstep.launches
+    assert whole.engine == "kernel" and mix == 6 and same(s_whole, s_res), mix
+    estep.launches = 0
+    fused, _, ms_fused = gmm_fit(100, "", engine="step")
+    assert fused.engine == "step" and estep.launches == 100, estep.launches
+    print(f"phase L: GmmTrainer pinwheel-gmm (k-means++ start) 300 steps vs 200 + resume "
+          f"(mixstep, {mix} launches): bit-equal, test evidence/pt "
+          f"{whole.best['best_value']:.5f}; ms a step: whole {ms_whole:.4f}, first leg "
+          f"{ms_first:.4f}, resumed leg {ms_res:.4f}; fused=True per-step engine "
+          f"{estep.launches} estep launches in 100 steps, {ms_fused:.4f} ms a step; {card}",
+          flush=True)
+    print(f"phase L: training legs done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 5. phase D's mnist-svae bundle, served
+    x_train, x_test, _, _, labels = load_mnist(seed=0, return_labels=True)
+    x_train, x_test = x_train.astype(np.float32), x_test.astype(np.float32)
+    live = serve.load_bundle(served["bundle"], device="cuda")
+    host = serve.load_bundle(served["bundle"], device="cpu")
+    assert all(torch.equal(p, q.to(dev)) for (_, p), (_, q)
+               in zip(flatten(live._nat), flatten(served["state"].pgm_nat)))
+    big = np.concatenate([x_test, x_train, x_train])[:8193]
+    full = live.encode(big)
+    tol = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_serve.py's
+    for n in (1, 33, 512, 8193):
+        got = live.encode(big[:n])
+        np.testing.assert_allclose(got["z_mean"], full["z_mean"][:n], **tol)
+        assert got["z_mean"].shape == (n, 8) and got["component"].shape == (n,)
+    on_cpu = host.encode(big)
+    np.testing.assert_allclose(full["z_mean"], on_cpu["z_mean"], **tol)
+    np.testing.assert_allclose(full["responsibilities"], on_cpu["responsibilities"], **tol)
+    # Components may differ only where the two most responsible components
+    # lie within the responsibilities' tolerance of each other.
+    tie = 2 * (tol["rtol"] + tol["atol"])
+    differ = full["component"] != on_cpu["component"]
+    assert not np.any(differ & ~_near_ties(on_cpu["responsibilities"], tie)), \
+        "the cuda and cpu servers' components differ beyond near ties"
+    comp = live.cluster(x_test)
+    purity = evaluation.cluster_purity(np.eye(10)[comp], labels)
+    with torch.no_grad():  # the entry's own assignment (measure_mnist.quality)
+        st = served["state"]
+        pot_h, pot_p = nets.encoder_apply(st.nn_params["encoder"], torch.tensor(x_test,
+                                                                                device=dev))
+        resp = torch.exp(sin_combine(pot_h, pot_p, gmm.expected_params(st.pgm_nat)).log_resp)
+    entry_comp = resp.argmax(-1).cpu().numpy()
+    moved = comp != entry_comp
+    assert not np.any(moved & ~_near_ties(resp.cpu().numpy(), tie)), \
+        "server.cluster differs from the entry's assignment beyond near ties"
+    assert abs(purity - served["purity"]) <= moved.sum() / len(labels) + 1e-12, \
+        (purity, served["purity"])
+    scores = live.score(x_test, seed=0, num_samples=100)
+    se = float(scores.std() / np.sqrt(len(scores)))
+    assert abs(float(scores.mean()) - served["iw"]) <= 3 * se, (scores.mean(), served["iw"])
+    mask = np.ones_like(x_test[:512])
+    mask[:, 392:] = 0.0  # the bottom half of each image is missing
+    for mode in ("mean", "map"):
+        filled = live.impute(x_test[:512], mask, mode=mode)
+        assert np.array_equal(filled[:, :392], x_test[:512, :392]), mode
+        assert np.all((filled >= 0) & (filled <= 1))
+    gx, gz, gl = live.generate(12, seed=0)
+    assert gx.shape == (12, 784) and np.all(np.isfinite(gx)) and np.all((gx >= 0) & (gx <= 1))
+    print(f"phase L: mnist-svae bundle served on {live.device}: requests of 1, 33, 512, 8193 "
+          f"rows equal the 8193-row answer's rows (rtol 1e-5); cuda vs cpu server at 8193 "
+          f"rows z_mean max abs diff {np.abs(full['z_mean'] - on_cpu['z_mean']).max():.3e}, "
+          f"components differing {int(differ.sum())} (near ties only); cluster purity "
+          f"{purity:.4f} (phase D {served['purity']:.4f}, {int(moved.sum())} rows assigned "
+          f"otherwise, near ties); score mean {scores.mean():.4f} "
+          f"+- {se:.4f} (100 samples; the entry's IW/pt {served['iw']:.4f}); impute mean and "
+          f"map keep the observed pixels bit for bit; generate(12) finite; {card}",
+          flush=True)
+
+    # 6. the exported tier, served by a fresh child without the model modules
+    live = serve.load_bundle(served["bundle"], buckets=(32, 512), device="cuda")
+    t0 = time.perf_counter()
+    serve.export_serving(live, work / "exported", buckets=(32, 512))
+    t_export = time.perf_counter() - t0
+    inputs, want = {}, {}
+    lat_live = {}
+    for b in (32, 512):
+        x = x_test[:b]
+        m = np.ones_like(x)
+        m[:, 392:] = 0.0
+        inputs[f"x{b}"], inputs[f"mask{b}"] = x, m
+        calls = {"encode": lambda: live.encode(x), "reconstruct": lambda: live.reconstruct(x),
+                 "impute": lambda: live.impute(x, m), "score": lambda: live.score(x, seed=3)}
+        for name, call in calls.items():
+            got = call()
+            for key, value in (got.items() if isinstance(got, dict) else [("", got)]):
+                want[f"{name}_{b}_{key}"] = value
+            lat_live[f"{name}_{b}"] = _median_ms(call)
+    np.savez(work / "inputs.npz", **inputs)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _EXPORTED_CHILD, str(work / "exported"),
+                          str(work / "inputs.npz"), str(work / "answers.npz")],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"phase L: the exported tier's child exited {out.returncode}:\n"
+                           f"{out.stderr[-4000:]}")
+    child = json.loads([ln for ln in out.stdout.splitlines()
+                        if ln.startswith("RESULT ")][-1][len("RESULT "):])
+    t_child = time.perf_counter() - t0
+    assert child["models_blocked"] and child["device"].startswith("cuda"), child
+    answers = np.load(work / "answers.npz")
+    assert set(answers.files) == set(want), (sorted(answers.files), sorted(want))
+    worst = 0.0
+    for key, value in want.items():
+        got = answers[key]
+        if key.startswith("score") or key.endswith("component"):
+            assert np.array_equal(got, value), key
+        else:
+            np.testing.assert_allclose(got, value, rtol=1e-6, atol=1e-6, err_msg=key)
+            worst = max(worst, float(np.abs(got - value).max()))
+    print(f"phase L: export_serving at buckets (32, 512) on {live.device} in {t_export:.1f} "
+          f"s; a fresh process without svax_torch.models served them ({t_child:.1f} s with "
+          f"its start and loads): encode, reconstruct, impute within {worst:.3e} of the live server, "
+          f"score and components bit-equal; {card}", flush=True)
+    for b in (32, 512):
+        print(f"phase L: latency ms at bucket {b} (median of 5, host arrays back), live / "
+              f"exported: " + ", ".join(
+                  f"{name} {lat_live[f'{name}_{b}']:.3f} / {child['latency_ms'][f'{name}_{b}']:.3f}"
+                  for name in ("encode", "reconstruct", "impute", "score"))
+              + f"; {card}", flush=True)
+    print(f"phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1993,10 +2353,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     combine_kernels = combine_phase(card)
     print(f"phase C done at {elapsed()}", flush=True)
-    fwd_launches, bwd_launches = mnist_phase(card)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_L"
+    shutil.rmtree(work, ignore_errors=True)
+    (fwd_launches, bwd_launches), served = mnist_phase(card, str(work / "mnist_bundle"))
     print(f"phase D done at {elapsed()}", flush=True)
     combine_kernels[0]["launches"] = fwd_launches
     combine_kernels[1]["launches"] = bwd_launches
+
+    # L. the training harness and the serving layer
+    harness_phase(card, served, work)
+    print(f"phase L done at {elapsed()}", flush=True)
 
     # E–F. the decoder kernels and bigk-dp
     decoder_kernels = decoder_phase(card)

@@ -27,8 +27,12 @@ parallelism — ``parallel.mesh`` (process groups on ``torch.distributed``),
 and the combine's log_norm mode in ``ops.combine``, and ``--dp`` on
 ``train_svae`` and ``train_gmm``; and the Bernoulli decoder's fused
 x-free row sum — ``ops.decoder`` behind ``SvaeConfig.fused_decoder``,
-through ``train_svae --fused-decoder``. ``configs`` carries the named
-configs the entries read.
+through ``train_svae --fused-decoder``; and the training harness —
+``train.trainer`` (``SvaeTrainer``, ``GmmTrainer``, ``SmmTrainer``),
+``train.checkpoint``, ``train.metrics``, ``utils.guards``, the entry
+``svax_torch.evaluate`` and ``models.svae.generate`` — and the serving layer,
+``serve`` (bundles, the bucketed server, its ``torch.export`` tier).
+``configs`` carries the named configs the entries read.
 """
 
 __version__ = "0.1.0"

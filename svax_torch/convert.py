@@ -16,6 +16,8 @@ Under component parallelism a rank holds a K-slice of the naturals (and of
 the prior): ``shard_nat`` cuts rank i's contiguous slice of K, as the
 reference's ``P("comp")`` places it, ``unshard_nat`` concatenates slices
 in rank order, and ``gather_nat`` does that across a process group.
+``bundle_from_numpy`` writes the JAX package's trained state as the port's
+serving bundle.
 """
 
 from __future__ import annotations
@@ -138,3 +140,17 @@ def gather_nat(nat: GmmNat, group) -> GmmNat:
     """Every rank's slice of ``group`` gathered into the full K, on every
     rank (``nat`` itself for None)."""
     return _nat_of(mesh.all_gather_rows(_nat_leaves(nat), group))
+
+
+def bundle_from_numpy(directory, state_np, spec_dict: dict) -> None:
+    """A serving bundle (``serve.save_bundle``) in ``directory`` from the JAX
+    package's SvaeTrainState with numpy leaves (as ``state_from_numpy``
+    takes it; float32, as the server runs) and its ``ModelSpec`` as a dict
+    (``dataclasses.asdict`` or its ``spec.json``)."""
+    from svax_torch import serve
+
+    spec = dict(spec_dict)
+    spec["encoder_hidden"] = tuple(spec["encoder_hidden"])
+    spec["decoder_hidden"] = tuple(spec["decoder_hidden"])
+    serve.save_bundle(directory, state_from_numpy(state_np, dtype=torch.float32),
+                      serve.ModelSpec(**spec))

@@ -35,3 +35,34 @@ def kl(alpha_q: torch.Tensor, alpha_p: torch.Tensor) -> torch.Tensor:
         - log_partition(alpha_q)
         + log_partition(alpha_p)
     )
+
+
+def sample_gamma(generator: torch.Generator, conc: torch.Tensor) -> torch.Tensor:
+    """Gamma(conc, 1) draws, elementwise, from ``generator`` (on conc's
+    device): Marsaglia–Tsang's squeeze on conc + 1 where conc < 1, boosted
+    by U^(1/conc). Each round draws a normal and a uniform for every
+    element and keeps the first accepted value, so the draws depend on the
+    generator alone."""
+    boost = conc < 1.0
+    a = torch.where(boost, conc + 1.0, conc)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.zeros_like(conc)
+    todo = torch.ones_like(conc, dtype=torch.bool)
+    kw = dict(generator=generator, device=conc.device, dtype=conc.dtype)
+    while bool(todo.any()):
+        x = torch.randn(conc.shape, **kw)
+        v = (1.0 + c * x) ** 3
+        u = torch.rand(conc.shape, **kw)
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                        + d * torch.log(v.clamp_min(torch.finfo(conc.dtype).tiny)))
+        out = torch.where(todo & ok, d * v, out)
+        todo = todo & ~ok
+    u = torch.rand(conc.shape, **kw)
+    return torch.where(boost, out * u ** (1.0 / conc), out)
+
+
+def sample(generator: torch.Generator, alpha: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """Draw π ~ Dir(α) as normalised Gamma(α_k) draws; returns shape + alpha.shape."""
+    g = sample_gamma(generator, alpha.expand(tuple(shape) + tuple(alpha.shape)))
+    return g / g.sum(dim=-1, keepdim=True)

@@ -159,3 +159,29 @@ def kl(q: NiwStandard, p: NiwStandard) -> torch.Tensor:
 
 def kl_nat(q: NiwNat, p: NiwNat) -> torch.Tensor:
     return kl(natural_to_standard(q), natural_to_standard(p))
+
+
+def sample(generator: torch.Generator, std: NiwStandard) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw (μ, Λ) ~ NIW(m, κ, Φ, ν) via the Bartlett decomposition, from
+    ``generator`` (on the parameters' device).
+
+    Λ = L A Aᵀ Lᵀ with L = chol(Φ⁻¹), A lower-triangular with A_ii =
+    sqrt(χ²_{ν−i+1}) and N(0, 1) entries below the diagonal; then μ | Λ ~
+    N(m, (κΛ)⁻¹). Batched over leading component axes. For generation and
+    posterior-predictive checks, not the training path."""
+    from svax_torch.expfam.dirichlet import sample_gamma
+    from svax_torch.ops import batched_linalg as bl
+
+    d = std.m.shape[-1]
+    batch = tuple(std.m.shape[:-1])
+    kw = dict(device=std.m.device, dtype=std.m.dtype)
+    chol_v = bl.cholesky(bl.inv_psd(bl.cholesky(std.phi)))  # L Lᵀ = Φ⁻¹
+    dfs = std.nu[..., None] - torch.arange(d, **kw)  # (..., d)
+    diag = torch.sqrt(2.0 * sample_gamma(generator, dfs / 2.0))
+    normals = torch.randn(batch + (d, d), generator=generator, **kw)
+    a = torch.tril(normals, diagonal=-1) + torch.diag_embed(diag)
+    la = chol_v @ a
+    lam = la @ la.mT
+    chol_kl = bl.cholesky(std.kappa[..., None, None] * lam)
+    eps = torch.randn(tuple(std.m.shape), generator=generator, **kw)
+    return std.m + bl.solve_triu_vec(chol_kl, eps), lam

@@ -340,6 +340,20 @@ def forward(
     )
 
 
+def generate(nn_params: dict, pgm_nat: GmmNat, generator: torch.Generator,
+             num_samples: int, config: SvaeConfig, sample_params: bool = False):
+    """Generate data from the learned model: (z, k) from the mixture
+    (``gmm.sample_generative``), x from the decoder at z. Returns (x, z,
+    labels); x is the Gaussian decoder's mean or, for a Bernoulli head, the
+    pixel probability map."""
+    z, labels = gmm.sample_generative(generator, pgm_nat, num_samples,
+                                      sample_params=sample_params)
+    out = nets.decoder_apply(nn_params["decoder"], z, config.likelihood)
+    if config.likelihood == "gaussian":
+        return out[0], z, labels
+    return torch.sigmoid(out), z, labels
+
+
 def init_params(
     generator: torch.Generator,
     input_dim: int,

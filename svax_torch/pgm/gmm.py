@@ -209,6 +209,34 @@ def stats_to_nat(stats: GmmSuffStats) -> GmmNat:
     )
 
 
+def sample_generative(generator: torch.Generator, nat: GmmNat, num_samples: int,
+                      sample_params: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ancestral draws from the (posterior) mixture: returns (x, labels).
+
+    With ``sample_params`` the mixture parameters are drawn from q(θ)
+    (π ~ Dir, (μ_k, Λ_k) ~ NIW via Bartlett); otherwise the expected
+    parameters E[π], m_k, E[Σ_k] are used (the plug-in). Every draw comes
+    from ``generator`` (on the naturals' device)."""
+    from svax_torch.ops import batched_linalg as bl
+
+    alpha = dirichlet.natural_to_standard(nat.dir_nat)
+    std = niw.natural_to_standard(nat.niw_nat)
+    d = std.m.shape[-1]
+    if sample_params:
+        pi = dirichlet.sample(generator, alpha)
+        mu, lam = niw.sample(generator, std)
+        chol_lam = bl.cholesky(lam)
+    else:
+        pi = alpha / alpha.sum()
+        mu = std.m
+        cov = std.phi / torch.clamp_min(std.nu - d - 1.0, 0.5)[..., None, None]
+        chol_lam = bl.cholesky(bl.inv_psd(bl.cholesky(cov)))
+    labels = torch.multinomial(pi, num_samples, replacement=True, generator=generator)
+    eps = torch.randn((num_samples, d), generator=generator, device=mu.device,
+                      dtype=mu.dtype)
+    return mu[labels] + bl.solve_triu_vec(chol_lam[labels], eps), labels
+
+
 def kl_global(nat: GmmNat, prior: GmmNat, group=None) -> torch.Tensor:
     """KL(q(π)‖p(π)) + Σ_k KL(q(μ_k,Λ_k)‖p(μ_k,Λ_k)) (§9.6 global term).
 

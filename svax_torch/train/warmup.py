@@ -68,12 +68,14 @@ def reseed_from_encoder(state, x: torch.Tensor, prior: GmmNat, *, seed: int = 0,
 
 def vae_warmup_reseed(state, x: torch.Tensor, config, prior: GmmNat, *, lr: float,
                       steps: int = 1000, batch_size: int = 0, scan_chunk: int = 100,
-                      seed: int = 0, engine: str = "kernel"):
+                      seed: int = 0, engine: str = "kernel", pseudo_counts: float = 5.0,
+                      cov_scale: float = 0.0):
     """Phase-1 warmup (ρ = 0) then the k-means++ reseed; returns (state, info).
 
     ``batch_size=0`` trains full-batch; ``engine`` is the per-step runner's
     (``loop.make_step_runner``), which trains the SMM prior when
-    ``config.dof`` > 0. The reseed's k-means++ is seeded ``seed``."""
+    ``config.dof`` > 0. The reseed's k-means++ is seeded ``seed``;
+    ``pseudo_counts`` and ``cov_scale`` are ``reseed_from_encoder``'s."""
     if steps > 0:
         runner = loop.make_step_runner(config, prior, lr=lr, rho=0.0,
                                        batch_size=batch_size, engine=engine)
@@ -82,4 +84,5 @@ def vae_warmup_reseed(state, x: torch.Tensor, config, prior: GmmNat, *, lr: floa
             todo = min(scan_chunk, steps - done)
             state, _ = runner(state, x, todo, seed=seed + WARMUP_STREAM)
             done += todo
-    return reseed_from_encoder(state, x, prior, seed=seed)
+    return reseed_from_encoder(state, x, prior, seed=seed, pseudo_counts=pseudo_counts,
+                               cov_scale=cov_scale)

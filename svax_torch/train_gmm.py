@@ -4,6 +4,7 @@ mixstep and estep CUDA kernels). BASELINE config #2.
     python -m svax_torch.train_gmm --config pinwheel-gmm [--init kmeanspp]
         [--device cuda|cpu] [--engine kernel|plain] [--fused-kernel]
         [--unroll U] [--eval-every E] [--steps N] [--seed S] [--dp]
+        [--logfile PATH]
 
 Mirrors experiments/train_gmm.py on the full batch with constant ρ.
 ``--engine kernel`` (the default) runs chunks of ``--eval-every`` steps,
@@ -14,7 +15,8 @@ pre-update naturals; ``--fused-kernel`` routes its E-step through the estep
 kernel (CUDA) and is refused with ``--engine kernel``. On the CPU both
 engines run plain PyTorch. ``--unroll`` U ∈ {1, 2, 4, 8} must divide every
 chunk and needs the kernel engine. Prints one JSON row per evaluation (step,
-elbo, test_evidence_per_point), then steps/sec, the component counts and
+wall_s, elbo, test_evidence_per_point; ``train.metrics.JsonlLogger``, also
+appended to ``--logfile``), then steps/sec, the component counts and
 {"test_predictive_loglik_per_point", "train_cluster_purity"}. ``--device
 cuda`` without a CUDA device raises; nothing falls back. Tensors are made
 in torch's default dtype: float32 unless the caller changed it (the
@@ -120,6 +122,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the WORLD_SIZE ranks torchrun starts "
                         "(plain engine)")
+    p.add_argument("--logfile", default="", help="append the JSON rows to this file")
     args = p.parse_args(argv)
     from svax_torch.configs import apply_config
 
@@ -149,6 +152,7 @@ def _train(args, dmesh, rank: int) -> dict:
     from svax_torch.models import evaluation, gmm_baseline
     from svax_torch.pgm import gmm
     from svax_torch.train.loop import make_mixture_runner, run_mixture
+    from svax_torch.train.metrics import JsonlLogger
 
     train, test, train_labels, _ = load_pinwheel(
         num_classes=args.num_classes, num_per_class=args.num_per_class,
@@ -169,15 +173,14 @@ def _train(args, dmesh, rank: int) -> dict:
               f"{f' dp world_size={world}' if args.dp else ''}")
 
     rows = []
+    logger = JsonlLogger((args.logfile or None) if rank == 0 else None, echo=rank == 0)
 
     def emit(t, st, elbo):
         if rank != 0:
             return
         ev = gmm_baseline.evaluate(st.nat, prior, x_test, num_total=n)
-        row = {"step": t, "elbo": elbo,
-               "test_evidence_per_point": float(ev["evidence_per_point"])}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        rows.append(logger.log(t, elbo=elbo,
+                               test_evidence_per_point=float(ev["evidence_per_point"])))
 
     if args.engine == "kernel":
         runner = make_mixture_runner(prior, rho=args.rho, unroll=args.unroll)
@@ -189,6 +192,7 @@ def _train(args, dmesh, rank: int) -> dict:
     state, seconds = run_mixture(state, x_mine, steps=args.steps,
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds
+    logger.close()
     if rank != 0:
         return {"state": state, "rows": rows, "steps_per_s": rate}
     resp, _ = gmm.e_step_obs(x_train, gmm.expected_params(state.nat))

@@ -7,6 +7,8 @@ decoder_mlp and row-sum CUDA kernels).
         [--[no-]fused-mlp-decoder] [--nn-compute-dtype float32|bfloat16]
         [--fused-decoder] [--remat-decoder] [--eval-every N] [--dp]
         [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
+        [--checkpoint-dir DIR [--resume]] [--logfile PATH] [--debug-nans]
+        [--bundle-dir DIR]
 
 Mirrors experiments/train_svae.py with its ``--engine auto`` rule
 (``loop.choose_kernel``): chunks of the config's ``scan_chunk`` steps.
@@ -64,12 +66,22 @@ forward runs the plain combine and decoder, so the first line reports
 bound (``evaluation.svae_smm_iw_loglik``).
 Prints one JSON line with the engine, its reason, the world size and mesh
 (``world_size``, ``data``, ``comp``) and the initial test ELBO, the warmup
-line, one JSON row per chunk — step, elbo, recon,
-local_kl, global_kl, test_elbo_per_point, wall_s — then steps/sec, then
+line, one JSON row per chunk — step, wall_s, elbo, recon,
+local_kl, global_kl, test_elbo_per_point (``train.metrics.JsonlLogger``,
+also appended to ``--logfile``) — then steps/sec, then
 the importance-weighted test log-likelihood with ``--iw-samples`` samples
-(0 = off). ``--device cuda`` without a CUDA device raises; nothing falls
-back. The configs the port runs are pinwheel-svae, auto-svae, mnist-svae
-and bigk-dp; ROADMAP.md lists the rest.
+(0 = off).
+
+``--checkpoint-dir`` saves the state (``train.checkpoint``) at every row
+and after the last step; ``--resume`` restores the latest step there and
+trains from it to ``--steps``, skipping the warmup when that step is past
+0 (every runner keys its noise on the step, so a resumed run ends
+bit-equal to an uninterrupted one). ``--bundle-dir`` writes a serving
+bundle (``serve.save_bundle``) at the end. ``--debug-nans`` turns on
+autograd's anomaly mode and checks the state and the row after every
+chunk for NaN and infinity (``utils.guards``). ``--device cuda`` without a
+CUDA device raises; nothing falls back. The configs the port runs are
+pinwheel-svae, auto-svae, mnist-svae and bigk-dp; ROADMAP.md lists the rest.
 """
 
 from __future__ import annotations
@@ -130,7 +142,21 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the WORLD_SIZE ranks torchrun starts "
                         "(on in bigk-dp's config)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save the state here at every row and after the last step")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint of --checkpoint-dir and train "
+                        "on from it to --steps")
+    p.add_argument("--logfile", default="", help="append the JSON rows to this file")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="anomaly mode, and a finite check of the state and the row "
+                        "after every chunk")
+    p.add_argument("--bundle-dir", default="",
+                   help="write a serving bundle here at the end of training "
+                        "(svax_torch.serve.load_bundle restores it with no flags)")
     args = p.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume needs --checkpoint-dir")
     if args.config not in PORTED:
         p.error(f"--config {args.config}: svax_torch runs {', '.join(PORTED)} so far; "
                 "ROADMAP.md lists the remaining configs")
@@ -139,6 +165,10 @@ def main(argv: list[str] | None = None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain PyTorch path)")
+    if args.debug_nans:
+        from svax_torch.utils.guards import enable_nan_debugging
+
+        enable_nan_debugging()
 
     from svax_torch.configs import CONFIGS
     from svax_torch.parallel import mesh
@@ -170,8 +200,11 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     from svax_torch.models.svae import SvaeConfig
     from svax_torch.pgm import gmm
     from svax_torch.train import svae_step, warmup
+    from svax_torch.train.checkpoint import Checkpointer
     from svax_torch.train.loop import (PER_STEP, choose_kernel, kernel_unsupported_reason,
                                        make_runner, make_step_runner)
+    from svax_torch.train.metrics import JsonlLogger
+    from svax_torch.utils import guards
 
     steps = args.steps or cfg["steps"]
     warmup_steps = (cfg.get("warmup_steps", 0) if args.warmup_steps is None
@@ -250,6 +283,11 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         encoder_hidden=tuple(cfg["encoder_hidden"]),
         decoder_hidden=tuple(cfg["decoder_hidden"]),
     )
+    start, ckpt = 0, None
+    if args.checkpoint_dir:
+        ckpt = Checkpointer(args.checkpoint_dir)
+        if args.resume:
+            state, _, start = ckpt.restore_or(state)
     if kernel == PER_STEP:
         runner = make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                                   rho_decay=rho_decay, batch_size=batch, engine=args.engine,
@@ -296,7 +334,7 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                       "synthetic": meta.get("synthetic", False),
                       "init_test_elbo_per_point": init_elbo}), flush=True)
     warm_info = None
-    if warmup_steps > 0:  # on the per-step engine, whatever the main engine
+    if warmup_steps > 0 and start == 0:  # on the per-step engine, whatever the main engine
         t_warm = time.perf_counter()
         state, warm_info = warmup.vae_warmup_reseed(
             state, x_train, config, prior, lr=cfg["lr"], steps=warmup_steps,
@@ -312,31 +350,32 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     def emit(t, metrics):
         if rank != 0:
             return
-        row = {
-            "step": t,
-            "elbo": float(metrics["elbo"]),
-            "recon": float(metrics["recon"]),
-            "local_kl": float(metrics["local_kl"]),
-            "global_kl": float(metrics["global_kl"]),
-            "test_elbo_per_point": test_elbo(),
-            "wall_s": round(time.perf_counter() - t0, 3),
-        }
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        rows.append(logger.log(
+            t, elbo=float(metrics["elbo"]), recon=float(metrics["recon"]),
+            local_kl=float(metrics["local_kl"]), global_kl=float(metrics["global_kl"]),
+            test_elbo_per_point=test_elbo()))
+        if ckpt is not None:
+            ckpt.save(t, state)
 
     chunk = cfg.get("scan_chunk") or 1000
+    logger = JsonlLogger((args.logfile or None) if rank == 0 else None, echo=rank == 0)
     t0 = time.perf_counter()
-    t = 0
+    t = start
     while t < steps:
         # The data-parallel loop's rows: after step 1, then every eval_every.
         todo = (min(1 if t == 0 else args.eval_every - t % args.eval_every, steps - t)
                 if data_parallel else min(chunk, steps - t))
         state, metrics = runner(state, x_train, todo, seed=args.seed)
         t += todo
-        emit(t, {k: v[-1] for k, v in metrics.items()})
+        last = {k: v[-1] for k, v in metrics.items()}
+        if guards.nan_debugging():
+            guards.assert_finite(state, "state")
+            guards.assert_finite(last, "metrics")
+        emit(t, last)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    rate = steps / (time.perf_counter() - t0)
+    rate = (steps - start) / (time.perf_counter() - t0)
+    logger.close()
     show(f"steps/sec: {rate:.1f} (device={device}, engine={args.engine}, "
          f"kernel={kernel})")
     out = {"state": state, "rows": rows, "steps_per_s": rate, "kernel": kernel,
@@ -357,6 +396,19 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         out["final_test_iw_loglik_per_point"] = float(iw.mean())
         print(json.dumps({"final_test_iw_loglik_per_point": float(iw.mean()),
                           "iw_samples": args.iw_samples}), flush=True)
+    if ckpt is not None and rank == 0:
+        ckpt.save(steps, state)
+    if args.bundle_dir and rank == 0:
+        from svax_torch import serve
+
+        serve.save_bundle(args.bundle_dir, state, serve.ModelSpec(
+            input_dim=input_dim, latent_dim=config.latent_dim,
+            num_components=config.num_components, likelihood=config.likelihood,
+            encoder_hidden=tuple(cfg["encoder_hidden"]),
+            decoder_hidden=tuple(cfg["decoder_hidden"]), num_samples=config.num_samples,
+            alpha=cfg["alpha"], kappa=cfg["kappa"], dof=config.dof,
+            smm_iters=config.smm_iters, num_total=n))
+        show(f"wrote serving bundle to {args.bundle_dir}")
     return out
 
 
