@@ -17,9 +17,12 @@ else. Phases (any failure raises and the exit code is non-zero):
    with injected numpy noise, at tests/test_tinystep_kernel.py's
    tolerances; then both timed per step;
 5. the main path: ``svax_torch.train_svae --config pinwheel-svae`` for
-   2 chunks of 1000 steps on the kernel with in-kernel noise, twice: every
-   value finite, the kernel launched, the training ELBO improved, the two
-   runs bit-equal; then 50 steps on the plain engine for its rate;
+   2 chunks of 1000 steps on the kernel with in-kernel noise, at the
+   config's nn_precision "default" (tinystep's bf16-product mode), twice:
+   every value finite, the kernel launched in that mode, the training ELBO
+   improved, the two runs bit-equal; then once at ``--nn-precision
+   highest`` (the f32 mode, this phase's kernel row's launches), and 50
+   steps on the plain engine for its rate;
 6. ptxas's line for every mixstep_kernel instantiation (both priors, each
    unroll; the phase fails on a missing line or a spill); the mixstep
    kernel against its plain version at full pinwheel-gmm
@@ -48,12 +51,14 @@ A. the flexstep kernel against its plain version at full auto-svae width
    small widths; then both timed per step (the kernel in chunks of 500,
    the plain version in chunks of 20);
 B. the auto-svae main path: ``svax_torch.train_svae --config auto-svae
-   --steps 1000`` (2 chunks of 500) on the kernel, twice: flexstep
-   launched, every value finite, the runs bit-equal, the final IW line
-   printed; then seeds 1–3 once each: every seed's test ELBO/pt up by
-   more than 4 nats, the best of seeds 0–3 above −12.3
-   (tests/test_auto_quality_pin.py's bar); then 50 steps on the plain
-   engine for its rate;
+   --steps 1000`` (2 chunks of 500) on the kernel at the config's
+   nn_precision "default" (flexstep's bf16-product mode), twice: flexstep
+   launched in that mode, every value finite, the runs bit-equal, the
+   final IW line printed; then seeds 1–3 once each: every seed's test
+   ELBO/pt up by more than 4 nats, the best of seeds 0–3 above −12.3
+   (tests/test_auto_quality_pin.py's bar); then once at ``--nn-precision
+   highest`` (the f32 mode's launches), and 50 steps on the plain engine
+   for its rate;
 C. ptxas's line for every combine_fwd and combine_bwd_* instantiation
    (each d, both modes; the phase fails on a missing line or a spill);
    the combine kernels against their plain version at the mnist shape
@@ -74,9 +79,9 @@ C. ptxas's line for every combine_fwd and combine_bwd_* instantiation
    timed (kernel and cross-block sum apart) against the plain version;
 D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    --steps 2000`` (the config's 1000 warmup steps, then chunks of 200 on
-   the per-step engine with the combine kernels) for seeds 0 and 1, each
-   twice: the combine kernels launched (every backward the train step's
-   call, on combine_bwd_lean), the runs bit-equal, and each seed
+   the per-step engine with the combine kernels) for seeds 0 (twice) and
+   1: the combine kernels launched (every backward the train step's
+   call, on combine_bwd_lean), seed 0's runs bit-equal, and each seed
    held to tests/test_mnist_quality_pin.py's floors — test ELBO/pt up by
    more than 100 nats, cluster purity of the test set above 0.7, at least
    6 of 10 components in use (computed here from the returned state; the
@@ -137,10 +142,11 @@ G. tinystep's SMM branch (dof > 0, the Student-t mixture prior) against
    and dof 2.5 with 1 round at 16-16 widths; then per step (T=200) the
    full-chain and envelope kernels beside the GMM branch in the same call
    and the plain SMM step; then the SMM main path, ``svax_torch.train_svae
-   --config pinwheel-svae --smm-dof 4`` for 2 chunks of 1000 steps with
+   --config pinwheel-svae --smm-dof 4 --nn-precision highest`` (the f32
+   mode; phase M runs the config's) for 2 chunks of 1000 steps with
    in-kernel noise, twice (tinystep launched, every value finite, the runs
    bit-equal, training ELBO and test ELBO/pt rising, the SMM IW line
-   printed), and ``--config auto-svae --smm-dof 4 --steps 200`` twice on
+   printed), and ``--config auto-svae --smm-dof 4 --steps 50`` twice on
    the per-step engine (finite, bit-equal);
 H. ptxas's line for every log_rho_fwd instantiation (each d) and every
    log_rho_bwd instantiation (each d, with and without dw; the phase fails
@@ -201,13 +207,40 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    full width with an f32 decoder (``make_step_runner``) from one seeded
    state with injected numpy ε, the row sum in the kernels against the
    unfused one (ELBO, parameters, Adam moments, naturals at the stated
-   bars); (b) ``svax_torch.train_svae --config bigk-dp --nn-compute-dtype
-   float32 --no-fused-mlp-decoder --fused-decoder`` cut to 300 warmup and
-   600 joint steps: one row-sum forward and backward a step (plus a forward
-   per test ELBO), the MLP-decoder kernels not launched, phase F's floors
-   (rise > 100 nats, purity > 0.7, ≥ 6 components); (c) the step's rate
-   with the row sum fused and unfused, in turns, and 20 profiled steps of
-   each;
+   bars, ``ROWSUM_STEP_BARS``), at nn_precision "highest" (the f32 mode)
+   and "high" (the bf16-operand mode); (b) ``svax_torch.train_svae
+   --config bigk-dp --nn-compute-dtype float32 --no-fused-mlp-decoder
+   --fused-decoder`` at the default nn_precision "high" (the row sum's
+   bf16-operand mode, as the reference's ``_kernel_precision`` maps HIGH)
+   cut to 300 warmup and 600 joint steps: one row-sum forward and backward
+   a step (plus a forward per test ELBO), every one in the bf16-operand
+   mode, the MLP-decoder kernels not launched, phase F's floors (rise > 100
+   nats, purity > 0.7, ≥ 6 components); (b') the same at ``--nn-precision
+   highest`` cut to 100 + 100 steps (the f32 mode's launches); (c) the
+   step's rate with the row sum fused and unfused, in turns, and 20
+   profiled steps of each;
+M. slice J: (1) ptxas's line for every bf16-product instantiation of
+   tinystep and flexstep (a missing line fails the phase, and so does a
+   spill where the f32 mode has none: tinystep's both widths, flexstep's
+   d ≤ 4); tinystep's bf16-product mode against its plain version (the
+   plain step at nn_precision "default") at full pinwheel width, GMM and
+   SMM (dof 4), and at 16-16, T=3 with injected numpy noise, and
+   flexstep's at full auto width and at d=2 and d=6, each at the bars
+   ``BF16_TINY_TOL`` / ``BF16_FLEX_TOL`` with bit-equal reruns; both
+   modes' per-step times in turns beside the bound; (2) the flagship at
+   its config runs the bf16-product mode in phases 5 and B, held to their
+   floors there, and ``--smm-dof 4`` at the config here (2000 steps,
+   rising); (3) ``train_svae --config mnist-svae --encoder-head full
+   --fused-mlp-decoder`` cut to 60 warmup + 60 steps: the per-step
+   engine, no combine launch (the fused combine takes the diagonal head
+   only), MLP-decoder launches, test ELBO/pt up by more than 100 nats,
+   purity and components printed; (4) ``train_svae --config bigk-dp
+   --recon-mode sampled`` cut to 20 warmup + 20 steps: finite, rising,
+   its ms a step beside phase F's weighted step; (5) is phase K at the new
+   default; (6) a full-head ReLU bundle at mnist width (20 steps on from
+   (3)'s state), served on ``cuda``: its exported tier at bucket 32
+   against the live one (encode, reconstruct, impute within 1e-6, score
+   and components bit-equal);
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -216,6 +249,9 @@ K. the big-K f32 ``fused_decoder`` path: (a) 3 steps of bigk-dp's step at
    and the special-function rate, and for the row-sum kernels' f32 mode,
    the fastest f32-accurate product on the tensor cores (three TF32
    passes) and the special-function rate — counted from this run's shapes;
+   tinystep's and flexstep's bf16-product rows are phase M's (their
+   launches phases 5's and B's main paths at the configs' "default"); the
+   row sum's rows come in both modes (launches: phase K (b') and (b));
    the decoder and row-sum kernels' times are CUDA-event times, the other
    per-call kernels' profiler device times, each taken in a fresh process
    (``timed_fresh``; a profiled kernel that launched and reads no time
@@ -333,10 +369,11 @@ F32_FLOPS = 67e12
 MEM_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the least time for work of ``flops`` f32
-    operations that moves ``nbytes`` — the larger of the two times."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / MEM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time for work of ``flops``
+    operations at ``peak`` (f32 unless given) that moves ``nbytes`` — the
+    larger of the two times."""
+    t_ops, t_bytes = flops / peak, nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -376,10 +413,11 @@ def forward_ptxas(name: str, phase: str) -> None:
             raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
 
 
-def instances_ptxas(phase: str, name: str, want: set) -> None:
+def instances_ptxas(phase: str, name: str, want: set, spill_free: set | None = None) -> None:
     """Print ptxas's line for every instantiation of kernel ``name`` (its
     template arguments as a tuple of ints in ``want``) in the kernel
-    library's build log; raise if one is missing or spills."""
+    library's build log; raise if one is missing or spills (with
+    ``spill_free``, if one of those spills)."""
     from svax_torch.measure_mnist import kernel_resources
     from svax_torch.ops import _build
 
@@ -388,11 +426,13 @@ def instances_ptxas(phase: str, name: str, want: set) -> None:
     for line in kernel_resources(_build.build_log, name):
         print(f"phase {phase}: ptxas {line}", flush=True)
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if spill is None or int(spill.group(1)) != 0:
-            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
         m = re.match(rf"{name}<([\d, ]+)>", line)
-        if m:
-            seen.add(tuple(int(v) for v in m.group(1).split(", ")))
+        args = tuple(int(v) for v in m.group(1).split(", ")) if m else None
+        if (spill_free is None or args in spill_free) and (
+                spill is None or int(spill.group(1)) != 0):
+            raise RuntimeError(f"phase {phase}: {line}: spills (or no spill count)")
+        if args is not None:
+            seen.add(args)
     missing = want - seen
     if missing:
         raise RuntimeError(f"phase {phase}: no ptxas line for {name}{sorted(missing)}")
@@ -589,8 +629,9 @@ def mixture_phases(card: str) -> list:
     ]
 
 
-def auto_phases(card: str) -> dict:
-    """Phases A and B; returns the flexstep entry of the kernels line."""
+def auto_phases(card: str) -> tuple[dict, int]:
+    """Phases A and B; returns the flexstep entry of the kernels line and the
+    main path's bf16-product-mode launches."""
     import numpy as np
     import torch
 
@@ -696,13 +737,14 @@ def auto_phases(card: str) -> dict:
           + f"), plain {plain_ms:.4f} ms (chunks of {t_plain}); "
           f"bound {flex_bound[0] * 1e3:.3f} us ({flex_bound[1]}); {card}")
 
-    # B. the auto-svae main path
+    # B. the auto-svae main path, at the config's nn_precision "default":
+    # flexstep's bf16-product mode
     argv = ["--config", "auto-svae", "--steps", "1000", "--device", "cuda", "--seed", "0"]
-    flexstep.launches = 0
+    flexstep.launches = flexstep.launches_bf16 = 0
     run1 = train_svae.main(argv)
-    launches = flexstep.launches
-    assert run1["kernel"] == "flexstep" and launches >= 2, \
-        f"flexstep launched {launches} times on the auto-svae main path"
+    launches_bf16 = flexstep.launches_bf16
+    assert run1["kernel"] == "flexstep" and launches_bf16 >= 2 and flexstep.launches == 0, \
+        f"flexstep launched {launches_bf16} times in its bf16 mode on the auto-svae main path"
     rows = run1["rows"]
     assert len(rows) == 2 and all(math.isfinite(v) for r in rows for v in r.values()), rows
     assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
@@ -726,9 +768,19 @@ def auto_phases(card: str) -> dict:
             f"seed {seed}: test ELBO/pt barely moved to {ends[seed]}"
     assert end > start + 4.0, f"test ELBO/pt barely moved: {start} -> {end}"
     assert max(ends.values()) > -12.3, f"auto-svae quality over seeds 0-3: {ends} (pin -12.3)"
+    # The f32 mode on the same path: --nn-precision highest.
+    flexstep.launches = flexstep.launches_bf16 = 0
+    run_f32 = train_svae.main([*argv, "--nn-precision", "highest", "--iw-samples", "0"])
+    launches = flexstep.launches
+    assert launches >= 2 and flexstep.launches_bf16 == 0, \
+        f"flexstep launched {launches} times in its f32 mode"
     plain = train_svae.main(["--config", "auto-svae", "--steps", "50", "--device", "cuda",
                              "--engine", "plain", "--iw-samples", "0"])
-    print(f"phase B: auto-svae main path: {launches} flexstep launches (each one cluster "
+    print(f"phase B: auto-svae at --nn-precision highest (f32): {launches} flexstep "
+          f"launches, {run_f32['steps_per_s']:.1f} steps/s, test ELBO/pt -> "
+          f"{run_f32['rows'][-1]['test_elbo_per_point']:.4f}; {card}")
+    print(f"phase B: auto-svae main path (nn_precision default: bf16 products): "
+          f"{launches_bf16} flexstep launches (each one cluster "
           f"of {flexstep.DEFAULT_CLUSTER} CTAs), kernel "
           f"{run1['steps_per_s']:.1f} steps/s, plain {plain['steps_per_s']:.1f} steps/s "
           f"(50 steps), test ELBO/pt {start:.4f} -> {end:.4f}, IW/pt {iw:.4f}, ends over "
@@ -738,7 +790,7 @@ def auto_phases(card: str) -> dict:
             "replaces": "svax/ops/flexstep_pallas.py:374", "launches": launches,
             "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": flex_bound[0], "bound_by": flex_bound[1], "library_ms": None,
-            "cluster": flexstep.DEFAULT_CLUSTER}
+            "cluster": flexstep.DEFAULT_CLUSTER}, launches_bf16
 
 
 def combine_phase(card: str) -> list:
@@ -917,10 +969,11 @@ def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
         rows = run1["rows"]
         assert len(rows) == 10 and all(math.isfinite(v) for r in rows for v in r.values())
         assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
-        run2 = train_svae.main(argv)
-        assert all(torch.equal(p, q) for p, q in
-                   zip(leaves(run1["state"]), leaves(run2["state"]))), \
-            f"two mnist-svae runs at seed {seed} differ"
+        if seed == 0:  # one rerun shows bit-equality; seed 1 adds the floors
+            run2 = train_svae.main(argv)
+            assert all(torch.equal(p, q) for p, q in
+                       zip(leaves(run1["state"]), leaves(run2["state"]))), \
+                f"two mnist-svae runs at seed {seed} differ"
         start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
         purity, used = quality(run1, seed)
         if seed == 0:
@@ -932,8 +985,8 @@ def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
                      f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} "
                      f"steps/s, test ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, "
                      f"{used} of 10 components in use"
-                     + (f", IW/pt {run1['final_test_iw_loglik_per_point']:.4f}"
-                        if seed == 0 else "") + ", runs bit-equal")
+                     + (f", IW/pt {run1['final_test_iw_loglik_per_point']:.4f}, runs "
+                        "bit-equal" if seed == 0 else ""))
         assert end > start + 100.0, f"seed {seed}: test ELBO/pt {start} -> {end}"
         assert purity > 0.7, f"seed {seed}: cluster purity {purity}"
         assert used >= 6, f"seed {seed}: only {used} of 10 components in use"
@@ -1028,9 +1081,9 @@ def decoder_phase(card: str) -> list:
     return entries
 
 
-def bigk_phase(card: str) -> tuple[int, int]:
+def bigk_phase(card: str) -> tuple[tuple[int, int], float]:
     """Phase F; returns the decoder forward and backward launches of the
-    bigk-dp main path's first run."""
+    bigk-dp main path's first run, and its ms a step."""
     import torch
 
     from svax_torch import train_svae
@@ -1081,7 +1134,7 @@ def bigk_phase(card: str) -> tuple[int, int]:
           f"{r['decoder_ms']:.3f} ms ({100 * r['decoder_ms'] / r['device_ms']:.1f}% of device "
           f"time), combine kernels {r['combine_ms']:.3f} ms "
           f"({100 * r['combine_ms'] / r['device_ms']:.1f}%); {card}", flush=True)
-    return launches
+    return launches, 1e3 / run1["steps_per_s"]
 
 
 def smm_combine_ops(rounds: int, envelope: bool) -> int:
@@ -1192,8 +1245,10 @@ def smm_phase(card: str) -> dict:
           f"({smm_bound[1]}); {card}", flush=True)
 
     # The SMM main path, then the per-step engine under --smm-dof.
+    # At --nn-precision highest: tinystep's f32 mode, this phase's kernel
+    # (phase M runs the config's bf16-product mode under --smm-dof).
     argv = ["--config", "pinwheel-svae", "--smm-dof", "4", "--steps", "2000", "--device",
-            "cuda", "--seed", "0"]
+            "cuda", "--seed", "0", "--nn-precision", "highest"]
     tinystep.launches = 0
     run1 = train_svae.main(argv)
     launches = tinystep.launches
@@ -1211,7 +1266,7 @@ def smm_phase(card: str) -> dict:
     assert all(torch.equal(p, q) for p, q in
                zip(leaves(run1["state"]), leaves(run2["state"]))), \
         "two SMM pinwheel runs at one seed differ"
-    auto_argv = ["--config", "auto-svae", "--smm-dof", "4", "--steps", "200", "--device",
+    auto_argv = ["--config", "auto-svae", "--smm-dof", "4", "--steps", "50", "--device",
                  "cuda", "--seed", "0", "--iw-samples", "0"]
     auto1 = train_svae.main(auto_argv)
     assert auto1["kernel"] == "per-step" and "GMM prior only" in auto1["why"], auto1["why"]
@@ -1226,7 +1281,7 @@ def smm_phase(card: str) -> dict:
           f"{run1['steps_per_s']:.1f} steps/s, training ELBO "
           f"{rows[0]['elbo']:.4f} -> {rows[-1]['elbo']:.4f}, test ELBO/pt {start:.4f} -> "
           f"{end:.4f}, SMM IW/pt {iw:.4f}, runs bit-equal; auto-svae --smm-dof 4 (per-step "
-          f"engine, 200 steps): {auto1['steps_per_s']:.1f} steps/s, test ELBO/pt "
+          f"engine, 50 steps): {auto1['steps_per_s']:.1f} steps/s, test ELBO/pt "
           f"{auto1['init_test_elbo_per_point']:.4f} -> "
           f"{auto1['rows'][-1]['test_elbo_per_point']:.4f}, runs bit-equal; {card}",
           flush=True)
@@ -1691,7 +1746,8 @@ def parallel_phase(card: str) -> list:
 
 def rowsum_phase(card: str) -> list:
     """Phase J; returns the rowsum_fwd and rowsum_bwd entries of the kernels
-    line (the bigk shape in the f32 mode, the path's, without launches)."""
+    line at the bigk shape, in the f32 mode and then the bf16-operand mode
+    (each path's, without launches)."""
     import torch
 
     from svax_torch.measure_mnist import (ROWSUM_F64_TOL, ROWSUM_TOL, rowsum_bound,
@@ -1747,15 +1803,16 @@ def rowsum_phase(card: str) -> list:
                   f"products {bb['products_ms'] * 1e3:.2f} as {bb['products_by']}, special functions "
                   f"{bb['special_ms'] * 1e3:.2f}, bytes {bb['bytes_ms'] * 1e3:.2f}); {card}",
                   flush=True)
-            if label == "bigk" and precision == "highest":
+            if label == "bigk":
                 common = {"route": "cuda", "source": "svax_torch/ops/csrc/decoder.cu",
                           "library_ms": None}
-                entries = [
-                    {"name": "rowsum_fwd", **common,
+                suffix = "" if precision == "highest" else "_bf16"
+                entries += [
+                    {"name": f"rowsum_fwd{suffix}", **common,
                      "replaces": "svax/ops/decoder_pallas.py:64", "max_abs_err": e["s max abs"],
                      "ms": t["kernel_fwd"], "plain_ms": t["plain_fwd"], "bound_ms": fb["ms"],
                      "bound_by": fb["by"], "unfused_f32_ms": t["unfused_fwd"]},
-                    {"name": "rowsum_bwd", **common,
+                    {"name": f"rowsum_bwd{suffix}", **common,
                      "replaces": "svax/ops/decoder_pallas.py:114",
                      "max_abs_err": e["grad max abs"], "ms": t["kernel_bwd"],
                      "plain_ms": t["plain_bwd"], "bound_ms": bb["ms"], "bound_by": bb["by"],
@@ -1765,9 +1822,21 @@ def rowsum_phase(card: str) -> list:
     return entries
 
 
-def fused_decoder_phase(card: str) -> tuple[int, int]:
+# Phase K (a)'s bars for the row sum fused against unfused over 3 steps:
+# at "highest" both are f32 (elbo relative, parameters where they moved,
+# Adam moments of each leaf's largest, naturals rtol/atol); at "high" the
+# fused row sum runs the bf16-operand mode against the unfused f32 one, so
+# the gap is a bf16 rounding's, measured on the card (PERF.md, PR 17).
+ROWSUM_STEP_BARS = {"highest": {"elbo": 1e-5, "params where moved": 5e-5, "adam": 1e-3,
+                                "naturals": 1e-4},
+                    "high": {"elbo": 1e-4, "params where moved": 1e-2, "adam": 3e-2,
+                             "naturals": 1e-2}}
+
+
+def fused_decoder_phase(card: str) -> tuple[tuple[int, int], tuple[int, int]]:
     """Phase K; returns the row-sum forward and backward launches of the big-K
-    f32 fused_decoder main path."""
+    f32 fused_decoder path in the f32 mode (``--nn-precision highest``) and
+    in the bf16-operand mode (the default "high", the main path's)."""
     import numpy as np
     import torch
 
@@ -1777,73 +1846,104 @@ def fused_decoder_phase(card: str) -> tuple[int, int]:
 
     dev = torch.device("cuda", 0)
     # (a) 3 steps from one seeded state with injected numpy ε, the row sum in
-    # the kernels against the unfused f32 row sum.
+    # the kernels against the unfused f32 row sum, at both precisions.
     eps = torch.tensor(np.random.default_rng(5).standard_normal((3, 1, 1024, 100, 10)),
                        dtype=torch.float32, device=dev)
-    runs = {}
-    for fused in (True, False):
-        runner, state, x = bigk_f32_setup(dev, fused)
-        runs[fused] = runner(state, x, 3, seed=0, eps=eps)
-    (st_f, met_f), (st_u, met_u) = runs[True], runs[False]
-    errs = {"elbo": max(abs(float(a) - float(b)) / abs(float(b))
-                        for a, b in zip(met_f["elbo"], met_u["elbo"]))}
-    assert errs["elbo"] < 1e-5, errs
-    moved = []
-    for got, want, m_ in zip(flat(st_f.nn_params), flat(st_u.nn_params), flat(st_u.opt_state.mu)):
-        keep = m_.abs() >= 0.05 * m_.abs().max()
-        moved.append(float((got - want).abs()[keep].max()))
-    errs["params where moved"] = max(moved)
-    assert errs["params where moved"] < 5e-5, errs
-    for name, tk, tu in (("adam m", st_f.opt_state.mu, st_u.opt_state.mu),
-                         ("adam v", st_f.opt_state.nu, st_u.opt_state.nu)):
-        errs[name] = max(float((a - b).abs().max()) / float(b.abs().max())
-                         for a, b in zip(flat(tk), flat(tu)))
-        assert errs[name] < 1e-3, errs
-    errs["naturals"] = max(close("naturals", a, b, 1e-4, 1e-4)
-                           for a, b in zip(nat_leaves(st_f.pgm_nat), nat_leaves(st_u.pgm_nat)))
-    print("phase K: big-K f32 step, 3 steps with injected noise, row sum fused vs unfused: "
-          + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
-          + " (elbo rtol 1e-5; params 5e-5 where the first moment is at least 5% of its "
-          "leaf's largest; Adam moments 1e-3 of each leaf's largest; naturals 1e-4/1e-4)",
-          flush=True)
+    for precision, bars in ROWSUM_STEP_BARS.items():
+        runs = {}
+        for fused in (True, False):
+            runner, state, x = bigk_f32_setup(dev, fused, nn_precision=precision)
+            runs[fused] = runner(state, x, 3, seed=0, eps=eps)
+        (st_f, met_f), (st_u, met_u) = runs[True], runs[False]
+        errs = {"elbo": max(abs(float(a) - float(b)) / abs(float(b))
+                            for a, b in zip(met_f["elbo"], met_u["elbo"]))}
+        moved = []
+        for got, want, m_ in zip(flat(st_f.nn_params), flat(st_u.nn_params),
+                                 flat(st_u.opt_state.mu)):
+            keep = m_.abs() >= 0.05 * m_.abs().max()
+            moved.append(float((got - want).abs()[keep].max()))
+        errs["params where moved"] = max(moved)
+        for name, tk, tu in (("adam m", st_f.opt_state.mu, st_u.opt_state.mu),
+                             ("adam v", st_f.opt_state.nu, st_u.opt_state.nu)):
+            errs[name] = max(float((a - b).abs().max()) / float(b.abs().max())
+                             for a, b in zip(flat(tk), flat(tu)))
+        if precision == "highest":
+            errs["naturals"] = max(close(f"{precision} naturals", a, b, bars["naturals"],
+                                         bars["naturals"])
+                                   for a, b in zip(nat_leaves(st_f.pgm_nat),
+                                                   nat_leaves(st_u.pgm_nat)))
+        else:  # of each leaf's largest, as the Adam moments
+            errs["naturals"] = max(rel_err(a, b) for a, b in zip(nat_leaves(st_f.pgm_nat),
+                                                                 nat_leaves(st_u.pgm_nat)))
+            assert errs["naturals"] < bars["naturals"], errs
+        how = "rtol/atol" if precision == "highest" else "of each leaf's largest"
+        print(f"phase K: big-K f32 step at nn_precision {precision} (row sum in its "
+              f"{'f32' if precision == 'highest' else 'bf16-operand'} mode), 3 steps with "
+              "injected noise, fused vs unfused: "
+              + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items())
+              + f" (bars: elbo {bars['elbo']} relative; params {bars['params where moved']} "
+              "where the first moment is at least 5% of its leaf's largest; Adam moments "
+              f"{bars['adam']} of each leaf's largest; naturals {bars['naturals']} {how})",
+              flush=True)
+        assert errs["elbo"] < bars["elbo"], errs
+        assert errs["params where moved"] < bars["params where moved"], errs
+        assert max(errs["adam m"], errs["adam v"]) < bars["adam"], errs
     # (b) the main path: bigk-dp's recipe with the f32 decoder and the row sum
-    # in the kernels, from the entry.
+    # in the kernels, from the entry, at the default nn_precision "high":
+    # the row sum's bf16-operand mode.
     argv = ["--config", "bigk-dp", "--nn-compute-dtype", "float32", "--no-fused-mlp-decoder",
             "--fused-decoder", "--warmup-steps", "300", "--steps", "600", "--device", "cuda",
             "--seed", "0", "--iw-samples", "0"]
     decoder.launches = decoder.backward_launches = 0
+    decoder.bf16_launches = decoder.bf16_backward_launches = 0
     decoder_mlp.launches = decoder_mlp.backward_launches = 0
     run = train_svae.main(argv)
     launches = (decoder.launches, decoder.backward_launches)
     rows = run["rows"]
     assert [r["step"] for r in rows] == [1, 200, 400, 600], [r["step"] for r in rows]
     # One forward and one backward a step (300 warmup + 600), and one forward
-    # for each test ELBO (before training and at every row).
+    # for each test ELBO (before training and at every row), all in the
+    # bf16-operand mode.
     assert launches == (900 + len(rows) + 1, 900), f"row-sum launches {launches}"
+    assert (decoder.bf16_launches, decoder.bf16_backward_launches) == launches
     assert (decoder_mlp.launches, decoder_mlp.backward_launches) == (0, 0)
     assert all(math.isfinite(v) for r in rows for v in r.values())
     assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run["state"]))
     start, end = run["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
     purity, used = quality(run, 0)
     print(f"phase K: big-K f32 fused_decoder main path (bigk-dp, --nn-compute-dtype float32 "
-          f"--no-fused-mlp-decoder --fused-decoder, 300 warmup + 600 joint steps, seed 0): "
-          f"row sum {launches[0]} forward / {launches[1]} backward launches, warmup "
-          f"{run['warmup']['seconds']:.1f} s, {run['steps_per_s']:.1f} steps/s, test ELBO/pt "
-          f"{start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 100 components in use; "
-          f"{card}", flush=True)
+          f"--no-fused-mlp-decoder --fused-decoder at the default nn_precision high: the "
+          f"row sum's bf16-operand mode; 300 warmup + 600 joint steps, seed 0): "
+          f"row sum {launches[0]} forward / {launches[1]} backward launches, all bf16-operand, "
+          f"warmup {run['warmup']['seconds']:.1f} s, {run['steps_per_s']:.1f} steps/s, test "
+          f"ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 100 components "
+          f"in use; {card}", flush=True)
     assert end > start + 100.0, f"big-K f32: test ELBO/pt {start} -> {end}"
     assert purity > 0.7, f"big-K f32: cluster purity {purity}"
     assert used >= 6, f"big-K f32: only {used} of 100 components in use"
+    # (b') the row sum's f32 mode on the same path under --nn-precision
+    # highest, cut to 100 + 100 steps: its launches.
+    decoder.launches = decoder.backward_launches = 0
+    decoder.bf16_launches = decoder.bf16_backward_launches = 0
+    f32_run = train_svae.main([*argv[:6], "--warmup-steps", "100", "--steps", "100",
+                               "--device", "cuda", "--seed", "0", "--iw-samples", "0",
+                               "--nn-precision", "highest"])
+    f32_launches = (decoder.launches, decoder.backward_launches)
+    assert f32_launches[1] == 200 and decoder.bf16_launches == 0, f32_launches
+    assert all(math.isfinite(v) for r in f32_run["rows"] for v in r.values())
+    print(f"phase K: the same path at --nn-precision highest (the row sum's f32 mode), 100 "
+          f"warmup + 100 steps: {f32_launches[0]} forward / {f32_launches[1]} backward "
+          f"launches, {f32_run['steps_per_s']:.1f} steps/s; {card}", flush=True)
     # (c) the step's rate with the row sum fused and unfused, in turns.
     rates = bigk_f32_rates(dev)
-    print("phase K: big-K f32 step (make_step_runner, 100 steps a turn; turns unfused, "
-          "fused, fused, unfused): " + "; ".join(
+    print("phase K: big-K f32 step at nn_precision high (make_step_runner, 100 steps a turn; "
+          "turns unfused, fused, fused, unfused): " + "; ".join(
               f"row sum {name} " + " / ".join(f"{v:.1f}" for v in r["rates"])
               + f" steps/s, 20 profiled steps: wall {r['wall_ms']:.3f} ms, device "
               f"{r['device_ms']:.3f} ms a step, idle share {100 * r['idle']:.1f}%, row-sum "
               f"kernels {r['rowsum_ms']:.3f} ms a step" for name, r in rates.items())
           + f"; {card}", flush=True)
-    return launches
+    return f32_launches, launches
 
 
 # Phase L's child: serves the exported artifacts in a process whose import
@@ -1956,12 +2056,13 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
     # 1. the entry's resume through tinystep (pinwheel-svae, full width)
     argv = ["--config", "pinwheel-svae", "--device", "cuda", "--seed", "0", "--iw-samples",
             "0"]
-    tinystep.launches = 0
+    tinystep.launches = tinystep.launches_bf16 = 0
     a = train_svae.main(argv + ["--steps", "2000", "--checkpoint-dir", str(work / "A")])
     b1 = train_svae.main(argv + ["--steps", "1000", "--checkpoint-dir", str(work / "B")])
     b2 = train_svae.main(argv + ["--steps", "2000", "--checkpoint-dir", str(work / "B"),
                                  "--resume", "--logfile", str(work / "B.jsonl")])
-    launches = tinystep.launches
+    launches = tinystep.launches_bf16  # the config's nn_precision "default"
+    assert tinystep.launches == 0, tinystep.launches
     assert a["kernel"] == "tinystep" and launches == 4, (a["kernel"], launches)
     assert _same_state(work / "A" / "step_2000.pt", work / "B" / "step_2000.pt"), \
         "pinwheel-svae: the resumed run's final checkpoint differs from the whole run's"
@@ -2176,6 +2277,338 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
     print(f"phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# Phase M's bars for the bf16-product mode against its plain version, per
+# quantity (rtol, atol), beside the f32 mode's bars of phases 4 and A. With
+# operands of 8 significant bits, an f32 sum taken in another order can
+# move an activation across a bf16 rounding boundary, and the next product
+# then differs by a bf16 ulp of that operand: the gap is set by where the
+# rounding lands, not by the f32 sums (PERF.md, PR 17).
+BF16_TINY_TOL = {"params": (5e-4, 5e-5), "adam m": (5e-4, 5e-4), "adam v": (5e-3, 1e-6),
+                 "naturals": (2e-4, 2e-4), "recon": (2e-3, 0.0), "local_kl": (2e-3, 2e-3)}
+BF16_FLEX_TOL = {"params": (5e-4, 1e-4), "adam m": (5e-4, 5e-4), "naturals": (2e-3, 2e-3),
+                 "recon": (2e-3, 2e-3), "local_kl": (2e-3, 2e-3), "neg_loss": (2e-3, 2e-3),
+                 "rho": (1e-6, 1e-6)}
+
+
+def bf16_steps_phase(card: str) -> list:
+    """Phase M (1): tinystep's and flexstep's bf16-product mode against their
+    plain versions, reruns, ptxas lines and per-step times; returns their
+    entries of the kernels line (launches set by phases 5 and B)."""
+    import numpy as np
+    import torch
+
+    from svax_torch.data import load_dataset
+    from svax_torch.data.pinwheel import load_pinwheel
+    from svax_torch.measure_auto import mlp_fmas, step_fmas
+    from svax_torch.measure_mnist import BF16_FLOPS
+    from svax_torch.models.svae import SvaeConfig
+    from svax_torch.ops import flexstep, tinystep
+    from svax_torch.pgm import gmm
+    from svax_torch.train import svae_step
+
+    dev = torch.device("cuda", 0)
+    c16 = tinystep.DEFAULT_CLUSTER
+    instances_ptxas("M", "tinystep_kernel", {(50, 50, c16, 1), (16, 16, c16, 1)})
+    instances_ptxas("M", "flexstep_kernel", {(d, c16, 1) for d in flexstep.LATENT_DIMS},
+                    {(d, c, b) for d in (2, 3, 4) for c in tinystep.CLUSTER_SIZES
+                     for b in (0, 1)})
+
+    def check(name, st_k, st_p, met_k, met_p, groups, tol) -> dict:
+        e = {}
+        for group, tk, tp in groups:
+            e[group] = max(close(f"{name} {group}", a_, b_, *tol[group])
+                           for a_, b_ in zip(tk, tp))
+        for key in ("recon", "local_kl", "neg_loss", "rho"):
+            if key in tol:
+                e[key] = close(f"{name} {key}", met_k[key], met_p[key], *tol[key])
+        return e
+
+    def tree_groups(st_k, st_p, adam_v=True):
+        g = [("params", flat(st_k.nn_params), flat(st_p.nn_params)),
+             ("adam m", flat(st_k.opt_state.mu), flat(st_p.opt_state.mu)),
+             ("naturals", nat_leaves(st_k.pgm_nat), nat_leaves(st_p.pgm_nat))]
+        if adam_v:
+            g.append(("adam v", flat(st_k.opt_state.nu), flat(st_p.opt_state.nu)))
+        return g
+
+    def rel_to_f32(st_b, st_f) -> float:
+        """max |bf16 − f32| / max |f32| over the parameters: the modes differ."""
+        return max(rel_err(a_, b_) for a_, b_ in zip(flat(st_b.nn_params),
+                                                    flat(st_f.nn_params)))
+
+    # tinystep at full pinwheel width, GMM and SMM, and at 16-16.
+    train, _ = load_pinwheel(seed=0)
+    n, k, s, t = train.shape[0], 10, 4, 3
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(300)
+    eps = torch.tensor(rng.standard_normal((t, s, n, k, 2)), dtype=torch.float32, device=dev)
+    aug_eps = torch.tensor(rng.standard_normal((t, n, 2)), dtype=torch.float32, device=dev)
+
+    def tiny_setup(hidden):
+        config = SvaeConfig(latent_dim=2, num_components=k, num_samples=s, num_total=n)
+        prior = gmm.make_prior(k, 2, kappa=0.05)
+        state = svae_step.init_state(torch.Generator().manual_seed(0), 2, config, prior,
+                                     hidden, hidden)
+        return svae_step.state_to(state, dev), svae_step.nat_to(prior, dev)
+
+    errs = {}
+    for name, hidden, smm in (("GMM 50-50", (50, 50), {}),
+                              ("SMM dof 4, 2 rounds, full chain, 50-50", (50, 50),
+                               dict(dof=4.0, smm_iters=2)),
+                              ("GMM 16-16", (16, 16), {})):
+        state, prior = tiny_setup(hidden)
+        kw = dict(lr=1e-3, rho=0.05, t_steps=t, aug_noise=0.4, eps=eps, aug_eps=aug_eps,
+                  **smm)
+        st_k, met_k = tinystep.train_chunk(state, prior, x, nn_precision="default", **kw)
+        st_k2, _ = tinystep.train_chunk(state, prior, x, nn_precision="default", **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(leaves(st_k), leaves(st_k2))), \
+            f"tinystep bf16 {name}: reruns differ"
+        st_p, met_p = tinystep.train_chunk_plain(state, prior, x, nn_precision="default", **kw)
+        st_f, _ = tinystep.train_chunk_plain(state, prior, x, **kw)
+        e = check(f"tinystep bf16 {name}", st_k, st_p, met_k, met_p,
+                  tree_groups(st_k, st_p), BF16_TINY_TOL)
+        errs[name] = e
+        print(f"phase M: tinystep bf16-product mode (cluster {c16}) vs plain, T={t} at N={n} "
+              f"K={k} S={s} sigma=0.4, {name}: "
+              + ", ".join(f"{g} max abs err {v:.3e}" for g, v in e.items())
+              + f"; reruns bit-equal; kernel vs the plain f32 step: params "
+              f"{rel_to_f32(st_k, st_f):.3e} of the largest (bars {BF16_TINY_TOL})",
+              flush=True)
+    tiny_err = max(v for e in errs.values() for g, v in e.items()
+                   if g in ("params", "adam m", "adam v", "naturals"))
+
+    # flexstep at full auto width, and at d = 2 and d = 6 small.
+    auto_x, _, _ = load_dataset("auto", seed=0)
+    full = dict(d=4, d_in=8, k=10, s=4, hidden=(100, 100), m=64)
+
+    def flex_setup(d, d_in, k, s, hidden, m, data=None):
+        gen = torch.Generator().manual_seed(0)
+        xx = torch.tensor(data, dtype=torch.float32) if data is not None else (
+            torch.randn(120, d_in, generator=gen))
+        config = SvaeConfig(latent_dim=d, num_components=k, num_samples=s,
+                            num_total=xx.shape[0])
+        prior = gmm.make_prior(k, d, kappa=0.05)
+        state = svae_step.init_state(gen, d_in, config, prior, hidden, hidden)
+        return svae_step.state_to(state, dev), svae_step.nat_to(prior, dev), xx.to(dev)
+
+    def flex_stack(xx, t_, m, seed):
+        r = np.random.default_rng(seed)
+        return xx[torch.tensor(r.integers(0, xx.shape[0], (t_, m)), device=dev)].contiguous()
+
+    ferrs = {}
+    for name, c, data in (("auto width", full, auto_x),
+                          ("d=2", dict(d=2, d_in=3, k=5, s=2, hidden=(16, 16), m=32), None),
+                          ("d=6", dict(d=6, d_in=8, k=3, s=2, hidden=(24, 24), m=32), None)):
+        state, prior, xx = flex_setup(**c, data=data)
+        batches = flex_stack(xx, t, c["m"], 1)
+        r = np.random.default_rng(2)
+        feps = torch.tensor(r.standard_normal((t, c["s"], c["m"], c["k"], c["d"])),
+                            dtype=torch.float32, device=dev)
+        kw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=xx.shape[0], eps=feps)
+        st_k, met_k = flexstep.train_chunk(state, prior, batches, nn_precision="default",
+                                           **kw)
+        st_k2, _ = flexstep.train_chunk(state, prior, batches, nn_precision="default", **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(leaves(st_k), leaves(st_k2))), \
+            f"flexstep bf16 {name}: reruns differ"
+        st_p, met_p = flexstep.train_chunk_plain(state, prior, batches,
+                                                 nn_precision="default", **kw)
+        st_f, _ = flexstep.train_chunk_plain(state, prior, batches, **kw)
+        e = check(f"flexstep bf16 {name}", st_k, st_p, met_k, met_p,
+                  tree_groups(st_k, st_p, adam_v=False), BF16_FLEX_TOL)
+        ferrs[name] = e
+        print(f"phase M: flexstep bf16-product mode (cluster {c16}) vs plain, T={t} at "
+              f"{name} {c}: " + ", ".join(f"{g} max abs err {v:.3e}" for g, v in e.items())
+              + f"; reruns bit-equal; kernel vs the plain f32 step: params "
+              f"{rel_to_f32(st_k, st_f):.3e} of the largest (bars {BF16_FLEX_TOL})",
+              flush=True)
+    flex_err = max(ferrs["auto width"][g] for g in ("params", "adam m", "naturals"))
+
+    # Per step, each mode in turns (f32, bf16, bf16, f32), and the plain
+    # bf16 step. The bound counts the MLP products at the bf16 tensor-core
+    # peak, their operands' type (the kernels still run them as f32 FMAs).
+    state, prior = tiny_setup((50, 50))
+    t_kernel, t_plain = 200, 20
+    base = dict(lr=1e-3, rho=0.05, aug_noise=0.4)
+    tiny_ms = {"highest": [], "default": []}
+    for mode in ("highest", "default", "default", "highest"):
+        tiny_ms[mode].append(time_per_step(lambda: tinystep.train_chunk(
+            state, prior, x, t_steps=t_kernel, nn_precision=mode, **base), t_kernel))
+    tiny_plain = time_per_step(lambda: tinystep.train_chunk_plain(
+        state, prior, x, t_steps=t_plain, nn_precision="default", **base), t_plain)
+    p_tiny = n_params(state.nn_params)
+    tiny_bound = bound(2 * (mlp_fmas([2, 50, 50, 4], s * n * k, True)
+                            + mlp_fmas([2, 50, 50, 4], n, False)),
+                       4 * (6 * p_tiny + 2 * n + 3 * k * 9) / t_kernel + 12, BF16_FLOPS)
+    state, prior, xx = flex_setup(**full, data=auto_x)
+    big, small = flex_stack(xx, 500, 64, 3), flex_stack(xx, 20, 64, 4)
+    fkw = dict(lr=1e-3, rho=0.2, rho_decay=1e-3, num_total=xx.shape[0], num_samples=4)
+    flex_ms = {"highest": [], "default": []}
+    for mode in ("highest", "default", "default", "highest"):
+        flex_ms[mode].append(time_per_step(lambda: flexstep.train_chunk(
+            state, prior, big, nn_precision=mode, **fkw), 500))
+    flex_plain = time_per_step(lambda: flexstep.train_chunk_plain(
+        state, prior, small, nn_precision="default", **fkw), 20)
+    p_flex = n_params(state.nn_params)
+    flex_bound = bound(2 * step_fmas(4, 8, 10, 4, 64, 100),
+                       4 * 64 * 8 + 4 * (6 * p_flex + 3 * 10 * (3 + 4 + 16)) / 500 + 16,
+                       BF16_FLOPS)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    print(f"phase M: per step on the card, f32 mode vs bf16-product mode in turns "
+          f"(f32, bf16, bf16, f32): tinystep at pinwheel width (chunks of {t_kernel}) "
+          f"{tiny_ms['highest']} vs {tiny_ms['default']} ms, plain bf16 step "
+          f"{tiny_plain:.4f} ms, bound (bf16 products) {tiny_bound[0] * 1e3:.3f} us "
+          f"({tiny_bound[1]}); flexstep at auto width "
+          f"(chunks of 500) {flex_ms['highest']} vs {flex_ms['default']} ms, plain bf16 "
+          f"step {flex_plain:.4f} ms, bound (bf16 products) {flex_bound[0] * 1e3:.3f} us "
+          f"({flex_bound[1]}); {card}",
+          flush=True)
+    return [
+        {"name": "tinystep_bf16", "route": "cuda", "source": "svax_torch/ops/csrc/tinystep.cu",
+         "replaces": "svax/ops/tinystep_pallas.py:621", "launches": 0,
+         "max_abs_err": tiny_err, "ms": med(tiny_ms["default"]), "plain_ms": tiny_plain,
+         "bound_ms": tiny_bound[0], "bound_by": tiny_bound[1], "library_ms": None,
+         "cluster": c16, "mode": "bf16 products (nn_precision default)"},
+        {"name": "flexstep_bf16", "route": "cuda", "source": "svax_torch/ops/csrc/flexstep.cu",
+         "replaces": "svax/ops/flexstep_pallas.py:374", "launches": 0,
+         "max_abs_err": flex_err, "ms": med(flex_ms["default"]), "plain_ms": flex_plain,
+         "bound_ms": flex_bound[0], "bound_by": flex_bound[1], "library_ms": None,
+         "cluster": c16, "mode": "bf16 products (nn_precision default)"},
+    ]
+
+
+def slice_j_paths_phase(card: str, bigk_ms: float) -> None:
+    """Phase M (3, 4, 6): the full head at mnist-svae's width and the sampled
+    estimator at bigk-dp's, through the entry on the card, then a full-head
+    ReLU bundle served live and from its exported tier. ``bigk_ms`` is phase
+    F's weighted step, printed beside the sampled one."""
+    import numpy as np
+    import torch
+
+    from svax_torch import serve, train_svae
+    from svax_torch.data import load_dataset
+    from svax_torch.measure_mnist import quality
+    from svax_torch.models.svae import SvaeConfig
+    from svax_torch.ops import combine, decoder_mlp
+    from svax_torch.pgm import gmm
+    from svax_torch.train import loop, svae_step
+
+    dev = torch.device("cuda", 0)
+    counters = (combine, decoder_mlp)
+
+    def reset():
+        for mod in counters:
+            mod.launches = mod.backward_launches = 0
+        combine.lean_backward_launches = 0
+
+    # The Student-t prior on the flagship at its config: tinystep's SMM
+    # branch in the bf16-product mode.
+    from svax_torch.ops import tinystep
+
+    tinystep.launches = tinystep.launches_bf16 = 0
+    smm = train_svae.main(["--config", "pinwheel-svae", "--smm-dof", "4", "--steps", "2000",
+                           "--device", "cuda", "--seed", "0", "--iw-samples", "0"])
+    rows = smm["rows"]
+    assert smm["kernel"] == "tinystep" and tinystep.launches_bf16 == 2, tinystep.launches_bf16
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    start, end = smm["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    assert rows[-1]["elbo"] > rows[0]["elbo"] and end > start, (rows, start)
+    print(f"phase M: pinwheel-svae --smm-dof 4 at the config's nn_precision default "
+          f"(tinystep's SMM branch, bf16 products; 2000 steps): {tinystep.launches_bf16} "
+          f"launches, {smm['steps_per_s']:.1f} steps/s, test ELBO/pt {start:.4f} -> "
+          f"{end:.4f}; {card}", flush=True)
+
+    # (3) mnist-svae's width with the full head: the per-step engine, the
+    # plain combine (the fused one takes the diagonal head only) and the
+    # MLP-decoder kernel; cut to 60 warmup + 60 joint steps (the plain
+    # combine's entry-unrolled d = 8 Cholesky holds the host to ~6 steps/s).
+    argv = ["--config", "mnist-svae", "--encoder-head", "full", "--fused-mlp-decoder",
+            "--warmup-steps", "60", "--steps", "60", "--device", "cuda", "--seed", "0",
+            "--iw-samples", "0"]
+    reset()
+    run = train_svae.main(argv)
+    comb, dec = (combine.launches, combine.backward_launches), (
+        decoder_mlp.launches, decoder_mlp.backward_launches)
+    assert run["kernel"] == loop.PER_STEP and comb == (0, 0) and min(dec) > 0, (comb, dec)
+    rows = run["rows"]
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run["state"]))
+    start, end = run["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    purity, used = quality(run, 0, head="full")
+    print(f"phase M: mnist-svae --encoder-head full (784 -> 200-200, d=8, K=10, minibatch "
+          f"256; 60 warmup + 60 steps, seed 0, per-step engine): combine launches {comb}, "
+          f"MLP-decoder launches {dec} (forward, backward); {run['steps_per_s']:.1f} steps/s, "
+          f"test ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, {used} of 10 "
+          f"components in use; {card}", flush=True)
+    assert end > start + 100.0, f"full head: test ELBO/pt {start} -> {end}"
+    full_state = run["state"]
+
+    # (4) bigk-dp's width with the sampled estimator: S·N = 1024 decoder rows
+    # a step in place of S·N·K = 102,400; cut to 20 warmup + 20 steps (the
+    # plain combine at K = 100, d = 10 holds the host to ~4 steps/s).
+    argv = ["--config", "bigk-dp", "--recon-mode", "sampled", "--warmup-steps", "20",
+            "--steps", "20", "--eval-every", "10", "--device", "cuda", "--seed", "0",
+            "--iw-samples", "0"]
+    reset()
+    run = train_svae.main(argv)
+    rows = run["rows"]
+    assert run["kernel"] == loop.PER_STEP and decoder_mlp.launches == 0, decoder_mlp.launches
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run["state"]))
+    start, end = run["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
+    assert end > start, f"sampled: test ELBO/pt {start} -> {end}"
+    print(f"phase M: bigk-dp --recon-mode sampled (K=100, d=10, minibatch 1024, 200-200; "
+          f"20 warmup + 20 steps, seed 0, per-step engine, plain combine): test ELBO/pt "
+          f"{start:.4f} -> {end:.4f}, {1e3 / run['steps_per_s']:.3f} ms a step (phase F's "
+          f"weighted step {bigk_ms:.3f} ms); {card}", flush=True)
+
+    # (6) a full-head ReLU bundle at mnist width: 20 steps from phase M (3)'s
+    # state with ReLU nets, saved, served on cuda, exported and served again.
+    train, test, meta = load_dataset("mnist", seed=0)
+    x = torch.tensor(train, dtype=torch.float32, device=dev)
+    config = SvaeConfig(latent_dim=8, num_components=10, num_samples=1, num_total=x.shape[0],
+                        likelihood="bernoulli", nn_compute_dtype="bfloat16",
+                        encoder_head="full", activation="relu")
+    prior = gmm.make_prior(10, 8, alpha=1.0, kappa=0.05, device=dev)
+    runner = loop.make_step_runner(config, prior, lr=1e-3, rho=0.1, batch_size=256)
+    state, mets = runner(full_state, x, 20, seed=0)
+    assert bool(torch.isfinite(mets["elbo"]).all())
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_M"
+    shutil.rmtree(work, ignore_errors=True)
+    spec = serve.ModelSpec(input_dim=784, latent_dim=8, num_components=10,
+                           likelihood="bernoulli", encoder_hidden=(200, 200),
+                           decoder_hidden=(200, 200), activation="relu", encoder_head="full",
+                           num_total=x.shape[0])
+    serve.save_bundle(work / "bundle", state, spec)
+    live = serve.load_bundle(work / "bundle", buckets=(32,), device="cuda")
+    serve.export_serving(live, work / "exported", buckets=(32,))
+    aot = serve.load_exported(work / "exported")
+    xt = test.astype(np.float32)
+    worst = 0.0
+    for b in (32,):
+        q = xt[:b]
+        m = np.ones_like(q)
+        m[:, 392:] = 0.0
+        pairs = {"encode": (live.encode(q), aot.encode(q)),
+                 "reconstruct": (live.reconstruct(q), aot.reconstruct(q)),
+                 "impute": (live.impute(q, m), aot.impute(q, m)),
+                 "score": (live.score(q, seed=3), aot.score(q, seed=3))}
+        for name, (want, got) in pairs.items():
+            for key in (want if isinstance(want, dict) else [""]):
+                w_, g_ = (want[key], got[key]) if key else (want, got)
+                if name == "score" or key == "component":
+                    assert np.array_equal(g_, w_), (name, key, b)
+                else:
+                    np.testing.assert_allclose(g_, w_, rtol=1e-6, atol=1e-6,
+                                               err_msg=f"{name} {key} {b}")
+                    worst = max(worst, float(np.abs(g_ - w_).max()))
+    print(f"phase M: a full-head ReLU bundle (mnist width, 20 steps on from (3)'s state) "
+          f"served on {live.device}: the exported tier at bucket 32 against the live "
+          f"one: encode, reconstruct, impute within {worst:.3e}, score and components "
+          f"bit-equal; {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2304,13 +2737,15 @@ def main() -> int:
           + ", ".join(f"{c}: {v:.4f} ms" for c, v in cluster_ms.items())
           + f"), plain {plain_ms:.4f} ms (chunks of {t_plain}); {card}")
 
-    # 5. the main path
+    # 5. the main path, at the config's nn_precision "default": tinystep's
+    # bf16-product mode
     argv = ["--config", "pinwheel-svae", "--steps", "2000", "--device", "cuda",
             "--seed", "0"]
-    tinystep.launches = 0
+    tinystep.launches = tinystep.launches_bf16 = 0
     run1 = train_svae.main(argv)
-    launches = tinystep.launches
-    assert launches >= 2, f"tinystep launched {launches} times on the main path"
+    launches_bf16 = tinystep.launches_bf16
+    assert launches_bf16 >= 2 and tinystep.launches == 0, \
+        f"tinystep launched {launches_bf16} times in its bf16 mode on the main path"
     rows = run1["rows"]
     assert len(rows) == 2 and all(
         math.isfinite(v) for r in rows for v in r.values()), rows
@@ -2320,12 +2755,23 @@ def main() -> int:
     assert all(torch.equal(p, q) for p, q in
                zip(leaves(run1["state"]), leaves(run2["state"]))), \
         "two runs at one seed differ"
+    # The f32 mode on the same path: --nn-precision highest.
+    tinystep.launches = tinystep.launches_bf16 = 0
+    run_f32 = train_svae.main([*argv, "--nn-precision", "highest"])
+    launches = tinystep.launches
+    assert launches >= 2 and tinystep.launches_bf16 == 0, \
+        f"tinystep launched {launches} times in its f32 mode"
     plain = train_svae.main(["--config", "pinwheel-svae", "--steps", "50",
                              "--device", "cuda", "--engine", "plain"])
-    print(f"phase 5: main path: {launches} kernel launches (each one cluster of "
-          f"{tinystep.DEFAULT_CLUSTER} CTAs), kernel "
-          f"{run1['steps_per_s']:.1f} steps/s, plain {plain['steps_per_s']:.1f} "
-          f"steps/s (50 steps), runs bit-equal; {card}")
+    print(f"phase 5: main path (nn_precision default: bf16 products): {launches_bf16} kernel "
+          f"launches (each one cluster of {tinystep.DEFAULT_CLUSTER} CTAs), kernel "
+          f"{run1['steps_per_s']:.1f} steps/s, test ELBO/pt "
+          f"{run1['init_test_elbo_per_point']:.4f} -> {rows[-1]['test_elbo_per_point']:.4f}, "
+          f"IW/pt {run1['final_test_iw_loglik_per_point']:.4f}; at --nn-precision highest "
+          f"(f32): {launches} launches, {run_f32['steps_per_s']:.1f} steps/s, test ELBO/pt -> "
+          f"{run_f32['rows'][-1]['test_elbo_per_point']:.4f}, IW/pt "
+          f"{run_f32['final_test_iw_loglik_per_point']:.4f}; plain "
+          f"{plain['steps_per_s']:.1f} steps/s (50 steps), runs bit-equal; {card}")
 
     # tinystep's bound, per step at the pinwheel shape (chunks of t_kernel):
     # the decoder MLP over S·N·K rows (backward to z) and the encoder over N
@@ -2346,7 +2792,7 @@ def main() -> int:
     print(f"phases 6-8 done at {elapsed()}", flush=True)
 
     # A–B. auto-svae
-    flex_kernel = auto_phases(card)
+    flex_kernel, flex_bf16_launches = auto_phases(card)
     print(f"phases A-B done at {elapsed()}", flush=True)
 
     # C–D. the combine kernels and mnist-svae
@@ -2367,7 +2813,7 @@ def main() -> int:
     # E–F. the decoder kernels and bigk-dp
     decoder_kernels = decoder_phase(card)
     print(f"phase E done at {elapsed()}", flush=True)
-    dec_fwd, dec_bwd = bigk_phase(card)
+    (dec_fwd, dec_bwd), bigk_ms = bigk_phase(card)
     print(f"phase F done at {elapsed()}", flush=True)
     decoder_kernels[0]["launches"] = dec_fwd
     decoder_kernels[1]["launches"] = dec_bwd
@@ -2386,9 +2832,17 @@ def main() -> int:
     # J–K. the row-sum kernels and the big-K f32 fused_decoder path
     rowsum_kernels = rowsum_phase(card)
     print(f"phase J done at {elapsed()}", flush=True)
-    for entry, count in zip(rowsum_kernels, fused_decoder_phase(card)):
+    f32_counts, bf16_counts = fused_decoder_phase(card)
+    for entry, count in zip(rowsum_kernels, (*f32_counts, *bf16_counts)):
         entry["launches"] = count
     print(f"phase K done at {elapsed()}", flush=True)
+
+    # M. slice J: the bf16-product mode, the full head, sampled recon, serving
+    bf16_kernels = bf16_steps_phase(card)
+    bf16_kernels[0]["launches"] = launches_bf16
+    bf16_kernels[1]["launches"] = flex_bf16_launches
+    slice_j_paths_phase(card, bigk_ms)
+    print(f"phase M done at {elapsed()}", flush=True)
 
     # 9. result
     print(json.dumps({"kernels": [{
@@ -2398,8 +2852,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": tiny_bound[0],
         "bound_by": tiny_bound[1], "library_ms": None, "cluster": tinystep.DEFAULT_CLUSTER,
-    }, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels, *decoder_kernels,
-        *rho_kernels, *rowsum_kernels]}))
+    }, *bf16_kernels, smm_kernel, *mixture_kernels, flex_kernel, *combine_kernels,
+        *decoder_kernels, *rho_kernels, *rowsum_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ example ``jax.tree.map(np.asarray, state)``; only attribute and index
 access is used, so neither JAX nor optax is imported) and builds the
 port's ``SvaeTrainState``. ``state_to_numpy`` goes back to a plain nested
 dict of numpy arrays with the same field names. Layouts are identical on
-both sides, so both directions are exact copies. ``mixture_state_from_numpy``
+both sides (the full recognition head's final width 2d + d(d−1)/2
+included), so both directions are exact copies. ``mixture_state_from_numpy``
 and ``mixture_state_to_numpy`` do the same for the pure mixtures'
 ``GmmTrainState``/``SmmTrainState`` (``nat``, ``step``).
 

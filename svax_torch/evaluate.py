@@ -3,7 +3,8 @@ checkpoint and report held-out metrics.
 
     python -m svax_torch.evaluate --checkpoint-dir DIR [--config NAME]
         [--iw-samples S] [--smm-dof DOF [--smm-iters R]] [--seed S]
-        [--device cuda|cpu]
+        [--encoder-head diag|full] [--recon-mode weighted|sampled]
+        [--nn-precision highest|high|default] [--device cuda|cpu]
 
 Restores the latest checkpoint that ``svax_torch.train_svae --config NAME
 --checkpoint-dir DIR`` wrote (the architecture is the config's) and prints
@@ -13,7 +14,9 @@ point, and the importance-weighted test log-likelihood bound with
 from generators seeded ``seed + 1`` (the ELBO) and ``seed + 2`` (the
 bound), as the training entry draws its own, so a checkpoint of a finished
 run reproduces that run's last test ELBO and its bound. The plain PyTorch
-model evaluates (no kernel), in the config's decoder compute dtype.
+model evaluates (no kernel), in the config's decoder compute dtype;
+``--encoder-head``, ``--recon-mode`` and ``--nn-precision`` (default the
+config's) are the training run's.
 ``--device cuda`` without a CUDA device raises. ``--plot`` (the latent
 space) waits for the plotting module (ROADMAP.md slice H).
 """
@@ -37,6 +40,10 @@ def main(argv: list[str] | None = None) -> dict:
                    help="evaluate an SMM-prior checkpoint (Student-t dof; 0 = GMM)")
     p.add_argument("--smm-iters", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--encoder-head", choices=["diag", "full"], default="diag")
+    p.add_argument("--recon-mode", choices=["weighted", "sampled"], default="weighted")
+    p.add_argument("--nn-precision", choices=["highest", "high", "default"], default=None,
+                   help="default: the config's, else high")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--plot", default="")
     args = p.parse_args(argv)
@@ -70,7 +77,9 @@ def main(argv: list[str] | None = None) -> dict:
                         num_samples=cfg["num_samples"], num_total=n,
                         likelihood=meta["likelihood"],
                         nn_compute_dtype=cfg.get("nn_compute_dtype", "float32"),
-                        dof=args.smm_dof, smm_iters=args.smm_iters)
+                        dof=args.smm_dof, smm_iters=args.smm_iters,
+                        nn_precision=args.nn_precision or cfg.get("nn_precision", "high"),
+                        encoder_head=args.encoder_head, recon_mode=args.recon_mode)
     prior = gmm.make_prior(config.num_components, config.latent_dim, alpha=cfg["alpha"],
                            kappa=cfg["kappa"], device=device)
     template = svae_step.init_state(
@@ -83,14 +92,15 @@ def main(argv: list[str] | None = None) -> dict:
     ev = svae_step.make_eval_fn(config, prior)(
         state, x_test, generator=torch.Generator(device=device).manual_seed(args.seed + 1))
     iw_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    iw_kw = dict(likelihood=config.likelihood, encoder_head=config.encoder_head,
+                 activation=config.activation)
     if config.dof > 0.0:
         iw = evaluation.svae_smm_iw_loglik(
             state.nn_params, state.pgm_nat, x_test, args.iw_samples, dof=config.dof,
-            smm_iters=config.smm_iters, generator=iw_gen, likelihood=config.likelihood)
+            smm_iters=config.smm_iters, generator=iw_gen, **iw_kw)
     else:
         iw = evaluation.svae_iw_loglik(state.nn_params, state.pgm_nat, x_test,
-                                       args.iw_samples, generator=iw_gen,
-                                       likelihood=config.likelihood)
+                                       args.iw_samples, generator=iw_gen, **iw_kw)
     out = {
         "checkpoint_step": step,
         "test_elbo_per_point": float(ev["elbo_per_point"]),

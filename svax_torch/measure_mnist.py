@@ -699,13 +699,15 @@ def time_rowsum(dev, m: int, dh: int, d: int, precision: str, reps: int = 10) ->
     return out
 
 
-def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0):
+def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0, nn_precision: str = "high"):
     """The big-K f32 step at benchmarks/mfu.py's bigk-single-chip shape:
     bigk-dp's widths and recipe (K = 100, d = 10, S = 1, 200-200,
     minibatches of 1024 without replacement, the fused combine with
     in-kernel ε) with an f32 decoder, the fused MLP decoder off and the row
-    sum in the kernels or not; returns (runner, state, x_train) on ``dev``
-    (``loop.make_step_runner``, kernel engine)."""
+    sum in the kernels or not, at ``nn_precision`` (the default "high" runs
+    the row sum's bf16-operand mode, "highest" its f32 mode); returns
+    (runner, state, x_train) on ``dev`` (``loop.make_step_runner``, kernel
+    engine)."""
     from svax_torch.configs import CONFIGS
     from svax_torch.data import load_dataset
     from svax_torch.models.svae import SvaeConfig
@@ -719,7 +721,7 @@ def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0):
                         num_samples=cfg["num_samples"], num_total=x.shape[0],
                         likelihood=meta["likelihood"], nn_compute_dtype="float32",
                         fused_combine=cfg["fused_combine"], kernel_rng=cfg["kernel_rng"],
-                        fused_decoder=fused_decoder)
+                        fused_decoder=fused_decoder, nn_precision=nn_precision)
     prior = gmm.make_prior(config.num_components, config.latent_dim, alpha=cfg["alpha"],
                            kappa=cfg["kappa"], device=dev)
     state = svae_step.init_state(torch.Generator(device=dev).manual_seed(seed), x.shape[1],
@@ -796,10 +798,11 @@ def profile_entry(argv: list[str]) -> dict:
             "steps_per_s": result["out"]["steps_per_s"], "prof": prof}
 
 
-def quality(out: dict, seed: int) -> tuple[float, int]:
+def quality(out: dict, seed: int, head: str = "diag") -> tuple[float, int]:
     """Cluster purity of the test set (argmax of r̃ under the trained
     naturals against the labels) and the components in use by argmax, for
-    a ``train_svae.main`` result on the mnist data at ``seed``."""
+    a ``train_svae.main`` result on the mnist data at ``seed`` whose
+    encoder has the recognition head ``head``."""
     from svax_torch.data import load_mnist
     from svax_torch.models import evaluation
     from svax_torch.models.svae import sin_combine
@@ -809,7 +812,7 @@ def quality(out: dict, seed: int) -> tuple[float, int]:
     labels = load_mnist(seed=seed, return_labels=True)[4]
     state, x_test = out["state"], out["x_test"]
     with torch.no_grad():
-        pot_h, pot_p = nets.encoder_apply(state.nn_params["encoder"], x_test)
+        pot_h, pot_p = nets.encoder_apply(state.nn_params["encoder"], x_test, head=head)
         post = sin_combine(pot_h, pot_p, gmm.expected_params(state.pgm_nat))
     purity = evaluation.cluster_purity(torch.exp(post.log_resp), labels)
     return purity, int(torch.unique(post.log_resp.argmax(-1)).numel())

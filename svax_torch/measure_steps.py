@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ("tinystep.cu", "flexstep.cu", "errors.cu")
+SOURCES = ("tinystep.cu", "tinystep_c8.cu", "tinystep_bf16.cu", "flexstep.cu",
+           "flexstep_c8.cu", "flexstep_bf16.cu", "errors.cu")
 
 # Phase-clock slots of the kernels (tinystep.cu: TinyPhase; flexstep.cu:
 # 0–10 its phases, FlexPhase the rest).
@@ -103,16 +104,24 @@ def time_per_step(fn, steps: int, repeats: int = 3) -> float:
 
 
 def _clocks(lib, kernel: str) -> list[int]:
+    """The kernel's phase-clock slots, read and zeroed, summed over the
+    sources its instantiations compile in (the f32 C = 16 one, and the
+    ``_c8`` and ``_bf16`` parts where the library has them)."""
     from svax_torch.measure_phases import PHASE_SLOTS
 
-    entry = getattr(lib, f"{kernel}_phase_clocks")
-    entry.argtypes = [ctypes.c_void_p]
-    entry.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * PHASE_SLOTS)()
-    err = entry(ctypes.cast(buf, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError(f"{kernel}_phase_clocks: CUDA error {err}")
-    return list(buf)
+    total = [0] * PHASE_SLOTS
+    for part in ("", "_c8", "_bf16"):
+        entry = getattr(lib, f"{kernel}{part}_phase_clocks", None)
+        if entry is None:
+            continue
+        entry.argtypes = [ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * PHASE_SLOTS)()
+        err = entry(ctypes.cast(buf, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"{kernel}{part}_phase_clocks: CUDA error {err}")
+        total = [a + b for a, b in zip(total, buf)]
+    return total
 
 
 def step_kernel_lines(log: str) -> list[str]:

@@ -1,6 +1,7 @@
 """Held-out evaluation (``svax/models/evaluation.py``, the
 ``cluster_purity``, ``gmm_predictive_log_prob``, ``svae_iw_loglik`` and
-``svae_smm_iw_loglik`` subset).
+``svae_smm_iw_loglik`` subset; both bounds take the recognition head,
+the combine's jitter and the nets' activation).
 
 ``gmm_predictive_log_prob`` is the exact VB posterior predictive of the
 conjugate GMM (a mixture of Student-t, Bishop PRML eq. 10.81): the
@@ -122,15 +123,15 @@ def _iw_draws(post, num_samples: int, x: torch.Tensor, generator, gumbel, eps):
     ``generator``, the Gumbel first) and the Gumbel-max choice (S, N)."""
     shape = (num_samples,) + tuple(post.log_resp.shape)
     if gumbel is None:
-        u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(x.dtype).tiny)))
+        gumbel = svae_mod.gumbel_draws(shape, generator, device=x.device, dtype=x.dtype)
     if eps is None:  # as sample_posterior draws it
         eps = torch.randn(shape + (post.mean.shape[-1],), generator=generator,
                           device=x.device, dtype=post.mean.dtype)
     return torch.argmax(post.log_resp[None] + gumbel.to(x.dtype), dim=-1), eps
 
 
-def _iw_bound(nn_params, post, x, choice, eps, log_prior, likelihood) -> torch.Tensor:
+def _iw_bound(nn_params, post, x, choice, eps, log_prior, likelihood,
+              activation: str = "tanh") -> torch.Tensor:
     """lse_s[log p(x|z) + log_prior(z) − log q(z|x)] − log S over the chosen
     components' draws, scored _IW_CHUNK samples at a time."""
     num_samples = choice.shape[0]
@@ -140,7 +141,8 @@ def _iw_bound(nn_params, post, x, choice, eps, log_prior, likelihood) -> torch.T
         z_all = svae_mod.sample_posterior(post, hi - lo, eps=eps[lo:hi])
         idx = choice[lo:hi, :, None, None].expand(-1, -1, 1, z_all.shape[-1])
         z = torch.gather(z_all, 2, idx)[:, :, 0, :]  # (chunk, N, d)
-        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood)
+        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None], likelihood,
+                                     activation)
         log_w.append(loglik + log_prior(z) - _mixture_log_q(z, post))
     return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))
 
@@ -150,7 +152,8 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
                    num_samples: int = 100, *, generator: torch.Generator | None = None,
                    gumbel: torch.Tensor | None = None,
                    eps: torch.Tensor | None = None,
-                   likelihood: str = "gaussian") -> torch.Tensor:
+                   likelihood: str = "gaussian", encoder_head: str = "diag",
+                   jitter: float = 0.0, activation: str = "tanh") -> torch.Tensor:
     """Per-point IW bound: lse_s[log p(x|z)p̄(z)/q(z|x)] − log S; (N,).
 
     Per (s, n) a component is drawn by Gumbel-max on log r̃ and z from its
@@ -158,13 +161,16 @@ def svae_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
     inject the draws; otherwise they come from ``generator``, all of them
     first. The samples are then scored _IW_CHUNK at a time, which leaves
     every value as it is. The decoder runs in the parameters' dtype with
-    the ``likelihood`` head."""
+    the ``likelihood`` head; the nets at ``activation`` and f32 products, the
+    encoder with ``encoder_head``, the combine with ``jitter``, as the
+    reference's (svax/models/evaluation.py:72-90)."""
     exp = gmm.expected_params(pgm_nat)
-    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
-    post = svae_mod.sin_combine(pot_h, pot_p, exp)
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, activation,
+                                      head=encoder_head)
+    post = svae_mod.sin_combine(pot_h, pot_p, exp, jitter=jitter)
     choice, eps = _iw_draws(post, num_samples, x, generator, gumbel, eps)
     return _iw_bound(nn_params, post, x, choice, eps,
-                     lambda z: _expected_gmm_log_prob(z, exp), likelihood)
+                     lambda z: _expected_gmm_log_prob(z, exp), likelihood, activation)
 
 
 @torch.no_grad()
@@ -173,16 +179,19 @@ def svae_smm_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
                        generator: torch.Generator | None = None,
                        gumbel: torch.Tensor | None = None,
                        eps: torch.Tensor | None = None,
-                       likelihood: str = "gaussian") -> torch.Tensor:
+                       likelihood: str = "gaussian", encoder_head: str = "diag",
+                       jitter: float = 0.0, activation: str = "tanh") -> torch.Tensor:
     """Per-point IW bound of the SMM-prior SVAE; (N,). Proposal: the
     structured mixture posterior of ``svae_smm.smm_combine`` (``smm_iters``
     rounds); target: the expected-parameter Student-t mixture times the
-    decoder. Draws, their injection and chunking as ``svae_iw_loglik``."""
+    decoder. Draws, their injection and chunking, the head, jitter and
+    activation as ``svae_iw_loglik``."""
     if dof <= 0.0:
         raise ValueError("svae_smm_iw_loglik needs dof > 0")
     exp = gmm.expected_params(pgm_nat)
-    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
-    post, _ = svae_smm.smm_combine(pot_h, pot_p, exp, dof, smm_iters)
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, activation,
+                                      head=encoder_head)
+    post, _ = svae_smm.smm_combine(pot_h, pot_p, exp, dof, smm_iters, jitter=jitter)
     choice, eps = _iw_draws(post, num_samples, x, generator, gumbel, eps)
     return _iw_bound(nn_params, post, x, choice, eps,
-                     lambda z: _expected_smm_log_prob(z, exp, dof), likelihood)
+                     lambda z: _expected_smm_log_prob(z, exp, dof), likelihood, activation)

@@ -1,12 +1,15 @@
 """Structured VAE: SIN combine, mixture reparam sampling, structured ELBO
-(``svax/models/svae.py``, the weighted-recon diagonal-head subset:
-Gaussian and Bernoulli likelihoods, the fused combine).
+(``svax/models/svae.py``: Gaussian and Bernoulli likelihoods, the
+diagonal and full recognition heads, the weighted and sampled
+reconstruction estimators, the fused combine).
 
 One forward pass computes, in closed form except the reconstruction Monte
 Carlo: encoder potentials (h, P); the SIN combine with the expected GMM
-naturals, J̃_nk = diag(Pₙ) + E[Λ_k], μ̃_nk = J̃⁻¹(hₙ + E[Λμ]_k); the
-mixture responsibilities r̃; S reparameterised samples per (n, k) through
-the decoder, weighted by r̃; the local KL; the global KL; and the CVI
+naturals, J̃_nk = Pₙ + E[Λ_k] (+ jitter·I), μ̃_nk = J̃⁻¹(hₙ + E[Λμ]_k); the
+mixture responsibilities r̃; the reconstruction term — S reparameterised
+samples per (n, k) through the decoder, weighted by r̃ ("weighted"), or S
+samples per n of one component k̂ ~ Cat(r̃) each with a REINFORCE term for
+r̃'s gradient ("sampled"); the local KL; the global KL; and the CVI
 sufficient statistics.
 """
 
@@ -28,16 +31,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 class SvaeConfig(NamedTuple):
-    """The SVAE configuration fields the pinwheel, auto and mnist training
-    paths read, with the reference's defaults.
-
-    The port implements the Gaussian and Bernoulli likelihoods, the diagonal
-    recognition head, weighted reconstruction, zero jitter, the fused
-    combine, the fused MLP decoder, the fused Bernoulli row sum and decoder
-    remat, the Student-t mixture prior (``dof`` > 0, ``models.svae_smm``),
-    and component sharding (``forward(comp_group=)``); the reference's other
-    switches (nn_precision, remat_combine, the full head, sampled recon)
-    are not ported yet (ROADMAP.md)."""
+    """The SVAE configuration, with the reference's fields and defaults
+    (``svax/models/svae.py:SvaeConfig``). ``activation`` and
+    ``nn_precision`` are names here, not a callable and a
+    ``jax.lax.Precision`` (``nets.mlp``: ACTIVATIONS, PRECISIONS), so that
+    configs and bundles stay plain data; component sharding is
+    ``forward(comp_group=)``."""
 
     latent_dim: int
     num_components: int
@@ -75,9 +74,29 @@ class SvaeConfig(NamedTuple):
     dof: float = 0.0
     smm_iters: int = 2
     smm_envelope_grads: bool = False
-    # The reference's reconstruction estimator switch; the port runs
-    # "weighted" and raises for "sampled" (check_recon_mode).
+    # Reconstruction estimator: "weighted" decodes S samples of every
+    # component, Σ_k r̃·E[log p(x|z_k)] (S·N·K decoder rows); "sampled"
+    # draws k̂ ~ Cat(r̃) per (s, n) and decodes that component's sample
+    # (S·N rows), r̃'s gradient restored by a REINFORCE term with a
+    # leave-one-out baseline (_recon_sampled).
     recon_mode: str = "weighted"
+    # Added to J̃'s diagonal when > 0 (the fused combine then steps aside).
+    jitter: float = 0.0
+    # Hidden-layer activation of both nets: "tanh", "relu" or "softplus".
+    activation: str = "tanh"
+    # Precision of the MLP products (nets.mlp's table): "highest" and
+    # "high" f32, "default" bf16-rounded operands with f32 sums; the
+    # whole-step kernels take "default" as their bf16-product mode and the
+    # fused row sum "high" and "default" as its bf16-operand mode.
+    nn_precision: str = "high"
+    # Recompute the SIN combine in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its N×K×d×d residuals.
+    remat_combine: bool = False
+    # Recognition potential: "diag" (per-point diagonal precision) or
+    # "full" (a Cholesky-parameterised (d, d) precision per point, whose
+    # zero off-diagonals give "diag"); the fused combine and the whole-step
+    # kernels take "diag" only.
+    encoder_head: str = "diag"
 
     @property
     def decoder_compute_dtype(self) -> torch.dtype | None:
@@ -117,11 +136,16 @@ class SvaeOutputs(NamedTuple):
     posterior: SinPosterior
 
 
-def _sin_core(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected):
-    """(μ̃, chol J̃, Σ̃, log|J̃|, pre-softmax log ρ) of the SIN combine."""
+def _sin_core(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
+              jitter: float = 0.0):
+    """(μ̃, chol J̃, Σ̃, log|J̃|, pre-softmax log ρ) of the SIN combine;
+    ``pot_p`` diagonal (N, d) or full (N, d, d)."""
     d = pot_h.shape[-1]
     eye = torch.eye(d, dtype=pot_h.dtype, device=pot_h.device)
-    prec = (pot_p[:, :, None] * eye)[:, None] + exp.prec[None]  # (N, K, d, d)
+    pot_prec = pot_p if pot_p.ndim == pot_h.ndim + 1 else pot_p[:, :, None] * eye
+    prec = pot_prec[:, None] + exp.prec[None]  # (N, K, d, d)
+    if jitter > 0.0:
+        prec = prec + jitter * eye
     h = pot_h[:, None, :] + exp.prec_mean[None]  # (N, K, d)
     chol = bl.cholesky(prec)
     mean = bl.cho_solve_vec(chol, h)
@@ -145,18 +169,19 @@ def sin_log_rho(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
 
 def sin_combine(
     pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
-    comp_group=None, log_norm: torch.Tensor | None = None,
+    comp_group=None, log_norm: torch.Tensor | None = None, *, jitter: float = 0.0,
 ) -> SinPosterior:
-    """Conjugate combine of the diagonal encoder potential (N, d) with the
-    expected GMM naturals (§9.4). The responsibility formula drops per-n
-    constants, which cancel in the softmax over k.
+    """Conjugate combine of the encoder potential — diagonal (N, d) or full
+    (N, d, d) ``pot_p`` — with the expected GMM naturals (§9.4), ``jitter``
+    added to J̃'s diagonal when > 0. The responsibility formula drops per-n
+    constants, which cancel in the softmax over k, for both shapes.
 
     With ``comp_group`` (component parallelism), ``exp`` holds this rank's
     K-shard and the softmax normalises across the group's shards
     (``gmm.lse_over_components``: one MAX and one SUM all-reduce).
     ``log_norm`` (N,) gives that normaliser directly (the fused combine's
     log_norm mode; ``ops.combine.combine_raw_plain`` passes it)."""
-    mean, chol, cov, logdet_prec, log_rho = _sin_core(pot_h, pot_p, exp)
+    mean, chol, cov, logdet_prec, log_rho = _sin_core(pot_h, pot_p, exp, jitter)
     if log_norm is None and comp_group is not None:
         log_norm = gmm.lse_over_components(log_rho, comp_group)
     if log_norm is None:
@@ -209,21 +234,69 @@ def _weighted_loglik(dec_params: list, z: torch.Tensor, x: torch.Tensor,
                      config: SvaeConfig) -> torch.Tensor:
     """Decoder log-likelihood batched over (S, N, K): the fused MLP decoder
     under the reference's conditions (svax/models/svae.py:258-269: the
-    switch, a Bernoulli likelihood, three decoder layers; the port's hidden
-    layers are tanh), else the Bernoulli head in its x-free decomposed form
-    (in ``nn_compute_dtype``; with ``fused_decoder`` at f32, its row sum in
-    ``ops.decoder``), else Gaussian."""
+    switch, a Bernoulli likelihood, three decoder layers, tanh), else the
+    Bernoulli head in its x-free decomposed form (in ``nn_compute_dtype``;
+    with ``fused_decoder`` at f32, its row sum in ``ops.decoder``), else
+    Gaussian; the nets at ``activation`` and ``nn_precision``."""
     if (config.fused_mlp_decoder and config.likelihood == "bernoulli"
-            and len(dec_params) == 3):
+            and len(dec_params) == 3 and config.activation == "tanh"):
         from svax_torch.ops import decoder_mlp
 
         return decoder_mlp.bernoulli_mlp_loglik_fused(dec_params, z, x)
     if config.likelihood == "bernoulli":
         return nets.bernoulli_loglik_decomposed(
             dec_params, z, x, compute_dtype=config.decoder_compute_dtype,
-            fused=config.fused_decoder)
-    mean, var = nets.decoder_apply(dec_params, z)
-    return nets.gaussian_loglik(x[None, :, None, :], mean, var)
+            fused=config.fused_decoder, precision=config.nn_precision,
+            activation=config.activation)
+    return nets.log_likelihood(dec_params, z, x[None, :, None, :], config.likelihood,
+                               config.activation, config.nn_precision,
+                               config.decoder_compute_dtype)
+
+
+def gumbel_draws(shape, generator: torch.Generator | None, *, device, dtype
+                 ) -> torch.Tensor:
+    """Standard Gumbel draws −log(−log u), u uniform from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+def _recon_sampled(dec_params: list, post: SinPosterior, x: torch.Tensor,
+                   config: SvaeConfig, generator: torch.Generator | None = None,
+                   draws: tuple | None = None) -> torch.Tensor:
+    """Sampled-component reconstruction estimator: per-point (N,) values
+    (svax/models/svae.py:288-360).
+
+    Unbiased for Σ_k r̃_nk E_q(z|n,k)[log p(x|z)]: k̂_sn ~ Cat(r̃_n) by
+    Gumbel-max on the detached log r̃, z = μ̃ + L̃⁻ᵀε of that component
+    alone, so the decoder sees S·N rows instead of S·N·K. The REINFORCE
+    surrogate sg(ll − b)·(log r̃_k̂ − sg(log r̃_k̂)) adds 0 to the value and
+    the missing E[ll·∇log r̃] to the gradient. The baseline b leaves each
+    draw out: the mean over the other S − 1 samples of the point when
+    S > 1, else over the other points of the batch.
+
+    The Gumbel (S, N, K) and then the ε (S, N, d) draws come from
+    ``generator``, or ``draws`` = (gumbel, eps) injects them."""
+    _require_full_posterior(post, "_recon_sampled")
+    s = config.num_samples
+    n, k, d = post.mean.shape
+    kw = dict(device=post.mean.device, dtype=post.mean.dtype)
+    if draws is None:
+        gumbel = gumbel_draws((s, n, k), generator, **kw)
+        eps = torch.randn((s, n, d), generator=generator, **kw)
+    else:
+        gumbel, eps = (t.to(**kw) for t in draws)
+    khat = torch.argmax(post.log_resp.detach()[None] + gumbel, dim=-1)  # (S, N)
+    rows = torch.arange(n, device=khat.device)[None, :]
+    z = post.mean[rows, khat] + bl.solve_triu_vec(post.prec_chol[rows, khat], eps)
+    ll = nets.log_likelihood(dec_params, z, x[None], config.likelihood, config.activation,
+                             config.nn_precision, config.decoder_compute_dtype)  # (S, N)
+    logr_sel = post.log_resp[rows, khat]  # (S, N), with its gradient
+    if s > 1:
+        baseline = (ll.sum(dim=0, keepdim=True) - ll) / (s - 1)
+    else:
+        baseline = (ll.sum() - ll) / max(ll.numel() - 1, 1)
+    reinforce = (ll - baseline).detach() * (logr_sel - logr_sel.detach())
+    return (ll + reinforce).mean(dim=0)
 
 
 def local_kl_term(post: SinPosterior, exp: GmmExpected) -> torch.Tensor:
@@ -246,17 +319,14 @@ def local_kl_term(post: SinPosterior, exp: GmmExpected) -> torch.Tensor:
 
 
 def check_recon_mode(config: SvaeConfig, comp_group=None) -> None:
-    """Raise for a reconstruction estimator the port does not run: the
-    sampled-component one is not ported (ROADMAP.md slice J), and, as the
-    reference asserts (svax/models/svae.py:399-404), it cannot run under
-    component parallelism."""
-    if config.recon_mode == "weighted":
-        return
+    """Raise for an unknown reconstruction estimator and, as the reference
+    asserts (svax/models/svae.py:399-404), for the sampled one under
+    component parallelism: it needs the full responsibility row."""
+    if config.recon_mode not in ("weighted", "sampled"):
+        raise ValueError(f"unknown recon_mode {config.recon_mode!r} (weighted|sampled)")
     if config.recon_mode == "sampled" and comp_group is not None:
         raise ValueError("recon_mode='sampled' needs the full responsibility row; it does "
                          "not compose with component parallelism — use 'weighted'.")
-    raise ValueError(f"recon_mode={config.recon_mode!r}: svax_torch runs the 'weighted' "
-                     "estimator only (ROADMAP.md slice J)")
 
 
 def forward(
@@ -271,19 +341,25 @@ def forward(
     seed: int | None = None,
     step: int = 0,
     comp_group=None,
+    sampled_draws: tuple | None = None,
 ) -> SvaeOutputs:
     """Full SVAE forward pass → structured ELBO + CVI payload.
 
-    ``eps`` (S, N, K, d) injects the reparameterisation noise; otherwise
-    it is drawn from ``generator``, or — with ``fused_combine`` and
-    ``kernel_rng`` — inside the combine kernel from Philox keyed (``seed``,
-    ``step``) when a seed is given.
+    ``eps`` (S, N, K, d) injects the weighted estimator's reparameterisation
+    noise; otherwise it is drawn from ``generator``, or — with
+    ``fused_combine`` and ``kernel_rng`` — inside the combine kernel from
+    Philox keyed (``seed``, ``step``) when a seed is given. The sampled
+    estimator draws its Gumbel and ε noise from ``generator``
+    (``_recon_sampled``; ``sampled_draws`` injects them) and refuses
+    ``eps``, as the reference asserts.
 
-    With ``config.fused_combine`` the combine, local KL, sampling and
-    statistics run in ``ops.combine.combine_fused`` (its CUDA kernels on
-    CUDA tensors, the plain composition on CPU tensors), and the returned
-    posterior carries ``mean`` and ``log_resp`` only (the reference's fused
-    branch, svax/models/svae.py:412-480).
+    With ``config.fused_combine`` — and, as in the reference
+    (svax/models/svae.py:412-418), weighted reconstruction, zero jitter and
+    the diagonal head — the combine, local KL, sampling and statistics run
+    in ``ops.combine.combine_fused`` (its CUDA kernels on CUDA tensors, the
+    plain composition on CPU tensors), and the returned posterior carries
+    ``mean`` and ``log_resp`` only; otherwise the plain ``sin_combine``
+    runs, under ``remat_combine`` recomputed in the backward pass.
 
     With ``comp_group`` the PGM naturals, ``eps`` and the statistics are
     this rank's K-shard (component parallelism): the softmax normalises
@@ -294,11 +370,18 @@ def forward(
     (``combine.log_rho_fused``), the cross-shard logsumexp, and the combine
     in its ``log_norm`` mode."""
     check_recon_mode(config, comp_group)
+    sampled = config.recon_mode == "sampled"
+    if sampled and eps is not None:
+        raise ValueError("eps injection is a weighted-mode parity hook; the sampled "
+                         "estimator takes sampled_draws")
     n = x.shape[0]
     scale = config.num_total / n
     exp = gmm.expected_params(pgm_nat, comp_group)
-    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
-    if config.fused_combine:
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, config.activation,
+                                      config.nn_precision, config.encoder_head)
+    use_fused_combine = (config.fused_combine and not sampled and config.jitter == 0.0
+                         and pot_p.ndim == 2)
+    if use_fused_combine:
         from svax_torch.ops import combine
 
         k, d = exp.prec_mean.shape
@@ -318,15 +401,27 @@ def forward(
                             logdet_prec=None)
         local = scale * local_n.sum()
     else:
-        post = sin_combine(pot_h, pot_p, exp, comp_group)
-        z = sample_posterior(post, config.num_samples, eps=eps, generator=generator)
+        if config.remat_combine:
+            # The combine draws no random numbers: no RNG state to replay.
+            post = checkpoint(lambda h, p, e: sin_combine(h, p, e, comp_group,
+                                                          jitter=config.jitter),
+                              pot_h, pot_p, exp, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            post = sin_combine(pot_h, pot_p, exp, comp_group, jitter=config.jitter)
+        if not sampled:
+            z = sample_posterior(post, config.num_samples, eps=eps, generator=generator)
         local = scale * local_kl_term(post, exp).sum()
         ezz = post.cov + post.mean[..., :, None] * post.mean[..., None, :]
         stats = gmm.suff_stats_from_moments(torch.exp(post.log_resp), post.mean, ezz,
                                             scale=scale)
-    resp = torch.exp(post.log_resp)
-    loglik = _weighted_loglik_fn(config)(nn_params["decoder"], z, x, config)  # (S, N, K)
-    recon = scale * (resp * loglik.mean(dim=0)).sum()
+    if sampled:
+        recon = scale * _recon_sampled(nn_params["decoder"], post, x, config, generator,
+                                       sampled_draws).sum()
+    else:
+        resp = torch.exp(post.log_resp)
+        loglik = _weighted_loglik_fn(config)(nn_params["decoder"], z, x, config)  # (S, N, K)
+        recon = scale * (resp * loglik.mean(dim=0)).sum()
     if comp_group is not None:
         recon, local = mesh.psum(torch.stack([recon, local]), comp_group).unbind()
     global_kl = gmm.kl_global(pgm_nat, prior_nat, comp_group)
@@ -348,7 +443,8 @@ def generate(nn_params: dict, pgm_nat: GmmNat, generator: torch.Generator,
     pixel probability map."""
     z, labels = gmm.sample_generative(generator, pgm_nat, num_samples,
                                       sample_params=sample_params)
-    out = nets.decoder_apply(nn_params["decoder"], z, config.likelihood)
+    out = nets.decoder_apply(nn_params["decoder"], z, config.likelihood,
+                             config.activation, config.nn_precision)
     if config.likelihood == "gaussian":
         return out[0], z, labels
     return torch.sigmoid(out), z, labels
@@ -364,14 +460,14 @@ def init_params(
     device: torch.device | str = "cpu",
     dtype: torch.dtype = torch.float32,
 ) -> dict:
-    """Encoder (input → 2d) and a decoder for ``config.likelihood``:
-    Gaussian (d → 2·input) or Bernoulli (d → input logits)."""
+    """Encoder (input → ``nets.encoder_out_dim(d, config.encoder_head)``)
+    and a decoder for ``config.likelihood``: Gaussian (d → 2·input) or
+    Bernoulli (d → input logits)."""
     kw = dict(device=device, dtype=dtype)
     d = config.latent_dim
     return {
-        "encoder": nets.mlp_init(
-            generator, [input_dim, *encoder_hidden, 2 * d], **kw
-        ),
+        "encoder": nets.encoder_init(generator, input_dim, encoder_hidden, d,
+                                     config.encoder_head, **kw),
         "decoder": nets.decoder_init(generator, d, decoder_hidden, input_dim,
                                      config.likelihood, **kw),
     }

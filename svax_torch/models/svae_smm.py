@@ -1,5 +1,6 @@
 """SVAE with a Student-t mixture (SMM) latent prior — the robust SVAE
-(``svax/models/svae_smm.py``, the diagonal-head subset).
+(``svax/models/svae_smm.py``: the diagonal and full recognition heads,
+the weighted reconstruction estimator).
 
 The scale augmentation of ``pgm.smm`` lifted to the latent space:
 
@@ -7,7 +8,7 @@ The scale augmentation of ``pgm.smm`` lifted to the latent space:
 
 Mean-field structured posterior q(z, u, k | x) = r̃_nk q(z|n,k) q(u|n,k):
 
-* q(z|n,k) = N(μ̃, J̃⁻¹) with J̃ = diag(Pₙ) + ū·E[Λ_k],
+* q(z|n,k) = N(μ̃, J̃⁻¹) with J̃ = Pₙ + ū·E[Λ_k] (+ jitter·I),
   μ̃ = J̃⁻¹(hₙ + ū·E[Λμ]_k)                 (the SIN combine, ū = E_q[u]);
 * q(u|n,k) = Gamma(a, b) with a = a₀ + d/2, b = b₀ + ½·Q_nk,
   Q = E[(z−μ_k)ᵀΛ_k(z−μ_k)] under q(z)q(θ);
@@ -67,12 +68,17 @@ def gamma_constants(dof: float, d: int) -> tuple[float, float, float, float]:
 
 
 def _z_update(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
-              e_u: torch.Tensor):
-    """q(z|n,k) given E[u]: the ū-scaled SIN combine on the diagonal
-    encoder precision ``pot_p`` (N, d)."""
+              e_u: torch.Tensor, jitter: float = 0.0):
+    """q(z|n,k) given E[u]: the ū-scaled SIN combine on the encoder
+    precision ``pot_p``, diagonal (N, d) or full (N, d, d), ``jitter``
+    added to J̃'s diagonal when > 0."""
     d = pot_h.shape[-1]
     eye = torch.eye(d, dtype=pot_h.dtype, device=pot_h.device)
-    prec = (pot_p[:, :, None] * eye)[:, None] + e_u[:, :, None, None] * exp.prec[None]
+    pot_prec = pot_p[:, None] if pot_p.ndim == pot_h.ndim + 1 else (
+        (pot_p[:, :, None] * eye)[:, None])
+    prec = pot_prec + e_u[:, :, None, None] * exp.prec[None]
+    if jitter > 0.0:
+        prec = prec + jitter * eye
     h = pot_h[:, None, :] + e_u[:, :, None] * exp.prec_mean[None]
     chol = bl.cholesky(prec)
     mean = bl.cho_solve_vec(chol, h)
@@ -89,7 +95,7 @@ def _quad_latent(mean: torch.Tensor, cov: torch.Tensor, exp: GmmExpected) -> tor
 
 def smm_combine(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
                 dof: float, num_iters: int = 2, envelope_grads: bool = False,
-                comp_group=None) -> tuple[SmmPosterior, torch.Tensor]:
+                comp_group=None, jitter: float = 0.0) -> tuple[SmmPosterior, torch.Tensor]:
     """Coordinate-ascent u–z combine → (posterior, free_energy A (N, K)).
 
     ``num_iters`` u-updates (at least one), each after a z-update, ū
@@ -111,13 +117,13 @@ def smm_combine(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
     e_u = torch.ones(pot_h.shape[:1] + exp.log_pi.shape, dtype=pot_h.dtype,
                      device=pot_h.device)
     for _ in range(max(num_iters, 1)):
-        mean, _, cov, _, _ = _z_update(pot_h, pot_p, exp, e_u)
+        mean, _, cov, _, _ = _z_update(pot_h, pot_p, exp, e_u, jitter)
         gamma_b = b0 + 0.5 * _quad_latent(mean, cov, exp)
         e_u = a / gamma_b
     if envelope_grads:
         gamma_b = gamma_b.detach()
         e_u = a / gamma_b
-    mean, chol, cov, logdet, h = _z_update(pot_h, pot_p, exp, e_u)
+    mean, chol, cov, logdet, h = _z_update(pot_h, pot_p, exp, e_u, jitter)
     quad = _quad_latent(mean, cov, exp)
     log_gb = torch.log(gamma_b)
     e_log_u = psi_a - log_gb
@@ -167,7 +173,10 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     ``config.dof`` (> 0) is the Student-t degrees of freedom,
     ``config.smm_iters`` the u–z rounds. The signature is
     ``svae.forward``'s; ``eps`` (S, N, K, d) injects the noise, else it is
-    drawn from ``generator``. As in the reference, the combine, sampling and
+    drawn from ``generator``. The encoder takes ``encoder_head``, both nets
+    ``activation`` and ``nn_precision``, the combine ``jitter``; only the
+    weighted estimator runs (the reference asserts it). As in the
+    reference, the combine, sampling and
     decoder are the plain ones whatever ``fused_combine``, ``kernel_rng``
     and ``fused_mlp_decoder`` say (``seed`` and ``step`` are unused): a
     Bernoulli head runs ``bernoulli_loglik_decomposed`` in the config's
@@ -178,23 +187,28 @@ def forward(nn_params: dict, pgm_nat: GmmNat, prior_nat: GmmNat, x: torch.Tensor
     if config.dof <= 0.0:
         raise ValueError("svae_smm.forward needs config.dof > 0 (the Student-t prior)")
     svae_mod.check_recon_mode(config, comp_group)
+    if config.recon_mode != "weighted":
+        raise ValueError("the SMM-prior SVAE implements the weighted recon estimator only")
     n = x.shape[0]
     scale = config.num_total / n
     exp = gmm.expected_params(pgm_nat, comp_group)
-    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, config.activation,
+                                      config.nn_precision, config.encoder_head)
     post, free_energy = smm_combine(pot_h, pot_p, exp, config.dof, config.smm_iters,
                                     envelope_grads=config.smm_envelope_grads,
-                                    comp_group=comp_group)
+                                    comp_group=comp_group, jitter=config.jitter)
     resp = torch.exp(post.log_resp)
 
     z = svae_mod.sample_posterior(post, config.num_samples, eps=eps, generator=generator)
     if config.likelihood == "bernoulli":
         loglik = nets.bernoulli_loglik_decomposed(
             nn_params["decoder"], z, x, compute_dtype=config.decoder_compute_dtype,
-            fused=config.fused_decoder)
+            fused=config.fused_decoder, precision=config.nn_precision,
+            activation=config.activation)
     else:
-        mean, var = nets.decoder_apply(nn_params["decoder"], z)
-        loglik = nets.gaussian_loglik(x[None, :, None, :], mean, var)
+        loglik = nets.log_likelihood(nn_params["decoder"], z, x[None, :, None, :],
+                                     config.likelihood, config.activation,
+                                     config.nn_precision, config.decoder_compute_dtype)
     recon = scale * (resp * loglik.mean(dim=0)).sum()
 
     # Σ_n Σ_k r̃ (A_nk − log r̃_nk): r̃ follows the SIN convention, so the

@@ -95,7 +95,7 @@ def declare_steps(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tinystep_scratch_floats.argtypes = [i] * 6  # n, k, s, h1, h2, cluster
     lib.tinystep_scratch_floats.restype = ctypes.c_longlong
-    lib.tinystep_smem_bytes.argtypes = [i] * 4  # h1, h2, k, cluster
+    lib.tinystep_smem_bytes.argtypes = [i] * 5  # h1, h2, k, cluster, bf16
     lib.tinystep_smem_bytes.restype = ctypes.c_longlong
     lib.tinystep_train_chunk.argtypes = [
         p, i, i, i, i, i,  # x, n, k, s, h1, h2
@@ -103,14 +103,14 @@ def declare_steps(lib: ctypes.CDLL) -> None:
         p, p, p, p,  # metrics, scratch, eps, aug_eps
         i, i, ctypes.c_ulonglong, f, f, f,  # t_steps, count, seed, lr, rho, aug
         f, i, i, f, f,  # dof, smm_iters, smm_env, psi_a, k_u
-        i, p,  # cluster, stream
+        i, i, p,  # cluster, bf16, stream
     ]
     lib.tinystep_train_chunk.restype = i
     lib.philox_normals.argtypes = [ctypes.c_ulonglong, ctypes.c_uint, p, i, p]
     lib.philox_normals.restype = i
     lib.flexstep_scratch_floats.argtypes = [i] * 10  # m, d_in, d, k, s, h1e, h2e, h1d, h2d, cluster
     lib.flexstep_scratch_floats.restype = ctypes.c_longlong
-    lib.flexstep_smem_bytes.argtypes = [i] * 10
+    lib.flexstep_smem_bytes.argtypes = [i] * 11  # ..., cluster, bf16
     lib.flexstep_smem_bytes.restype = ctypes.c_longlong
     lib.flexstep_train_chunk.argtypes = [
         p, i, i, i, i, i, i, i, i, i,  # batches, m, d_in, d, k, s, h1e, h2e, h1d, h2d
@@ -118,7 +118,7 @@ def declare_steps(lib: ctypes.CDLL) -> None:
         p, p, p,  # metrics, scratch, eps
         i, i, i, ctypes.c_ulonglong,  # t_steps, adam count, step0, seed
         f, ctypes.c_double, ctypes.c_double, f,  # lr, rho0, rho_decay, num_total
-        i, p,  # cluster, stream
+        i, i, p,  # cluster, bf16, stream
     ]
     lib.flexstep_train_chunk.restype = i
 

@@ -18,6 +18,11 @@ import torch
 UNROLL_MAX = 16
 
 
+def add_jitter(a: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Add ``eps * I`` to the trailing (d, d) axes (Cholesky safety)."""
+    return a + eps * torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+
+
 def _cholesky_unrolled(a: torch.Tensor) -> torch.Tensor:
     """Cholesky–Banachiewicz unrolled over d; a: (..., d, d) PSD."""
     d = a.shape[-1]

@@ -20,6 +20,11 @@
 //   redundantly in the same rank order, so every CTA holds bit-identical
 //   totals without a broadcast. A second cluster barrier ends the step.
 //   No float atomics anywhere: two runs at one seed are bit-equal.
+// * The bf16-product mode (the reference's nn_precision DEFAULT): every
+//   MLP product takes bf16-rounded operands (bf16_round, operand<>) with
+//   f32 FMAs and sums; the weights are rounded once a step, when the
+//   update is broadcast into the CTAs' shared copies, from the f32 master
+//   that the slice's owner keeps beside its Adam moments.
 // * launch_cluster: the cluster launch (cudaLaunchKernelEx with the
 //   cluster-dimension attribute; the non-portable size attribute above 8),
 //   refused with an error when cudaOccupancyMaxActiveClusters finds no
@@ -28,6 +33,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace svax {
@@ -80,15 +86,25 @@ __device__ inline void adam_bias(int count, float& bc1, float& bc2) {
   bc2 = static_cast<float>(1.0 - pow(0.999, static_cast<double>(count)));
 }
 
+// The shared copy of an updated parameter: the f32 value itself.
+struct SameValue {
+  __device__ float operator()(long long, float p) const { return p; }
+};
+
 // CTA `rank`'s share of the step's update, between the two cluster
 // barriers: for flat parameter i in [p0, p1), g = Σ_j part(j, i) in rank
-// order, Adam with this CTA's moments m[i − p0], v[i − p0], and the new
-// value written into params[i] of every CTA of the cluster. All threads
-// call; NT threads stride the slice.
-template <int C, int NT, class Part>
+// order, Adam with this CTA's moments m[i − p0], v[i − p0], and
+// copy(i, new value) written into params[i] of every CTA of the cluster.
+// With `master` (the slice's f32 values, master[i − p0]) Adam reads and
+// writes the master and the shared copies may hold another form of it
+// (the kernels' bf16-product mode: weights rounded to bf16 once a step);
+// without, the shared copy is the master. All threads call; NT threads
+// stride the slice.
+template <int C, int NT, class Part, class Copy = SameValue>
 __device__ void reduce_adam_broadcast(cg::cluster_group& cl, const Part& part, float* params,
                                       float* m, float* v, long long p0, long long p1, float lr,
-                                      float bc1, float bc2) {
+                                      float bc1, float bc2, float* master = nullptr,
+                                      const Copy& copy = Copy()) {
   for (long long i = p0 + thread_index(); i < p1; i += NT) {
     float g = part(0, i);
 #pragma unroll 4
@@ -98,10 +114,29 @@ __device__ void reduce_adam_broadcast(cg::cluster_group& cl, const Part& part, f
     const float vv = (1.0f - kB2) * g * g + kB2 * v[li];
     m[li] = mm;
     v[li] = vv;
-    const float p = params[i] - lr * ((mm / bc1) / (sqrtf(vv / bc2) + kAdamEps));
+    const float old = master ? master[li] : params[i];
+    const float p = old - lr * ((mm / bc1) / (sqrtf(vv / bc2) + kAdamEps));
+    if (master) master[li] = p;
+    const float shared = copy(i, p);
 #pragma unroll 4
-    for (int j = 0; j < C; ++j) *cl.map_shared_rank(params + i, j) = p;
+    for (int j = 0; j < C; ++j) *cl.map_shared_rank(params + i, j) = shared;
   }
+}
+
+// x rounded to bf16 (round to nearest even) and back: the operand of a
+// product at the reference's Precision.DEFAULT (one bf16 pass, f32 sums).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 bf16_round4(float4 q) {
+  return make_float4(bf16_round(q.x), bf16_round(q.y), bf16_round(q.z), bf16_round(q.w));
+}
+
+// A product operand in the kernels' mode: bf16-rounded when kBf16, else as is.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  return kBf16 ? bf16_round(x) : x;
 }
 
 // out[i] = Σ_j part(j, i) in rank order, for i < count: every CTA computes

@@ -38,7 +38,12 @@
 //   both sides' offsets are kernel arguments and the CTA's counts 32-bit,
 //   so they hold no registers across the step (no spills at d ≤ 4).
 // No atomics, so two runs at one seed are bit-identical. f32 FMA on CUDA
-// cores (no TF32). Measured per-phase split: PERF.md
+// cores (no TF32). kBf16 (the reference's nn_precision DEFAULT): every
+// product of gemm and weight_grads takes bf16-rounded operands with the
+// same f32 FMAs and order; the weights are rounded once a step into the
+// shared copy (cluster_step.cuh: reduce_adam_broadcast's master), the rows
+// as a product reads them; the biases' sums, the combine, Adam and CVI
+// stay f32. Measured per-phase split: PERF.md
 // (svax_torch/measure_steps.py).
 //
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
@@ -151,19 +156,20 @@ struct Layout {
 };
 
 // Shared memory of one CTA, in floats: the parameters (flat, the global
-// layout), this CTA's slice of both Adam moments, the naturals, the
-// expected parameters (slot rows) and the cluster totals of the
-// statistics, recon and local. svax_torch/ops/flexstep.py: smem_bytes is
-// its Python twin.
+// layout), this CTA's slice of both Adam moments (and, in the bf16-product
+// mode, the slice's f32 master), the naturals, the expected parameters
+// (slot rows) and the cluster totals of the statistics, recon and local.
+// svax_torch/ops/flexstep.py: smem_bytes is its Python twin.
 struct Smem {
-  long long m, v, nat, exp, tot, total;
-  __host__ __device__ Smem(const Dims& g, int c) {
+  long long m, v, master, nat, exp, tot, total;
+  __host__ __device__ Smem(const Dims& g, int c, bool bf16) {
     const long long f = 3 + g.d + g.d * g.d;
     const long long p = n_params(g);
     const long long slice = pad4((p + c - 1) / c);
     m = pad4(p);
     v = m + slice;
-    nat = v + slice;
+    master = v + slice;
+    nat = master + (bf16 ? slice : 0);
     exp = nat + pad4(g.k * f);
     tot = exp + pad4(g.k * f);
     total = tot + pad4(static_cast<long long>(g.k) * (1 + g.d + g.d * g.d) + 2);
@@ -212,7 +218,10 @@ enum Epi { kBiasTanh, kBias, kDTanh, kNone };
 // threads: a warp reads consecutive rows of In as float4 and shares its
 // columns, so each W read is a broadcast. Epilogues: tanh(· + b), · + b,
 // ·(1 − act²) (the tanh backward with act the layer's output), or none.
-// All threads call; ends synchronised.
+// kBf16: In is rounded to bf16 as it is read (W arrives rounded in the
+// shared copy; the epilogue's b and act stay f32). All threads call; ends
+// synchronised.
+template <bool kBf16>
 __device__ void gemm(const float* in, int Q, int C, long long ld, long long rp,
                      const float* W, bool trans, const float* bias, const float* act,
                      Epi epi, float* out) {
@@ -237,7 +246,11 @@ __device__ void gemm(const float* in, int Q, int C, long long ld, long long rp,
     const float* a = in + r0;
 #pragma unroll 2
     for (int q = 0; q < Q; ++q) {
-      const float4 a0 = ld4(a + q * ld), a1 = ld4(a + q * ld + 4);
+      float4 a0 = ld4(a + q * ld), a1 = ld4(a + q * ld + 4);
+      if (kBf16) {
+        a0 = cs::bf16_round4(a0);
+        a1 = cs::bf16_round4(a1);
+      }
       const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       float bv[TN];
 #pragma unroll
@@ -291,7 +304,11 @@ struct WGrad {
 // The three layers of one side: a thread owns a 4×4 block of one layer's
 // [dW; db] and sums it over the CTA's rp rows in row order (float4 loads
 // of 4 consecutive rows), so the result does not depend on timing. Rows
-// past the real ones carry G = 0. All threads call; ends synchronised.
+// past the real ones carry G = 0. kBf16: dW takes bf16-rounded A and G,
+// while db stays the f32 sum of G (the reference's bias cotangent is a
+// sum, not a product), kept beside in accb. All threads call; ends
+// synchronised.
+template <bool kBf16>
 __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, long long ld,
                              long long rp, float* grad) {
   const WGrad* layers[3] = {&l0, &l1, &l2};
@@ -319,7 +336,7 @@ __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, 
       aconst[x] = i == L->q ? ones : zero;
       grow[x] = c0 + x < L->c ? L->g + (c0 + x) * ld : nullptr;
     }
-    float acc[4][4];
+    float acc[4][4], accb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int x = 0; x < 4; ++x)
 #pragma unroll
@@ -330,6 +347,14 @@ __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, 
       for (int x = 0; x < 4; ++x) {
         av[x] = arow[x] ? ld4(arow[x] + r) : aconst[x];
         gv[x] = grow[x] ? ld4(grow[x] + r) : zero;
+      }
+      if (kBf16) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          av[x] = cs::bf16_round4(av[x]);  // the ones and zeros are exact
+          accb[x] = accb[x] + gv[x].x + gv[x].y + gv[x].z + gv[x].w;
+          gv[x] = cs::bf16_round4(gv[x]);
+        }
       }
 #pragma unroll
       for (int x = 0; x < 4; ++x)
@@ -347,7 +372,7 @@ __device__ void weight_grads(const WGrad& l0, const WGrad& l1, const WGrad& l2, 
       for (int y = 0; y < 4; ++y) {
         const int i = i0 + x, c = c0 + y;
         if (c < L->c && i < L->q) grad[L->w + i * L->c + c] = acc[x][y];
-        else if (c < L->c && i == L->q) grad[L->b + c] = acc[x][y];
+        else if (c < L->c && i == L->q) grad[L->b + c] = kBf16 ? accb[y] : acc[x][y];
       }
   }
   __syncthreads();
@@ -418,7 +443,23 @@ __device__ __forceinline__ void draw_eps(const Args& a, int t, int s, int n, int
 // stores.
 enum FlexPhase { PH_BAR1 = 11, PH_BAR2 = 12, PH_IO = 13 };
 
-template <int D, int C>
+// The value of flat parameter i in the CTAs' shared copies: in the
+// bf16-product mode a weight is rounded to bf16 (once a step, as the update
+// is broadcast) and a bias stays f32; else the f32 value.
+template <bool kBf16>
+struct SharedCopy {
+  Side enc, dec;
+  __device__ float operator()(long long i, float p) const {
+    if (!kBf16) return p;
+    const Side& sd = i < enc.size ? enc : dec;
+    const int j = static_cast<int>(i) - sd.w1;
+    const bool bias = (j >= sd.b1 - sd.w1 && j < sd.w2 - sd.w1) ||
+                      (j >= sd.b2 - sd.w1 && j < sd.w3 - sd.w1) || j >= sd.b3 - sd.w1;
+    return bias ? p : cs::bf16_round(p);
+  }
+};
+
+template <int D, int C, bool kBf16>
 __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   constexpr int F = 3 + D + D * D;  // naturals and expected-parameter slots
   constexpr int FS = 1 + D + D * D;  // statistics: count, s1, s2
@@ -444,10 +485,11 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
 
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Smem so(g, C);
+  const Smem so(g, C, kBf16);
   float* sp = smem;  // parameters (every CTA's copy identical)
   float* sm = smem + so.m;
   float* sv = smem + so.v;
+  float* smaster = smem + so.master;  // kBf16: the slice's f32 parameters
   float* snat = smem + so.nat;
   float* sexp = smem + so.exp;
   float* stot = smem + so.tot;
@@ -464,10 +506,11 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   float* spart = grad + lo.stats;  // statistics (K, FS), then recon and local
   const float* pw = sp;  // both sides' offsets are into the one flat block
 
-  for (int i = tid; i < P; i += NT) sp[i] = a.params[i];
+  for (int i = tid; i < P; i += NT) sp[i] = SharedCopy<kBf16>{a.enc, a.dec}(i, a.params[i]);
   for (int i = p0 + tid; i < p1; i += NT) {
     sm[i - p0] = a.m1[i];
     sv[i - p0] = a.m2[i];
+    if (kBf16) smaster[i - p0] = a.params[i];
   }
   for (int i = tid; i < K * F; i += NT) snat[i] = a.nat[i];
   __syncthreads();
@@ -492,9 +535,10 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
     PHASE_MARK(0);
 
     // ---- 1: encoder forward; the diagonal potential per row.
-    gemm(X, DI, enc.h1, ldm, mp, pw + enc.w1, false, pw + enc.b1, nullptr, kBiasTanh, A1E);
-    gemm(A1E, enc.h1, enc.h2, ldm, mp, pw + enc.w2, false, pw + enc.b2, nullptr, kBiasTanh, A2E);
-    gemm(A2E, enc.h2, 2 * D, ldm, mp, pw + enc.w3, false, pw + enc.b3, nullptr, kBias, OE);
+    gemm<kBf16>(X, DI, enc.h1, ldm, mp, pw + enc.w1, false, pw + enc.b1, nullptr, kBiasTanh, A1E);
+    gemm<kBf16>(A1E, enc.h1, enc.h2, ldm, mp, pw + enc.w2,
+                false, pw + enc.b2, nullptr, kBiasTanh, A2E);
+    gemm<kBf16>(A2E, enc.h2, 2 * D, ldm, mp, pw + enc.w3, false, pw + enc.b3, nullptr, kBias, OE);
     for (int n = tid; n < mc; n += NT) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
@@ -555,9 +599,10 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
     PHASE_MARK(3);
 
     // ---- 4: decoder forward over the CTA's K·S·mc rows; log-likelihood and its cotangent.
-    gemm(Z, D, dec.h1, ldr, rp, pw + dec.w1, false, pw + dec.b1, nullptr, kBiasTanh, A1D);
-    gemm(A1D, dec.h1, dec.h2, ldr, rp, pw + dec.w2, false, pw + dec.b2, nullptr, kBiasTanh, A2D);
-    gemm(A2D, dec.h2, 2 * DI, ldr, rp, pw + dec.w3, false, pw + dec.b3, nullptr, kBias, OD);
+    gemm<kBf16>(Z, D, dec.h1, ldr, rp, pw + dec.w1, false, pw + dec.b1, nullptr, kBiasTanh, A1D);
+    gemm<kBf16>(A1D, dec.h1, dec.h2, ldr, rp, pw + dec.w2,
+                false, pw + dec.b2, nullptr, kBiasTanh, A2D);
+    gemm<kBf16>(A2D, dec.h2, 2 * DI, ldr, rp, pw + dec.w3, false, pw + dec.b3, nullptr, kBias, OD);
     for (int r = tid; r < rp; r += NT) {
       if (r >= R) {
         LL[r] = 0.0f;
@@ -583,11 +628,12 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
     PHASE_MARK(4);
 
     // ---- 5: decoder backward to z̄; the decoder's weight-gradient partial.
-    gemm(OBD, 2 * DI, dec.h2, ldr, rp, pw + dec.w3, true, nullptr, A2D, kDTanh, G2D);
-    gemm(G2D, dec.h2, dec.h1, ldr, rp, pw + dec.w2, true, nullptr, A1D, kDTanh, G1D);
-    gemm(G1D, dec.h1, D, ldr, rp, pw + dec.w1, true, nullptr, nullptr, kNone, ZB);
-    weight_grads({Z, G1D, D, dec.h1, dec.w1, dec.b1}, {A1D, G2D, dec.h1, dec.h2, dec.w2, dec.b2},
-                 {A2D, OBD, dec.h2, 2 * DI, dec.w3, dec.b3}, ldr, rp, grad);
+    gemm<kBf16>(OBD, 2 * DI, dec.h2, ldr, rp, pw + dec.w3, true, nullptr, A2D, kDTanh, G2D);
+    gemm<kBf16>(G2D, dec.h2, dec.h1, ldr, rp, pw + dec.w2, true, nullptr, A1D, kDTanh, G1D);
+    gemm<kBf16>(G1D, dec.h1, D, ldr, rp, pw + dec.w1, true, nullptr, nullptr, kNone, ZB);
+    weight_grads<kBf16>({Z, G1D, D, dec.h1, dec.w1, dec.b1},
+                        {A1D, G2D, dec.h1, dec.h2, dec.w2, dec.b2},
+                        {A2D, OBD, dec.h2, 2 * DI, dec.w3, dec.b3}, ldr, rp, grad);
     PHASE_MARK(5);
 
     // ---- 6: softmax backward per row (r̃ feeds recon weights and local KL).
@@ -692,10 +738,11 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
 
     // ---- 9: encoder backward and its weight-gradient partial; the
     // statistics' and metrics' partials over the CTA's rows in order.
-    gemm(OBE, 2 * D, enc.h2, ldm, mp, pw + enc.w3, true, nullptr, A2E, kDTanh, G2E);
-    gemm(G2E, enc.h2, enc.h1, ldm, mp, pw + enc.w2, true, nullptr, A1E, kDTanh, G1E);
-    weight_grads({X, G1E, DI, enc.h1, enc.w1, enc.b1}, {A1E, G2E, enc.h1, enc.h2, enc.w2, enc.b2},
-                 {A2E, OBE, enc.h2, 2 * D, enc.w3, enc.b3}, ldm, mp, grad);
+    gemm<kBf16>(OBE, 2 * D, enc.h2, ldm, mp, pw + enc.w3, true, nullptr, A2E, kDTanh, G2E);
+    gemm<kBf16>(G2E, enc.h2, enc.h1, ldm, mp, pw + enc.w2, true, nullptr, A1E, kDTanh, G1E);
+    weight_grads<kBf16>({X, G1E, DI, enc.h1, enc.w1, enc.b1},
+                        {A1E, G2E, enc.h1, enc.h2, enc.w2, enc.b2},
+                        {A2E, OBE, enc.h2, 2 * D, enc.w3, enc.b3}, ldm, mp, grad);
     for (int i = tid; i < K * FS; i += NT) {
       const int k = i / FS, f = i - k * FS;
       const int field = f == 0 ? R_R : R_MU + f - 1;
@@ -723,7 +770,9 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
     float bc1, bc2;
     cs::adam_bias(a.adam_count + t + 1, bc1, bc2);
     const cs::SlabPart grads{slabs, lo.slab}, parts{slabs + lo.stats, lo.slab};
-    cs::reduce_adam_broadcast<C, NT>(cl, grads, sp, sm, sv, p0, p1, a.lr, bc1, bc2);
+    cs::reduce_adam_broadcast<C, NT>(cl, grads, sp, sm, sv, p0, p1, a.lr, bc1, bc2,
+                                     kBf16 ? smaster : nullptr,
+                                     SharedCopy<kBf16>{a.enc, a.dec});
     cs::sum_ranks<C, NT>(parts, K * FS + 2, stot);
     __syncthreads();
     const float rho_t = static_cast<float>(
@@ -752,7 +801,7 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   }
 
   for (int i = p0 + tid; i < p1; i += NT) {
-    a.params[i] = sp[i];
+    a.params[i] = kBf16 ? smaster[i - p0] : sp[i];
     a.m1[i] = sm[i - p0];
     a.m2[i] = sv[i - p0];
   }
@@ -761,16 +810,65 @@ __global__ void __launch_bounds__(NT, 1) flexstep_kernel(Args a) {
   PHASE_MARK(PH_IO);
 }
 
-template <int D, int C>
+template <int D, int C, bool kBf16>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t bytes = Smem(a.g, C).total * sizeof(float);
-  return cs::launch_cluster(flexstep_kernel<D, C>, C, NT, bytes, stream, a);
+  const size_t bytes = Smem(a.g, C, kBf16).total * sizeof(float);
+  return cs::launch_cluster(flexstep_kernel<D, C, kBf16>, C, NT, bytes, stream, a);
 }
 
+}  // namespace
+
+// The instantiations, in three translation units that the kernel build
+// compiles in parallel (SVAX_STEP_PART): this file, f32 at C = 16 and the C
+// entries; flexstep_c8.cu, f32 at C = 8 (part 1); flexstep_bf16.cu, the
+// bf16-product mode at C = 16 only (part 2: C = 8 is the slower on every
+// shape and no entry selects it). The entries reach the other parts
+// through flexstep_launch_c8 and flexstep_launch_bf16 (the Args of every
+// part are one layout, from one source).
+#if defined(SVAX_STEP_PART) && SVAX_STEP_PART != 0
+
+// Part 1: f32 at C = 8; part 2: the bf16-product mode at C = 16. Each part
+// has its own phase clocks (measure_steps.py adds the parts' slots).
+#if SVAX_STEP_PART == 1
+#define SVAX_STEP_LAUNCH flexstep_launch_c8
+#define SVAX_STEP_CLOCKS flexstep_c8_phase_clocks
+#else
+#define SVAX_STEP_LAUNCH flexstep_launch_bf16
+#define SVAX_STEP_CLOCKS flexstep_bf16_phase_clocks
+#endif
+
+extern "C" int SVAX_STEP_LAUNCH(const void* args, void* stream) {
+  constexpr int C = SVAX_STEP_PART == 1 ? 8 : 16;
+  constexpr bool kBf16 = SVAX_STEP_PART == 2;
+  const Args& a = *static_cast<const Args*>(args);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (a.g.d) {
+    case 2: return launch<2, C, kBf16>(a, st);
+    case 3: return launch<3, C, kBf16>(a, st);
+    case 4: return launch<4, C, kBf16>(a, st);
+    case 5: return launch<5, C, kBf16>(a, st);
+    case 6: return launch<6, C, kBf16>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+SVAX_PHASE_ENTRY(SVAX_STEP_CLOCKS)
+
+#else
+
+extern "C" int flexstep_launch_c8(const void* args, void* stream);
+extern "C" int flexstep_launch_bf16(const void* args, void* stream);
+
+namespace {
+
 template <int D>
-int launch(const Args& a, int cluster, cudaStream_t stream) {
-  if (cluster == 8) return launch<D, 8>(a, stream);
-  if (cluster == 16) return launch<D, 16>(a, stream);
+int launch(const Args& a, int cluster, int bf16, cudaStream_t stream) {
+  if (bf16) {
+    if (cluster == 16) return flexstep_launch_bf16(&a, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cluster == 8) return flexstep_launch_c8(&a, stream);
+  if (cluster == 16) return launch<D, 16, false>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -789,9 +887,9 @@ long long flexstep_scratch_floats(int m, int d_in, int d, int k, int s, int h1e,
 
 // Dynamic shared memory of one CTA (svax_torch/ops/flexstep.py: smem_bytes).
 long long flexstep_smem_bytes(int m, int d_in, int d, int k, int s, int h1e, int h2e,
-                              int h1d, int h2d, int cluster) {
+                              int h1d, int h2d, int cluster, int bf16) {
   const Dims g{m, d_in, d, k, s, h1e, h2e, h1d, h2d};
-  return Smem(g, cluster).total * static_cast<long long>(sizeof(float));
+  return Smem(g, cluster, bf16 != 0).total * static_cast<long long>(sizeof(float));
 }
 
 int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, int s, int h1e,
@@ -799,7 +897,7 @@ int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, in
                          float* params, float* m1, float* m2, float* metrics, float* scratch,
                          const float* eps, int t_steps, int adam_count, int step0,
                          unsigned long long seed, float lr, double rho0, double rho_decay,
-                         float num_total, int cluster, void* stream) {
+                         float num_total, int cluster, int bf16, void* stream) {
   const Dims g{m, d_in, d, k, s, h1e, h2e, h1d, h2d};
   const int widths[4] = {h1e, h2e, h1d, h2d};
   for (int w : widths)
@@ -817,11 +915,11 @@ int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, in
   a.dec = Side(d, h1d, h2d, 2 * d_in, a.enc.size);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 2: return launch<2>(a, cluster, st);
-    case 3: return launch<3>(a, cluster, st);
-    case 4: return launch<4>(a, cluster, st);
-    case 5: return launch<5>(a, cluster, st);
-    case 6: return launch<6>(a, cluster, st);
+    case 2: return launch<2>(a, cluster, bf16, st);
+    case 3: return launch<3>(a, cluster, bf16, st);
+    case 4: return launch<4>(a, cluster, bf16, st);
+    case 5: return launch<5>(a, cluster, bf16, st);
+    case 6: return launch<6>(a, cluster, bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -829,3 +927,5 @@ int flexstep_train_chunk(const float* batches, int m, int d_in, int d, int k, in
 SVAX_PHASE_ENTRY(flexstep_phase_clocks)
 
 }  // extern "C"
+
+#endif  // SVAX_STEP_PART

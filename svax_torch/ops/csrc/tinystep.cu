@@ -54,7 +54,14 @@
 //   registers while the previous one is consumed from shared memory; each
 //   thread owns one 3×4 block of one layer's gradient and sums it in row
 //   order into the CTA's partial.
-// f32 FMA on CUDA cores throughout (no TF32). Measured per-phase split and
+// f32 FMA on CUDA cores throughout (no TF32). kBf16 (the reference's
+// nn_precision DEFAULT, single-pass bf16 MXU products): every product of
+// the MLPs forward and backward — the rows' layers, z̄ and the weight
+// gradients — takes bf16-rounded operands with the same f32 FMAs and
+// order; the weights are rounded once a step into the shared copies
+// (cluster_step.cuh: reduce_adam_broadcast's master), the activations and
+// cotangents where a product reads them; the head, the combine, the
+// biases' sums, Adam and CVI stay f32. Measured per-phase split and
 // history: PERF.md (svax_torch/measure_steps.py).
 //
 // Plain C interface (loaded with ctypes by svax_torch/ops/_build.py).
@@ -265,15 +272,16 @@ __device__ __forceinline__ void get(float* row, int f0, float (&v)[N]) {
 
 __host__ __device__ constexpr int pad4(int v) { return (v + 3) / 4 * 4; }
 
-// out = in · W + b, W (I, J) row-major in shared memory.
-template <int I, int J>
+// out = in · W + b, W (I, J) row-major in shared memory; kBf16 rounds the
+// inputs (W is rounded in its shared copy).
+template <int I, int J, bool kBf16>
 __device__ __forceinline__ void dense(const float (&in)[I], const float* W,
                                       const float* b, float (&out)[J]) {
 #pragma unroll
   for (int j = 0; j < J; ++j) out[j] = b[j];
 #pragma unroll
   for (int i = 0; i < I; ++i) {
-    const float xi = in[i];
+    const float xi = cs::operand<kBf16>(in[i]);
 #pragma unroll
     for (int j = 0; j < J; ++j) out[j] = fmaf(xi, W[i * J + j], out[j]);
   }
@@ -289,8 +297,8 @@ constexpr int CH = 32;
 
 // out[0, n) = (in · W + b)[c0, c0 + n), n = min(CH, J − c0), with W (I, J)
 // in a shared copy whose rows are padded to pad4(J) floats (16-byte
-// aligned, read as float4); b may be null.
-template <int I, int J>
+// aligned, read as float4); b may be null; kBf16 rounds the inputs.
+template <int I, int J, bool kBf16>
 __device__ __forceinline__ void dense_chunk(const float (&in)[I], const float* W,
                                             const float* b, int c0, float (&out)[CH]) {
   constexpr int JP = pad4(J);
@@ -299,7 +307,7 @@ __device__ __forceinline__ void dense_chunk(const float (&in)[I], const float* W
   for (int j = 0; j < CH; ++j) out[j] = (b && j < n) ? b[c0 + j] : 0.0f;
 #pragma unroll
   for (int i = 0; i < I; ++i) {
-    const float xi = in[i];
+    const float xi = cs::operand<kBf16>(in[i]);
     const float4* w = reinterpret_cast<const float4*>(W + i * JP + c0);
 #pragma unroll
     for (int j4 = 0; j4 < CH / 4; ++j4) {
@@ -316,13 +324,14 @@ __device__ __forceinline__ void dense_chunk(const float (&in)[I], const float* W
 // One side's MLP forward for one row: a1 = tanh(in·W1 + b1), a2 =
 // tanh(a1·W2 + b2) (W2 from its padded copy w2p), out = a2·W3 + b3, with
 // p the side's parameters (SideOff); a1 and a2 are stored to the row's
-// features f_a1, f_a2 as they are formed.
-template <int H1, int H2>
+// features f_a1, f_a2 as they are formed, in f32. kBf16: every product
+// takes bf16-rounded operands (the weights arrive rounded).
+template <int H1, int H2, bool kBf16>
 __device__ __forceinline__ void mlp_fwd(const float (&in)[2], const float* p, const float* w2p,
                                         float* row, int f_a1, int f_a2, float (&out)[4]) {
   constexpr SideOff off(H1, H2);
   float a1[H1];
-  dense<2, H1>(in, p + off.w1, p + off.b1, a1);
+  dense<2, H1, kBf16>(in, p + off.w1, p + off.b1, a1);
 #pragma unroll
   for (int j = 0; j < H1; ++j) a1[j] = tanhf(a1[j]);
   put<H1>(row, f_a1, a1);
@@ -332,7 +341,7 @@ __device__ __forceinline__ void mlp_fwd(const float (&in)[2], const float* p, co
 #pragma unroll
   for (int c0 = 0; c0 < H2; c0 += CH) {
     float a2[CH];
-    dense_chunk<H1, H2>(a1, w2p, p + off.b2, c0, a2);
+    dense_chunk<H1, H2, kBf16>(a1, w2p, p + off.b2, c0, a2);
     const int n = H2 - c0 < CH ? H2 - c0 : CH;
     float* dst = row + (f_a2 + c0) * 32;
 #pragma unroll
@@ -342,10 +351,11 @@ __device__ __forceinline__ void mlp_fwd(const float (&in)[2], const float* p, co
       *dst = a2[j];
       dst = bump32(dst);
       const float4 q = w3[c0 + j];
-      out[0] = fmaf(a2[j], q.x, out[0]);
-      out[1] = fmaf(a2[j], q.y, out[1]);
-      out[2] = fmaf(a2[j], q.z, out[2]);
-      out[3] = fmaf(a2[j], q.w, out[3]);
+      const float a = cs::operand<kBf16>(a2[j]);
+      out[0] = fmaf(a, q.x, out[0]);
+      out[1] = fmaf(a, q.y, out[1]);
+      out[2] = fmaf(a, q.z, out[2]);
+      out[3] = fmaf(a, q.w, out[3]);
     }
   }
 }
@@ -354,20 +364,25 @@ __device__ __forceinline__ void mlp_fwd(const float (&in)[2], const float* p, co
 // g2 = (gout·W3ᵀ) ⊙ (1 − a2²), g1 = (g2·W2ᵀ) ⊙ (1 − a1²) (W2ᵀ from its
 // padded copy w2tp), a1 and a2 read back from the row's features, g2 and
 // g1 stored to f_g2 and f_g1; with zb, also z̄ = g1·W1ᵀ (two interleaved
-// accumulators per input, as the whole product had).
-template <int H1, int H2>
+// accumulators per input, as the whole product had). kBf16: the products
+// take bf16-rounded cotangents (the weights arrive rounded); g1 and g2 are
+// stored in f32.
+template <int H1, int H2, bool kBf16>
 __device__ __forceinline__ void mlp_bwd(const float (&gout)[4], const float* p,
                                         const float* w2tp, float* row, int f_a1, int f_a2,
                                         int f_g1, int f_g2, float* zb) {
   static_assert(CH % 2 == 0 && H1 % 2 == 0, "z̄'s accumulator pairs");
   constexpr SideOff off(H1, H2);
   const float4* w3 = reinterpret_cast<const float4*>(p + off.w3);
+  float go[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) go[i] = cs::operand<kBf16>(gout[i]);
   float g2[H2];
   get<H2>(row, f_a2, g2);
 #pragma unroll
   for (int j = 0; j < H2; ++j) {
     const float4 q = w3[j];
-    const float g = fmaf(gout[0], q.x, fmaf(gout[1], q.y, fmaf(gout[2], q.z, gout[3] * q.w)));
+    const float g = fmaf(go[0], q.x, fmaf(go[1], q.y, fmaf(go[2], q.z, go[3] * q.w)));
     g2[j] = g * (1.0f - g2[j] * g2[j]);
   }
   put<H2>(row, f_g2, g2);
@@ -375,7 +390,7 @@ __device__ __forceinline__ void mlp_bwd(const float (&gout)[4], const float* p,
 #pragma unroll
   for (int c0 = 0; c0 < H1; c0 += CH) {
     float g1[CH];
-    dense_chunk<H2, H1>(g2, w2tp, nullptr, c0, g1);
+    dense_chunk<H2, H1, kBf16>(g2, w2tp, nullptr, c0, g1);
     const int n = H1 - c0 < CH ? H1 - c0 : CH;
     const float* src = row + (f_a1 + c0) * 32;
     float* dst = row + (f_g1 + c0) * 32;
@@ -394,8 +409,9 @@ __device__ __forceinline__ void mlp_bwd(const float (&gout)[4], const float* p,
 #pragma unroll
         for (int j = 0; j < CH; j += 2) {
           if (j >= n) break;
-          z0[i] = fmaf(g1[j], p[off.w1 + i * H1 + c0 + j], z0[i]);
-          z1[i] = fmaf(g1[j + 1], p[off.w1 + i * H1 + c0 + j + 1], z1[i]);
+          z0[i] = fmaf(cs::operand<kBf16>(g1[j]), p[off.w1 + i * H1 + c0 + j], z0[i]);
+          z1[i] = fmaf(cs::operand<kBf16>(g1[j + 1]), p[off.w1 + i * H1 + c0 + j + 1],
+                       z1[i]);
         }
     }
   }
@@ -477,8 +493,11 @@ __device__ __forceinline__ void load_tile(const float* cols, long long R, long l
 // rows past R read as zero. A thread owns one 3×4 block of one layer's
 // gradient and reads its A and G rows as float4 (4 data rows at a time),
 // summing in row order. Result goes to the side's gradient block in the
-// parameter layout. All threads call.
-template <int H1, int H2>
+// parameter layout. All threads call. kBf16: the weight gradients take
+// bf16-rounded operands — A rounded as the tile is stored, G as it is
+// read — while a bias gradient stays the f32 sum of G (the reference's
+// bias cotangent is a sum, not a product), kept beside in accb.
+template <int H1, int H2, bool kBf16>
 __device__ void side_weight_grads(const float* cols, long long R, float* grad,
                                   float* tile) {
   using T = Tile<H1, H2>;
@@ -528,15 +547,17 @@ __device__ void side_weight_grads(const float* cols, long long R, float* grad,
   // Where each of this thread's float4s lands (4 consecutive rows of one
   // feature), the same for every tile; -1 past the tile.
   int dst[T::LPV], row0[T::LPV];
+  bool a_group[T::LPV];  // a feature of the A groups (in, a1, a2)
 #pragma unroll
   for (int u = 0; u < T::LPV; ++u) {
     const int v = tid + u * NT;
     row0[u] = (v & 7) * 4;
     dst[u] = v < T::F * 8 ? T::row_of(v >> 3) * LD + row0[u] : -1;
+    a_group[u] = (v >> 3) < 2 + H1 + H2;
   }
   float4 pre[T::LPV];
 
-  float acc[3][4];
+  float acc[3][4], accb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int x = 0; x < 3; ++x)
 #pragma unroll
@@ -547,7 +568,9 @@ __device__ void side_weight_grads(const float* cols, long long R, float* grad,
     __syncthreads();  // the previous tile is consumed
 #pragma unroll
     for (int u = 0; u < T::LPV; ++u)
-      if (dst[u] >= 0) *reinterpret_cast<float4*>(tile + dst[u]) = pre[u];
+      if (dst[u] >= 0)
+        *reinterpret_cast<float4*>(tile + dst[u]) =
+            kBf16 && a_group[u] ? cs::bf16_round4(pre[u]) : pre[u];
     __syncthreads();
     if (r0 + TR < R) load_tile<T::F, T::LPV>(cols, R, r0 + TR, dst, row0, pre);
     if (layer != 0) {
@@ -560,6 +583,13 @@ __device__ void side_weight_grads(const float* cols, long long R, float* grad,
 #pragma unroll
         for (int y = 0; y < 4; ++y)
           gv[y] = *reinterpret_cast<const float4*>(tile + g_off[y] + rq);
+        if (kBf16) {
+#pragma unroll
+          for (int y = 0; y < 4; ++y) {
+            accb[y] = accb[y] + gv[y].x + gv[y].y + gv[y].z + gv[y].w;
+            gv[y] = cs::bf16_round4(gv[y]);
+          }
+        }
 #pragma unroll
         for (int x = 0; x < 3; ++x)
 #pragma unroll
@@ -593,25 +623,42 @@ __device__ void side_weight_grads(const float* cols, long long R, float* grad,
       const int i = i0 + x, j = j0 + y;
       if (i > in || j >= out) continue;
       if (i < in) grad[w + i * out + j] = acc[x][y];
-      else grad[b + j] = acc[x][y];
+      else grad[b + j] = kBf16 ? accb[y] : acc[x][y];
     }
 }
+
+// The value of flat parameter i in the CTAs' shared copies: in the
+// bf16-product mode a weight is rounded to bf16 (once a step, as the update
+// is broadcast) and a bias stays f32; else the f32 value.
+template <int H1, int H2, bool kBf16>
+struct SharedCopy {
+  __device__ float operator()(long long i, float p) const {
+    if (!kBf16) return p;
+    constexpr SideOff off(H1, H2);
+    const int j = static_cast<int>(i % side_floats(H1, H2));
+    const bool bias = (j >= off.b1 && j < off.w2) || (j >= off.b2 && j < off.w3) || j >= off.b3;
+    return bias ? p : cs::bf16_round(p);
+  }
+};
 
 // Shared memory of one CTA, in floats; every region a multiple of 4 floats
 // (the tile and the W2 copies are read as float4). svax_torch/ops/tinystep.py:
 // smem_bytes is its Python twin.
-template <int H1, int H2>
+template <int H1, int H2, bool kBf16>
 struct Shape {
   static constexpr int P_SIDE = side_floats(H1, H2);
   static constexpr int P = 2 * P_SIDE;
   static constexpr int H1P = pad4(H1), H2P = pad4(H2);  // padded W2 / W2ᵀ rows
   __host__ __device__ static int slice(int c) { return pad4((P + c - 1) / c); }
   __host__ __device__ static int part_floats(int k) { return pad4(NUM_STATS * k + 2); }
-  // params, gradient partial, the slice's m and v, the W2 and W2ᵀ copies
-  // of both sides, then (K-dependent) the naturals, prior, expected
-  // parameters, the statistics partial and its total, the tile.
+  // Slices of the flat parameters a CTA keeps: Adam's m and v, and in the
+  // bf16-product mode the f32 master of its slice.
+  static constexpr int SLICES = kBf16 ? 3 : 2;
+  // params, gradient partial, the slice's m and v (and master), the W2 and
+  // W2ᵀ copies of both sides, then (K-dependent) the naturals, prior,
+  // expected parameters, the statistics partial and its total, the tile.
   static void place(int k, int c, Args& a) {
-    a.o_nat = 2 * P + 2 * slice(c) + 2 * (H1 * H2P + H2 * H1P);
+    a.o_nat = 2 * P + SLICES * slice(c) + 2 * (H1 * H2P + H2 * H1P);
     a.o_prior = a.o_nat + pad4(9 * k);
     a.o_exp = a.o_prior + pad4(9 * k);
     a.o_part = a.o_exp + pad4(NUM_EXP * k);
@@ -689,9 +736,9 @@ enum TinyPhase {
 // Each pass below is a block of its own that builds its Own (and reads
 // the K-dependent shared regions through Own::at): only the step counter
 // lives across passes.
-template <int H1, int H2, int C>
+template <int H1, int H2, int C, bool kBf16>
 __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
-  using Sh = Shape<H1, H2>;
+  using Sh = Shape<H1, H2, kBf16>;
   using O = Own<C, Sh::P>;
   constexpr int P_SIDE = Sh::P_SIDE, P = Sh::P, H1P = Sh::H1P, H2P = Sh::H2P;
   constexpr SideOff off(H1, H2);
@@ -706,7 +753,8 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
   float* sg = sp + P;                  // this CTA's gradient partial
   float* sm = sg + P;                  // Adam m of the slice [p0, p1)
   float* sv = sm + Sh::slice(C);       // Adam v of the slice
-  float* sw2e = sv + Sh::slice(C);     // padded copies of W2 and W2ᵀ per side
+  float* smaster = sv + Sh::slice(C);  // kBf16: the slice's f32 parameters
+  float* sw2e = sv + (Sh::SLICES - 1) * Sh::slice(C);  // padded W2 and W2ᵀ per side
   float* sw2d = sw2e + H1 * H2P;       // (16-byte rows, read as float4)
   float* sw2te = sw2d + H1 * H2P;
   float* sw2td = sw2te + H2 * H1P;
@@ -730,10 +778,12 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
   const auto step = [&] { return *static_cast<volatile int*>(&sz.step); };
   {
     const O o(a, sz);
-    for (int i = o.tid; i < P; i += NT) sp[i] = a.params[i];
+    const SharedCopy<H1, H2, kBf16> copy;
+    for (int i = o.tid; i < P; i += NT) sp[i] = copy(i, a.params[i]);
     for (int i = o.p0 + o.tid; i < o.p1; i += NT) {
       sm[i - o.p0] = a.m[i];
       sv[i - o.p0] = a.v[i];
+      if (kBf16) smaster[i - o.p0] = a.params[i];
     }
     float *snat = O::at(smem, sz.o_nat), *sprior = O::at(smem, sz.o_prior);
     for (int i = o.tid; i < o.k * 9; i += NT) {
@@ -799,7 +849,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       }
       float xin[2], out[4];
       get<2>(erow, F_IN, xin);
-      mlp_fwd<H1, H2>(xin, encp, sw2e, erow, F_A1, F_A2, out);
+      mlp_fwd<H1, H2, kBf16>(xin, encp, sw2e, erow, F_A1, F_A2, out);
       const O o(a, sz);
       o.eo(a)[o.n0 + i] = make_float4(out[0], out[1], out[2], out[3]);
     }
@@ -958,7 +1008,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       }
       float z[2], out[4];
       get<2>(row, F_IN, z);
-      mlp_fwd<H1, H2>(z, decp, sw2d, row, F_A1, F_A2, out);
+      mlp_fwd<H1, H2, kBf16>(z, decp, sw2d, row, F_A1, F_A2, out);
       put<4>(row, F_GO, out);  // the output until the next pass makes it ō
     }
     {
@@ -1000,7 +1050,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       }
       float ob[4], zb[2];
       get<4>(row, F_GO, ob);
-      mlp_bwd<H1, H2>(ob, decp, sw2td, row, F_A1, F_A2, F_G1, F_G2, zb);
+      mlp_bwd<H1, H2, kBf16>(ob, decp, sw2td, row, F_A1, F_A2, F_G1, F_G2, zb);
       const O o(a, sz);
       float* tm = o.terms(a) + static_cast<long long>(lr) * ROW_TERMS;
       tm[1] = zb[0];
@@ -1246,7 +1296,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       }
       float go[4];
       get<4>(erow, F_GO, go);
-      mlp_bwd<H1, H2>(go, encp, sw2te, erow, F_A1, F_A2, F_G1, F_G2, nullptr);
+      mlp_bwd<H1, H2, kBf16>(go, encp, sw2te, erow, F_A1, F_A2, F_G1, F_G2, nullptr);
     }
     __syncthreads();
     PHASE_MARK(PH_D3);
@@ -1290,11 +1340,11 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
     }
     {
       const O o(a, sz);
-      side_weight_grads<H1, H2>(o.dec(a), o.rl, sg + P_SIDE, O::at(smem, sz.o_tile));
+      side_weight_grads<H1, H2, kBf16>(o.dec(a), o.rl, sg + P_SIDE, O::at(smem, sz.o_tile));
     }
     {
       const O o(a, sz);
-      side_weight_grads<H1, H2>(o.enc(a), o.n1 - o.n0, sg, O::at(smem, sz.o_tile));
+      side_weight_grads<H1, H2, kBf16>(o.enc(a), o.n1 - o.n0, sg, O::at(smem, sz.o_tile));
       __syncthreads();
       PHASE_MARK(PH_E);
     }
@@ -1312,7 +1362,9 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
       cs::adam_bias(a.adam_count + t + 1, bc1, bc2);
       const cs::SharedPart grads{&cl, sg}, parts{&cl, O::at(smem, sz.o_part)};
       float* stot = O::at(smem, sz.o_tot);
-      cs::reduce_adam_broadcast<C, NT>(cl, grads, sp, sm, sv, o.p0, o.p1, a.lr, bc1, bc2);
+      cs::reduce_adam_broadcast<C, NT>(cl, grads, sp, sm, sv, o.p0, o.p1, a.lr, bc1, bc2,
+                                       kBf16 ? smaster : nullptr,
+                                       SharedCopy<H1, H2, kBf16>());
       cs::sum_ranks<C, NT>(parts, K * NUM_STATS + 2, stot);
       __syncthreads();
       if (tid < K) {
@@ -1343,7 +1395,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
 
   const O o(a, sz);
   for (int i = o.p0 + o.tid; i < o.p1; i += NT) {
-    a.params[i] = sp[i];
+    a.params[i] = kBf16 ? smaster[i - o.p0] : sp[i];
     a.m[i] = sm[i - o.p0];
     a.v[i] = sv[i - o.p0];
   }
@@ -1354,7 +1406,7 @@ __global__ void __launch_bounds__(NT, 1) tinystep_kernel(Args a) {
   PHASE_MARK(PH_IO);
 }
 
-template <int H1, int H2, int C>
+template <int H1, int H2, int C, bool kBf16>
 int launch(const Args& args, cudaStream_t stream) {
   Args a = args;
   a.so = ScratchOff(a.n, a.k, a.s, H1, H2, C);
@@ -1364,22 +1416,76 @@ int launch(const Args& args, cudaStream_t stream) {
   a.a0 = 0.5f * a.dof;
   a.ga = a.a0 + 1.0f;
   a.rounds = a.smm_iters > 1 ? a.smm_iters : 1;
-  Shape<H1, H2>::place(a.k, C, a);
-  const size_t bytes = Shape<H1, H2>::smem_floats(a.k, C) * sizeof(float);
-  return cs::launch_cluster(tinystep_kernel<H1, H2, C>, C, NT, bytes, stream, a);
+  Shape<H1, H2, kBf16>::place(a.k, C, a);
+  const size_t bytes = Shape<H1, H2, kBf16>::smem_floats(a.k, C) * sizeof(float);
+  return cs::launch_cluster(tinystep_kernel<H1, H2, C, kBf16>, C, NT, bytes, stream, a);
 }
 
+// The instantiations, in three translation units that the kernel build
+// compiles in parallel (SVAX_STEP_PART): this file, f32 at C = 16 and the C
+// entries; tinystep_c8.cu, f32 at C = 8 (part 1); tinystep_bf16.cu, the
+// bf16-product mode at C = 16 only (part 2: C = 8 is the slower on every
+// shape and no entry selects it). The entries reach the other parts
+// through tinystep_launch_c8 and tinystep_launch_bf16 (the Args of every
+// part are one layout, from one source).
 template <int H1, int H2>
-int launch(const Args& a, int cluster, cudaStream_t stream) {
-  if (cluster == 8) return launch<H1, H2, 8>(a, stream);
-  if (cluster == 16) return launch<H1, H2, 16>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch(const Args& a, int cluster, int bf16, cudaStream_t stream);
+
+template <int H1, int H2>
+long long smem_bytes(int k, int cluster, int bf16) {
+  const size_t floats = bf16 ? Shape<H1, H2, true>::smem_floats(k, cluster)
+                             : Shape<H1, H2, false>::smem_floats(k, cluster);
+  return static_cast<long long>(floats * sizeof(float));
 }
 
 __global__ void philox_normals_kernel(unsigned long long seed, uint32_t base,
                                       float* out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = svax::philox_normal(seed, base, static_cast<uint32_t>(i));
+}
+
+}  // namespace
+
+#if defined(SVAX_STEP_PART) && SVAX_STEP_PART != 0
+
+// Part 1: f32 at C = 8; part 2: the bf16-product mode at C = 16. Each part
+// has its own phase clocks (measure_steps.py adds the parts' slots).
+#if SVAX_STEP_PART == 1
+#define SVAX_STEP_LAUNCH tinystep_launch_c8
+#define SVAX_STEP_CLOCKS tinystep_c8_phase_clocks
+#else
+#define SVAX_STEP_LAUNCH tinystep_launch_bf16
+#define SVAX_STEP_CLOCKS tinystep_bf16_phase_clocks
+#endif
+
+extern "C" int SVAX_STEP_LAUNCH(const void* args, int h1, int h2, void* stream) {
+  constexpr int C = SVAX_STEP_PART == 1 ? 8 : 16;
+  constexpr bool kBf16 = SVAX_STEP_PART == 2;
+  const Args& a = *static_cast<const Args*>(args);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (h1 == 50 && h2 == 50) return launch<50, 50, C, kBf16>(a, st);
+  if (h1 == 16 && h2 == 16) return launch<16, 16, C, kBf16>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+SVAX_PHASE_ENTRY(SVAX_STEP_CLOCKS)
+
+#else
+
+extern "C" int tinystep_launch_c8(const void* args, int h1, int h2, void* stream);
+extern "C" int tinystep_launch_bf16(const void* args, int h1, int h2, void* stream);
+
+namespace {
+
+template <int H1, int H2>
+int launch(const Args& a, int cluster, int bf16, cudaStream_t stream) {
+  if (bf16) {
+    if (cluster == 16) return tinystep_launch_bf16(&a, H1, H2, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cluster == 8) return tinystep_launch_c8(&a, H1, H2, stream);
+  if (cluster == 16) return launch<H1, H2, 16, false>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1391,9 +1497,9 @@ long long tinystep_scratch_floats(int n, int k, int s, int h1, int h2, int clust
 }
 
 // Dynamic shared memory of one CTA (svax_torch/ops/tinystep.py: smem_bytes).
-long long tinystep_smem_bytes(int h1, int h2, int k, int cluster) {
-  if (h1 == 50 && h2 == 50) return Shape<50, 50>::smem_floats(k, cluster) * sizeof(float);
-  if (h1 == 16 && h2 == 16) return Shape<16, 16>::smem_floats(k, cluster) * sizeof(float);
+long long tinystep_smem_bytes(int h1, int h2, int k, int cluster, int bf16) {
+  if (h1 == 50 && h2 == 50) return smem_bytes<50, 50>(k, cluster, bf16);
+  if (h1 == 16 && h2 == 16) return smem_bytes<16, 16>(k, cluster, bf16);
   return -1;
 }
 
@@ -1403,12 +1509,12 @@ int tinystep_train_chunk(const float* x, int n, int k, int s, int h1, int h2,
                          const float* aug_eps, int t_steps, int adam_count,
                          unsigned long long seed, float lr, float rho, float aug,
                          float dof, int smm_iters, int smm_env, float psi_a, float k_u,
-                         int cluster, void* stream) {
+                         int cluster, int bf16, void* stream) {
   Args a{x, n, k, s, prior, nat, params, m, v, metrics, scratch, eps, aug_eps,
          t_steps, adam_count, seed, lr, rho, aug, dof, smm_iters, smm_env, psi_a, k_u};
   auto st = static_cast<cudaStream_t>(stream);
-  if (h1 == 50 && h2 == 50) return launch<50, 50>(a, cluster, st);
-  if (h1 == 16 && h2 == 16) return launch<16, 16>(a, cluster, st);
+  if (h1 == 50 && h2 == 50) return launch<50, 50>(a, cluster, bf16, st);
+  if (h1 == 16 && h2 == 16) return launch<16, 16>(a, cluster, bf16, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1424,3 +1530,5 @@ int philox_normals(unsigned long long seed, unsigned int base, float* out, int n
 SVAX_PHASE_ENTRY(tinystep_phase_clocks)
 
 }  // extern "C"
+
+#endif  // SVAX_STEP_PART

@@ -44,6 +44,9 @@ FWD_WIDE = (32, 16, 1, 512, 2, 1)
 
 launches = 0  # forward kernel launches made by rowsum_logsig_neg (plain int)
 backward_launches = 0  # backward launches (each runs decoder.cu's three kernels)
+# Of those, the launches in the bf16-operand mode.
+bf16_launches = 0
+bf16_backward_launches = 0
 
 
 def bernoulli_loglik_reference(h, w, b, x):
@@ -118,24 +121,26 @@ class _RowsumKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h2, w, b, bf16):
-        global launches
+        global launches, bf16_launches
         from svax_torch.ops import _build
 
         s = forward_call(_build.load(), h2, w, b, bf16)
         launches += 1
+        bf16_launches += int(bf16)
         ctx.save_for_backward(h2, w, b)
         ctx.bf16 = bf16
         return s
 
     @staticmethod
     def backward(ctx, sbar):
-        global backward_launches
+        global backward_launches, bf16_backward_launches
         from svax_torch.ops import _build
 
         h2, w, b = ctx.saved_tensors
         grads = backward_call(_build.load(), h2, w, b, sbar.to(torch.float32).contiguous(),
                               ctx.bf16)
         backward_launches += 1
+        bf16_backward_launches += int(ctx.bf16)
         return (*grads, None)
 
 

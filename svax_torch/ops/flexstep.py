@@ -19,6 +19,13 @@ owning a contiguous range of the minibatch rows (``cluster_plan``).
   against autograd — and ``expected_slots`` the kernel's expected-
   parameter map (ψ by the recurrence the kernel uses).
 
+Precision (``nn_precision``): "highest" and "high" run every MLP product
+in f32; "default" is the bf16-product mode of ``ops.tinystep`` (every
+product of ``gemm`` and ``weight_grads`` on bf16-rounded operands with f32
+FMAs and sums, the weights rounded once a step into the shared copy, the
+biases' sums f32), instantiated at the default cluster size only; its
+plain version is the plain step at ``nn_precision="default"``.
+
 Noise: ``eps`` (T, S, M, K, d) injects it (the parity mode); otherwise
 the kernel draws it from an in-kernel Philox4x32-10 + Box–Muller keyed by
 ``seed + state.step``, normal ((s·M + n)·K + k)·d + i of stream t.
@@ -34,8 +41,9 @@ import torch.nn.functional as F
 
 from svax_torch.expfam.niw import NiwNat
 from svax_torch.models.svae import SvaeConfig
-from svax_torch.ops.tinystep import (CLUSTER_SIZES, SMEM_LIMIT, digamma, flat_params,
-                                     mlp3_bwd, mlp3_fwd, pad_to, part_begin, unflat_params)
+from svax_torch.ops.tinystep import (CLUSTER_SIZES, SMEM_LIMIT, bf16_mode, digamma,
+                                     flat_params, mlp3_bwd, mlp3_fwd, pad_to, part_begin,
+                                     unflat_params)
 from svax_torch.pgm import gmm
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train import svae_step
@@ -55,7 +63,8 @@ MAX_COMPONENTS = 64
 # on the H100, PERF.md); CLUSTER_SIZES are those instantiated.
 DEFAULT_CLUSTER = 16
 
-launches = 0  # kernel launches made by train_chunk (plain int)
+launches = 0  # f32-mode kernel launches made by train_chunk (plain int)
+launches_bf16 = 0  # bf16-product-mode launches
 
 
 # ------------------------------------------------------------ plain version
@@ -65,8 +74,10 @@ def train_chunk_plain(state: SvaeTrainState, prior: GmmNat, batches: torch.Tenso
                       *, lr: float, rho: float, rho_decay: float = 0.0,
                       num_total: int, num_samples: int = 4, seed: int = 0,
                       eps: torch.Tensor | None = None,
-                      generator: torch.Generator | None = None):
-    """T iterations of make_train_step, one per row of ``batches``.
+                      generator: torch.Generator | None = None,
+                      nn_precision: str = "highest"):
+    """T iterations of make_train_step, one per row of ``batches``, the nets
+    at ``nn_precision``.
 
     Returns (state, {"recon", "local_kl", "neg_loss", "rho"} of shape (T,)).
     Without injected noise it draws from ``generator``, or from one on
@@ -76,8 +87,9 @@ def train_chunk_plain(state: SvaeTrainState, prior: GmmNat, batches: torch.Tenso
     t_steps, _, _ = batches.shape
     k, d = prior.niw_nat.eta1.shape
     s = eps.shape[1] if eps is not None else num_samples
+    bf16_mode(nn_precision)
     config = SvaeConfig(latent_dim=d, num_components=k, num_samples=s,
-                        num_total=num_total)
+                        num_total=num_total, nn_precision=nn_precision)
     step = svae_step.make_train_step(config, prior, lr,
                                      svae_step.rho_schedule(rho, rho_decay))
     if eps is None and generator is None:
@@ -310,14 +322,16 @@ def n_params(d_in: int, d: int, h1e: int, h2e: int, h1d: int, h2d: int) -> int:
 
 
 def smem_bytes(d_in: int, d: int, k: int, h1e: int, h2e: int, h1d: int, h2d: int,
-               cluster: int) -> int:
+               cluster: int, bf16: bool = False) -> int:
     """Dynamic shared memory of one CTA (csrc/flexstep.cu: Smem): the
-    parameters, this CTA's slice of both Adam moments, the naturals and the
+    parameters, this CTA's slice of both Adam moments (and, in the
+    bf16-product mode, of the f32 parameters), the naturals and the
     expected parameters (K rows of 3 + d + d²), and the cluster totals of
     the statistics (K·(1 + d + d²)), recon and local."""
     p = n_params(d_in, d, h1e, h2e, h1d, h2d)
     f = 3 + d + d * d
-    floats = (pad_to(p, 4) + 2 * pad_to(-(-p // cluster), 4) + 2 * pad_to(k * f, 4)
+    floats = (pad_to(p, 4) + (3 if bf16 else 2) * pad_to(-(-p // cluster), 4)
+              + 2 * pad_to(k * f, 4)
               + pad_to(k * (1 + d + d * d) + 2, 4))
     return 4 * floats
 
@@ -325,14 +339,16 @@ def smem_bytes(d_in: int, d: int, k: int, h1e: int, h2e: int, h1d: int, h2d: int
 def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
                 lr: float, rho: float, rho_decay: float = 0.0, num_total: int,
                 num_samples: int = 4, seed: int = 0,
-                eps: torch.Tensor | None = None, cluster: int | None = None):
+                eps: torch.Tensor | None = None, cluster: int | None = None,
+                nn_precision: str = "highest"):
     """Run T complete train steps, one per row of the (T, M, d_in) stack;
     returns (state, {"recon", "local_kl", "neg_loss", "rho"} of shape (T,)).
 
     Semantics of T iterations of ``svae_step.make_train_step`` (GMM prior)
     with ρ_t = rho/(1 + rho_decay·t) at the pre-update step t and the
     statistics scaled by num_total/M. ``elbo`` needs the global KL, added
-    outside (``loop.make_runner``).
+    outside (``loop.make_runner``). ``nn_precision="default"`` runs the
+    bf16-product mode (module docstring), at ``DEFAULT_CLUSTER`` only.
 
     CUDA tensors: one launch of the CUDA kernel as one cluster of
     ``cluster`` CTAs (``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` when None); f32,
@@ -342,11 +358,13 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     updated in place; the input state is not modified. CPU tensors:
     ``train_chunk_plain``.
     """
-    global launches
+    global launches, launches_bf16
     if batches.device.type == "cpu":
         return train_chunk_plain(
             state, prior, batches, lr=lr, rho=rho, rho_decay=rho_decay,
-            num_total=num_total, num_samples=num_samples, seed=seed, eps=eps)
+            num_total=num_total, num_samples=num_samples, seed=seed, eps=eps,
+            nn_precision=nn_precision)
+    bf16 = bf16_mode(nn_precision)
     if batches.device.type != "cuda":
         raise ValueError(f"flexstep.train_chunk: no kernel for device {batches.device}")
     if batches.ndim != 3:
@@ -361,10 +379,13 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
     cluster = DEFAULT_CLUSTER if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"flexstep.train_chunk: cluster {cluster} not in {CLUSTER_SIZES}")
+    if bf16 and cluster != DEFAULT_CLUSTER:
+        raise ValueError(f"flexstep.train_chunk: the bf16-product mode runs at cluster "
+                         f"{DEFAULT_CLUSTER} only")
     enc, dec = state.nn_params["encoder"], state.nn_params["decoder"]
     h1e, h2e = enc[0]["w"].shape[1], enc[1]["w"].shape[1]
     h1d, h2d = dec[0]["w"].shape[1], dec[1]["w"].shape[1]
-    smem = smem_bytes(d_in, d, k, h1e, h2e, h1d, h2d, cluster)
+    smem = smem_bytes(d_in, d, k, h1e, h2e, h1d, h2d, cluster, bf16)
     if smem > SMEM_LIMIT:
         raise ValueError(f"flexstep.train_chunk: {smem} bytes of shared memory a CTA "
                          f"exceed {SMEM_LIMIT}")
@@ -407,10 +428,13 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, batches: torch.Tensor, *,
             t_steps, state.opt_state.count, state.step,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(rho_decay), float(num_total),
-            cluster, ctypes.c_void_p(stream),
+            cluster, int(bf16), ctypes.c_void_p(stream),
         )
     _build.check(lib, err, "flexstep_train_chunk")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     new_state = SvaeTrainState(
         nn_params=unflat_params(params, state.nn_params),
         opt_state=AdamState(count=state.opt_state.count + t_steps,

@@ -19,6 +19,18 @@ statistics, backward, Adam, CVI — in ONE launch of the CUDA kernel in
   PyTorch — the formulas the kernel transcribes, tested on the CPU
   against autograd.
 
+Precision (``nn_precision``, the reference's ``precision`` of
+``tinystep_pallas._mlp3``): "highest" (the default; "high" maps to it, as
+Mosaic has no HIGH) runs every MLP product in f32; "default" is the
+bf16-product mode — every product of the encoder and decoder MLPs, forward
+and backward (the rows' layers, z̄ and the weight gradients), takes
+bf16-rounded operands (round to nearest even) with f32 FMAs and sums; the
+head, the combine, the biases' sums, Adam and CVI stay f32. The kernel
+keeps the weights' f32 master in the slice owners' shared memory and
+rounds the shared copies once a step; the plain version is the plain step
+at ``nn_precision="default"`` (``nets.mlp.dot``). The bf16-product mode is
+instantiated at the default cluster size only.
+
 Noise: ``eps`` (T, S, N, K, 2) and ``aug_eps`` (T, N, 2) inject it (the
 parity mode); otherwise the kernel draws it from an in-kernel
 Philox4x32-10 + Box–Muller keyed by ``seed + state.step`` (so
@@ -35,6 +47,7 @@ import torch.nn.functional as F
 
 from svax_torch.models import svae_smm
 from svax_torch.models.svae import SvaeConfig
+from svax_torch.nets.mlp import PRECISIONS
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.expfam.niw import NiwNat
 from svax_torch.train import svae_step
@@ -55,7 +68,15 @@ DEFAULT_CLUSTER = 16
 # Shared memory one CTA can have on the H100 (227 KB).
 SMEM_LIMIT = 232_448
 
-launches = 0  # kernel launches made by train_chunk (plain int)
+launches = 0  # f32-mode kernel launches made by train_chunk (plain int)
+launches_bf16 = 0  # bf16-product-mode launches
+
+
+def bf16_mode(nn_precision: str) -> bool:
+    """True for the bf16-product mode ("default"); "highest" and "high" are f32."""
+    if nn_precision not in PRECISIONS:
+        raise ValueError(f"nn_precision {nn_precision!r}: one of {PRECISIONS}")
+    return nn_precision == "default"
 
 
 # ------------------------------------------------------------ plain version
@@ -68,10 +89,10 @@ def train_chunk_plain(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
                       eps: torch.Tensor | None = None,
                       aug_eps: torch.Tensor | None = None,
                       dof: float = 0.0, smm_iters: int = 2,
-                      smm_envelope_grads: bool = False):
+                      smm_envelope_grads: bool = False, nn_precision: str = "highest"):
     """T iterations of make_train_step + augment_step in plain PyTorch;
     ``dof`` > 0 runs the SMM-prior step (``svae_smm`` with ``smm_iters``
-    rounds and ``smm_envelope_grads``).
+    rounds and ``smm_envelope_grads``); the nets at ``nn_precision``.
 
     Returns (state, {"recon", "local_kl", "neg_loss"} of shape (T,)).
     Without injected noise it draws from a ``torch.Generator`` on
@@ -86,9 +107,10 @@ def train_chunk_plain(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor,
     n = x.shape[0]
     k = prior.dir_nat.shape[0]
     s = eps.shape[1] if eps is not None else num_samples
+    bf16_mode(nn_precision)
     config = SvaeConfig(latent_dim=2, num_components=k, num_samples=s,
                         num_total=n, dof=dof, smm_iters=smm_iters,
-                        smm_envelope_grads=smm_envelope_grads)
+                        smm_envelope_grads=smm_envelope_grads, nn_precision=nn_precision)
     step = augment_step(svae_step.make_train_step(config, prior, lr, rho), aug_noise)
     gen = None
     if eps is None:
@@ -505,15 +527,16 @@ def pad_to(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
-def smem_bytes(h1: int, h2: int, k: int, cluster: int) -> int:
+def smem_bytes(h1: int, h2: int, k: int, cluster: int, bf16: bool = False) -> int:
     """Dynamic shared memory of one CTA (csrc/tinystep.cu: Shape::smem_floats):
     the parameters and this CTA's gradient partial, its slice of both Adam
-    moments, padded W2 and W2ᵀ copies of both sides, the naturals, prior and
-    expected parameters, the statistics partial and its cluster total, and
-    the weight-gradient tile."""
+    moments (and, in the bf16-product mode, of the f32 parameters), padded
+    W2 and W2ᵀ copies of both sides, the naturals, prior and expected
+    parameters, the statistics partial and its cluster total, and the
+    weight-gradient tile."""
     p = 2 * (2 * h1 + h1 + h1 * h2 + h2 + h2 * 4 + 4)
     tile_rows = 3 + pad_to(h1 + 1, 3) + pad_to(h2 + 1, 3) + pad_to(h1, 4) + pad_to(h2, 4) + 4
-    floats = (2 * p + 2 * pad_to(-(-p // cluster), 4)
+    floats = (2 * p + (3 if bf16 else 2) * pad_to(-(-p // cluster), 4)
               + 2 * (h1 * pad_to(h2, 4) + h2 * pad_to(h1, 4))
               + 2 * pad_to(9 * k, 4) + pad_to(8 * k, 4) + 2 * pad_to(7 * k + 2, 4)
               + tile_rows * 36)
@@ -526,7 +549,8 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
                 eps: torch.Tensor | None = None,
                 aug_eps: torch.Tensor | None = None,
                 dof: float = 0.0, smm_iters: int = 2,
-                smm_envelope_grads: bool = False, cluster: int | None = None):
+                smm_envelope_grads: bool = False, cluster: int | None = None,
+                nn_precision: str = "highest"):
     """Run T complete train steps; returns (state, {"recon", "local_kl",
     "neg_loss"} of shape (T,)).
 
@@ -535,7 +559,8 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     for ``dof`` = 0, else the SMM prior (``svae_smm``, ``smm_iters``
     u–z rounds, ``smm_envelope_grads``), whose Gamma constants the host
     computes. ``elbo`` needs the global KL, added outside
-    (``loop.make_runner``).
+    (``loop.make_runner``). ``nn_precision="default"`` runs the
+    bf16-product mode (module docstring), at ``DEFAULT_CLUSTER`` only.
 
     CUDA tensors: one launch of the CUDA kernel as one cluster of
     ``cluster`` CTAs (``CLUSTER_SIZES``; ``DEFAULT_CLUSTER`` when None); f32,
@@ -545,14 +570,15 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     place; the returned state's tensors are views of those buffers, and
     the input state is not modified. CPU tensors: ``train_chunk_plain``.
     """
-    global launches
+    global launches, launches_bf16
     if x.device.type == "cpu":
         return train_chunk_plain(
             state, prior, x, lr=lr, rho=rho, t_steps=t_steps,
             num_samples=num_samples, seed=seed, aug_noise=aug_noise, eps=eps,
             aug_eps=aug_eps, dof=dof, smm_iters=smm_iters,
-            smm_envelope_grads=smm_envelope_grads,
+            smm_envelope_grads=smm_envelope_grads, nn_precision=nn_precision,
         )
+    bf16 = bf16_mode(nn_precision)
     if x.device.type != "cuda":
         raise ValueError(f"tinystep.train_chunk: no kernel for device {x.device}")
     if aug_noise > 0.0 and (eps is None) != (aug_eps is None):
@@ -565,12 +591,16 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     cluster = DEFAULT_CLUSTER if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"tinystep.train_chunk: cluster {cluster} not in {CLUSTER_SIZES}")
+    if bf16 and cluster != DEFAULT_CLUSTER:
+        raise ValueError(f"tinystep.train_chunk: the bf16-product mode runs at cluster "
+                         f"{DEFAULT_CLUSTER} only")
     n, k = x.shape[0], prior.dir_nat.shape[0]
     h1, h2 = state.nn_params["encoder"][0]["w"].shape[1], (
         state.nn_params["encoder"][1]["w"].shape[1])
-    if smem_bytes(h1, h2, k, cluster) > SMEM_LIMIT:
-        raise ValueError(f"tinystep.train_chunk: {smem_bytes(h1, h2, k, cluster)} bytes of "
-                         f"shared memory a CTA exceed {SMEM_LIMIT}")
+    smem = smem_bytes(h1, h2, k, cluster, bf16)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"tinystep.train_chunk: {smem} bytes of shared memory a CTA "
+                         f"exceed {SMEM_LIMIT}")
     tensors = [x, *prior.niw_nat, prior.dir_nat, *state.pgm_nat.niw_nat,
                state.pgm_nat.dir_nat]
     for tree in (state.nn_params, state.opt_state.mu, state.opt_state.nu):
@@ -622,10 +652,13 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
             (seed + state.step) & 0xFFFFFFFFFFFFFFFF,
             float(lr), float(rho), float(aug_noise),
             float(max(dof, 0.0)), int(smm_iters), int(bool(smm_envelope_grads)),
-            float(psi_a), float(k_u), cluster, ctypes.c_void_p(stream),
+            float(psi_a), float(k_u), cluster, int(bf16), ctypes.c_void_p(stream),
         )
     _build.check(lib, err, "tinystep_train_chunk")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     new_state = SvaeTrainState(
         nn_params=unflat_params(params, state.nn_params),
         opt_state=AdamState(count=state.opt_state.count + t_steps,

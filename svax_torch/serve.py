@@ -26,6 +26,11 @@ serve. The endpoints run the plain PyTorch model (the reference's server
 calls no Pallas kernel) under ``torch.inference_mode`` on the server's
 device.
 
+Bundles carry the recognition head ("diag" or "full") and the nets'
+activation ("tanh", "relu" or "softplus"), as the reference's do; the
+posterior takes the full head's (N, d, d) precision in its
+``torch.linalg`` route, and the nets run f32 products.
+
 ``score`` draws random numbers, which a traced program cannot take from a
 ``torch.Generator``: its Gumbel and ε draws are inputs of the endpoint,
 drawn outside it, in plain torch, from ``torch.Generator(device)
@@ -34,9 +39,7 @@ score agree bit for bit for one seed.
 
 This module imports the model modules only inside the functions that
 build a model (``ModelSpec.to_config``, ``load_bundle``, ``SvaeServer``):
-serving from artifacts imports none of them. A bundle with the reference's
-full encoder head or an activation other than tanh is refused, as the
-port's nets do not run them yet (ROADMAP.md slice J).
+serving from artifacts imports none of them.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ _SPEC_FILE = "spec.json"
 _DEFAULT_BUCKETS = (32, 128, 512, 2048, 8192)
 _EXPORT_MANIFEST = "exports.json"
 _ENDPOINTS = ("encode", "reconstruct", "score", "impute")
+# The heads and activations a bundle may name (nets.mlp's, kept here as
+# names so that serving from artifacts imports no model module).
+_HEADS = ("diag", "full")
+_ACTIVATIONS = ("tanh", "relu", "softplus")
 
 
 @dataclass(frozen=True)
@@ -78,13 +85,12 @@ class ModelSpec:
     encoder_head: str = "diag"  # or "full" (the reference's nets)
 
     def check_supported(self) -> None:
-        """Raise for what the port's nets do not run yet (slice J)."""
-        if self.encoder_head != "diag":
-            raise ValueError(f"encoder_head={self.encoder_head!r}: the port's encoder has "
-                             "the diagonal head only; the full head is ROADMAP.md slice J")
-        if self.activation != "tanh":
-            raise ValueError(f"activation={self.activation!r}: the port's nets are tanh "
-                             "only; other activations are ROADMAP.md slice J")
+        """Raise for a head or an activation the nets do not know (the
+        reference's: svax/serve.py:52)."""
+        if self.encoder_head not in _HEADS:
+            raise ValueError(f"encoder_head={self.encoder_head!r}: one of {_HEADS}")
+        if self.activation not in _ACTIVATIONS:
+            raise ValueError(f"activation={self.activation!r}: one of {_ACTIVATIONS}")
 
     def to_config(self):
         from svax_torch.models.svae import SvaeConfig
@@ -93,7 +99,8 @@ class ModelSpec:
         return SvaeConfig(latent_dim=self.latent_dim, num_components=self.num_components,
                           num_samples=self.num_samples, num_total=self.num_total,
                           likelihood=self.likelihood, dof=self.dof,
-                          smm_iters=self.smm_iters)
+                          smm_iters=self.smm_iters, activation=self.activation,
+                          encoder_head=self.encoder_head)
 
     def make_prior(self, device="cpu"):
         from svax_torch.pgm import gmm
@@ -245,10 +252,12 @@ def _sin_posterior(pot_h: torch.Tensor, pot_p: torch.Tensor, exp):
     forms trace to thousands of graph nodes at d = 8, which an exported
     program carries in its size and its trace and load times.
     ``cholesky_ex`` leaves the factorisation's status on the device (no
-    host sync a call)."""
+    host sync a call). ``pot_p`` is the diagonal (N, d) or the full
+    (N, d, d) precision."""
     from svax_torch.models.svae import SinPosterior
 
-    prec = torch.diag_embed(pot_p)[:, None] + exp.prec[None]  # (N, K, d, d)
+    pot_prec = pot_p if pot_p.ndim == pot_h.ndim + 1 else torch.diag_embed(pot_p)
+    prec = pot_prec[:, None] + exp.prec[None]  # (N, K, d, d)
     h = pot_h[:, None, :] + exp.prec_mean[None]  # (N, K, d)
     chol = torch.linalg.cholesky_ex(prec).L
     mean = torch.cholesky_solve(h[..., None], chol)[..., 0]
@@ -272,8 +281,11 @@ def _model_fns(nn_params: dict, pgm_nat, spec: ModelSpec) -> dict:
     exp = gmm.expected_params(pgm_nat)
     dec = nn_params["decoder"]
 
+    act = spec.activation
+
     def posterior(x):
-        pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
+        pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, act,
+                                          head=spec.encoder_head)
         if spec.dof > 0.0:
             return svae_smm.smm_combine(pot_h, pot_p, exp, spec.dof, spec.smm_iters)[0]
         return _sin_posterior(pot_h, pot_p, exp)
@@ -282,7 +294,7 @@ def _model_fns(nn_params: dict, pgm_nat, spec: ModelSpec) -> dict:
         return torch.einsum("nk,nkd->nd", torch.exp(post.log_resp), post.mean)
 
     def decode(z):
-        out = nets.decoder_apply(dec, z, spec.likelihood)
+        out = nets.decoder_apply(dec, z, spec.likelihood, act)
         return out[0] if spec.likelihood == "gaussian" else torch.sigmoid(out)
 
     def encode(x):
@@ -302,7 +314,8 @@ def _model_fns(nn_params: dict, pgm_nat, spec: ModelSpec) -> dict:
         if spec.dof > 0.0:
             return evaluation.svae_smm_iw_loglik(
                 nn_params, pgm_nat, x, num_samples, dof=spec.dof, smm_iters=spec.smm_iters,
-                gumbel=gumbel, eps=eps, likelihood=spec.likelihood)
+                gumbel=gumbel, eps=eps, likelihood=spec.likelihood,
+                encoder_head=spec.encoder_head, activation=act)
         post = posterior(x)
         choice = torch.argmax(post.log_resp[None] + gumbel, dim=-1)  # (S, N)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -314,7 +327,7 @@ def _model_fns(nn_params: dict, pgm_nat, spec: ModelSpec) -> dict:
             chol = post.prec_chol[rows[None, :], c]  # (chunk, N, d, d)
             z = post.mean[rows[None, :], c] + torch.linalg.solve_triangular(
                 chol.mT, e[..., None], upper=True)[..., 0]
-            loglik = nets.log_likelihood(dec, z, x[None], spec.likelihood)
+            loglik = nets.log_likelihood(dec, z, x[None], spec.likelihood, act)
             log_w.append(loglik + evaluation._expected_gmm_log_prob(z, exp)
                          - evaluation._mixture_log_q(z, post))
         return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))

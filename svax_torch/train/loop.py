@@ -23,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from svax_torch.models.svae import check_recon_mode
 from svax_torch.ops import flexstep, mixstep, tinystep
 from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm
@@ -32,6 +33,26 @@ PER_STEP = "per-step"
 FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
                      "(dof > 0 is the Student-t mixture prior)")
 SINGLE_DEVICE = "the whole-train-step kernels are single-device (no data/component sharding)"
+FULL_HEAD = ("the whole-train-step kernels implement the diagonal recognition head only "
+             "(encoder_head='diag'); the full head runs on the per-step engine")
+
+
+def _switches_reason(config, kernel: str) -> str | None:
+    """Why ``kernel`` cannot run ``config``'s switches (None = it can): both
+    whole-step kernels train the weighted estimator, the diagonal head, zero
+    jitter and tanh nets (tinystep_pallas.py:838-852, flexstep_pallas.py:
+    573-585; the reference's tinystep gate omits the activation, yet its
+    _mlp3 is tanh only)."""
+    if config.recon_mode != "weighted":
+        return f"the {kernel} kernel needs recon_mode='weighted' (got {config.recon_mode!r})"
+    if config.encoder_head != "diag":
+        return f"the {kernel} kernel needs encoder_head='diag' (got {config.encoder_head!r})"
+    if config.jitter != 0.0:
+        return f"the {kernel} kernel needs jitter = 0 (got {config.jitter})"
+    if config.activation != "tanh":
+        return f"the {kernel} kernel needs tanh nets (got {config.activation!r})"
+    return None
+
 
 
 def augment_step(step: Callable, sigma: float) -> Callable:
@@ -44,11 +65,11 @@ def augment_step(step: Callable, sigma: float) -> Callable:
     if sigma <= 0.0:
         return step
 
-    def wrapped(state, xb, eps=None, aug_eps=None, generator=None):
+    def wrapped(state, xb, eps=None, aug_eps=None, generator=None, **kw):
         if aug_eps is None:
             aug_eps = torch.randn(xb.shape, generator=generator,
                                   device=xb.device, dtype=xb.dtype)
-        return step(state, xb + sigma * aug_eps, eps=eps, generator=generator)
+        return step(state, xb + sigma * aug_eps, eps=eps, generator=generator, **kw)
 
     return wrapped
 
@@ -61,8 +82,12 @@ def tinystep_unsupported_reason(config, *, batch_full: bool, encoder_hidden,
     The shape class: latent d = 2, Gaussian likelihood, two matched
     hidden layers of a width the kernel is built for, full batch,
     constant ρ, K up to tinystep.MAX_COMPONENTS; the GMM or the SMM prior
-    (``config.dof``)."""
+    (``config.dof``); weighted reconstruction, the diagonal head, zero
+    jitter and tanh nets (``_switches_reason``)."""
     encoder_hidden, decoder_hidden = tuple(encoder_hidden), tuple(decoder_hidden)
+    switches = _switches_reason(config, "tinystep")
+    if switches is not None:
+        return switches
     if config.latent_dim != 2:
         return f"the tinystep kernel needs latent d = 2 (got {config.latent_dim})"
     if likelihood != "gaussian":
@@ -89,8 +114,13 @@ def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
     likelihood, two tanh hidden layers a side of width
     1..flexstep.MAX_HIDDEN, d_in ≤ 8, 2 ≤ d ≤ 6, K up to
     flexstep.MAX_COMPONENTS, a constant ρ or the Trainer's ρ₀/(1 + decay·t)
-    (given as ``rho_decay``, not a callable); minibatch or full batch."""
+    (given as ``rho_decay``, not a callable); minibatch or full batch;
+    weighted reconstruction, the diagonal head, zero jitter
+    (``_switches_reason``)."""
     widths = tuple(encoder_hidden) + tuple(decoder_hidden)
+    switches = _switches_reason(config, "flexstep")
+    if switches is not None:
+        return switches
     if config.dof > 0.0:
         # tinystep owns the Student-t prior's u–z rounds; flexstep does not
         # (svax/train/loop.py:129-141).
@@ -180,7 +210,11 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
     device. ``eps`` injects the ε noise, ``aug_eps`` tinystep's augmentation
     noise (flexstep: ``eps`` only). tinystep takes ``config``'s ``dof``,
     ``smm_iters`` and ``smm_envelope_grads`` (the SMM prior when dof > 0);
-    flexstep refuses dof > 0.
+    flexstep refuses dof > 0. Both take ``config.nn_precision``: "default"
+    is their bf16-product mode, anything else f32, as the reference maps it
+    where Mosaic has no HIGH (svax/train/loop.py:209-215). A full
+    recognition head is refused (svax/train/loop.py:200-206):
+    ``choose_kernel`` gates the rest.
 
     Metrics are (T,) tensors: recon, local_kl, global_kl, elbo, rho. The
     global KL is evaluated once, at the post-chunk naturals, and broadcast,
@@ -191,6 +225,9 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     if kernel not in ("tinystep", "flexstep"):
         raise ValueError(f"unknown kernel {kernel!r} (tinystep|flexstep)")
+    if config.encoder_head != "diag":
+        raise ValueError(FULL_HEAD)
+    precision = config.nn_precision
 
     def finish(state, mets, t_steps):
         gkl = gmm.kl_global(state.pgm_nat, prior)
@@ -212,7 +249,7 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
             state, mets = chunk(
                 state, prior, x, lr=lr, rho=rho, t_steps=t_steps, seed=seed,
                 aug_noise=aug_noise, num_samples=config.num_samples, eps=eps,
-                aug_eps=aug_eps, **smm,
+                aug_eps=aug_eps, nn_precision=precision, **smm,
             )
             return finish(state, mets, t_steps)
 
@@ -238,7 +275,8 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
                 batches.shape, generator=gen, device=x.device, dtype=batches.dtype)
         chunk_seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
         kw = dict(lr=lr, rho=rho, rho_decay=rho_decay, num_total=n,
-                  num_samples=config.num_samples, seed=chunk_seed, eps=eps)
+                  num_samples=config.num_samples, seed=chunk_seed, eps=eps,
+                  nn_precision=precision)
         if engine == "kernel":
             state, mets = flexstep.train_chunk(state, prior, batches, **kw)
         else:
@@ -261,7 +299,8 @@ def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
 
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
                      batch_size: int = 0, engine: str = "kernel",
-                     replace: bool = True, data_group=None, comp_group=None) -> Callable:
+                     replace: bool = True, data_group=None, comp_group=None,
+                     aug_noise: float = 0.0) -> Callable:
     """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
     metrics)`` on the per-step engine: T calls of
     ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
@@ -297,16 +336,20 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     size; then one number more from the shared generator, folded with the
     rank's (data, comp) place (``mesh.fold_seed``), seeds the rank's own
     generator for ε and the chunk seed, so the ranks' noise differs. ``eps``
-    is then this rank's (T, S, M / data, K_shard, d)."""
+    is then this rank's (T, S, M / data, K_shard, d). ``aug_noise`` > 0
+    wraps the step in ``augment_step``: each step's batch noise comes from
+    the generator before the step's own draws."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
+    check_recon_mode(config, comp_group)
     if engine == "plain":
         config = config._replace(fused_combine=False, kernel_rng=False,
                                  fused_mlp_decoder=False, fused_decoder=False)
     use_seed = config.fused_combine and config.kernel_rng
-    step = svae_step.make_train_step(config, prior, lr,
-                                     svae_step.rho_schedule(rho, rho_decay),
-                                     data_group=data_group, comp_group=comp_group)
+    step = augment_step(svae_step.make_train_step(config, prior, lr,
+                                                  svae_step.rho_schedule(rho, rho_decay),
+                                                  data_group=data_group,
+                                                  comp_group=comp_group), aug_noise)
     sharded = data_group is not None or comp_group is not None
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
 

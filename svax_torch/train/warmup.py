@@ -34,23 +34,30 @@ WARMUP_STREAM = 1 << 32
 
 
 @torch.no_grad()
-def encoded_latent_means(nn_params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Latent means h / P of the encoder's diagonal potentials; (N, d)."""
-    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x)
-    return pot_h / pot_p
+def encoded_latent_means(nn_params: dict, x: torch.Tensor, head: str = "diag",
+                         activation: str = "tanh") -> torch.Tensor:
+    """Latent means of the encoder's potentials, (N, d): h / P for the
+    diagonal head, P⁻¹h for the full one."""
+    pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, activation, head=head)
+    if head == "diag":
+        return pot_h / pot_p
+    return torch.linalg.solve(pot_p, pot_h[..., None])[..., 0]
 
 
 def reseed_from_encoder(state, x: torch.Tensor, prior: GmmNat, *, seed: int = 0,
                         pseudo_counts: float = 5.0, cov_scale: float = 0.0,
-                        max_points: int = 20000, reset_step: bool = True):
+                        max_points: int = 20000, reset_step: bool = True,
+                        head: str = "diag", activation: str = "tanh"):
     """Replace q's naturals with k-means++ seeds in the current latent space.
 
     ``cov_scale=0`` (auto) uses the within-cluster per-dimension variance of
     the k-means++ assignment, floored at 1e-3. ``reset_step`` zeroes the
     step counter so a decaying ρ restarts from ρ₀ (Adam's count is left
-    alone). Returns ``(state, info)``."""
+    alone). ``head`` and ``activation`` are the encoder's. Returns ``(state,
+    info)``."""
     k = prior.dir_nat.shape[0]
-    lat = encoded_latent_means(state.nn_params, x[:max_points]).cpu().double().numpy()
+    lat = encoded_latent_means(state.nn_params, x[:max_points], head,
+                               activation).cpu().double().numpy()
     centers = pgm_init.kmeanspp_centers(lat, k, seed=seed)
     d2 = ((lat[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
     assign = np.argmin(d2, axis=-1)
@@ -85,4 +92,5 @@ def vae_warmup_reseed(state, x: torch.Tensor, config, prior: GmmNat, *, lr: floa
             state, _ = runner(state, x, todo, seed=seed + WARMUP_STREAM)
             done += todo
     return reseed_from_encoder(state, x, prior, seed=seed, pseudo_counts=pseudo_counts,
-                               cov_scale=cov_scale)
+                               cov_scale=cov_scale, head=config.encoder_head,
+                               activation=config.activation)

@@ -3,7 +3,9 @@ decoder_mlp and row-sum CUDA kernels).
 
     python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae|bigk-dp
         [--steps N] [--warmup-steps N] [--device cuda|cpu]
-        [--engine kernel|plain] [--seed S] [--iw-samples S]
+        [--engine kernel|megakernel|plain] [--seed S] [--iw-samples S]
+        [--encoder-head diag|full] [--recon-mode weighted|sampled]
+        [--nn-precision highest|high|default] [--remat]
         [--[no-]fused-mlp-decoder] [--nn-compute-dtype float32|bfloat16]
         [--fused-decoder] [--remat-decoder] [--eval-every N] [--dp]
         [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
@@ -37,7 +39,22 @@ CPU the ranks join over gloo:
     torchrun --standalone --nproc-per-node 2 -m svax_torch.train_svae \
         --config bigk-dp --device cpu --steps 2
 
-More than one process without ``--dp`` is refused. ``--fused-mlp-decoder`` turns the decoder
+More than one process without ``--dp`` is refused.
+
+``--nn-precision`` is the nets' product precision (``nets.mlp``'s table;
+default the config's — pinwheel-svae and auto-svae ship "default" — else
+"high"): "default" runs tinystep and flexstep in their bf16-product mode
+and the plain nets on bf16-rounded operands, "high" and "highest" in f32;
+under ``--fused-decoder`` "high" and "default" run the row sum's
+bf16-operand mode and "highest" its f32 mode. ``--encoder-head full``
+trains the full-covariance recognition head, ``--recon-mode sampled`` the
+sampled-component reconstruction estimator (S·N decoder rows a step
+instead of S·N·K), and ``--remat`` recomputes the SIN combine in the
+backward pass. Neither whole-step kernel takes a full head or sampled
+reconstruction, nor does the fused combine (nor, under sampled, the fused
+MLP decoder): such a run takes the per-step engine, and ``--engine
+megakernel`` — a whole-step kernel or nothing — refuses it with both
+kernels' reasons. ``--fused-mlp-decoder`` turns the decoder
 kernel on for the other Bernoulli config, mnist-svae, and is refused for a
 Gaussian one; ``--no-fused-mlp-decoder`` turns it off for bigk-dp.
 ``--nn-compute-dtype`` overrides the config's decoder compute dtype (the
@@ -106,7 +123,10 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--steps", type=int, default=0,
                    help="training steps (0 = the config's)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--engine", choices=["kernel", "plain"], default="kernel")
+    p.add_argument("--engine", choices=["kernel", "megakernel", "plain"], default="kernel",
+                   help="kernel: the whole-step kernel that fits, else the per-step "
+                        "engine with its kernels; megakernel: a whole-step kernel or a "
+                        "refusal; plain: the plain PyTorch step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--iw-samples", type=int, default=100,
                    help="importance-weighted final test log-lik samples (0 = off)")
@@ -139,6 +159,18 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--smm-envelope-grads", action="store_true",
                    help="envelope-theorem gradients for the SMM u-rounds: the "
                         "converged q(u) is held constant in the backward pass")
+    p.add_argument("--encoder-head", choices=["diag", "full"], default="diag",
+                   help="recognition potential: diagonal, or a full per-point "
+                        "precision (per-step engine)")
+    p.add_argument("--recon-mode", choices=["weighted", "sampled"], default="weighted",
+                   help="reconstruction estimator: every component's samples, or one "
+                        "component drawn per sample with a REINFORCE term (per-step "
+                        "engine)")
+    p.add_argument("--nn-precision", choices=["highest", "high", "default"], default=None,
+                   help="the nets' product precision (default: the config's, else "
+                        "high): default = bf16-rounded operands with f32 sums")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the SIN combine in the backward pass")
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the WORLD_SIZE ranks torchrun starts "
                         "(on in bigk-dp's config)")
@@ -233,6 +265,7 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         batch = (batch // world) * world or world
         show(f"rounding batch to {batch} for {world} data ranks", flush=True)
     rho_decay = cfg.get("rho_decay", 0.0)
+    engine = "kernel" if args.engine == "megakernel" else args.engine
     config = SvaeConfig(latent_dim=cfg["latent_dim"],
                         num_components=cfg["num_components"],
                         num_samples=cfg["num_samples"], num_total=n,
@@ -247,11 +280,17 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                         fused_decoder=args.fused_decoder,
                         remat_decoder=args.remat_decoder,
                         dof=args.smm_dof, smm_iters=args.smm_iters,
-                        smm_envelope_grads=args.smm_envelope_grads)
+                        smm_envelope_grads=args.smm_envelope_grads,
+                        nn_precision=args.nn_precision or cfg.get("nn_precision", "high"),
+                        encoder_head=args.encoder_head, recon_mode=args.recon_mode,
+                        remat_combine=args.remat)
     if config.dof > 0.0:
         # The SMM forward runs the plain combine and decoder (the reference's
         # svae_smm.forward): the fused switches do not act on it, but for the
         # row sum, which svae_smm takes under fused_decoder.
+        if config.recon_mode != "weighted":
+            p.error("--recon-mode sampled: the SMM-prior SVAE implements the weighted "
+                    "estimator only")
         config = config._replace(fused_combine=False, kernel_rng=False,
                                  fused_mlp_decoder=False)
     if args.fused_decoder:
@@ -271,6 +310,11 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
                 decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
                 rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim,
                 data_parallel=data_parallel)
+    if args.engine == "megakernel":
+        try:
+            choose_kernel(config, engine="megakernel", **gate)
+        except ValueError as err:
+            p.error(f"--engine megakernel: {err}")
     kernel = choose_kernel(config, engine="auto", **gate)
     why = kernel_unsupported_reason(config, **gate) if kernel == PER_STEP else None
 
@@ -290,21 +334,22 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
             state, _, start = ckpt.restore_or(state)
     if kernel == PER_STEP:
         runner = make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
-                                  rho_decay=rho_decay, batch_size=batch, engine=args.engine,
-                                  replace=not data_parallel, data_group=data_group)
+                                  rho_decay=rho_decay, batch_size=batch, engine=engine,
+                                  replace=not data_parallel, data_group=data_group,
+                                  aug_noise=cfg.get("aug_noise", 0.0))
     else:
         runner = make_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                              rho_decay=rho_decay, batch_size=batch,
-                             aug_noise=cfg.get("aug_noise", 0.0), engine=args.engine,
+                             aug_noise=cfg.get("aug_noise", 0.0), engine=engine,
                              kernel=kernel)
     # The evaluation runs the training path's combine and decoder: on the
     # plain engine with fused_combine, fused_mlp_decoder and fused_decoder
     # off, on the kernel engine with the kernels and the in-kernel ε.
-    eval_config = (config if args.engine == "kernel"
+    eval_config = (config if engine == "kernel"
                    else config._replace(fused_combine=False, kernel_rng=False,
                                         fused_mlp_decoder=False, fused_decoder=False))
     evaluate = svae_step.make_eval_fn(eval_config, prior)
-    if args.engine == "kernel" and device.type == "cuda":
+    if engine == "kernel" and device.type == "cuda":
         from svax_torch.ops import _build
 
         _build.load()  # build outside the timed region
@@ -318,12 +363,21 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         return float(out["elbo_per_point"])
 
     init_elbo = test_elbo() if rank == 0 else None
+    # The fused combine and the fused MLP decoder act on the weighted
+    # estimator (the combine also needs the diagonal head and zero jitter,
+    # the decoder tanh nets: models.svae.forward).
+    weighted = config.recon_mode == "weighted"
     show(json.dumps({"config": args.config, "kernel": kernel, "engine": args.engine,
                       "why": why, "fused_combine": kernel == PER_STEP and
-                      args.engine == "kernel" and config.fused_combine,
-                      "fused_mlp_decoder": args.engine == "kernel" and
-                      config.fused_mlp_decoder and config.likelihood == "bernoulli",
-                      "fused_decoder": args.engine == "kernel" and config.fused_decoder,
+                      engine == "kernel" and config.fused_combine and weighted
+                      and config.encoder_head == "diag" and config.jitter == 0.0,
+                      "fused_mlp_decoder": engine == "kernel" and weighted and
+                      config.fused_mlp_decoder and config.likelihood == "bernoulli"
+                      and config.activation == "tanh",
+                      "fused_decoder": engine == "kernel" and config.fused_decoder,
+                      "nn_precision": config.nn_precision,
+                      "encoder_head": config.encoder_head, "recon_mode": config.recon_mode,
+                      "remat_combine": config.remat_combine,
                       "nn_compute_dtype": config.nn_compute_dtype,
                       "remat_decoder": config.remat_decoder,
                       "prior": "smm" if config.dof > 0.0 else "gmm", "dof": config.dof,
@@ -339,7 +393,7 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         state, warm_info = warmup.vae_warmup_reseed(
             state, x_train, config, prior, lr=cfg["lr"], steps=warmup_steps,
             batch_size=batch, scan_chunk=cfg.get("scan_chunk") or 100, seed=args.seed,
-            engine=args.engine)
+            engine=engine)
         warm_info["seconds"] = time.perf_counter() - t_warm
         show(f"warmup {warmup_steps} steps + k-means++ reseed "
               f"({warm_info['seconds']:.1f}s): seed occupancy "
@@ -376,23 +430,24 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         torch.cuda.synchronize(device)
     rate = (steps - start) / (time.perf_counter() - t0)
     logger.close()
-    show(f"steps/sec: {rate:.1f} (device={device}, engine={args.engine}, "
+    show(f"steps/sec: {rate:.1f} (device={device}, engine={engine}, "
          f"kernel={kernel})")
     out = {"state": state, "rows": rows, "steps_per_s": rate, "kernel": kernel,
            "why": why, "init_test_elbo_per_point": init_elbo, "meta": meta,
            "warmup": warm_info, "x_test": x_test}
     if args.iw_samples > 0 and rank == 0:
         iw_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        iw_kw = dict(likelihood=config.likelihood, encoder_head=config.encoder_head,
+                     jitter=config.jitter, activation=config.activation)
         if config.dof > 0.0:
             # The SMM bound, as experiments/evaluate.py and svax/serve.py
             # score an SMM model (the reference entry scores the GMM one).
             iw = evaluation.svae_smm_iw_loglik(
                 state.nn_params, state.pgm_nat, x_test, args.iw_samples, dof=config.dof,
-                smm_iters=config.smm_iters, generator=iw_gen, likelihood=config.likelihood)
+                smm_iters=config.smm_iters, generator=iw_gen, **iw_kw)
         else:
             iw = evaluation.svae_iw_loglik(state.nn_params, state.pgm_nat, x_test,
-                                           args.iw_samples, generator=iw_gen,
-                                           likelihood=config.likelihood)
+                                           args.iw_samples, generator=iw_gen, **iw_kw)
         out["final_test_iw_loglik_per_point"] = float(iw.mean())
         print(json.dumps({"final_test_iw_loglik_per_point": float(iw.mean()),
                           "iw_samples": args.iw_samples}), flush=True)
@@ -407,7 +462,8 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
             encoder_hidden=tuple(cfg["encoder_hidden"]),
             decoder_hidden=tuple(cfg["decoder_hidden"]), num_samples=config.num_samples,
             alpha=cfg["alpha"], kappa=cfg["kappa"], dof=config.dof,
-            smm_iters=config.smm_iters, num_total=n))
+            smm_iters=config.smm_iters, activation=config.activation, num_total=n,
+            encoder_head=config.encoder_head))
         show(f"wrote serving bundle to {args.bundle_dir}")
     return out
 

@@ -227,8 +227,10 @@ def test_smem_bytes_match_the_c_entry(dev, cluster, hidden):
 
     lib = _build.load()
     for k in (1, 10, tinystep.MAX_COMPONENTS):
-        assert lib.tinystep_smem_bytes(*hidden, k, cluster) == tinystep.smem_bytes(
+        assert lib.tinystep_smem_bytes(*hidden, k, cluster, 0) == tinystep.smem_bytes(
             *hidden, k, cluster)
+        assert lib.tinystep_smem_bytes(*hidden, k, cluster, 1) == tinystep.smem_bytes(
+            *hidden, k, cluster, bf16=True)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -137,8 +137,9 @@ def test_smem_bytes_match_the_c_entry(dev, cluster):
     lib = _build.load()
     for d_in, d, k, hid in ((8, 4, 10, (100, 100, 100, 100)), (8, 6, 64, (128,) * 4),
                             (2, 2, 1, (16, 16, 16, 16)), (5, 3, 7, (24, 40, 24, 40))):
-        assert lib.flexstep_smem_bytes(64, d_in, d, k, 4, *hid, cluster) == (
-            flexstep.smem_bytes(d_in, d, k, *hid, cluster))
+        for bf16 in (0, 1):
+            assert lib.flexstep_smem_bytes(64, d_in, d, k, 4, *hid, cluster, bf16) == (
+                flexstep.smem_bytes(d_in, d, k, *hid, cluster, bf16=bool(bf16)))
 
 
 def test_in_kernel_noise_is_seeded_and_reruns_are_bit_equal(dev):

@@ -96,7 +96,7 @@ def _small(dof=0.0, remat=False):
     eps = rng.standard_normal((2, S, M, K, D))
     config = SvaeConfig(latent_dim=D, num_components=K, num_samples=S, num_total=N_TOTAL,
                         likelihood="bernoulli", fused_decoder=True, remat_decoder=remat,
-                        dof=dof)
+                        dof=dof, nn_precision="highest")
     return x, jconfig, jprior, jstate, idx, eps, config
 
 
@@ -120,7 +120,7 @@ def test_mnist_state_forward_matches_jax(rowsum_calls):
                          jax.random.PRNGKey(0), jconfig, eps=jnp.asarray(eps))
     state, prior = _port_state(jstate, jprior, torch.float32)
     config = SvaeConfig(latent_dim=8, num_components=10, num_samples=1, num_total=6000,
-                        likelihood="bernoulli", fused_decoder=True)
+                        likelihood="bernoulli", fused_decoder=True, nn_precision="highest")
     out = svae.forward(state.nn_params, state.pgm_nat, prior, torch.tensor(x), config,
                        eps=torch.tensor(eps))
     assert rowsum_calls == ["highest"]

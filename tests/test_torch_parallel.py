@@ -443,13 +443,15 @@ def test_train_gmm_dp_on_two_ranks_matches_one_process(tmp_path):
 
 def test_sampled_recon_is_refused_with_the_reference_reason():
     """recon_mode="sampled" needs the full responsibility row
-    (svax/models/svae.py:399-404); the port runs "weighted" only."""
+    (svax/models/svae.py:399-404): refused under component parallelism,
+    run without it; an unknown estimator is refused."""
     from svax_torch.models import svae
     from svax_torch.models.svae import SvaeConfig
 
     config = SvaeConfig(latent_dim=2, num_components=4, recon_mode="sampled")
     with pytest.raises(ValueError, match="does not compose with component parallelism"):
         svae.check_recon_mode(config, comp_group=object())
-    with pytest.raises(ValueError, match="'weighted' estimator only"):
-        svae.check_recon_mode(config)
+    svae.check_recon_mode(config)
+    with pytest.raises(ValueError, match="unknown recon_mode"):
+        svae.check_recon_mode(config._replace(recon_mode="stratified"))
     svae.check_recon_mode(config._replace(recon_mode="weighted"), comp_group=object())

@@ -7,7 +7,8 @@ into a port bundle (``convert.bundle_from_numpy``).
   ``component`` equal; ``score`` equals the IW bound on the same draws;
   generate's plug-in moments match the reference's plug-in parameters;
 * the SMM server, padding invisibility, the missing-state error, the
-  refused bundles (slice J), ``spec.json`` equal to the reference's;
+  refused bundles (an unknown head or activation), ``spec.json`` equal to
+  the reference's;
 * the exported tier equal to the live one (score bit for bit for one
   seed), its bucket contract, and its self-containment in a child process
   whose import of the model modules raises.
@@ -231,15 +232,17 @@ def test_missing_state_raises(tmp_path, jspec):
         serve.load_bundle(path, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("encoder_head", "full"), ("activation", "relu")])
+@pytest.mark.parametrize("field,value", [("encoder_head", "block"), ("activation", "gelu")])
 def test_unsupported_bundle_is_refused(tmp_path, servers, field, value):
+    """A head or an activation the nets do not know (the full head, relu
+    and softplus serve: tests/test_torch_full_head.py)."""
     _, srv, jstate = servers
     spec = dataclasses.replace(srv.spec, **{field: value})
     path = tmp_path / "b"
     serve.save_bundle(path, convert.state_from_numpy(jax.tree.map(np.asarray, jstate),
                                                      dtype=torch.float32), srv.spec)
     (path / "spec.json").write_text(json.dumps(serve.spec_payload(spec)))
-    with pytest.raises(ValueError, match="slice J"):
+    with pytest.raises(ValueError, match="one of"):
         serve.load_bundle(path, device="cpu")
 
 
