@@ -79,9 +79,10 @@ C. ptxas's line for every combine_fwd and combine_bwd_* instantiation
    timed (kernel and cross-block sum apart) against the plain version;
 D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    --steps 2000`` (the config's 1000 warmup steps, then chunks of 200 on
-   the per-step engine with the combine kernels) for seeds 0 (twice) and
-   1: the combine kernels launched (every backward the train step's
-   call, on combine_bwd_lean), seed 0's runs bit-equal, and each seed
+   the per-step engine with the combine kernels) for seeds 0 and 1: the
+   combine kernels launched (every backward the train step's call, on
+   combine_bwd_lean), two seed-0 runs cut to 200 warmup + 400 steps
+   bit-equal (the full-length rerun went to pay for phase N), and each seed
    held to tests/test_mnist_quality_pin.py's floors — test ELBO/pt up by
    more than 100 nats, cluster purity of the test set above 0.7, at least
    6 of 10 components in use (computed here from the returned state; the
@@ -241,6 +242,22 @@ M. slice J: (1) ptxas's line for every bf16-product instantiation of
    (3)'s state), served on ``cuda``: its exported tier at bucket 32
    against the live one (encode, reconstruct, impute within 1e-6, score
    and components bit-equal);
+N. slice H, the three-model comparison (``svax_torch.compare``) at the
+   comparison's own SvaeConfig (nn_precision "high": the kernels' f32
+   mode), each leg's wall seconds and engine printed, the rows written
+   under ``build/chip_smoke_N/``, never ``runs/``: (1) ``compare --quick
+   --engine kernel`` for pinwheel and auto: tinystep and flexstep launched
+   in their f32 mode (``launches``, not ``launches_bf16``), the budget
+   naming the kernel and the mode, every IW bound and predictive finite;
+   (2) mnist at ``--quick`` with the SVAE leg cut to 20 warmup + 20 steps
+   (the per-step engine, its reason recorded) and the Bernoulli mixture at
+   its full 300 steps, held to ``BMM_FLOOR``, and the same leg from the
+   reference's initial rows (``compare.REFERENCE_INIT_ROWS``) within 0.1
+   nat/point of the reference's −227.946; (3) auto at its full budget,
+   seed 0 (3000 steps a leg, IW 1000): the SVAE on flexstep, ``svae_beats_vae``,
+   each leg within 4 sd of the reference's 8-seed mean (−8.945 ± 0.046,
+   −9.118 ± 0.044), the GMM leg above ``GMM_AUTO_FLOOR`` and, from the
+   reference's rows, within 0.05 of −8.969;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -969,10 +986,15 @@ def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
         rows = run1["rows"]
         assert len(rows) == 10 and all(math.isfinite(v) for r in rows for v in r.values())
         assert all(bool(torch.isfinite(t_).all()) for t_ in leaves(run1["state"]))
-        if seed == 0:  # one rerun shows bit-equality; seed 1 adds the floors
-            run2 = train_svae.main(argv)
+        if seed == 0:
+            # Bit-equality on a pair of shorter runs (200 warmup + 400 steps,
+            # the same path's kernels), which pays for phase N; the full
+            # runs hold the floors.
+            short = ["--config", "mnist-svae", "--steps", "400", "--warmup-steps", "200",
+                     "--device", "cuda", "--seed", "0", "--iw-samples", "0"]
+            run2, run3 = train_svae.main(short), train_svae.main(short)
             assert all(torch.equal(p, q) for p, q in
-                       zip(leaves(run1["state"]), leaves(run2["state"]))), \
+                       zip(leaves(run2["state"]), leaves(run3["state"]))), \
                 f"two mnist-svae runs at seed {seed} differ"
         start, end = run1["init_test_elbo_per_point"], rows[-1]["test_elbo_per_point"]
         purity, used = quality(run1, seed)
@@ -985,8 +1007,8 @@ def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
                      f"{run1['warmup']['seed_occupancy']}), {run1['steps_per_s']:.1f} "
                      f"steps/s, test ELBO/pt {start:.4f} -> {end:.4f}, purity {purity:.4f}, "
                      f"{used} of 10 components in use"
-                     + (f", IW/pt {run1['final_test_iw_loglik_per_point']:.4f}, runs "
-                        "bit-equal" if seed == 0 else ""))
+                     + (f", IW/pt {run1['final_test_iw_loglik_per_point']:.4f}, two runs "
+                        "of 200 warmup + 400 steps bit-equal" if seed == 0 else ""))
         assert end > start + 100.0, f"seed {seed}: test ELBO/pt {start} -> {end}"
         assert purity > 0.7, f"seed {seed}: cluster purity {purity}"
         assert used >= 6, f"seed {seed}: only {used} of 10 components in use"
@@ -2609,6 +2631,119 @@ def slice_j_paths_phase(card: str, bigk_ms: float) -> None:
           f"bit-equal; {card}", flush=True)
 
 
+# The mixture legs' floors, measured on the CPU over generator seeds 0-15
+# (``compare.mixture_seeds(dataset, 16, "cpu")`` for auto and mnist;
+# float32, the leg's K initial rows drawn by torch.Generator on the CPU,
+# where the card's generator draws others): the worst predictive less 0.05
+# nat. Seeds 0-3 alone (BMM worst -257.205, GMM
+# -9.144) do not bound the fixed points a draw lands: 4 of the 16 BMM seeds
+# and 3 GMM seeds fall under them.
+BMM_FLOOR = -280.929  # seeds 0-15: -227.962 .. -280.879 (two at -227.962)
+GMM_AUTO_FLOOR = -9.397  # seeds 0-15: -8.735 .. -9.347
+
+
+def compare_phase(card: str) -> None:
+    """N. the three-model comparison through svax_torch.compare (docstring)."""
+    import torch
+
+    from svax_torch import compare
+    from svax_torch.data import load_dataset
+    from svax_torch.ops import flexstep, tinystep
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_N"
+    shutil.rmtree(work, ignore_errors=True)
+    out = str(work / "comparison_torch.json")
+
+    def legs(tag: str, res: dict) -> None:
+        for leg in res["legs"]:
+            print(f"phase N: {tag} {leg['leg']} seed {leg['seed']}: {leg['seconds']:.2f} s "
+                  f"on {leg['engine']}; {card}", flush=True)
+
+    def finite(row: dict) -> None:
+        vals = [row["svae"]["iw_best"], row["vae"]["iw_best"], row["svae"]["iw_final"],
+                row["vae"]["iw_final"], *(v for v in row["gmm"].values()
+                                          if isinstance(v, float))]
+        assert all(math.isfinite(v) for v in vals), row
+
+    # (1) pinwheel and auto, --quick, on the kernels' f32 mode
+    tinystep.launches = tinystep.launches_bf16 = 0
+    flexstep.launches = flexstep.launches_bf16 = 0
+    t0 = time.perf_counter()
+    quick = compare.main(["--quick", "--engine", "kernel", "--datasets", "pinwheel", "auto",
+                          "--out", out])
+    quick_s = time.perf_counter() - t0
+    tiny_n, flex_n = tinystep.launches, flexstep.launches
+    assert tiny_n >= 2 and tinystep.launches_bf16 == 0, \
+        f"tinystep launched {tiny_n} times in its f32 mode through compare"
+    assert flex_n >= 2 and flexstep.launches_bf16 == 0, \
+        f"flexstep launched {flex_n} times in its f32 mode through compare"
+    for ds, kernel in (("pinwheel", "tinystep"), ("auto", "flexstep")):
+        row = quick[ds]["row"]
+        budget = row["budget"]
+        assert (budget["svae_engine"], budget["svae_kernel"],
+                budget["svae_kernel_mode"]) == ("kernel", kernel, "f32"), budget
+        finite(row)
+        legs(f"{ds} --quick", quick[ds])
+        print(f"phase N: {ds} --quick row: svae {row['svae']['iw_best']} vae "
+              f"{row['vae']['iw_best']} gmm {row['gmm']['exact_predictive']}", flush=True)
+    written = json.loads(Path(out).read_text())
+    assert set(written) == {"pinwheel", "auto"}, set(written)
+    print(f"phase N: compare --quick --engine kernel (pinwheel, auto) in {quick_s:.1f} s: "
+          f"tinystep {tiny_n} launches, flexstep {flex_n} (f32 mode); {card}", flush=True)
+
+    # (2) mnist: the SVAE leg cut to 20 + 20 steps, the VAE at --quick, the
+    # Bernoulli mixture at its full 300 steps
+    t0 = time.perf_counter()
+    spec = dict(compare.quick_spec(compare.SPECS["mnist"]),
+                bmm_steps=compare.SPECS["mnist"]["bmm_steps"])
+    mnist = compare.run_dataset("mnist", engine="kernel", device="cuda", spec=spec,
+                                svae_cut=dict(warmup=20, steps=20, eval_every=20))
+    row = mnist["row"]
+    assert row["budget"]["svae_engine"] == "step", row["budget"]
+    assert row["budget"]["svae_engine_reason"] == compare.WARMUP_REASON
+    finite(row)
+    legs("mnist (svae 20 + 20 steps, vae --quick, bmm 300)", mnist)
+    bmm = row["gmm"]["bernoulli_mixture_exact_predictive"]
+    assert bmm > BMM_FLOOR, f"Bernoulli mixture {bmm} under its CPU floor {BMM_FLOOR}"
+    train, test, _ = load_dataset("mnist", seed=0)
+    x = torch.tensor(train, dtype=torch.float32, device="cuda")
+    xt = torch.tensor(test, dtype=torch.float32, device="cuda")
+    ref_row, _ = compare.bmm_leg(x, xt, 300, rows=compare.REFERENCE_INIT_ROWS["mnist"])
+    ref_bmm = ref_row["bernoulli_mixture_exact_predictive"]
+    assert abs(ref_bmm - (-227.946)) < 0.1, f"Bernoulli mixture from the reference's rows {ref_bmm}"
+    print(f"phase N: mnist in {time.perf_counter() - t0:.1f} s: svae {row['svae']['iw_best']} "
+          f"(20 + 20 steps) vae {row['vae']['iw_best']} (--quick); Bernoulli mixture {bmm} "
+          f"(floor {BMM_FLOOR}), from the reference's rows {ref_bmm} (reference -227.946, "
+          f"bar 0.1); {card}", flush=True)
+
+    # (3) auto at its full budget, seed 0
+    t0 = time.perf_counter()
+    flexstep.launches = flexstep.launches_bf16 = 0
+    auto = compare.run_dataset("auto", engine="kernel", device="cuda")
+    row = auto["row"]
+    assert flexstep.launches >= 12 and flexstep.launches_bf16 == 0, flexstep.launches
+    assert row["budget"]["steps"] == 3000 and row["budget"]["iw"] == 1000
+    finite(row)
+    legs("auto (full budget)", auto)
+    svae_iw, vae_iw = row["svae"]["iw_best"], row["vae"]["iw_best"]
+    gmm_iw = row["gmm"]["exact_predictive"]
+    train, test, _ = load_dataset("auto", seed=0)
+    x = torch.tensor(train, dtype=torch.float32, device="cuda")
+    xt = torch.tensor(test, dtype=torch.float32, device="cuda")
+    ref_gmm = compare.gmm_leg(x, xt, 300, rows=compare.REFERENCE_INIT_ROWS["auto"])[0][
+        "exact_predictive"]
+    print(f"phase N: auto full budget (seed 0) in {time.perf_counter() - t0:.1f} s: svae "
+          f"{svae_iw} (reference -8.945 +- 0.046), vae {vae_iw} (-9.118 +- 0.044), gmm "
+          f"{gmm_iw} (floor {GMM_AUTO_FLOOR}; from the reference's rows {ref_gmm}, reference "
+          f"-8.969), svae_beats_vae {row['svae_beats_vae']}, flexstep {flexstep.launches} "
+          f"launches; {card}", flush=True)
+    assert row["svae_beats_vae"], row
+    assert abs(svae_iw - (-8.945)) <= 4 * 0.046, svae_iw
+    assert abs(vae_iw - (-9.118)) <= 4 * 0.044, vae_iw
+    assert gmm_iw > GMM_AUTO_FLOOR, gmm_iw
+    assert abs(ref_gmm - (-8.969)) < 0.05, ref_gmm
+
+
 def main() -> int:
     import torch
 
@@ -2843,6 +2978,10 @@ def main() -> int:
     bf16_kernels[1]["launches"] = flex_bf16_launches
     slice_j_paths_phase(card, bigk_ms)
     print(f"phase M done at {elapsed()}", flush=True)
+
+    # N. slice H: the three-model comparison
+    compare_phase(card)
+    print(f"phase N done at {elapsed()}", flush=True)
 
     # 9. result
     print(json.dumps({"kernels": [{

@@ -31,7 +31,12 @@ through ``train_svae --fused-decoder``; and the training harness —
 ``train.trainer`` (``SvaeTrainer``, ``GmmTrainer``, ``SmmTrainer``),
 ``train.checkpoint``, ``train.metrics``, ``utils.guards``, the entry
 ``svax_torch.evaluate`` and ``models.svae.generate`` — and the serving layer,
-``serve`` (bundles, the bucketed server, its ``torch.export`` tier).
+``serve`` (bundles, the bucketed server, its ``torch.export`` tier); and
+the paper's three-model comparison — ``models.vae`` with
+``models.evaluation.vae_iw_loglik`` and ``train.trainer.VaeTrainer``, the
+Bernoulli mixture (``expfam.beta``, ``pgm.bmm``, ``models.bmm_baseline``),
+``expfam.mvn`` and ``expfam.base``, and the entries ``svax_torch.train_vae``
+and ``svax_torch.compare``.
 ``configs`` carries the named configs the entries read.
 """
 

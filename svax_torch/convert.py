@@ -11,7 +11,11 @@ dict of numpy arrays with the same field names. Layouts are identical on
 both sides (the full recognition head's final width 2d + d(d−1)/2
 included), so both directions are exact copies. ``mixture_state_from_numpy``
 and ``mixture_state_to_numpy`` do the same for the pure mixtures'
-``GmmTrainState``/``SmmTrainState`` (``nat``, ``step``).
+``GmmTrainState``/``SmmTrainState`` (``nat``, ``step``),
+``vae_state_from_numpy``/``vae_state_to_numpy`` for the plain VAE's
+``VaeTrainState`` (``params``, optax's Adam state, ``step``), and
+``bmm_nat_*``/``bmm_state_*`` for the Bernoulli mixture's ``BmmNat``
+(``dir_nat``, ``beta_nat``) and ``BmmTrainState``.
 
 Under component parallelism a rank holds a K-slice of the naturals (and of
 the prior): ``shard_nat`` cuts rank i's contiguous slice of K, as the
@@ -27,8 +31,11 @@ import numpy as np
 import torch
 
 from svax_torch.expfam.niw import NiwNat
+from svax_torch.models.bmm_baseline import BmmTrainState
 from svax_torch.models.gmm_baseline import GmmTrainState
+from svax_torch.models.vae import VaeTrainState
 from svax_torch.parallel import mesh
+from svax_torch.pgm.bmm import BmmNat
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train.svae_step import AdamState, SvaeTrainState
 
@@ -78,11 +85,7 @@ def state_from_numpy(state, *, device="cpu", dtype=None) -> SvaeTrainState:
     adam = state.opt_state[0]
     return SvaeTrainState(
         nn_params=_params_from(state.nn_params, device, dtype),
-        opt_state=AdamState(
-            count=int(np.asarray(adam.count)),
-            mu=_params_from(adam.mu, device, dtype),
-            nu=_params_from(adam.nu, device, dtype),
-        ),
+        opt_state=_adam_from(adam, device, dtype),
         pgm_nat=gmm_nat_from_numpy(state.pgm_nat, device=device, dtype=dtype),
         step=int(np.asarray(state.step)),
     )
@@ -93,11 +96,7 @@ def state_to_numpy(state: SvaeTrainState) -> dict:
     "pgm_nat": {"dir_nat", "eta1".."eta4"}, "step"} of numpy arrays."""
     return {
         "nn_params": _params_to(state.nn_params),
-        "adam": {
-            "count": np.asarray(state.opt_state.count, np.int32),
-            "mu": _params_to(state.opt_state.mu),
-            "nu": _params_to(state.opt_state.nu),
-        },
+        "adam": _adam_to(state.opt_state),
         "pgm_nat": gmm_nat_to_numpy(state.pgm_nat),
         "step": np.asarray(state.step, np.int32),
     }
@@ -113,6 +112,52 @@ def mixture_state_from_numpy(state, *, device="cpu", dtype=None, cls=GmmTrainSta
 def mixture_state_to_numpy(state) -> dict:
     """The port's mixture state → {"nat": {"dir_nat", "eta1".."eta4"}, "step"}."""
     return {"nat": gmm_nat_to_numpy(state.nat), "step": np.asarray(state.step, np.int32)}
+
+
+def _adam_from(adam, device, dtype) -> AdamState:
+    return AdamState(count=int(np.asarray(adam.count)),
+                     mu=_params_from(adam.mu, device, dtype),
+                     nu=_params_from(adam.nu, device, dtype))
+
+
+def _adam_to(adam: AdamState) -> dict:
+    return {"count": np.asarray(adam.count, np.int32), "mu": _params_to(adam.mu),
+            "nu": _params_to(adam.nu)}
+
+
+def vae_state_from_numpy(state, *, device="cpu", dtype=None) -> VaeTrainState:
+    """The JAX package's VaeTrainState with numpy leaves → the port's."""
+    return VaeTrainState(params=_params_from(state.params, device, dtype),
+                         opt_state=_adam_from(state.opt_state[0], device, dtype),
+                         step=int(np.asarray(state.step)))
+
+
+def vae_state_to_numpy(state: VaeTrainState) -> dict:
+    """The port's VAE state → {"params", "adam": {"count", "mu", "nu"}, "step"}."""
+    return {"params": _params_to(state.params), "adam": _adam_to(state.opt_state),
+            "step": np.asarray(state.step, np.int32)}
+
+
+def bmm_nat_from_numpy(nat, *, device="cpu", dtype=None) -> BmmNat:
+    """BmmNat with numpy leaves (attribute access) → the port's BmmNat."""
+    return BmmNat(dir_nat=_tensor(nat.dir_nat, device, dtype),
+                  beta_nat=_tensor(nat.beta_nat, device, dtype))
+
+
+def bmm_nat_to_numpy(nat: BmmNat) -> dict:
+    return {"dir_nat": nat.dir_nat.detach().cpu().numpy(),
+            "beta_nat": nat.beta_nat.detach().cpu().numpy()}
+
+
+def bmm_state_from_numpy(state, *, device="cpu", dtype=None) -> BmmTrainState:
+    """The JAX package's BmmTrainState with numpy leaves → the port's."""
+    return BmmTrainState(nat=bmm_nat_from_numpy(state.nat, device=device, dtype=dtype),
+                         step=int(np.asarray(state.step)))
+
+
+def bmm_state_to_numpy(state: BmmTrainState) -> dict:
+    """The port's Bernoulli-mixture state → {"nat": {"dir_nat", "beta_nat"}, "step"}."""
+    return {"nat": bmm_nat_to_numpy(state.nat), "step": np.asarray(state.step, np.int32)}
 
 
 def _nat_leaves(nat: GmmNat) -> list[torch.Tensor]:

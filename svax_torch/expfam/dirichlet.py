@@ -9,6 +9,11 @@ from __future__ import annotations
 import torch
 
 
+def standard_to_natural(alpha: torch.Tensor) -> torch.Tensor:
+    """α (…, K) → η = α − 1."""
+    return alpha - 1.0
+
+
 def natural_to_standard(nat: torch.Tensor) -> torch.Tensor:
     """η (…, K) → α = η + 1."""
     return nat + 1.0

@@ -1,7 +1,7 @@
-"""Held-out evaluation (``svax/models/evaluation.py``, the
-``cluster_purity``, ``gmm_predictive_log_prob``, ``svae_iw_loglik`` and
-``svae_smm_iw_loglik`` subset; both bounds take the recognition head,
-the combine's jitter and the nets' activation).
+"""Held-out evaluation (``svax/models/evaluation.py``: ``cluster_purity``,
+``gmm_predictive_log_prob``, ``svae_iw_loglik``, ``svae_smm_iw_loglik``
+and ``vae_iw_loglik``; the SVAE bounds take the recognition head, the
+combine's jitter and the nets' activation).
 
 ``gmm_predictive_log_prob`` is the exact VB posterior predictive of the
 conjugate GMM (a mixture of Student-t, Bishop PRML eq. 10.81): the
@@ -12,6 +12,8 @@ times the decoder (Gaussian or Bernoulli, in f32 as the reference
 evaluates it). ``svae_smm_iw_loglik`` is the same bound for the
 Student-t-prior SVAE: proposal the u–z posterior of ``svae_smm``, target
 the expected-parameter Student-t mixture (u integrated out in closed form).
+``vae_iw_loglik`` is the plain VAE's bound: proposal q(z|x), target
+N(0, I) times the decoder.
 """
 
 from __future__ import annotations
@@ -195,3 +197,29 @@ def svae_smm_iw_loglik(nn_params: dict, pgm_nat: GmmNat, x: torch.Tensor,
     choice, eps = _iw_draws(post, num_samples, x, generator, gumbel, eps)
     return _iw_bound(nn_params, post, x, choice, eps,
                      lambda z: _expected_smm_log_prob(z, exp, dof), likelihood, activation)
+
+
+@torch.no_grad()
+def vae_iw_loglik(params: dict, x: torch.Tensor, config, num_samples: int = 100, *,
+                  generator: torch.Generator | None = None,
+                  eps: torch.Tensor | None = None) -> torch.Tensor:
+    """IWAE bound of the plain VAE (``models.vae``), per point (N,):
+    lse_s[log p(x|z) + log N(z; 0, I) − log q(z|x)] − log S. ε (S, N, d) is
+    ``eps`` when given, else drawn from ``generator``; the samples are then
+    scored _IW_CHUNK at a time, which leaves every value as it is."""
+    from svax_torch.models import vae
+
+    mean, var = vae.posterior(params, x, config)
+    if eps is None:
+        eps = torch.randn((num_samples,) + tuple(mean.shape), generator=generator,
+                          device=mean.device, dtype=mean.dtype)
+    log_w = []
+    for lo in range(0, num_samples, _IW_CHUNK):
+        e = eps[lo:lo + _IW_CHUNK]
+        z = mean[None] + torch.sqrt(var)[None] * e
+        log_q = (-0.5 * e**2 - 0.5 * torch.log(var)[None] - 0.5 * _LOG_2PI).sum(dim=-1)
+        log_prior = (-0.5 * z**2 - 0.5 * _LOG_2PI).sum(dim=-1)
+        loglik = nets.log_likelihood(params["decoder"], z, x[None], config.likelihood,
+                                     config.activation)
+        log_w.append(loglik + log_prior - log_q)
+    return torch.logsumexp(torch.cat(log_w), dim=0) - math.log(float(num_samples))

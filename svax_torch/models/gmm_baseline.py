@@ -21,9 +21,13 @@ class GmmTrainState(NamedTuple):
     step: int
 
 
-def init_state(generator: torch.Generator, prior: GmmNat, data=None,
-               pseudo_counts: float = 2.0) -> GmmTrainState:
-    nat = gmm.init_variational(generator, prior, data, pseudo_counts=pseudo_counts)
+def init_state(generator: torch.Generator | None, prior: GmmNat, data=None,
+               pseudo_counts: float = 2.0, rows: torch.Tensor | None = None
+               ) -> GmmTrainState:
+    """``gmm.init_variational``'s naturals at step 0 (``rows`` injects the K
+    data rows)."""
+    nat = gmm.init_variational(generator, prior, data, pseudo_counts=pseudo_counts,
+                               rows=rows)
     return GmmTrainState(nat=nat, step=0)
 
 

@@ -113,11 +113,13 @@ def init_variational(
     data: torch.Tensor | None = None,
     mean_scale: float = 1.0,
     pseudo_counts: float = 1.0,
+    rows: torch.Tensor | None = None,
 ) -> GmmNat:
     """q's naturals as the prior plus ``pseudo_counts`` pseudo-observations
     per component, at a random data point (if ``data`` is given, drawn
-    without replacement) or at N(0, mean_scale²). The increment is a valid
-    sufficient-statistic bundle, so the result is a valid NIW natural.
+    without replacement, or the K indices ``rows``) or at N(0, mean_scale²).
+    The increment is a valid sufficient-statistic bundle, so the result is a
+    valid NIW natural.
 
     ``generator`` must live on the prior's device."""
     k = prior.dir_nat.shape[0]
@@ -128,10 +130,9 @@ def init_variational(
             (k, d), generator=generator, device=ref.device, dtype=ref.dtype
         )
     else:
-        idx = torch.randperm(
-            data.shape[0], generator=generator, device=ref.device
-        )[:k]
-        locs = data[idx].to(ref.dtype)
+        if rows is None:
+            rows = torch.randperm(data.shape[0], generator=generator, device=ref.device)[:k]
+        locs = data[rows.to(data.device)].to(device=ref.device, dtype=ref.dtype)
     c = pseudo_counts
     outer = locs[:, :, None] * locs[:, None, :]
     eye = torch.eye(d, dtype=ref.dtype, device=ref.device)

@@ -11,8 +11,9 @@ stack), or their plain versions, taking the place of the reference's
 ``make_scan_runner`` and ``make_megakernel_runner``; ``make_step_runner``
 runs T calls of the per-step train step over a minibatch stack (the
 reference's ``make_minibatch_scan_runner``), the combine kernel inside
-when ``fused_combine`` is set; ``make_mixture_runner`` does the same for
-the GMM/SMM through the mixstep kernel (the reference's
+when ``fused_combine`` is set, and ``make_batch_runner`` does the same for
+the steps of the pure mixtures and the plain VAE; ``make_mixture_runner``
+runs the GMM/SMM through the mixstep kernel (the reference's
 ``make_mixture_megakernel_runner``).
 """
 
@@ -295,6 +296,44 @@ def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
         return torch.randint(0, n, (t_steps, m), generator=gen, device=gen.device)
     keys = torch.rand((t_steps, n), generator=gen, device=gen.device)
     return torch.argsort(keys, dim=1, stable=True)[:, :m]
+
+
+def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
+                      replace: bool = True, data_group=None,
+                      noise: bool = False) -> Callable:
+    """Chunk runner ``runner(state, x, t_steps) → (state, metrics)`` for a
+    step that is not the SVAE's (the pure mixtures', the plain VAE's): T
+    calls of ``step(state, batch)`` over the full batch or a (T, M) index
+    stack from ``minibatch_indices`` (with or without replacement), drawn
+    from a ``torch.Generator`` on x's device keyed ``seed + state.step``, so
+    a resumed chunk draws what the uninterrupted run drew. ``noise=True``
+    passes that generator on, ``step(state, batch, generator)``, for the
+    step's own draws after the indices; under ``data_group`` each rank keeps
+    its contiguous slice of every batch and, with ``noise``, draws from its
+    own generator (one number more from the shared one, folded with the
+    rank's place, ``mesh.fold_seed``). Metrics are each step's, stacked to
+    (T,) tensors."""
+    ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
+
+    def runner(state, x, t_steps: int):
+        n = x.shape[0]
+        m = min(batch_size or n, n)
+        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+        idx = minibatch_indices(gen, n, m, t_steps, replace) if m < n else None
+        if noise and data_group is not None:
+            gen = torch.Generator(device=x.device).manual_seed(mesh.fold_seed(
+                int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device)),
+                data_idx))
+        mine = slice(data_idx * (m // ndata), (data_idx + 1) * (m // ndata))
+        extra = (gen,) if noise else ()
+        rows = []
+        for t in range(t_steps):
+            xb = x if idx is None else x[idx[t]]
+            state, mets = step(state, xb[mine], *extra)
+            rows.append(mets)
+        return state, {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
+
+    return runner
 
 
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,

@@ -4,7 +4,7 @@ loop → checkpoint → metrics.
 ONE engine (``Trainer``) owns the loop mechanics — chunking, restore or
 start, warmup, the per-chunk evaluation with best tracking, patience and
 time-to-target, checkpoints and JSONL rows — and each workload (SVAE, GMM,
-SMM) plugs in through a few hooks. The hot loop runs T steps a call
+SMM, the plain VAE) plugs in through a few hooks. The hot loop runs T steps a call
 through the port's chunk runners (``train.loop``), on one of three
 engines (``TrainerConfig.engine``):
 
@@ -107,10 +107,6 @@ class TrainerConfig:
     reseed_cov_scale: float = 0.0  # 0 = auto (within-cluster variance)
     # Where the state and the data live; "cuda" raises without a card.
     device: str = "cuda"
-
-
-def _stack_rows(rows: list[dict]) -> dict:
-    return {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
 
 
 def _host(state):
@@ -475,32 +471,15 @@ class _ConjugateMixtureTrainer(Trainer):
         raise NotImplementedError
 
     def make_step_runner(self) -> Callable:
-        """T steps a call: the full batch, or a (T, M) index stack drawn
-        with replacement (without under data parallelism) from a generator
-        keyed ``seed + state.step``; under data parallelism each rank keeps
-        its contiguous slice of every batch."""
-        tc = self.tc
+        """T steps a call (``loop.make_batch_runner``): the full batch, or a
+        (T, M) index stack drawn with replacement (without under data
+        parallelism) from a generator keyed ``seed + state.step``; under
+        data parallelism each rank keeps its contiguous slice of every
+        batch."""
         data_group = None if self.mesh is None else self.mesh.data_group
-        step = self._make_raw_step(data_group)
-        ndata = 1 if self.mesh is None else self.mesh.data
-        idx_d = 0 if self.mesh is None else self.mesh.data_idx
-        m = self._batch
-
-        def runner(state, x, t_steps: int):
-            n = x.shape[0]
-            idx = None
-            if m < n:
-                gen = torch.Generator(device=x.device).manual_seed(tc.seed + state.step)
-                idx = loop.minibatch_indices(gen, n, m, t_steps, replace=not tc.data_parallel)
-            mine = slice(idx_d * (m // ndata), (idx_d + 1) * (m // ndata))
-            rows = []
-            for t in range(t_steps):
-                xb = x if idx is None else x[idx[t]]
-                state, mets = step(state, xb[mine])
-                rows.append(mets)
-            return state, _stack_rows(rows)
-
-        return runner
+        return loop.make_batch_runner(self._make_raw_step(data_group), batch_size=self._batch,
+                                      seed=self.tc.seed, replace=not self.tc.data_parallel,
+                                      data_group=data_group)
 
     def make_kernel_runner(self) -> Callable | None:
         from svax_torch.ops import mixstep
@@ -570,3 +549,42 @@ class SmmTrainer(_ConjugateMixtureTrainer):
 
         return smm_baseline.make_train_step(self.prior, self.rho, num_total=self._num_total,
                                             dof=self.dof, data_group=data_group)
+
+
+class VaeTrainer(Trainer):
+    """The plain-VAE baseline through the engine (``models.vae``): the
+    per-step engine only, a ``"kernel"`` request refused and ``"auto"``
+    falling back, as the reference's."""
+
+    def __init__(self, model_config, trainer_config: TrainerConfig, input_dim: int):
+        super().__init__(trainer_config)
+        self.mc = model_config
+        self.input_dim = input_dim
+
+    def init(self, generator: torch.Generator, data: torch.Tensor | None = None):
+        from svax_torch.models import vae
+
+        dtype = data.dtype if data is not None else torch.float32
+        return vae.init_state(generator, self.input_dim, self.mc,
+                              tuple(self.tc.encoder_hidden), tuple(self.tc.decoder_hidden),
+                              device=self.device, dtype=dtype)
+
+    def make_step_runner(self) -> Callable:
+        from svax_torch.models import vae
+
+        tc = self.tc
+        data_group = None if self.mesh is None else self.mesh.data_group
+        step = vae.make_train_step(self.mc, tc.lr, data_group=data_group)
+        return loop.make_batch_runner(step, batch_size=self._batch, seed=tc.seed,
+                                      replace=not tc.data_parallel, data_group=data_group,
+                                      noise=True)
+
+    def make_eval(self) -> Callable:
+        from svax_torch.models import vae
+
+        @torch.no_grad()
+        def evaluate(state, x_test, seed: int):
+            gen = torch.Generator(device=x_test.device).manual_seed(seed)
+            return {"test_elbo_per_point": vae.elbo(state.params, x_test, gen, self.mc)[0]}
+
+        return evaluate

@@ -4,9 +4,15 @@ mixstep and estep CUDA kernels). BASELINE config #2.
     python -m svax_torch.train_gmm --config pinwheel-gmm [--init kmeanspp]
         [--device cuda|cpu] [--engine kernel|plain] [--fused-kernel]
         [--unroll U] [--eval-every E] [--steps N] [--seed S] [--dp]
-        [--logfile PATH]
+        [--batch-size M] [--rho-decay D] [--logfile PATH]
 
-Mirrors experiments/train_gmm.py on the full batch with constant ρ.
+Mirrors experiments/train_gmm.py. ``--batch-size M`` (0, the default, is
+the full batch) trains each step on M distinct rows drawn afresh, as the
+reference's ``choice(..., replace=False)``, from a ``torch.Generator`` on
+the device seeded ``--seed + 1`` (``minibatch_step``); ``--rho-decay D``
+steps with ρ_t = ρ/(1 + D·t). Both need the plain engine: the mixstep
+kernel trains on the full batch with a constant ρ, and ``--engine kernel``
+refuses either with its gate's reason.
 ``--engine kernel`` (the default) runs chunks of ``--eval-every`` steps,
 each one launch of the mixstep kernel on CUDA, and logs each chunk's elbo
 with the global KL at the post-chunk naturals. ``--engine plain`` runs the
@@ -40,6 +46,7 @@ import argparse
 import json
 import os
 import sys
+from typing import Callable
 
 import numpy as np
 import torch
@@ -79,10 +86,15 @@ def setup(args, x_train_np: np.ndarray, *, fused: bool = False):
         raise ValueError("--fused-kernel selects the plain engine's E-step "
                          "(use --engine plain)")
     if args.engine == "kernel":
+        from svax_torch.train.svae_step import rho_schedule
+
         last = args.steps % args.eval_every  # a short last chunk
         mixstep.check_unroll(args.unroll, args.eval_every, last or args.eval_every)
+        batch = getattr(args, "batch_size", 0)
         reason = mixstep.unsupported_reason(
-            data_dim=x_train_np.shape[1], batch_full=True, rho=args.rho,
+            data_dim=x_train_np.shape[1],
+            batch_full=not 0 < batch < x_train_np.shape[0],
+            rho=rho_schedule(args.rho, getattr(args, "rho_decay", 0.0)),
             num_points=x_train_np.shape[0], num_components=args.num_components,
             data_parallel=getattr(args, "dp", False))
         if reason is not None:
@@ -122,6 +134,11 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the WORLD_SIZE ranks torchrun starts "
                         "(plain engine)")
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="rows a step, drawn without replacement (0 = full batch; "
+                        "plain engine)")
+    p.add_argument("--rho-decay", type=float, default=0.0,
+                   help="rho_t = rho / (1 + decay * t) (plain engine)")
     p.add_argument("--logfile", default="", help="append the JSON rows to this file")
     args = p.parse_args(argv)
     from svax_torch.configs import apply_config
@@ -145,6 +162,27 @@ def main(argv: list[str] | None = None) -> dict:
             dist.destroy_process_group()
 
 
+def minibatch_step(step: Callable, x: torch.Tensor, batch: int,
+                   generator: torch.Generator | None = None, *, part: slice = slice(None),
+                   indices=None) -> Callable:
+    """``step(state, batch)`` as ``fn(state, _) → step(state, x[idx][part])``:
+    each call trains on ``batch`` distinct rows of ``x``, drawn from
+    ``generator`` (``loop.minibatch_indices`` without replacement) or taken
+    in turn from ``indices`` (an injected (T, M) stack); ``part`` is this
+    rank's slice of the batch under ``--dp``. The second argument, the data
+    ``run_mixture`` passes, is ignored."""
+    from svax_torch.train.loop import minibatch_indices
+
+    stack = None if indices is None else iter(indices)
+
+    def fn(state, _unused=None):
+        idx = (next(stack) if stack is not None
+               else minibatch_indices(generator, x.shape[0], batch, 1, replace=False)[0])
+        return step(state, x[torch.as_tensor(idx, device=x.device)][part])
+
+    return fn
+
+
 def _train(args, dmesh, rank: int) -> dict:
     """The training run of ``main`` on this rank (``dmesh``: the data mesh
     when ``--dp`` runs on several ranks); rank 0 prints."""
@@ -161,16 +199,18 @@ def _train(args, dmesh, rank: int) -> dict:
     x_test = torch.tensor(test, dtype=dtype, device=device)
     n = x_train.shape[0]
     state = gmm_baseline.GmmTrainState(nat=nat, step=0)
-    world, x_mine = 1, x_train
+    batch = args.batch_size if 0 < args.batch_size < n else n
+    world, x_mine, mine = 1, x_train, slice(None)
     if dmesh is not None:
         world = dmesh.data
-        if n % world:
-            raise ValueError(f"--dp: N = {n} does not split over {world} ranks")
-        x_mine = x_train[dmesh.data_idx * (n // world):(dmesh.data_idx + 1) * (n // world)]
+        if batch % world:
+            raise ValueError(f"--dp: a batch of {batch} does not split over {world} ranks")
+        mine = slice(dmesh.data_idx * (batch // world), (dmesh.data_idx + 1) * (batch // world))
+        x_mine = x_train[mine] if batch == n else x_train
     if rank == 0:
-        print(f"device={device} n={n} K={args.num_components} engine={args.engine}"
-              f"{' fused-kernel' if args.fused_kernel else ''} unroll={args.unroll}"
-              f"{f' dp world_size={world}' if args.dp else ''}")
+        print(f"device={device} n={n} batch={batch} K={args.num_components} "
+              f"engine={args.engine}{' fused-kernel' if args.fused_kernel else ''} "
+              f"unroll={args.unroll}{f' dp world_size={world}' if args.dp else ''}")
 
     rows = []
     logger = JsonlLogger((args.logfile or None) if rank == 0 else None, echo=rank == 0)
@@ -186,9 +226,15 @@ def _train(args, dmesh, rank: int) -> dict:
         runner = make_mixture_runner(prior, rho=args.rho, unroll=args.unroll)
         kw = {"runner": runner}
     else:
-        kw = {"step": gmm_baseline.make_train_step(
-            prior, args.rho, num_total=n, fused=args.fused_kernel,
-            data_group=None if dmesh is None else dmesh.data_group)}
+        from svax_torch.train.svae_step import rho_schedule
+
+        step = gmm_baseline.make_train_step(
+            prior, rho_schedule(args.rho, args.rho_decay), num_total=n,
+            fused=args.fused_kernel, data_group=None if dmesh is None else dmesh.data_group)
+        if batch < n:
+            gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+            step = minibatch_step(step, x_train, batch, gen, part=mine)
+        kw = {"step": step}
     state, seconds = run_mixture(state, x_mine, steps=args.steps,
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds
