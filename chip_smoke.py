@@ -258,6 +258,21 @@ N. slice H, the three-model comparison (``svax_torch.compare``) at the
    each leg within 4 sd of the reference's 8-seed mean (−8.945 ± 0.046,
    −9.118 ± 0.044), the GMM leg above ``GMM_AUTO_FLOOR`` and, from the
    reference's rows, within 0.05 of −8.969;
+O. slice K, the seed studies and reproduce, on the card, writing under
+   ``build/chip_smoke_O/``: (1) ``seed_sweep --engine kernel --variants
+   aug0.4+rs2 --seed-list 0..5 --nn-precision default`` (15,000 steps,
+   IW 1000; tinystep's bf16-product mode, at least 180 launches, every
+   value finite), each seed's line printed, gated on the reference's
+   32-seed statistics (runs/seed_sweep_r5_mega_default32.json: −5.569 ±
+   0.346, 13/32 crossing): the 6 seeds' mean IW at least −5.569 −
+   3·0.346/√6 and at least one above −5.41; (2) ``reproduce --quick
+   --stages gmm svae auto-tt serve`` (mixstep, tinystep's f32 GMM and SMM
+   branches, flexstep's f32 mode, the per-step engine, its mnist-svae and
+   bigk-dp rows cut to 2 steps), each stage's
+   seconds and rows printed: every row finite, the serve round-trip
+   finite, the pure GMM using at least 6 components, tinystep's SMM
+   branch launched (its own count, ``tinystep.launches_smm``); the
+   launches join the kernels line's counts;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -2744,6 +2759,91 @@ def compare_phase(card: str) -> None:
     assert abs(ref_gmm - (-8.969)) < 0.05, ref_gmm
 
 
+SWEEP_REF_MEAN, SWEEP_REF_SD, SWEEP_BAR = -5.569, 0.346, -5.41  # 32 seeds, aug0.4+rs2
+
+
+def studies_phase(card: str) -> dict:
+    """O. the seed sweep and reproduce (docstring); returns the launches
+    {"tinystep_bf16", "tinystep", "tinystep_smm", "flexstep", "mixstep"}."""
+    from svax_torch import reproduce, seed_sweep
+    from svax_torch.ops import flexstep, mixstep, tinystep
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_O"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # (1) the sweep: 6 seeds of the shipped recipe on tinystep's bf16 mode
+    tinystep.launches = tinystep.launches_bf16 = 0
+    t0 = time.perf_counter()
+    sweep = seed_sweep.main(["--engine", "kernel", "--variants", "aug0.4+rs2", "--seed-list",
+                             *map(str, range(6)), "--nn-precision", "default", "--device",
+                             "cuda", "--json", str(work / "seed_sweep_torch.json")])
+    sweep_s = time.perf_counter() - t0
+    n_bf16 = tinystep.launches_bf16
+    assert n_bf16 >= 180 and tinystep.launches == 0, \
+        f"the sweep launched tinystep {n_bf16} times in its bf16 mode ({tinystep.launches} f32)"
+    res = sweep["results"]["aug0.4+rs2"]
+    for r in res["rows"]:
+        assert all(math.isfinite(r[k]) for k in ("iw_per_point", "final_elbo_per_point",
+                                                 "test_elbo_per_point")), r
+        print(f"phase O: sweep seed {r['seed']}: IW/pt {r['iw_per_point']}, ELBO/pt "
+              f"{r['final_elbo_per_point']}, test ELBO/pt {r['test_elbo_per_point']}, "
+              f"{'CROSS' if r['crossed'] else 'below'} {r['gmm_bar']} in {r['wall_s']} s; "
+              f"{card}", flush=True)
+    iws = [r["iw_per_point"] for r in res["rows"]]
+    mean, floor = sum(iws) / len(iws), SWEEP_REF_MEAN - 3 * SWEEP_REF_SD / math.sqrt(len(iws))
+    crossed = sum(iw > SWEEP_BAR for iw in iws)
+    print(f"phase O: seed_sweep --engine kernel aug0.4+rs2, seeds 0-5 (15,000 steps, IW 1000, "
+          f"bf16 products) in {sweep_s:.1f} s: mean {mean:.4f} +- {res['summary']['sd']} "
+          f"(floor {floor:.4f} from the reference's {SWEEP_REF_MEAN} +- {SWEEP_REF_SD} over "
+          f"32 seeds), crossing {crossed}/{len(iws)} (reference 13/32), tinystep {n_bf16} launches "
+          f"(bf16 mode); {card}", flush=True)
+    assert mean >= floor, f"the sweep's mean IW {mean} is under {floor}"
+    assert crossed >= 1, f"no seed of {len(iws)} crossed {SWEEP_BAR}: {iws}"
+
+    # (2) reproduce --quick: gmm, svae, auto-tt, serve
+    tinystep.launches = tinystep.launches_bf16 = tinystep.launches_smm = 0
+    flexstep.launches = flexstep.launches_bf16 = mixstep.launches = 0
+    t0 = time.perf_counter()
+    # The per-step rows (mnist-svae, bigk-dp: the plain combine, ~4 steps/s)
+    # cut to 2 of --quick's 20 steps.
+    rep = reproduce.main(["--quick", "--stages", "gmm", "svae", "auto-tt", "serve",
+                          "--device", "cuda", "--out", str(work / "reproduce_summary_torch.json"),
+                          "--auto-tt-out", str(work / "auto_tt_torch.json")],
+                         steps={"mnist-svae": 2, "bigk-dp": 2})
+    rep_s = time.perf_counter() - t0
+    rows = rep["results"]
+    smm_n = tinystep.launches_smm
+    counts = {"tinystep_bf16": n_bf16, "tinystep": tinystep.launches - smm_n,
+              "tinystep_smm": smm_n, "flexstep": flexstep.launches,
+              "mixstep": mixstep.launches}
+    for stage, secs in rep["seconds"].items():
+        print(f"phase O: reproduce --quick stage {stage}: {secs:.2f} s; {card}", flush=True)
+    for name, row in rows.items():
+        if isinstance(row, dict):
+            print(f"phase O: reproduce row {name}: {json.dumps(row)}", flush=True)
+            vals = [v for v in row.values() if isinstance(v, float)]
+            assert all(math.isfinite(v) for v in vals), (name, row)
+    kernels = {name: rows[name]["kernel"] for name, _, _ in reproduce.SVAE_ROWS}
+    assert kernels == {"pinwheel-svae": "tinystep", "auto-svae": "flexstep",
+                       "mnist-svae": "per-step", "bigk-dp": "per-step",
+                       "pinwheel-svae-smm": "tinystep"}, kernels
+    assert rows["auto-time-to-target"]["kernel"] == "flexstep"
+    assert rows["serving"]["finite"] and rows["serving"]["bundle_roundtrip"]
+    assert rows["pinwheel-gmm"]["components_used"] >= 6, rows["pinwheel-gmm"]
+    assert tinystep.launches_bf16 == flexstep.launches_bf16 == 0
+    assert counts["tinystep"] >= 2 and counts["tinystep_smm"] >= 1 and \
+        counts["flexstep"] >= 2 and counts["mixstep"] >= 1, counts
+    print(f"phase O: reproduce --quick (gmm svae auto-tt serve) in {rep_s:.1f} s: launches "
+          f"mixstep {counts['mixstep']}, tinystep f32 {counts['tinystep']} (GMM) + "
+          f"{smm_n} (SMM), flexstep f32 {counts['flexstep']}; pure GMM predictive "
+          f"{rows['pinwheel-gmm']['test_predictive_loglik']:.4f} with "
+          f"{rows['pinwheel-gmm']['components_used']} components; serve IW/pt "
+          f"{rows['serving']['mean_iw_loglik']} with {rows['serving']['components_used']} "
+          f"components; {card}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2982,6 +3082,15 @@ def main() -> int:
     # N. slice H: the three-model comparison
     compare_phase(card)
     print(f"phase N done at {elapsed()}", flush=True)
+
+    # O. slice K: the seed studies and reproduce; their launches join the line
+    studies = studies_phase(card)
+    print(f"phase O done at {elapsed()}", flush=True)
+    bf16_kernels[0]["launches"] += studies["tinystep_bf16"]
+    launches += studies["tinystep"]
+    smm_kernel["launches"] += studies["tinystep_smm"]
+    flex_kernel["launches"] += studies["flexstep"]
+    mixture_kernels[0]["launches"] += studies["mixstep"]
 
     # 9. result
     print(json.dumps({"kernels": [{

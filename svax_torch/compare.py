@@ -62,7 +62,6 @@ K, LR = 10, 1e-3
 BUDGET_KEYS = ("steps", "batch", "d", "s", "hidden", "iw", "rho", "rho_decay", "aug",
                "restarts", "eval_every", "gmm_steps")
 DEFAULT_OUT = "runs/comparison_torch.json"
-REFERENCE_ARTIFACT = Path(__file__).resolve().parent.parent / "runs" / "comparison.json"
 WARMUP_REASON = "warmup phase runs outside the kernels"
 # The K = 10 data rows the reference's mixture legs start from: what
 # jax.random.choice draws under PRNGKey(0) in gmm.init_variational (its
@@ -409,12 +408,11 @@ def mixture_seeds(ds: str, seeds: int, device: str = "cuda") -> list[float]:
 
 
 def check_out(out: str) -> Path:
-    """``out`` as a path; refuses the reference's artifact ``runs/comparison.json``."""
-    path = Path(out)
-    if path.resolve() in (REFERENCE_ARTIFACT, Path("runs/comparison.json").resolve()):
-        raise ValueError(f"--out {out}: runs/comparison.json is the reference's artifact; "
-                         f"the port writes {DEFAULT_OUT}")
-    return path
+    """``out`` as a path; refuses the reference's artifacts in ``runs/``, its
+    ``runs/comparison.json`` among them (``utils.runs.port_artifact``)."""
+    from svax_torch.utils.runs import port_artifact
+
+    return port_artifact(out)
 
 
 def write_rows(rows: dict, out: str) -> Path:

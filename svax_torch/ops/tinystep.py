@@ -70,6 +70,7 @@ SMEM_LIMIT = 232_448
 
 launches = 0  # f32-mode kernel launches made by train_chunk (plain int)
 launches_bf16 = 0  # bf16-product-mode launches
+launches_smm = 0  # the launches above that ran the SMM branch (dof > 0), either mode
 
 
 def bf16_mode(nn_precision: str) -> bool:
@@ -570,7 +571,7 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
     place; the returned state's tensors are views of those buffers, and
     the input state is not modified. CPU tensors: ``train_chunk_plain``.
     """
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_smm
     if x.device.type == "cpu":
         return train_chunk_plain(
             state, prior, x, lr=lr, rho=rho, t_steps=t_steps,
@@ -659,6 +660,8 @@ def train_chunk(state: SvaeTrainState, prior: GmmNat, x: torch.Tensor, *,
         launches_bf16 += 1
     else:
         launches += 1
+    if dof > 0.0:
+        launches_smm += 1
     new_state = SvaeTrainState(
         nn_params=unflat_params(params, state.nn_params),
         opt_state=AdamState(count=state.opt_state.count + t_steps,

@@ -34,6 +34,7 @@ PER_STEP = "per-step"
 FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
                      "(dof > 0 is the Student-t mixture prior)")
 SINGLE_DEVICE = "the whole-train-step kernels are single-device (no data/component sharding)"
+PLAIN_ADAM = "the whole-train-step kernels implement plain Adam only (no weight decay)"
 FULL_HEAD = ("the whole-train-step kernels implement the diagonal recognition head only "
              "(encoder_head='diag'); the full head runs on the per-step engine")
 
@@ -149,7 +150,7 @@ def flexstep_unsupported_reason(config, *, input_dim: int, encoder_hidden,
 def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
                   rho, rho_decay: float = 0.0, likelihood: str = "gaussian",
                   input_dim: int = 0, engine: str = "megakernel",
-                  data_parallel: bool = False) -> str:
+                  data_parallel: bool = False, weight_decay: float = 0.0) -> str:
     """The whole-train-step kernel for this workload, as the reference's
     ``make_megakernel_runner`` picks it (svax/train/loop.py:218-232):
     "tinystep" for full-batch d = 2 constant-ρ work in its shape class, else
@@ -157,8 +158,9 @@ def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
     kernels' reasons and ``engine="auto"`` returns ``PER_STEP``, the
     per-step engine (the reference entry's auto rule,
     experiments/train_svae.py:251-271): a choice by shape, made before any
-    kernel runs. Under data sharding neither kernel runs (``SINGLE_DEVICE``,
-    svax/train/loop.py:117-118). A Bernoulli likelihood fits neither kernel
+    kernel runs. Under data sharding neither kernel runs (``SINGLE_DEVICE``),
+    nor with AdamW's ``weight_decay`` > 0 (``PLAIN_ADAM``): the reference's
+    first two checks, in its order (svax/train/loop.py:115-118). A Bernoulli likelihood fits neither kernel
     (both train a Gaussian decoder), so the Bernoulli decoder's switches
     (``fused_mlp_decoder``, ``fused_decoder``, ``remat_decoder``) always
     run on the per-step engine."""
@@ -168,6 +170,10 @@ def choose_kernel(config, *, batch_full: bool, encoder_hidden, decoder_hidden,
         if engine == "auto":
             return PER_STEP
         raise ValueError(SINGLE_DEVICE)
+    if weight_decay > 0.0:
+        if engine == "auto":
+            return PER_STEP
+        raise ValueError(PLAIN_ADAM)
     kw = dict(encoder_hidden=encoder_hidden, decoder_hidden=decoder_hidden, rho=rho,
               likelihood=likelihood)
     tiny = tinystep_unsupported_reason(config, batch_full=batch_full,
@@ -339,11 +345,11 @@ def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
                      batch_size: int = 0, engine: str = "kernel",
                      replace: bool = True, data_group=None, comp_group=None,
-                     aug_noise: float = 0.0) -> Callable:
+                     aug_noise: float = 0.0, weight_decay: float = 0.0) -> Callable:
     """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
     metrics)`` on the per-step engine: T calls of
     ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
-    step) over a (T, M) index stack drawn with replacement (the reference's
+    step, or ``rho(step)`` for a callable ``rho``) over a (T, M) index stack drawn with replacement (the reference's
     scan runner and warmup), or, with ``replace=False``, each step's M
     indices distinct (the reference's data-parallel loop,
     ``jax.random.choice(..., replace=False)``): the first M of a random
@@ -377,7 +383,8 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     generator for ε and the chunk seed, so the ranks' noise differs. ``eps``
     is then this rank's (T, S, M / data, K_shard, d). ``aug_noise`` > 0
     wraps the step in ``augment_step``: each step's batch noise comes from
-    the generator before the step's own draws."""
+    the generator before the step's own draws. ``weight_decay`` > 0 trains
+    the nets with AdamW (``svae_step.make_train_step``)."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     check_recon_mode(config, comp_group)
@@ -385,10 +392,11 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
         config = config._replace(fused_combine=False, kernel_rng=False,
                                  fused_mlp_decoder=False, fused_decoder=False)
     use_seed = config.fused_combine and config.kernel_rng
-    step = augment_step(svae_step.make_train_step(config, prior, lr,
-                                                  svae_step.rho_schedule(rho, rho_decay),
+    schedule = rho if callable(rho) else svae_step.rho_schedule(rho, rho_decay)
+    step = augment_step(svae_step.make_train_step(config, prior, lr, schedule,
                                                   data_group=data_group,
-                                                  comp_group=comp_group), aug_noise)
+                                                  comp_group=comp_group,
+                                                  weight_decay=weight_decay), aug_noise)
     sharded = data_group is not None or comp_group is not None
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
 

@@ -5,7 +5,9 @@ mixture components (``parallel.mesh``).
 Adam is a plain function over (param, m, v, count) with optax.adam's
 semantics (b1=0.9, b2=0.999, eps=1e-8, bias correction from the global
 count), so ``AdamState`` maps one to one onto optax's ``ScaleByAdamState``
-(svax_torch.convert).
+(svax_torch.convert). A ``weight_decay`` > 0 makes it optax.adamw's: the
+decoupled term wd·p joins the Adam direction before the learning rate, on
+every NN leaf and never on the PGM naturals.
 """
 
 from __future__ import annotations
@@ -73,9 +75,11 @@ def adam_init(params: dict) -> AdamState:
 
 
 def adam_update(
-    grads: dict, opt: AdamState, params: dict, lr: float
+    grads: dict, opt: AdamState, params: dict, lr: float, weight_decay: float = 0.0
 ) -> tuple[dict, AdamState]:
-    """optax.adam(lr): moments, bias correction at count+1, then p − lr·m̂/(√v̂+ε).
+    """optax.adam(lr): moments, bias correction at count+1, then p − lr·m̂/(√v̂+ε);
+    with ``weight_decay`` > 0 optax.adamw(lr, weight_decay):
+    p − lr·(m̂/(√v̂+ε) + wd·p).
 
     The same elementwise operations, in the same order, as one ``_foreach``
     call per operation over all the leaves (a dozen kernels a step, not a
@@ -90,7 +94,10 @@ def adam_update(
     bc2 = 1.0 - B2**count
     step = torch._foreach_div(mu, bc1)
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), ADAM_EPS)
-    step = torch._foreach_mul(torch._foreach_div(step, denom), lr)
+    step = torch._foreach_div(step, denom)
+    if weight_decay > 0.0:  # optax.add_decayed_weights, before the lr
+        step = torch._foreach_add(step, torch._foreach_mul(p, weight_decay))
+    step = torch._foreach_mul(step, lr)
     new = torch._foreach_sub(p, step)
 
     def tree(leaves):
@@ -140,7 +147,7 @@ def model_for(config: SvaeConfig):
 
 def make_train_step(
     config: SvaeConfig, prior: GmmNat, lr: float, rho: float | Callable,
-    data_group=None, comp_group=None,
+    data_group=None, comp_group=None, weight_decay: float = 0.0,
 ) -> Callable:
     """Build step(state, batch, eps=None, generator=None, seed=None) →
     (state, metrics).
@@ -153,8 +160,10 @@ def make_train_step(
     The noise is ``eps`` when given, else drawn from ``generator`` — or,
     with ``config.fused_combine`` and ``kernel_rng``, inside the combine
     kernel from Philox keyed ``seed`` on stream ``state.step`` (no host
-    sync). Adam first, from the gradient of −ELBO/num_total; then CVI from the
-    sufficient statistics of the pre-update naturals. ``rho`` is a float or
+    sync). Adam first (AdamW with ``weight_decay`` > 0, the reference entry's
+    ``optax.adamw(lr, weight_decay=wd)``), from the gradient of
+    −ELBO/num_total; then CVI from the sufficient statistics of the
+    pre-update naturals. ``rho`` is a float or
     a schedule ``rho(step)`` evaluated at the pre-update ``state.step``
     (``rho_schedule`` builds the Trainer's inverse decay); the ``rho``
     metric reports the value used.
@@ -197,7 +206,7 @@ def make_train_step(
             it = iter(grads_flat)
             grads = map_params(lambda _: next(it), params)
             nn_params, opt_state = adam_update(
-                grads, state.opt_state, state.nn_params, lr
+                grads, state.opt_state, state.nn_params, lr, weight_decay
             )
             shares = [t.detach() if ndata == 1 else t.detach() / ndata
                       for t in (*out.suff_stats, out.recon, out.local_kl)]

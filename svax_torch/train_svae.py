@@ -1,10 +1,14 @@
 """Train an SVAE with the port (PyTorch + the tinystep, flexstep, combine,
 decoder_mlp and row-sum CUDA kernels).
 
-    python -m svax_torch.train_svae --config pinwheel-svae|auto-svae|mnist-svae|bigk-dp
-        [--steps N] [--warmup-steps N] [--device cuda|cpu]
-        [--engine kernel|megakernel|plain] [--seed S] [--iw-samples S]
-        [--encoder-head diag|full] [--recon-mode weighted|sampled]
+    python -m svax_torch.train_svae [--config pinwheel-svae|auto-svae|mnist-svae|bigk-dp]
+        [--dataset pinwheel|auto|mnist] [-K K] [-L L] [-S S]
+        [--encoder-hidden W ...] [--decoder-hidden W ...] [--steps N]
+        [--batch-size M] [--lr LR] [--aug-noise SIGMA] [--weight-decay WD]
+        [--warmup-steps N] [--rho RHO] [--rho-decay DECAY] [--alpha A]
+        [--kappa KAPPA] [--scan-chunk T] [--fused-combine] [--kernel-rng]
+        [--device cuda|cpu] [--engine kernel|megakernel|plain] [--seed S]
+        [--iw-samples S] [--encoder-head diag|full] [--recon-mode weighted|sampled]
         [--nn-precision highest|high|default] [--remat]
         [--[no-]fused-mlp-decoder] [--nn-compute-dtype float32|bfloat16]
         [--fused-decoder] [--remat-decoder] [--eval-every N] [--dp]
@@ -12,20 +16,39 @@ decoder_mlp and row-sum CUDA kernels).
         [--checkpoint-dir DIR [--resume]] [--logfile PATH] [--debug-nans]
         [--bundle-dir DIR]
 
-Mirrors experiments/train_svae.py with its ``--engine auto`` rule
-(``loop.choose_kernel``): chunks of the config's ``scan_chunk`` steps.
+Mirrors experiments/train_svae.py: the workload flags take the reference
+entry's defaults (pinwheel, K = 10, latent d = 2, S = 4, 50-50, 2,000 full-
+batch steps, Adam at 1e-3, constant ρ 0.05, no augmentation), and
+``--config`` overlays a named config (``configs.apply_config``), a flag
+typed on the command line winning over it. With the ``--engine kernel``
+rule (``loop.choose_kernel``; the configs' engine "auto" is this rule)
+every chunk of ``--scan-chunk`` steps (1000 when 0) runs as one launch of a
+whole-train-step kernel where the workload fits one, else on the per-step
+engine (``loop.make_step_runner``), and the first line says why.
 ``pinwheel-svae`` (full batch, d = 2, constant ρ) runs each chunk as one
 launch of the tinystep kernel; ``auto-svae`` (minibatches of 64 drawn with
 replacement, latent d = 4, ρ₀/(1 + decay·t)) as one launch of flexstep;
 ``mnist-svae`` (Bernoulli decoder with a bf16 body, latent d = 8, 200-200,
-minibatches of 256) fits neither, so it runs on the per-step engine
-(``loop.make_step_runner``), each step's SIN combine in the combine kernel
-with in-kernel ε, after the config's ρ = 0 warmup and k-means++ reseed
-(``train.warmup``). ``bigk-dp`` (K = 100, latent d = 10, minibatches of
-1024) runs the same way on one card, with the decoder in the fused MLP
-decoder kernel (``fused_mlp_decoder``), each step's minibatch drawn
-without replacement, and a row after step 1 and every ``--eval-every``
-steps (and after the last), as the reference's data-parallel loop.
+minibatches of 256) fits neither, so it runs on the per-step engine, each
+step's SIN combine in the combine kernel with in-kernel ε
+(``--fused-combine --kernel-rng``), after the config's ρ = 0 warmup and
+k-means++ reseed (``train.warmup``). ``bigk-dp`` (K = 100, latent d = 10,
+minibatches of 1024) runs the same way on one card, with the decoder in the
+fused MLP decoder kernel (``fused_mlp_decoder``). A free-form workload
+outside the kernels' classes (tinystep: d = 2, full batch, constant ρ,
+K ≤ 32, matched hidden widths 16-16 or 50-50; flexstep: the GMM prior,
+d_in ≤ 8, 2 ≤ d ≤ 6, two hidden layers a side of width ≤ 128, K ≤ 64) takes
+the per-step engine the same way. ``--weight-decay WD`` trains the nets
+with AdamW (the reference's ``optax.adamw(lr, weight_decay=WD)``; never the
+PGM naturals), which neither kernel implements: such a run takes the
+per-step engine with the reason ``loop.PLAIN_ADAM``. On the per-step
+engine with ``--scan-chunk 0`` (the free-form default), as on the
+data-parallel path, each step's minibatch is drawn without replacement and
+a row follows step 1, every ``--eval-every`` steps and the last, as the
+reference's per-step loop; with a chunk, minibatches are drawn with
+replacement and a row follows every chunk. ``--aug-noise`` trains every
+step on x + σ·ξ (in-kernel on tinystep, on the batch stack for flexstep,
+``loop.augment_step`` on the per-step engine).
 ``--dp`` (on in bigk-dp's config) is that loop: on one process it is the
 per-step engine as it stands; under ``torchrun`` with ``WORLD_SIZE`` > 1
 it shards each minibatch over the ranks (``parallel.mesh``: every rank
@@ -42,8 +65,8 @@ CPU the ranks join over gloo:
 More than one process without ``--dp`` is refused.
 
 ``--nn-precision`` is the nets' product precision (``nets.mlp``'s table;
-default the config's — pinwheel-svae and auto-svae ship "default" — else
-"high"): "default" runs tinystep and flexstep in their bf16-product mode
+default "high"; pinwheel-svae and auto-svae ship "default"): "default"
+runs tinystep and flexstep in their bf16-product mode
 and the plain nets on bf16-rounded operands, "high" and "highest" in f32;
 under ``--fused-decoder`` "high" and "default" run the row sum's
 bf16-operand mode and "highest" its f32 mode. ``--encoder-head full``
@@ -55,9 +78,9 @@ reconstruction, nor does the fused combine (nor, under sampled, the fused
 MLP decoder): such a run takes the per-step engine, and ``--engine
 megakernel`` — a whole-step kernel or nothing — refuses it with both
 kernels' reasons. ``--fused-mlp-decoder`` turns the decoder
-kernel on for the other Bernoulli config, mnist-svae, and is refused for a
+kernel on for a Bernoulli workload (mnist-svae), and is refused for a
 Gaussian one; ``--no-fused-mlp-decoder`` turns it off for bigk-dp.
-``--nn-compute-dtype`` overrides the config's decoder compute dtype (the
+``--nn-compute-dtype`` sets the decoder compute dtype (the
 Bernoulli configs ship bfloat16). ``--fused-decoder`` (the reference's
 ``benchmarks/mfu.py`` flag) takes the f32 Bernoulli decoder's x-free row
 sum from the row-sum kernels (``ops.decoder``), so the (rows, D) logits
@@ -81,8 +104,9 @@ keeps tinystep (its SMM branch), the other configs run the per-step engine
 forward runs the plain combine and decoder, so the first line reports
 ``fused_combine`` and ``fused_mlp_decoder`` off; the IW line is the SMM
 bound (``evaluation.svae_smm_iw_loglik``).
-Prints one JSON line with the engine, its reason, the world size and mesh
-(``world_size``, ``data``, ``comp``) and the initial test ELBO, the warmup
+Prints one JSON line with the config (null for a free-form run), the
+engine, its reason, the world size and mesh (``world_size``, ``data``,
+``comp``) and the initial test ELBO, the warmup
 line, one JSON row per chunk — step, wall_s, elbo, recon,
 local_kl, global_kl, test_elbo_per_point (``train.metrics.JsonlLogger``,
 also appended to ``--logfile``) — then steps/sec, then
@@ -97,8 +121,8 @@ bit-equal to an uninterrupted one). ``--bundle-dir`` writes a serving
 bundle (``serve.save_bundle``) at the end. ``--debug-nans`` turns on
 autograd's anomaly mode and checks the state and the row after every
 chunk for NaN and infinity (``utils.guards``). ``--device cuda`` without a
-CUDA device raises; nothing falls back. The configs the port runs are
-pinwheel-svae, auto-svae, mnist-svae and bigk-dp; ROADMAP.md lists the rest.
+CUDA device raises; nothing falls back. ``--plot`` (the latent space)
+waits for the port's plotting module (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -110,37 +134,101 @@ import time
 
 import torch
 
-PORTED = ("pinwheel-svae", "auto-svae", "mnist-svae", "bigk-dp")
+SVAE_CONFIGS = ("pinwheel-svae", "auto-svae", "mnist-svae", "bigk-dp")
 
 
-def main(argv: list[str] | None = None) -> dict:
-    """Run the trainer; returns {"state", "rows", "steps_per_s", "kernel",
-    "why", "init_test_elbo_per_point", "final_test_iw_loglik_per_point",
-    "meta", "warmup", "x_test"}."""
+def add_workload_flags(p: argparse.ArgumentParser) -> None:
+    """The reference entry's workload and architecture flags, with its
+    defaults (experiments/train_svae.py:28-60); ``evaluate`` shares the
+    architecture's."""
+    p.add_argument("--config", default="", metavar="{" + ",".join(SVAE_CONFIGS) + "}",
+                   help="overlay this named config; flags typed on the command line "
+                        "win over it")
+    p.add_argument("--dataset", choices=["pinwheel", "auto", "mnist"], default="pinwheel")
+    p.add_argument("--num-components", "-K", type=int, default=10)
+    p.add_argument("--latent-dim", "-L", type=int, default=2)
+    p.add_argument("--num-samples", "-S", type=int, default=4)
+    p.add_argument("--encoder-hidden", type=int, nargs="+", default=[50, 50])
+    p.add_argument("--decoder-hidden", type=int, nargs="+", default=[50, 50])
+    p.add_argument("--alpha", type=float, default=1.0, help="Dirichlet concentration")
+    p.add_argument("--kappa", type=float, default=0.05, help="NIW mean precision")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--encoder-head", choices=["diag", "full"], default="diag",
+                   help="recognition potential: diagonal, or a full per-point "
+                        "precision (per-step engine)")
+    p.add_argument("--recon-mode", choices=["weighted", "sampled"], default="weighted",
+                   help="reconstruction estimator: every component's samples, or one "
+                        "component drawn per sample with a REINFORCE term (per-step "
+                        "engine)")
+    p.add_argument("--nn-precision", choices=["highest", "high", "default"], default="high",
+                   help="the nets' product precision: default = bf16-rounded operands "
+                        "with f32 sums")
+    p.add_argument("--nn-compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="decoder compute dtype (bfloat16 runs the Bernoulli decoder body "
+                        "in bf16 with f32 sums)")
+    p.add_argument("--smm-dof", type=float, default=0.0,
+                   help="Student-t mixture latent prior with this many degrees of "
+                        "freedom (0 = Gaussian mixture prior)")
+    p.add_argument("--smm-iters", type=int, default=2,
+                   help="u-z coordinate rounds in the SMM combine")
+    p.add_argument("--plot", default="", help="latent-space plot (not ported yet)")
+
+
+def apply_named_config(p: argparse.ArgumentParser, args, argv) -> None:
+    """Overlay ``--config`` onto ``args`` (explicit flags win); refuses a
+    name that is not an SVAE config."""
+    from svax_torch.configs import apply_config
+
+    if args.config and args.config not in SVAE_CONFIGS:
+        p.error(f"--config {args.config}: not an SVAE config (one of "
+                f"{', '.join(SVAE_CONFIGS)}; the pure mixtures train with "
+                "svax_torch.train_gmm and svax_torch.train_smm; ROADMAP.md lists what "
+                "the port runs)")
+    apply_config(args, p, argv)
+
+
+def parse_args(argv: list[str] | None = None):
+    """(parser, args): the entry's flags parsed from ``argv`` (default
+    ``sys.argv[1:]``) with ``--config`` overlaid, the configs' engine
+    "auto" read as the kernel rule."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--config", default="pinwheel-svae")
-    p.add_argument("--steps", type=int, default=0,
-                   help="training steps (0 = the config's)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    add_workload_flags(p)
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--batch-size", type=int, default=0, help="0 = full batch")
+    p.add_argument("--lr", type=float, default=1e-3, help="Adam lr for the nets")
+    p.add_argument("--aug-noise", type=float, default=0.0,
+                   help="input-noise augmentation: each step trains on x + sigma*N(0, I) "
+                        "(0 = off)")
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help="AdamW decoupled weight decay on the nets (per-step engine)")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="rho = 0 warmup steps before the k-means++ reseed (0 = none)")
+    p.add_argument("--rho", type=float, default=0.05, help="CVI step size")
+    p.add_argument("--rho-decay", type=float, default=0.0,
+                   help="rho_t = rho / (1 + decay * t)")
+    p.add_argument("--scan-chunk", type=int, default=0,
+                   help="steps a chunk (0: 1000 on a whole-step kernel; per-step rows "
+                        "every --eval-every on the per-step engine)")
+    p.add_argument("--fused-combine", action="store_true",
+                   help="the SIN combine, local KL, sampling and statistics in the "
+                        "combine kernel (per-step engine)")
+    p.add_argument("--kernel-rng", action="store_true",
+                   help="with --fused-combine: epsilon drawn inside the combine kernel")
     p.add_argument("--engine", choices=["kernel", "megakernel", "plain"], default="kernel",
                    help="kernel: the whole-step kernel that fits, else the per-step "
                         "engine with its kernels; megakernel: a whole-step kernel or a "
                         "refusal; plain: the plain PyTorch step")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--iw-samples", type=int, default=100,
                    help="importance-weighted final test log-lik samples (0 = off)")
-    p.add_argument("--warmup-steps", type=int, default=None,
-                   help="rho = 0 warmup steps before the k-means++ reseed "
-                        "(default: the config's; 0 = none)")
     p.add_argument("--fused-mlp-decoder", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="the Bernoulli decoder in the fused MLP decoder kernel "
-                        "(default: the config's, on in bigk-dp's; refused for a "
-                        "Gaussian config)")
-    p.add_argument("--nn-compute-dtype", choices=["float32", "bfloat16"], default=None,
-                   help="decoder compute dtype (default: the config's; bfloat16 runs "
-                        "the Bernoulli decoder body in bf16 with f32 sums)")
+                   default=False,
+                   help="the Bernoulli decoder in the fused MLP decoder kernel (on in "
+                        "bigk-dp's config; refused for a Gaussian likelihood)")
     p.add_argument("--fused-decoder", action="store_true",
                    help="the f32 Bernoulli decoder's x-free row sum in the row-sum "
                         "kernels: the (rows, D) logits never reach device memory "
@@ -149,26 +237,11 @@ def main(argv: list[str] | None = None) -> dict:
                    help="recompute the decoder in the backward pass instead of "
                         "storing its activations")
     p.add_argument("--eval-every", type=int, default=200,
-                   help="data-parallel configs (bigk-dp): a row after step 1, every "
-                        "N steps and after the last")
-    p.add_argument("--smm-dof", type=float, default=0.0,
-                   help="Student-t mixture latent prior with this many degrees of "
-                        "freedom (0 = Gaussian mixture prior)")
-    p.add_argument("--smm-iters", type=int, default=2,
-                   help="u-z coordinate rounds in the SMM combine")
+                   help="per-step rows (data-parallel, or --scan-chunk 0 on the "
+                        "per-step engine): after step 1, every N steps and the last")
     p.add_argument("--smm-envelope-grads", action="store_true",
                    help="envelope-theorem gradients for the SMM u-rounds: the "
                         "converged q(u) is held constant in the backward pass")
-    p.add_argument("--encoder-head", choices=["diag", "full"], default="diag",
-                   help="recognition potential: diagonal, or a full per-point "
-                        "precision (per-step engine)")
-    p.add_argument("--recon-mode", choices=["weighted", "sampled"], default="weighted",
-                   help="reconstruction estimator: every component's samples, or one "
-                        "component drawn per sample with a REINFORCE term (per-step "
-                        "engine)")
-    p.add_argument("--nn-precision", choices=["highest", "high", "default"], default=None,
-                   help="the nets' product precision (default: the config's, else "
-                        "high): default = bf16-rounded operands with f32 sums")
     p.add_argument("--remat", action="store_true",
                    help="recompute the SIN combine in the backward pass")
     p.add_argument("--dp", action="store_true",
@@ -187,13 +260,26 @@ def main(argv: list[str] | None = None) -> dict:
                    help="write a serving bundle here at the end of training "
                         "(svax_torch.serve.load_bundle restores it with no flags)")
     args = p.parse_args(argv)
+    apply_named_config(p, args, argv)
+    if args.engine == "auto":  # the configs' engine: the kernel rule
+        args.engine = "kernel"
+    return p, args
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Run the trainer; returns {"state", "rows", "steps_per_s", "kernel",
+    "why", "init_test_elbo_per_point", "final_test_iw_loglik_per_point",
+    "meta", "warmup", "x_test"}."""
+    p, args = parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         p.error("--resume needs --checkpoint-dir")
-    if args.config not in PORTED:
-        p.error(f"--config {args.config}: svax_torch runs {', '.join(PORTED)} so far; "
-                "ROADMAP.md lists the remaining configs")
+    if args.plot:
+        p.error("--plot: the latent-space plot waits for the port's plotting module "
+                "(ROADMAP.md)")
     if args.eval_every < 1:
         p.error("--eval-every must be >= 1")
+    if args.weight_decay < 0.0:
+        p.error("--weight-decay must be >= 0")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for the plain PyTorch path)")
@@ -202,13 +288,10 @@ def main(argv: list[str] | None = None) -> dict:
 
         enable_nan_debugging()
 
-    from svax_torch.configs import CONFIGS
     from svax_torch.parallel import mesh
 
-    cfg = CONFIGS[args.config]
-    data_parallel = args.dp or bool(cfg.get("dp", False))
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 and not data_parallel:
+    if world > 1 and not args.dp:
         p.error(f"WORLD_SIZE={world}: more than one process needs --dp")
     device = torch.device(args.device)
     data_group, rank, joined = None, 0, False
@@ -219,13 +302,13 @@ def main(argv: list[str] | None = None) -> dict:
         device = mesh.init_distributed(args.device)
         data_group, rank = mesh.make_data_mesh().data_group, dist.get_rank()
     try:
-        return _train(args, p, cfg, device, data_parallel, world, data_group, rank)
+        return _train(args, p, device, world, data_group, rank)
     finally:
         if joined:
             dist.destroy_process_group()
 
 
-def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict:
+def _train(args, p, device, world, data_group, rank) -> dict:
     """The training run of ``main`` on this rank; rank 0 prints."""
     from svax_torch.data import load_dataset
     from svax_torch.models import evaluation
@@ -238,9 +321,8 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     from svax_torch.train.metrics import JsonlLogger
     from svax_torch.utils import guards
 
-    steps = args.steps or cfg["steps"]
-    warmup_steps = (cfg.get("warmup_steps", 0) if args.warmup_steps is None
-                    else args.warmup_steps)
+    steps, warmup_steps, data_parallel = args.steps, args.warmup_steps, args.dp
+    name = args.config or args.dataset
 
     def show(*a, **kw) -> None:
         if rank == 0:
@@ -253,35 +335,32 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     f32 = torch.float32
 
-    train, test, meta = load_dataset(cfg["dataset"], seed=args.seed)
+    train, test, meta = load_dataset(args.dataset, seed=args.seed)
     if args.fused_mlp_decoder and meta["likelihood"] != "bernoulli":
         p.error(f"--fused-mlp-decoder: the fused MLP decoder is a Bernoulli head, and "
-                f"{args.config} has a {meta['likelihood']} likelihood")
+                f"{name} has a {meta['likelihood']} likelihood")
     x_train = torch.tensor(train, dtype=f32, device=device)
     x_test = torch.tensor(test, dtype=f32, device=device)
     n, input_dim = x_train.shape
-    batch = cfg["batch_size"] if 0 < cfg["batch_size"] < n else n
+    batch = args.batch_size if 0 < args.batch_size < n else n
     if batch % world:  # experiments/train_svae.py:278-280
         batch = (batch // world) * world or world
         show(f"rounding batch to {batch} for {world} data ranks", flush=True)
-    rho_decay = cfg.get("rho_decay", 0.0)
+    rho_decay = args.rho_decay
     engine = "kernel" if args.engine == "megakernel" else args.engine
-    config = SvaeConfig(latent_dim=cfg["latent_dim"],
-                        num_components=cfg["num_components"],
-                        num_samples=cfg["num_samples"], num_total=n,
+    config = SvaeConfig(latent_dim=args.latent_dim,
+                        num_components=args.num_components,
+                        num_samples=args.num_samples, num_total=n,
                         likelihood=meta["likelihood"],
-                        nn_compute_dtype=(args.nn_compute_dtype
-                                          or cfg.get("nn_compute_dtype", "float32")),
-                        fused_combine=cfg.get("fused_combine", False),
-                        kernel_rng=cfg.get("kernel_rng", False),
-                        fused_mlp_decoder=(cfg.get("fused_mlp_decoder", False)
-                                           if args.fused_mlp_decoder is None
-                                           else args.fused_mlp_decoder),
+                        nn_compute_dtype=args.nn_compute_dtype,
+                        fused_combine=args.fused_combine,
+                        kernel_rng=args.kernel_rng,
+                        fused_mlp_decoder=args.fused_mlp_decoder,
                         fused_decoder=args.fused_decoder,
                         remat_decoder=args.remat_decoder,
                         dof=args.smm_dof, smm_iters=args.smm_iters,
                         smm_envelope_grads=args.smm_envelope_grads,
-                        nn_precision=args.nn_precision or cfg.get("nn_precision", "high"),
+                        nn_precision=args.nn_precision,
                         encoder_head=args.encoder_head, recon_mode=args.recon_mode,
                         remat_combine=args.remat)
     if config.dof > 0.0:
@@ -298,18 +377,18 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         # the reference's; the entry refuses it there.
         if config.likelihood != "bernoulli":
             p.error(f"--fused-decoder: the row sum is a Bernoulli head's, and "
-                    f"{args.config} has a {config.likelihood} likelihood")
+                    f"{name} has a {config.likelihood} likelihood")
         if config.nn_compute_dtype != "float32":
             p.error(f"--fused-decoder: the row-sum kernels run an f32 decoder, and "
-                    f"{args.config} computes it in {config.nn_compute_dtype} (add "
+                    f"{name} computes it in {config.nn_compute_dtype} (add "
                     f"--nn-compute-dtype float32)")
         if config.fused_mlp_decoder:
-            p.error(f"--fused-decoder: {args.config} runs the fused MLP decoder, which "
+            p.error(f"--fused-decoder: {name} runs the fused MLP decoder, which "
                     f"takes precedence (add --no-fused-mlp-decoder)")
-    gate = dict(batch_full=batch >= n, encoder_hidden=cfg["encoder_hidden"],
-                decoder_hidden=cfg["decoder_hidden"], rho=cfg["rho"],
+    gate = dict(batch_full=batch >= n, encoder_hidden=args.encoder_hidden,
+                decoder_hidden=args.decoder_hidden, rho=args.rho,
                 rho_decay=rho_decay, likelihood=meta["likelihood"], input_dim=input_dim,
-                data_parallel=data_parallel)
+                data_parallel=data_parallel, weight_decay=args.weight_decay)
     if args.engine == "megakernel":
         try:
             choose_kernel(config, engine="megakernel", **gate)
@@ -319,29 +398,31 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     why = kernel_unsupported_reason(config, **gate) if kernel == PER_STEP else None
 
     prior = gmm.make_prior(config.num_components, config.latent_dim,
-                           alpha=cfg["alpha"], kappa=cfg["kappa"],
+                           alpha=args.alpha, kappa=args.kappa,
                            device=device, dtype=f32)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = svae_step.init_state(
         gen, input_dim, config, prior,
-        encoder_hidden=tuple(cfg["encoder_hidden"]),
-        decoder_hidden=tuple(cfg["decoder_hidden"]),
+        encoder_hidden=tuple(args.encoder_hidden),
+        decoder_hidden=tuple(args.decoder_hidden),
     )
     start, ckpt = 0, None
     if args.checkpoint_dir:
         ckpt = Checkpointer(args.checkpoint_dir)
         if args.resume:
             state, _, start = ckpt.restore_or(state)
+    # The reference's per-step loop (data-parallel, or no scan chunk): a row
+    # after step 1 and every eval_every, minibatches without replacement.
+    per_step_rows = data_parallel or (kernel == PER_STEP and args.scan_chunk <= 0)
     if kernel == PER_STEP:
-        runner = make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
+        runner = make_step_runner(config, prior, lr=args.lr, rho=args.rho,
                                   rho_decay=rho_decay, batch_size=batch, engine=engine,
-                                  replace=not data_parallel, data_group=data_group,
-                                  aug_noise=cfg.get("aug_noise", 0.0))
+                                  replace=not per_step_rows, data_group=data_group,
+                                  aug_noise=args.aug_noise, weight_decay=args.weight_decay)
     else:
-        runner = make_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
+        runner = make_runner(config, prior, lr=args.lr, rho=args.rho,
                              rho_decay=rho_decay, batch_size=batch,
-                             aug_noise=cfg.get("aug_noise", 0.0), engine=engine,
-                             kernel=kernel)
+                             aug_noise=args.aug_noise, engine=engine, kernel=kernel)
     # The evaluation runs the training path's combine and decoder: on the
     # plain engine with fused_combine, fused_mlp_decoder and fused_decoder
     # off, on the kernel engine with the kernels and the in-kernel ε.
@@ -367,7 +448,7 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     # estimator (the combine also needs the diagonal head and zero jitter,
     # the decoder tanh nets: models.svae.forward).
     weighted = config.recon_mode == "weighted"
-    show(json.dumps({"config": args.config, "kernel": kernel, "engine": args.engine,
+    show(json.dumps({"config": args.config or None, "kernel": kernel, "engine": args.engine,
                       "why": why, "fused_combine": kernel == PER_STEP and
                       engine == "kernel" and config.fused_combine and weighted
                       and config.encoder_head == "diag" and config.jitter == 0.0,
@@ -391,8 +472,8 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
     if warmup_steps > 0 and start == 0:  # on the per-step engine, whatever the main engine
         t_warm = time.perf_counter()
         state, warm_info = warmup.vae_warmup_reseed(
-            state, x_train, config, prior, lr=cfg["lr"], steps=warmup_steps,
-            batch_size=batch, scan_chunk=cfg.get("scan_chunk") or 100, seed=args.seed,
+            state, x_train, config, prior, lr=args.lr, steps=warmup_steps,
+            batch_size=batch, scan_chunk=args.scan_chunk or 100, seed=args.seed,
             engine=engine)
         warm_info["seconds"] = time.perf_counter() - t_warm
         show(f"warmup {warmup_steps} steps + k-means++ reseed "
@@ -411,14 +492,14 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         if ckpt is not None:
             ckpt.save(t, state)
 
-    chunk = cfg.get("scan_chunk") or 1000
+    chunk = args.scan_chunk or 1000
     logger = JsonlLogger((args.logfile or None) if rank == 0 else None, echo=rank == 0)
     t0 = time.perf_counter()
     t = start
     while t < steps:
         # The data-parallel loop's rows: after step 1, then every eval_every.
         todo = (min(1 if t == 0 else args.eval_every - t % args.eval_every, steps - t)
-                if data_parallel else min(chunk, steps - t))
+                if per_step_rows else min(chunk, steps - t))
         state, metrics = runner(state, x_train, todo, seed=args.seed)
         t += todo
         last = {k: v[-1] for k, v in metrics.items()}
@@ -459,9 +540,9 @@ def _train(args, p, cfg, device, data_parallel, world, data_group, rank) -> dict
         serve.save_bundle(args.bundle_dir, state, serve.ModelSpec(
             input_dim=input_dim, latent_dim=config.latent_dim,
             num_components=config.num_components, likelihood=config.likelihood,
-            encoder_hidden=tuple(cfg["encoder_hidden"]),
-            decoder_hidden=tuple(cfg["decoder_hidden"]), num_samples=config.num_samples,
-            alpha=cfg["alpha"], kappa=cfg["kappa"], dof=config.dof,
+            encoder_hidden=tuple(args.encoder_hidden),
+            decoder_hidden=tuple(args.decoder_hidden), num_samples=config.num_samples,
+            alpha=args.alpha, kappa=args.kappa, dof=config.dof,
             smm_iters=config.smm_iters, activation=config.activation, num_total=n,
             encoder_head=config.encoder_head))
         show(f"wrote serving bundle to {args.bundle_dir}")

@@ -419,8 +419,8 @@ def test_train_svae_resume_is_bitexact(tmp_path, small_pinwheel):
     assert fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
     assert Checkpointer(tmp_path / "a").all_steps() == [10, 20]
     # The checkpoint reproduces the entry's last test ELBO and its IW bound.
-    ev = evaluate.main(["--checkpoint-dir", str(tmp_path / "a"), "--device", "cpu",
-                        "--iw-samples", "5"])
+    ev = evaluate.main(["--checkpoint-dir", str(tmp_path / "a"), "--config", "pinwheel-svae",
+                        "--device", "cpu", "--iw-samples", "5"])
     assert ev["checkpoint_step"] == 20
     assert ev["test_elbo_per_point"] == a["rows"][-1]["test_elbo_per_point"]
     assert ev["test_iw_loglik_per_point"] == a["final_test_iw_loglik_per_point"]
