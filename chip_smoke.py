@@ -273,6 +273,22 @@ O. slice K, the seed studies and reproduce, on the card, writing under
    finite, the pure GMM using at least 6 components, tinystep's SMM
    branch launched (its own count, ``tinystep.launches_smm``); the
    launches join the kernels line's counts;
+P. slice L, the demos, on the card (tinystep's f32 mode, GMM and SMM
+   branches; matplotlib is not needed: no figure is drawn), writing under
+   ``build/chip_smoke_P/``: (1) ``anomaly_demo --outlier-scale 30 --steps
+   15000`` (the separated regime, GMM and ``--dof 4``): ROC-AUC at least
+   the reference's 0.962 / 0.953 less 0.05; (2) ``robustness_demo --steps
+   3000`` (tanh): each clean-test ELBO/pt within 1 nat of the reference's
+   −7.05 / −7.36, the SMM model's E[u] finite; (3)
+   ``latent_contamination_demo`` at its defaults (15,000 pretraining steps
+   at σ = 0.4, 500 online steps, 25% at ±30, IW 1000): ``smm_win_nats`` >
+   0 (reference +0.147) and the mean E[u] on the outlier rows below the
+   clean rows' (reference 0.78 against 1.10); (4) ``impute_demo``'s
+   pinwheel leg at ``--quick`` and its mnist leg at 20 warmup + 20 steps
+   (the per-step engine), both at 3 impute rounds (the demo's 10 cut), every
+   fill finite and the exported tier within phase L's 1e-6 of the live one,
+   both decode rules; the launches, counted
+   around the phase, join tinystep's f32 and SMM rows of the kernels line;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -2843,6 +2859,100 @@ def studies_phase(card: str) -> dict:
           f"components; {card}", flush=True)
     return counts
 
+ANOMALY_REF = {"gmm": 0.962, "smm": 0.953}  # BASELINE.md:94-100, outlier box ±30
+ROBUST_REF = {"gmm": -7.05, "smm": -7.36}  # BASELINE.md:102-108, clean-test ELBO/pt
+IMPUTE_EXPORT_TOL = 1e-6  # phase L's bar for the exported tier against the live one
+IMPUTE_ITERS = 3  # phase P's impute rounds (the demo's default is 10)
+
+
+def demos_phase(card: str) -> dict:
+    """P. slice L's demos (docstring); returns the launches {"tinystep",
+    "tinystep_smm"}."""
+    from svax_torch import anomaly_demo, impute_demo, latent_contamination_demo
+    from svax_torch import robustness_demo
+    from svax_torch.ops import tinystep
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_P"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    tinystep.launches = tinystep.launches_bf16 = tinystep.launches_smm = 0
+
+    # (1) anomaly detection through the served score, the separated regime
+    t0 = time.perf_counter()
+    an = anomaly_demo.main(["--outlier-scale", "30", "--steps", "15000", "--device", "cuda"])
+    an_s = time.perf_counter() - t0
+    assert an["kernels"] == {"gmm": "tinystep", "smm": "tinystep"}, an["kernels"]
+    for name, ref in ANOMALY_REF.items():
+        row = an[name]
+        print(f"phase P: anomaly_demo --outlier-scale 30 --steps 15000 {name}: ROC-AUC "
+              f"{row['roc_auc']} (reference {ref}, floor {ref - 0.05:.3f}), mean score clean "
+              f"{row['mean_score_clean']} outlier {row['mean_score_outlier']}; {card}",
+              flush=True)
+        assert row["roc_auc"] >= ref - 0.05, (name, row)
+    print(f"phase P: anomaly_demo in {an_s:.1f} s; {card}", flush=True)
+
+    # (2) GMM against SMM on a contaminated training set, tanh
+    t0 = time.perf_counter()
+    rob = robustness_demo.main(["--steps", "3000", "--device", "cuda"])
+    rob_s = time.perf_counter() - t0
+    assert rob["kernels"] == {"gmm": "tinystep", "smm": "tinystep"}, rob["kernels"]
+    for name, ref in ROBUST_REF.items():
+        got = rob[name]["clean_test_elbo_per_point"]
+        assert all(math.isfinite(v) for v in rob[name].values()), rob[name]
+        print(f"phase P: robustness_demo --steps 3000 (tanh) {name}: clean-test ELBO/pt "
+              f"{got:.4f} (reference {ref}, bar 1 nat), contaminated-train "
+              f"{rob[name]['contaminated_train_elbo_per_point']:.4f}; {card}", flush=True)
+        assert abs(got - ref) <= 1.0, (name, got)
+    print(f"phase P: robustness_demo in {rob_s:.1f} s: SMM mean E[u] outliers "
+          f"{rob['smm']['mean_Eu_outliers']:.4f}, clean {rob['smm']['mean_Eu_clean']:.4f} "
+          f"(reference 1.021 / 1.020); {card}", flush=True)
+
+    # (3) the latent-contamination win case at the demo's defaults
+    lc = latent_contamination_demo.main(["--device", "cuda", "--json",
+                                         str(work / "latent_contamination_torch.json")])
+    assert lc["kernel"] == "tinystep", lc["kernel"]
+    rows, e_u = lc["clean_test_iw_per_point"], lc["mean_e_u_second_half"]
+    assert all(math.isfinite(v) for v in rows.values()), rows
+    print(f"phase P: latent_contamination_demo (15,000 + 500 online steps, IW 1000): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rows.items())
+          + f"; smm_win_nats {lc['smm_win_nats']:.4f} (reference +0.147), mean E[u] outlier "
+          f"rows {e_u['outlier_rows']:.4f} clean rows {e_u['clean_rows']:.4f} (reference "
+          f"0.78 / 1.10); seconds " + ", ".join(f"{k} {v:.2f}" for k, v in lc["seconds"].items())
+          + f"; {card}", flush=True)
+    assert lc["smm_win_nats"] > 0.0, lc["smm_win_nats"]
+    assert e_u["outlier_rows"] < e_u["clean_rows"], e_u
+
+    # (4) the impute endpoint: pinwheel at --quick, mnist at 20 + 20 steps,
+    # 3 impute rounds (the demo's 10 cut: the exported tier's trace and load
+    # took ~5 s a program at 10 rounds)
+    for ds, kw, kernel in (("pinwheel", dict(quick=True), "tinystep"),
+                           ("mnist", dict(steps=20, warmup=20), "per-step")):
+        t0 = time.perf_counter()
+        leg = impute_demo.run_leg(ds, device="cuda", impute_iters=IMPUTE_ITERS, **kw)
+        secs = time.perf_counter() - t0
+        row, got = leg["row"], leg["kernel"]
+        assert got == kernel, (ds, got)
+        fills = row["rmse"] if ds == "pinwheel" else row["masked_pixel_nll"]
+        assert all(math.isfinite(v) for v in fills.values()), row
+        diffs = (row["aot_max_abs_diff"], row["aot_map_max_abs_diff"])
+        print(f"phase P: impute_demo {ds} leg ({row['budget']['warmup']} warmup + "
+              f"{row['budget']['steps']} steps on {kernel}, {IMPUTE_ITERS} impute rounds) in "
+              f"{secs:.1f} s: "
+              f"{'rmse' if ds == 'pinwheel' else 'masked_pixel_nll'} {json.dumps(fills)}, "
+              f"exported against live {diffs[0]:.3e} / {diffs[1]:.3e} (mean / map; bar "
+              f"{IMPUTE_EXPORT_TOL}); seconds "
+              + ", ".join(f"{k} {v:.2f}" for k, v in leg["seconds"].items())
+              + f"; {card}", flush=True)
+        assert max(diffs) <= IMPUTE_EXPORT_TOL, (ds, diffs)
+
+    smm_n = tinystep.launches_smm
+    counts = {"tinystep": tinystep.launches - smm_n, "tinystep_smm": smm_n}
+    assert tinystep.launches_bf16 == 0, tinystep.launches_bf16
+    assert counts["tinystep"] >= 4 and counts["tinystep_smm"] >= 2, counts
+    print(f"phase P: tinystep launches (f32 mode) {counts['tinystep']} GMM + "
+          f"{counts['tinystep_smm']} SMM; {card}", flush=True)
+    return counts
+
 
 def main() -> int:
     import torch
@@ -3091,6 +3201,12 @@ def main() -> int:
     smm_kernel["launches"] += studies["tinystep_smm"]
     flex_kernel["launches"] += studies["flexstep"]
     mixture_kernels[0]["launches"] += studies["mixstep"]
+
+    # P. slice L: the demos; their launches join the line
+    demos = demos_phase(card)
+    print(f"phase P done at {elapsed()}", flush=True)
+    launches += demos["tinystep"]
+    smm_kernel["launches"] += demos["tinystep_smm"]
 
     # 9. result
     print(json.dumps({"kernels": [{

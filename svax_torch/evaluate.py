@@ -7,7 +7,7 @@ checkpoint and report held-out metrics.
         [--iw-samples S] [--smm-dof DOF [--smm-iters R]] [--seed S]
         [--encoder-head diag|full] [--recon-mode weighted|sampled]
         [--nn-precision highest|high|default] [--nn-compute-dtype float32|bfloat16]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--plot PATH]
 
 Restores the latest checkpoint that ``svax_torch.train_svae`` wrote to
 ``--checkpoint-dir`` and prints one JSON line: the checkpoint's step, the
@@ -23,8 +23,9 @@ own, so a checkpoint of a finished run reproduces that run's last test
 ELBO and its bound. The plain PyTorch model evaluates (no kernel), in the
 decoder compute dtype; ``--encoder-head``, ``--recon-mode``,
 ``--nn-precision`` and ``--nn-compute-dtype`` are the training run's.
-``--device cuda`` without a CUDA device raises. ``--plot`` (the latent
-space) waits for the port's plotting module (ROADMAP.md).
+``--device cuda`` without a CUDA device raises. ``--plot PATH`` writes the
+latent space of the test split (``utils.viz``, as ``train_svae --plot``;
+it needs matplotlib).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import json
 import sys
 
 import torch
+
+from svax_torch.utils import viz
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -47,9 +50,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--iw-samples", type=int, default=200)
     args = p.parse_args(argv)
     apply_named_config(p, args, sys.argv[1:] if argv is None else argv)
-    if args.plot:
-        p.error("--plot: the latent-space plot waits for the port's plotting module "
-                "(ROADMAP.md)")
+    viz.check_available(args.plot)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu)")
@@ -102,6 +103,11 @@ def main(argv: list[str] | None = None) -> dict:
         "iw_samples": args.iw_samples,
     }
     print(json.dumps(out), flush=True)
+    if args.plot:
+        z_mean, resp = viz.svae_latent(state, config, prior, x_test,
+                                       torch.Generator(device=device).manual_seed(args.seed))
+        viz.plot_latent_space(z_mean, resp, state.pgm_nat, args.plot)
+        print(f"wrote {args.plot}")
     return out
 
 

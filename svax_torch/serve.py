@@ -438,9 +438,12 @@ class _Endpoint(torch.nn.Module):
 
 def export_serving(server: SvaeServer, directory: str | Path, buckets=None,
                    score_samples: int = 100, impute_iters: int = 10,
-                   impute_mode: str = "mean", platforms=("cpu", "cuda")) -> dict:
+                   impute_mode: str = "mean", platforms=("cpu", "cuda"),
+                   endpoints=_ENDPOINTS) -> dict:
     """Trace every endpoint × bucket with ``torch.export`` on the server's
-    device and save ``<endpoint>_<bucket>.pt2`` plus ``exports.json``.
+    device and save ``<endpoint>_<bucket>.pt2`` plus ``exports.json``;
+    ``endpoints`` names a subset of them to trace (the others are then not
+    served from the artifacts).
 
     The weights become each program's constants. ``score`` is traced at a
     fixed ``score_samples`` with its Gumbel and ε draws as inputs;
@@ -450,6 +453,9 @@ def export_serving(server: SvaeServer, directory: str | Path, buckets=None,
     ``load_exported`` may move the programs to. Returns the manifest."""
     if impute_mode not in ("mean", "map"):
         raise ValueError(f"impute_mode must be 'mean' or 'map', got {impute_mode!r}")
+    unknown = set(endpoints) - set(_ENDPOINTS)
+    if unknown:
+        raise ValueError(f"endpoints {sorted(unknown)}: the exported ones are {_ENDPOINTS}")
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     buckets = tuple(sorted(buckets or server._buckets))
@@ -480,7 +486,7 @@ def export_serving(server: SvaeServer, directory: str | Path, buckets=None,
         "latent_dim": d,
     }
     with torch.no_grad():
-        for name in _ENDPOINTS:
+        for name in (e for e in _ENDPOINTS if e in endpoints):
             files = {}
             for b in buckets:
                 program = torch.export.export(_Endpoint(bodies[name]), examples(name, b))

@@ -14,7 +14,8 @@ reference's ``make_minibatch_scan_runner``), the combine kernel inside
 when ``fused_combine`` is set, and ``make_batch_runner`` does the same for
 the steps of the pure mixtures and the plain VAE; ``make_mixture_runner``
 runs the GMM/SMM through the mixstep kernel (the reference's
-``make_mixture_megakernel_runner``).
+``make_mixture_megakernel_runner``); ``train_chosen`` trains on whichever
+SVAE runner ``choose_kernel`` picks (the demos' rule).
 """
 
 from __future__ import annotations
@@ -291,6 +292,33 @@ def make_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
         return finish(state, mets, t_steps)
 
     return runner
+
+
+def train_chosen(state, config, prior, x: torch.Tensor, steps: int, *, lr: float, rho: float,
+                 hidden=(50, 50), batch_size: int = 0, aug_noise: float = 0.0, seed: int = 0,
+                 chunk: int = 1000):
+    """Train ``steps`` steps on the engine ``choose_kernel(engine="auto")``
+    picks for this workload (matched ``hidden`` widths, constant ``rho``):
+    ``make_runner`` on tinystep or flexstep, else ``make_step_runner`` (the
+    per-step engine, minibatches drawn with replacement), in chunks of
+    ``chunk`` steps, each chunk's noise keyed ``seed + state.step``.
+    Returns (state, the last chunk's metrics, the kernel or ``PER_STEP``)."""
+    n = x.shape[0]
+    batch = batch_size if 0 < batch_size < n else 0
+    kernel = choose_kernel(config, engine="auto", batch_full=batch == 0,
+                           encoder_hidden=hidden, decoder_hidden=hidden, rho=rho,
+                           likelihood=config.likelihood, input_dim=int(x.shape[1]))
+    kw = dict(lr=lr, rho=rho, batch_size=batch, aug_noise=aug_noise)
+    if kernel == PER_STEP:
+        runner = make_step_runner(config, prior, **kw)
+    else:
+        runner = make_runner(config, prior, kernel=kernel, **kw)
+    mets, done = None, 0
+    while done < steps:
+        todo = min(chunk, steps - done)
+        state, mets = runner(state, x, todo, seed=seed)
+        done += todo
+    return state, mets, kernel
 
 
 def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,

@@ -4,7 +4,7 @@ mixstep and estep CUDA kernels). BASELINE config #2.
     python -m svax_torch.train_gmm --config pinwheel-gmm [--init kmeanspp]
         [--device cuda|cpu] [--engine kernel|plain] [--fused-kernel]
         [--unroll U] [--eval-every E] [--steps N] [--seed S] [--dp]
-        [--batch-size M] [--rho-decay D] [--logfile PATH]
+        [--batch-size M] [--rho-decay D] [--logfile PATH] [--plot PATH]
 
 Mirrors experiments/train_gmm.py. ``--batch-size M`` (0, the default, is
 the full batch) trains each step on M distinct rows drawn afresh, as the
@@ -24,7 +24,10 @@ chunk and needs the kernel engine. Prints one JSON row per evaluation (step,
 wall_s, elbo, test_evidence_per_point; ``train.metrics.JsonlLogger``, also
 appended to ``--logfile``), then steps/sec, the component counts and
 {"test_predictive_loglik_per_point", "train_cluster_purity"}. ``--device
-cuda`` without a CUDA device raises; nothing falls back. Tensors are made
+cuda`` without a CUDA device raises; nothing falls back. ``--plot PATH``
+writes the training data coloured by cluster with the components' ellipses
+(``utils.viz.plot_gmm_clusters``; it needs matplotlib, which ``train_smm
+--plot`` needs too). Tensors are made
 in torch's default dtype: float32 unless the caller changed it (the
 kernels take float32 only).
 
@@ -51,6 +54,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from svax_torch.utils import viz
+
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     """Flags the GMM and SMM entries share."""
@@ -69,6 +74,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "kernel, one of 1, 2, 4, 8, dividing every chunk")
     p.add_argument("--engine", choices=["kernel", "plain"], default="kernel")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--plot", default="", help="write the cluster plot (PNG) here")
 
 
 def setup(args, x_train_np: np.ndarray, *, fused: bool = False):
@@ -144,6 +150,7 @@ def main(argv: list[str] | None = None) -> dict:
     from svax_torch.configs import apply_config
 
     apply_config(args, p, sys.argv[1:] if argv is None else argv)
+    viz.check_available(args.plot)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not args.dp:
         p.error(f"WORLD_SIZE={world}: more than one process needs --dp")
@@ -251,6 +258,10 @@ def _train(args, dmesh, rank: int) -> dict:
         "train_cluster_purity": evaluation.cluster_purity(resp, train_labels),
     }
     print(json.dumps(final))
+    if args.plot:
+        viz.plot_gmm_clusters(x_train, resp, state.nat, args.plot,
+                              title=f"pinwheel GMM K={args.num_components}")
+        print(f"wrote {args.plot}")
     return {"state": state, "rows": rows, "steps_per_s": rate, "counts": counts, **final}
 
 

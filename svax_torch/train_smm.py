@@ -3,7 +3,7 @@
 
     python -m svax_torch.train_smm [--dof 4] [--outliers M] [--init kmeanspp]
         [--device cuda|cpu] [--engine kernel|plain] [--unroll U]
-        [--eval-every E] [--steps N] [--seed S] [--batch-size M]
+        [--eval-every E] [--steps N] [--seed S] [--batch-size M] [--plot PATH]
 
 Mirrors experiments/train_smm.py with constant ρ; the engines, ``--unroll``
 and the dtype are as in ``svax_torch.train_gmm``. ``--batch-size M`` (0 =
@@ -13,7 +13,9 @@ draws them; mixstep, the kernel engine, trains on the full batch and
 refuses a minibatch with its reason.
 ``--outliers M`` appends M gross outliers (50·N(0, I), numpy-seeded as the
 reference does). Prints one JSON row per evaluation (step, elbo), then
-steps/sec. ``--device cuda`` without a CUDA device raises.
+steps/sec. ``--plot PATH`` writes the training data coloured by the
+Student-t E-step's cluster with the components' ellipses (it needs
+matplotlib). ``--device cuda`` without a CUDA device raises.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import json
 import numpy as np
 
 from svax_torch.train_gmm import add_common_flags, setup
+from svax_torch.utils import viz
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -40,6 +43,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     if args.dof <= 0.0:
         p.error("--dof must be > 0")
+    viz.check_available(args.plot)
 
     from svax_torch.data.pinwheel import load_pinwheel
     import torch
@@ -79,6 +83,13 @@ def main(argv: list[str] | None = None) -> dict:
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds
     print(f"steps/sec: {rate:.1f}")
+    if args.plot:
+        from svax_torch.pgm import gmm, smm
+
+        resp, _, _ = smm.e_step_obs(x_train, gmm.expected_params(state.nat), args.dof)
+        viz.plot_gmm_clusters(x_train, resp, state.nat, args.plot,
+                              title=f"pinwheel SMM K={args.num_components} dof={args.dof}")
+        print(f"wrote {args.plot}")
     return {"state": state, "rows": rows, "steps_per_s": rate}
 
 

@@ -121,8 +121,12 @@ bit-equal to an uninterrupted one). ``--bundle-dir`` writes a serving
 bundle (``serve.save_bundle``) at the end. ``--debug-nans`` turns on
 autograd's anomaly mode and checks the state and the row after every
 chunk for NaN and infinity (``utils.guards``). ``--device cuda`` without a
-CUDA device raises; nothing falls back. ``--plot`` (the latent space)
-waits for the port's plotting module (ROADMAP.md).
+CUDA device raises; nothing falls back. ``--plot PATH`` writes the latent
+space of the training data after the last step (``utils.viz``: the
+responsibility-weighted posterior means of a one-sample forward pass,
+``svae_smm.forward`` for the SMM prior, with the components' ellipses);
+it needs matplotlib, and raises an error naming it where matplotlib is
+not installed.
 """
 
 from __future__ import annotations
@@ -133,6 +137,8 @@ import os
 import time
 
 import torch
+
+from svax_torch.utils import viz
 
 SVAE_CONFIGS = ("pinwheel-svae", "auto-svae", "mnist-svae", "bigk-dp")
 
@@ -172,7 +178,7 @@ def add_workload_flags(p: argparse.ArgumentParser) -> None:
                         "freedom (0 = Gaussian mixture prior)")
     p.add_argument("--smm-iters", type=int, default=2,
                    help="u-z coordinate rounds in the SMM combine")
-    p.add_argument("--plot", default="", help="latent-space plot (not ported yet)")
+    p.add_argument("--plot", default="", help="write the latent-space plot (PNG) here")
 
 
 def apply_named_config(p: argparse.ArgumentParser, args, argv) -> None:
@@ -273,9 +279,7 @@ def main(argv: list[str] | None = None) -> dict:
     p, args = parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         p.error("--resume needs --checkpoint-dir")
-    if args.plot:
-        p.error("--plot: the latent-space plot waits for the port's plotting module "
-                "(ROADMAP.md)")
+    viz.check_available(args.plot)
     if args.eval_every < 1:
         p.error("--eval-every must be >= 1")
     if args.weight_decay < 0.0:
@@ -532,6 +536,12 @@ def _train(args, p, device, world, data_group, rank) -> dict:
         out["final_test_iw_loglik_per_point"] = float(iw.mean())
         print(json.dumps({"final_test_iw_loglik_per_point": float(iw.mean()),
                           "iw_samples": args.iw_samples}), flush=True)
+    if args.plot and rank == 0:
+        z_mean, resp = viz.svae_latent(state, eval_config, prior, x_train,
+                                       torch.Generator(device=device).manual_seed(args.seed))
+        viz.plot_latent_space(z_mean, resp, state.pgm_nat, args.plot,
+                              title=f"SVAE latent ({args.dataset})")
+        show(f"wrote {args.plot}")
     if ckpt is not None and rank == 0:
         ckpt.save(steps, state)
     if args.bundle_dir and rank == 0:

@@ -83,25 +83,28 @@ def test_load_mnist_reads_idx_files(monkeypatch, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_port_imports_no_jax():
-    """Importing the port's modules and running its entries (two CPU steps
-    of pinwheel-svae, with and without the SMM prior, and of the GMM
-    mixture) loads neither jax, svax nor the reference's configs."""
+def test_port_imports_no_jax(tmp_path):
+    """Importing every module of the port (``pkgutil.walk_packages``) and
+    running its entries (two CPU steps of pinwheel-svae, with and without
+    the SMM prior, of the GMM mixture, and of two demos) loads neither jax,
+    svax, the reference's experiments nor its configs."""
     code = (
-        "import sys\n"
-        "import svax_torch, svax_torch.train_svae, svax_torch.ops.tinystep\n"
-        "import svax_torch.convert, svax_torch.train.loop\n"
-        "import svax_torch.train_gmm, svax_torch.train_smm, svax_torch.ops.mixstep\n"
-        "import svax_torch.ops.estep, svax_torch.models.evaluation, svax_torch.pgm.init\n"
-        "import svax_torch.ops.combine, svax_torch.train.warmup, svax_torch.data.mnist\n"
-        "import svax_torch.models.svae_smm, svax_torch.configs\n"
-        "from svax_torch import train_gmm, train_svae\n"
+        "import importlib, pkgutil, sys\n"
+        "import svax_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(svax_torch.__path__, 'svax_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert len(names) > 70, names\n"
+        "from svax_torch import anomaly_demo, latent_contamination_demo, train_gmm, train_svae\n"
         "for extra in ([], ['--smm-dof', '4']):\n"
         "    train_svae.main(['--device', 'cpu', '--steps', '2', '--iw-samples', '2', *extra])\n"
         "train_gmm.main(['--config', 'pinwheel-gmm', '--device', 'cpu', '--steps', '2'])\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'svax' or m.startswith('svax.') or m == 'configs'"
-        " or m.startswith('configs.'))\n"
+        "anomaly_demo.main(['--device', 'cpu', '--steps', '2', '--iw-samples', '2'])\n"
+        "latent_contamination_demo.main(['--device', 'cpu', '--pretrain-steps', '2',"
+        " '--scan-chunk', '2', '--online-steps', '2', '--batch', '20', '--iw-samples', '2',"
+        f" '--json', {str(tmp_path / 'lc_torch.json')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'svax', 'configs', 'experiments'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

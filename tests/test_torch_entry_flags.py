@@ -164,7 +164,7 @@ def _first_line(argv) -> tuple[dict, dict]:
     return json.loads(buf.getvalue().splitlines()[0]), out
 
 
-def test_free_form_runs_and_weight_decay_takes_the_per_step_engine():
+def test_free_form_runs_and_weight_decay_takes_the_per_step_engine(monkeypatch):
     first, out = _first_line(["--device", "cpu", "--steps", "6", "--scan-chunk", "3",
                               "--iw-samples", "3", "--aug-noise", "0.3", "-K", "6"])
     assert first["config"] is None and first["kernel"] == "tinystep" and first["why"] is None
@@ -183,7 +183,10 @@ def test_free_form_runs_and_weight_decay_takes_the_per_step_engine():
     with pytest.raises(SystemExit):
         train_svae.main(["--device", "cpu", "--steps", "1", "--weight-decay", "0.01",
                          "--engine", "megakernel"])
-    with pytest.raises(SystemExit):
+    # Where matplotlib is missing (the card machine), --plot raises an
+    # error naming it before training.
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         train_svae.main(["--device", "cpu", "--steps", "1", "--plot", "x.png"])
 
 
