@@ -87,7 +87,7 @@ D. the mnist-svae main path: ``svax_torch.train_svae --config mnist-svae
    more than 100 nats, cluster purity of the test set above 0.7, at least
    6 of 10 components in use (computed here from the returned state; the
    entry prints none); then 40 steps on the plain engine for its rate, and
-   50 steps of the kernel engine and 10 of the plain one, without the
+   50 steps of the kernel engine and 3 of the plain one, without the
    warmup, under ``torch.profiler`` for the device's idle share and the
    combine's share of device time; seed 0's first run writes its final
    state as a serving bundle (``--bundle-dir``) for phase L;
@@ -289,6 +289,18 @@ P. slice L, the demos, on the card (tinystep's f32 mode, GMM and SMM
    fill finite and the exported tier within phase L's 1e-6 of the live one,
    both decode rules; the launches, counted
    around the phase, join tinystep's f32 and SMM rows of the kernels line;
+Q. the graphed runners (``train.graph``; phases D, F, K, L, N, O and P
+   above already run them, the default on CUDA): mnist-svae and bigk-dp
+   at their configs' full widths for 200 steps each, the full recognition
+   head at mnist width (the plain combine) for 20 and the comparison's
+   pinwheel VAE for 500, each in a chunk of 3/4 and a shorter one of the
+   rest (one capture replayed), graphed against the eager loop
+   (``graph=False``) in turns (``measure_graphs.equal_routes``): the final
+   states and every metric bit-equal; each route's steps/s (the graph's
+   over its second chunk, after the capture), the capture seconds and the
+   device memory the capture reserved; then each route's wall, device time
+   a step and idle share from one short profile of every path on each
+   route in one fresh process (``timed_fresh``: ``measure_graphs.profile_smoke``);
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -1050,7 +1062,9 @@ def mnist_phase(card: str, bundle: str) -> tuple[tuple[int, int], dict]:
                              "--iw-samples", "0"])
     print(f"phase D: mnist-svae plain engine: {plain['steps_per_s']:.1f} steps/s (40 steps, "
           f"no warmup); {card}", flush=True)
-    for engine, steps in (("kernel", 50), ("plain", 10)):
+    # The plain engine's profile cut to 3 steps: its thousands of events a
+    # step cost ~3 s a step of host time to read back (phase Q pays for it).
+    for engine, steps in (("kernel", 50), ("plain", 3)):
         r = profile_entry(["--config", "mnist-svae", "--steps", str(steps), "--warmup-steps",
                            "0", "--device", "cuda", "--engine", engine, "--iw-samples", "0"])
         print(f"phase D: mnist-svae {engine} engine, {steps} steps under torch.profiler: "
@@ -2954,6 +2968,33 @@ def demos_phase(card: str) -> dict:
     return counts
 
 
+def graphs_phase(card: str) -> None:
+    """Q. the graphed runners against the eager loop (docstring)."""
+    import torch
+
+    from svax_torch import measure_graphs as mg
+
+    dev = torch.device("cuda", 0)
+    steps = {"mnist-svae": 200, "bigk-dp": 200, "full-head": 20, "vae": 500}
+    for path, n in steps.items():
+        t0 = time.perf_counter()
+        eq = mg.equal_routes(dev, path, (n - n // 4, n // 4))
+        assert eq["equal"], f"phase Q: {path}: the graphed chunk differs from the eager loop"
+        assert eq["captures"] == 1, (path, eq)
+        print(f"phase Q: {path}: graphed == eager bit for bit (states and metrics, {n} steps "
+              f"in chunks of {n - n // 4} + {n // 4} in turns, one capture); steps/s eager "
+              f"{eq['eager']:.1f} ({n} steps), graphed {eq['graphed']:.1f} (the {n // 4} after "
+              f"the capture); capture {eq['capture_s']:.3f} s, {eq['pool_bytes']} bytes "
+              f"reserved; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    got = timed_fresh("profile_smoke", module="measure_graphs")
+    for route, profs in got.items():
+        for path, prof in profs.items():
+            print(f"phase Q: {path} {route} under torch.profiler ({mg.SMOKE[path]} steps, "
+                  f"fresh process): {prof['steps_per_s']:.1f} steps/s, wall "
+                  f"{prof['wall_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step, idle "
+                  f"share {100 * prof['idle']:.1f}%; {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3207,6 +3248,10 @@ def main() -> int:
     print(f"phase P done at {elapsed()}", flush=True)
     launches += demos["tinystep"]
     smm_kernel["launches"] += demos["tinystep_smm"]
+
+    # Q. the graphed runners against the eager loop
+    graphs_phase(card)
+    print(f"phase Q done at {elapsed()}", flush=True)
 
     # 9. result
     print(json.dumps({"kernels": [{

@@ -699,7 +699,8 @@ def time_rowsum(dev, m: int, dh: int, d: int, precision: str, reps: int = 10) ->
     return out
 
 
-def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0, nn_precision: str = "high"):
+def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0, nn_precision: str = "high",
+                   graph: bool | None = None):
     """The big-K f32 step at benchmarks/mfu.py's bigk-single-chip shape:
     bigk-dp's widths and recipe (K = 100, d = 10, S = 1, 200-200,
     minibatches of 1024 without replacement, the fused combine with
@@ -707,7 +708,7 @@ def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0, nn_precision: str = 
     sum in the kernels or not, at ``nn_precision`` (the default "high" runs
     the row sum's bf16-operand mode, "highest" its f32 mode); returns
     (runner, state, x_train) on ``dev`` (``loop.make_step_runner``, kernel
-    engine)."""
+    engine, ``graph`` its route: None a CUDA graph, False the eager loop)."""
     from svax_torch.configs import CONFIGS
     from svax_torch.data import load_dataset
     from svax_torch.models.svae import SvaeConfig
@@ -729,7 +730,7 @@ def bigk_f32_setup(dev, fused_decoder: bool, seed: int = 0, nn_precision: str = 
                                  tuple(cfg["decoder_hidden"]))
     runner = loop.make_step_runner(config, prior, lr=cfg["lr"], rho=cfg["rho"],
                                    rho_decay=cfg["rho_decay"], batch_size=cfg["batch_size"],
-                                   replace=False)
+                                   replace=False, graph=graph)
     return runner, state, x
 
 

@@ -96,8 +96,10 @@ def load(path: Path) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rho_forward.argtypes = [p, p, p, i, i, i, p, p]
     lib.combine_grid.argtypes = [i, i, i, i]
-    lib.combine_forward.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_ulonglong,
-                                    ctypes.c_uint, p, p, p, p, p, p, p]
+    # The combine's Philox key is a device word since the graphed runners
+    # (null here: ε is injected); a checkout before them took (seed, step)
+    # by value and cannot be compared through this entry.
+    lib.combine_forward.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
     lib.svax_cuda_error_string.argtypes = [i]
     lib.svax_cuda_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "rho_phase_clocks"):
@@ -146,7 +148,7 @@ class Case:
         stats, zero = torch.empty((k, 1 + d + d * d), **kw), torch.zeros(n, **kw)
         _check(lib, lib.combine_forward(
             _ptr(self.pot_h), _ptr(self.pot_p), _ptr(self.w), _ptr(self.eps), _ptr(zero), n, k, d,
-            1, 0, 0, _ptr(z), _ptr(lr), _ptr(mean), _ptr(local), _ptr(partial), _ptr(stats),
+            1, None, _ptr(z), _ptr(lr), _ptr(mean), _ptr(local), _ptr(partial), _ptr(stats),
             self.stream), "combine_forward")
         return lr
 

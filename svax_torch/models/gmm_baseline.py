@@ -14,6 +14,7 @@ import torch
 from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
+from svax_torch.train import graph
 
 
 class GmmTrainState(NamedTuple):
@@ -61,12 +62,15 @@ def make_train_step(prior: GmmNat, rho: float | Callable, num_total: int,
         if data_group is not None:
             *fields, local = mesh.psum_tensors([*stats, local], data_group)
             stats = type(stats)(*fields)
-        rho_t = rho(state.step) if callable(rho) else rho
-        new_nat = natgrad.cvi_update(state.nat, prior, gmm.stats_to_nat(stats), rho_t)
+        rho_t, keep = graph.step_size(rho, state.step, state.nat.dir_nat)
+        new_nat = natgrad.cvi_update(state.nat, prior, gmm.stats_to_nat(stats), rho_t, keep)
+        rho_m = graph.scalar("rho", lambda s: float(rho(s)), state.step,
+                             local) if callable(rho) else rho_t
         metrics = {
             "local_evidence": local,
             "elbo": local - gmm.kl_global(state.nat, prior),
-            "rho": torch.tensor(rho_t, dtype=local.dtype, device=local.device),
+            "rho": rho_m if torch.is_tensor(rho_m) else torch.full(
+                (), rho_m, dtype=local.dtype, device=local.device),
         }
         return GmmTrainState(nat=new_nat, step=state.step + 1), metrics
 

@@ -66,14 +66,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rho_blocks.restype = i
     lib.combine_forward.argtypes = [
         p, p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, norm, n, k, d, s
-        ctypes.c_ulonglong, ctypes.c_uint,  # seed, step (the Philox stream)
+        p,  # the device word {seed, step} keying the Philox stream (null with eps)
         p, p, p, p, p, p,  # z, log_resp, mean, local, partial, stats
         p,  # stream
     ]
     lib.combine_forward.restype = i
     lib.combine_backward.argtypes = [
         p, p, p, p, p, i, i, i, i,  # pot_h, pot_p, w, eps, norm, n, k, d, s
-        ctypes.c_ulonglong, ctypes.c_uint,  # seed, step
+        p,  # the device word {seed, step}
         p, p, p, p, p,  # dz, dlr, dmu, dlocal, dstats (each may be null)
         p, p, p, p, p,  # dph, dpp, dn (null without norm), partial, dw (both null: no dw)
         p,  # stream

@@ -38,7 +38,10 @@ Noise: ``eps`` (S, N, K, d) injects it (the parity mode); with ``eps=None``
 and a ``seed`` the kernel draws it from an in-kernel Philox4x32-10 +
 Box–Muller keyed ``seed`` on stream ``step``, normal ((s·N + n)·K + k)·d + i,
 and the backward regenerates the same numbers; ε is not returned (recover
-it as L̃ᵀ(z − μ̃)). The plain version draws seed-mode noise from a
+it as L̃ᵀ(z − μ̃)). The kernels read (seed, step) from a device word, an
+int64 (2,) tensor {seed, step} (``key_word``): a CUDA graph that replays the
+train step advances its step on the device, where a launch argument would
+be frozen at the capture. The plain version draws seed-mode noise from a
 ``torch.Generator`` seeded ``seed + step``: the same distribution, not the
 same numbers.
 """
@@ -217,6 +220,18 @@ def stats_from_raw(raw: torch.Tensor, d: int, scale: float = 1.0) -> GmmSuffStat
 
 
 # ------------------------------------------------------------ plain version
+
+
+def key_word(seed: int, step: int, device) -> torch.Tensor:
+    """The kernels' Philox key as their device word: int64 {seed, step}
+    (seed's 64 bits; the kernels take the step's low 32 as the stream),
+    written by fills on the device, since a copy from the host would
+    synchronise."""
+    seed &= 0xFFFFFFFFFFFFFFFF
+    word = torch.full((2,), seed - (1 << 64) if seed >= 1 << 63 else seed,
+                      dtype=torch.int64, device=device)
+    word[1].fill_(step & 0xFFFFFFFF)
+    return word
 
 
 def _draw_eps(shape, seed: int, step: int, like: torch.Tensor) -> torch.Tensor:
@@ -623,7 +638,7 @@ class _CombineKernel(torch.autograd.Function):
     normaliser; ε (or its seed) is a constant."""
 
     @staticmethod
-    def forward(ctx, ph, pp, w, norm, eps, seed, step, num_samples):
+    def forward(ctx, ph, pp, w, norm, eps, word, num_samples):
         global launches, norm_launches
         from svax_torch.ops import _build
         ptr = _build.ptr
@@ -643,16 +658,17 @@ class _CombineKernel(torch.autograd.Function):
             partial = torch.empty((blocks, partial_planes(d), k), **kw)
             err = lib.combine_forward(
                 ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, num_samples,
-                seed & 0xFFFFFFFFFFFFFFFF, step & 0xFFFFFFFF,
-                ptr(z), ptr(log_resp), ptr(mean), ptr(local), ptr(partial), ptr(raw),
-                ctypes.c_void_p(stream))
+                ptr(word), ptr(z), ptr(log_resp), ptr(mean), ptr(local), ptr(partial),
+                ptr(raw), ctypes.c_void_p(stream))
         _build.check(lib, err, "combine_forward")
         if norm is None:
             launches += 1
         else:
             norm_launches += 1
         ctx.save_for_backward(ph, pp, w, norm, eps)
-        ctx.seed, ctx.step, ctx.num_samples = seed, step, num_samples
+        # The word, not saved for backward: a graphed step advances it in
+        # place after its backward has read it.
+        ctx.word, ctx.num_samples = word, num_samples
         ctx.set_materialize_grads(False)
         return z, log_resp, mean, local, raw
 
@@ -669,7 +685,7 @@ class _CombineKernel(torch.autograd.Function):
         need_norm = ctx.needs_input_grad[3]
         cts = [_f32(t) for t in (dz, dlr, dmu, dlocal, dstats)]
         if all(t is None for t in cts) or not (need_pot or need_w or need_norm):
-            return (None,) * 8
+            return (None,) * 7
         key = "+".join([name for name, t in zip(("dz", "dlr", "dmu", "dlocal", "dstats"), cts)
                         if t is not None] + ["dw"] * need_w + ["dn"] * need_norm)
         backward_paths[key] = backward_paths.get(key, 0) + 1
@@ -690,9 +706,8 @@ class _CombineKernel(torch.autograd.Function):
                 dw = torch.empty((k, slot_width(d)), **kw)
             err = lib.combine_backward(
                 ptr(ph), ptr(pp), ptr(w), ptr(eps), ptr(norm), n, k, d, ctx.num_samples,
-                ctx.seed & 0xFFFFFFFFFFFFFFFF, ctx.step & 0xFFFFFFFF,
-                *(ptr(t) for t in cts), ptr(dph), ptr(dpp), ptr(dn), ptr(partial), ptr(dw),
-                ctypes.c_void_p(stream))
+                ptr(ctx.word), *(ptr(t) for t in cts), ptr(dph), ptr(dpp), ptr(dn),
+                ptr(partial), ptr(dw), ctypes.c_void_p(stream))
         _build.check(lib, err, "combine_backward")
         if norm is None:
             backward_launches += 1
@@ -700,7 +715,7 @@ class _CombineKernel(torch.autograd.Function):
         else:
             norm_backward_launches += 1
             norm_lean_backward_launches += lean
-        return dph, dpp, dw, dn, None, None, None, None
+        return dph, dpp, dw, dn, None, None, None
 
 
 class _RhoKernel(torch.autograd.Function):
@@ -796,14 +811,17 @@ def log_rho_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected
 
 def combine_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
                   eps: torch.Tensor | None, num_samples: int, scale: float = 1.0,
-                  *, seed: int | None = None, step: int = 0,
+                  *, seed: int | torch.Tensor | None = None, step: int = 0,
                   log_norm: torch.Tensor | None = None):
     """Fused combine + local KL + sampling + statistics, differentiable in
     pot_h, pot_p, ``exp`` and ``log_norm``.
 
     pot_h, pot_p (N, d): the encoder's diagonal potentials; eps (S, N, K, d)
     standard normals, or None with ``seed`` (and the step folded into the
-    Philox counter). Returns (z (S, N, K, d), log_resp (N, K), mean
+    Philox counter). ``seed`` is an int with ``step`` an int, or the device
+    word itself (``key_word``'s int64 {seed, step} on pot_h's device, which
+    a graphed runner fills per chunk and its captured step advances; ``step``
+    is then not read). Returns (z (S, N, K, d), log_resp (N, K), mean
     (N, K, d), local (N,), GmmSuffStats × ``scale``). ``log_norm`` (N,):
     the log-normaliser of the responsibilities across every K-shard
     (component parallelism); log r̃ = log ρ − log_norm, and ``local`` and the
@@ -815,6 +833,8 @@ def combine_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
     if eps is None and seed is None:
         raise ValueError("combine_fused: eps=None requires a seed")
     if pot_h.device.type == "cpu":
+        if torch.is_tensor(seed):
+            seed, step = int(seed[0]), int(seed[1])
         return combine_fused_plain(pot_h, pot_p, exp, eps, num_samples, scale,
                                    seed=seed, step=step, log_norm=log_norm)
     n, d = pot_h.shape
@@ -831,7 +851,13 @@ def combine_fused(pot_h: torch.Tensor, pot_p: torch.Tensor, exp: GmmExpected,
         if tuple(log_norm.shape) != (n,):
             raise ValueError(f"combine_fused: log_norm shape {tuple(log_norm.shape)} != {(n,)}")
         log_norm = log_norm.contiguous()
+    word = None
+    if eps is None:
+        word = seed if torch.is_tensor(seed) else key_word(int(seed), int(step), pot_h.device)
+        if word.dtype != torch.int64 or tuple(word.shape) != (2,) or word.device != pot_h.device:
+            raise ValueError("combine_fused: the device word is int64 (2,) on "
+                             f"{pot_h.device} (got {word.dtype} {tuple(word.shape)} on "
+                             f"{word.device})")
     z, log_resp, mean, local, raw = _CombineKernel.apply(
-        pot_h.contiguous(), pot_p.contiguous(), w, log_norm, eps,
-        0 if seed is None else int(seed), int(step), s)
+        pot_h.contiguous(), pot_p.contiguous(), w, log_norm, eps, word, s)
     return z, log_resp, mean, local, stats_from_raw(raw, d, scale)

@@ -28,6 +28,8 @@
 // bit-equal. ε comes from the caller, or from Philox4x32-10 + Box–Muller
 // (philox.cuh) keyed (seed, step) and counted by ((s·N + n)·K + k)·d + i,
 // so the backward regenerates the forward's numbers whatever the tiling.
+// The key is read from a device word {seed, step}, not passed by value, so
+// that a CUDA graph replaying the train step draws each step's own ε.
 //
 // Component parallelism (log_rho_fused, combine_pallas.py:722, and
 // combine_fused's log_norm mode, _tile_core's norm=): with the mixture's K
@@ -125,7 +127,7 @@ __global__ void __launch_bounds__(svax::comb::kBlockThreads, 1) combine_fwd(FwdA
       for (int s = 0; s < a.s; ++s) {
         const size_t base = ((static_cast<size_t>(s) * a.n + n) * K + k) * D;
         float ev[D], u[D];  // u = L̃⁻ᵀε by back substitution (solve_upper's order)
-        c::noise<D>(a.eps, a.seed, a.stream, base, ev);
+        c::noise<D>(a.eps, a.word, base, ev);
 #pragma unroll
         for (int i = D - 1; i >= 0; --i) {
           float acc = ev[i];
@@ -568,11 +570,12 @@ int rho_blocks(int n, int k) {
 // norm (N,) null: the softmax over this K; else log r̃ = log ρ − norm.
 // partial: combine_grid(n, k, d, norm ? 1 : 0) · (1 + d + d(d+1)/2) · K floats.
 int combine_forward(const float* ph, const float* pp, const float* w, const float* eps,
-                    const float* norm, int n, int k, int d, int s, unsigned long long seed,
-                    unsigned int stream_id, float* z, float* log_resp, float* mean, float* local,
-                    float* partial, float* stats, void* stream) {
-  if (!shape_ok(n, k, s)) return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a{ph, pp, w, eps, norm, n, k, s, seed, stream_id, 0, 0, 0,
+                    const float* norm, int n, int k, int d, int s,
+                    const unsigned long long* word, float* z, float* log_resp, float* mean,
+                    float* local, float* partial, float* stats, void* stream) {
+  if (!shape_ok(n, k, s) || (eps == nullptr && word == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{ph, pp, w, eps, norm, n, k, s, word, 0, 0, 0,
                   z,  log_resp, mean, local, partial};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -590,16 +593,16 @@ int combine_forward(const float* ph, const float* pp, const float* w, const floa
 // partial (with dw): 2 · combine_grid(n, k, d, norm ? 3 : 2) · (3 + d + d²)
 // · K floats.
 int combine_backward(const float* ph, const float* pp, const float* w, const float* eps,
-                     const float* norm, int n, int k, int d, int s, unsigned long long seed,
-                     unsigned int stream_id, const float* dz, const float* dlr, const float* dmu,
-                     const float* dlocal, const float* dstats, float* dph, float* dpp,
-                     float* dn, float* partial, float* dw, void* stream) {
+                     const float* norm, int n, int k, int d, int s,
+                     const unsigned long long* word, const float* dz, const float* dlr,
+                     const float* dmu, const float* dlocal, const float* dstats, float* dph,
+                     float* dpp, float* dn, float* partial, float* dw, void* stream) {
   if (!shape_ok(n, k, s) || (dw == nullptr) != (partial == nullptr) ||
-      (norm == nullptr) != (dn == nullptr) || (d != 2 && d != 3 && d != 4 && d != 6 &&
-                                               d != 8 && d != 10))
+      (eps == nullptr && word == nullptr) || (norm == nullptr) != (dn == nullptr) ||
+      (d != 2 && d != 3 && d != 4 && d != 6 && d != 8 && d != 10))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{ph, pp,  w,   eps, norm,   n,      k,   s,   seed,    stream_id, 0,
-                  0,  0,   dz,  dlr, dmu,    dlocal, dstats, dph, dpp, partial, dn};
+  const BwdArgs a{ph, pp, w,      eps,    norm, n,   k,   s,       word, 0, 0,
+                  0,  dz, dlr,    dmu,    dlocal, dstats, dph, dpp, partial, dn};
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = (dstats == nullptr && dw == nullptr)
                               ? comb::backward_lean(a, d, st)

@@ -141,7 +141,7 @@ __global__ void __launch_bounds__(svax::comb::kFullThreads, 1) combine_bwd_sampl
       for (int s = 0; s < a.s; ++s) {
         const size_t base = ((static_cast<size_t>(s) * a.n + n) * K + k) * D;
         float ev[D], v[D];
-        c::noise<D>(a.eps, a.seed, a.stream, base, ev);
+        c::noise<D>(a.eps, a.word, base, ev);
 #pragma unroll
         for (int i = 0; i < D; ++i) mb[i] += a.dz[base + i];
 #pragma unroll

@@ -391,15 +391,21 @@ __device__ __forceinline__ void responsibility(float* s_rho, float* s_ex, int K,
 
 // ε for one sample of one (n, k): injected, or philox.cuh's normals
 // base + i drawn two per Philox block (normals 2c and 2c + 1 are the two
-// halves of block c): the numbers philox_normal gives, bit for bit.
+// halves of block c): the numbers philox_normal gives, bit for bit. The
+// Philox key is the device word `word` = {seed, step}: the seed, and the
+// step's low 32 bits as the stream. A caller writes it before the launch;
+// a replayed CUDA graph's step advances it on the device, so every replay
+// reads its own step (a launch argument would be frozen at capture).
 template <int D>
-__device__ __forceinline__ void noise(const float* eps, unsigned long long seed, uint32_t stream,
+__device__ __forceinline__ void noise(const float* eps, const unsigned long long* word,
                                       size_t base, float (&e)[D]) {
   if (eps) {
 #pragma unroll
     for (int i = 0; i < D; ++i) e[i] = eps[base + i];
     return;
   }
+  const unsigned long long seed = __ldg(word);
+  const uint32_t stream = static_cast<uint32_t>(__ldg(word + 1));
   const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
   uint4 r = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
@@ -452,8 +458,7 @@ struct FwdArgs {
   const float* __restrict__ eps;   // (S, N, K, D) or null: in-kernel Philox
   const float* __restrict__ norm;  // (N,) log-normaliser (kNorm) or null
   int n, k, s;
-  unsigned long long seed;
-  uint32_t stream;
+  const unsigned long long* __restrict__ word;  // {seed, step} (noise), or null with eps
   int rows, groups, blocks;  // rows a block, row groups and the grid
   float* z;                  // (S, N, K, D)
   float* log_resp;     // (N, K)
@@ -469,8 +474,7 @@ struct BwdArgs {
   const float* __restrict__ eps;
   const float* __restrict__ norm;  // (N,) (kNorm) or null
   int n, k, s;
-  unsigned long long seed;
-  uint32_t stream;
+  const unsigned long long* __restrict__ word;  // {seed, step}, or null with eps
   int rows, groups, blocks;
   const float* __restrict__ dz;      // (S, N, K, D) or null
   const float* __restrict__ dlr;     // (N, K) or null

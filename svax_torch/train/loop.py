@@ -29,9 +29,13 @@ from svax_torch.models.svae import check_recon_mode
 from svax_torch.ops import flexstep, mixstep, tinystep
 from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm
+from svax_torch.train import graph as cuda_graph
 from svax_torch.train import svae_step
 
 PER_STEP = "per-step"
+# make_step_runner's / make_batch_runner's graph="body": the captured step
+# run T times a chunk without a graph (the CPU tests' check on a replay).
+BODY = "body"
 FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
                      "(dof > 0 is the Student-t mixture prior)")
 SINGLE_DEVICE = "the whole-train-step kernels are single-device (no data/component sharding)"
@@ -332,9 +336,48 @@ def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
     return torch.argsort(keys, dim=1, stable=True)[:, :m]
 
 
+def _graph_engine(graph, sharded: bool):
+    """The runner's ``graph.ChunkGraph`` for its ``graph`` argument, or None
+    for the eager loop: None (the default) is a graph on CUDA tensors of an
+    unsharded step, ``BODY`` the captured callable run without a graph,
+    False the eager loop. Returns a function of x's device."""
+    if graph not in (None, False, BODY):
+        raise ValueError(f"unknown graph {graph!r} (None|False|{BODY!r})")
+    engines: dict = {}
+
+    def engine(device) -> cuda_graph.ChunkGraph | None:
+        if graph is False:
+            return None
+        replay = graph is None
+        if replay and cuda_graph.route(device, sharded) != cuda_graph.GRAPHED:
+            return None
+        key = str(device)
+        if key not in engines:
+            engines[key] = cuda_graph.ChunkGraph(graphed=replay)
+        return engines[key]
+
+    return engine
+
+
+def _x_key(x: torch.Tensor) -> tuple:
+    """What a graph froze of the data it indexes: its storage and layout."""
+    return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+
+
+def _generator(eng, device, seed: int) -> torch.Generator:
+    """The chunk's generator keyed ``seed``: a fresh one on the eager loop,
+    the graph's own (re-seeded: a graph replays the draws of the generator
+    it registered) on a graphed one."""
+    if eng is None:
+        return torch.Generator(device=device).manual_seed(seed)
+    if getattr(eng, "generator", None) is None:
+        eng.generator = torch.Generator(device=device)
+    return eng.generator.manual_seed(seed)
+
+
 def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
                       replace: bool = True, data_group=None,
-                      noise: bool = False) -> Callable:
+                      noise: bool = False, graph: bool | str | None = None) -> Callable:
     """Chunk runner ``runner(state, x, t_steps) → (state, metrics)`` for a
     step that is not the SVAE's (the pure mixtures', the plain VAE's): T
     calls of ``step(state, batch)`` over the full batch or a (T, M) index
@@ -346,14 +389,28 @@ def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
     its contiguous slice of every batch and, with ``noise``, draws from its
     own generator (one number more from the shared one, folded with the
     rank's place, ``mesh.fold_seed``). Metrics are each step's, stacked to
-    (T,) tensors."""
+    (T,) tensors.
+
+    On CUDA tensors of an unsharded step the chunk replays one captured
+    step as a CUDA graph (``graph.ChunkGraph``; ``graph`` as
+    ``make_step_runner``'s), equal to the eager loop bit for bit; the
+    runner's ``engine(device)`` is its graph engine (None: eager)."""
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
+    engine = _graph_engine(graph, data_group is not None)
 
     def runner(state, x, t_steps: int):
         n = x.shape[0]
         m = min(batch_size or n, n)
-        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+        eng = engine(x.device)
+        gen = _generator(eng, x.device, seed + state.step)
         idx = minibatch_indices(gen, n, m, t_steps, replace) if m < n else None
+        if eng is not None:
+            def call(st, rows, g, word):
+                xb = x if idx is None else x.index_select(0, rows["idx"])
+                return step(st, xb, *((g,) if noise else ()))
+
+            return eng.run(state, t_steps, {"idx": idx}, call, generator=gen,
+                           key=(*_x_key(x), m))
         if noise and data_group is not None:
             gen = torch.Generator(device=x.device).manual_seed(mesh.fold_seed(
                 int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device)),
@@ -367,13 +424,15 @@ def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
             rows.append(mets)
         return state, {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
 
+    runner.engine = engine
     return runner
 
 
 def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float = 0.0,
                      batch_size: int = 0, engine: str = "kernel",
                      replace: bool = True, data_group=None, comp_group=None,
-                     aug_noise: float = 0.0, weight_decay: float = 0.0) -> Callable:
+                     aug_noise: float = 0.0, weight_decay: float = 0.0,
+                     graph: bool | str | None = None) -> Callable:
     """Chunk runner ``runner(state, x, t_steps, seed=0, eps=None) → (state,
     metrics)`` on the per-step engine: T calls of
     ``svae_step.make_train_step`` (ρ_t = ρ₀/(1 + decay·t) at the pre-update
@@ -412,7 +471,20 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
     is then this rank's (T, S, M / data, K_shard, d). ``aug_noise`` > 0
     wraps the step in ``augment_step``: each step's batch noise comes from
     the generator before the step's own draws. ``weight_decay`` > 0 trains
-    the nets with AdamW (``svae_step.make_train_step``)."""
+    the nets with AdamW (``svae_step.make_train_step``).
+
+    The reference compiles the T steps into one jitted scan; here, on CUDA
+    tensors of an unsharded step, the chunk replays one captured train
+    step as a CUDA graph (``graph.ChunkGraph``): the index stack, injected
+    ε, Adam's bias corrections, a scheduled ρ_t and the combine's Philox
+    word {chunk seed, step} are device buffers the captured step reads at
+    its row, and the generator the step draws from is registered with the
+    graph, so a graphed chunk equals the eager loop bit for bit. CPU
+    tensors and a sharded step (its all-reduces are host calls) run the
+    eager loop; ``graph=False`` asks for it on the card, and
+    ``graph=BODY`` runs the captured callable T times without a graph (the
+    CPU tests' check). A capture or replay that fails raises. The runner's
+    ``engine(device)`` is its graph engine (None: eager)."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r} (kernel|plain)")
     check_recon_mode(config, comp_group)
@@ -427,13 +499,15 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
                                                   weight_decay=weight_decay), aug_noise)
     sharded = data_group is not None or comp_group is not None
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
+    engine = _graph_engine(graph, sharded)
 
     def runner(state, x, t_steps: int, seed: int = 0, eps=None):
         n = x.shape[0]
         m = min(batch_size or n, n)
         if m % ndata:
             raise ValueError(f"a batch of {m} does not split over {ndata} data ranks")
-        gen = torch.Generator(device=x.device).manual_seed(seed + state.step)
+        eng = engine(x.device)
+        gen = _generator(eng, x.device, seed + state.step)
         idx = minibatch_indices(gen, n, m, t_steps, replace) if m < n else None
         if sharded:
             folded = mesh.fold_seed(int(torch.randint(0, 2**62, (1,), generator=gen,
@@ -442,6 +516,14 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
             gen = torch.Generator(device=x.device).manual_seed(folded)
         chunk_seed = (int(torch.randint(0, 2**62, (1,), generator=gen, device=x.device))
                       if use_seed and eps is None else None)
+        if eng is not None:
+            def call(st, rows, g, word):
+                xb = x if idx is None else x.index_select(0, rows["idx"])
+                return step(st, xb, eps=rows.get("eps"), generator=g, seed=word)
+
+            return eng.run(state, t_steps, {"idx": idx, "eps": eps}, call, generator=gen,
+                           key=(*_x_key(x), m),
+                           word=None if chunk_seed is None else (chunk_seed, state.step))
         mine = slice(data_idx * (m // ndata), (data_idx + 1) * (m // ndata))
         rows = []
         for t in range(t_steps):
@@ -452,6 +534,7 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
             rows.append(mets)
         return state, {name: torch.stack([r[name] for r in rows]) for name in rows[0]}
 
+    runner.engine = engine
     return runner
 
 
@@ -487,14 +570,20 @@ def make_mixture_runner(prior, *, rho: float, dof: float = 0.0,
 
 
 def run_mixture(state, x, *, steps: int, eval_every: int, emit: Callable,
-                step: Callable | None = None, runner: Callable | None = None):
+                step: Callable | None = None, runner: Callable | None = None,
+                generator: torch.Generator | None = None, graph: bool | None = None):
     """Train a pure mixture for ``steps`` full-batch steps.
 
     With ``step`` (one step per call, the plain engine) ``emit(t, state,
     elbo)`` follows step 1 and every ``eval_every``-th step, ``elbo`` being
-    that step's bound at its pre-update naturals; with ``runner`` (chunks
+    that step's bound at its pre-update naturals; the steps between two
+    rows replay one captured step as a CUDA graph on CUDA tensors
+    (``graph.ChunkGraph``; ``graph`` as ``make_step_runner``'s, False for a
+    sharded step), ``generator`` being the one the step draws its
+    minibatches from (registered with the graph). With ``runner`` (chunks
     of ``eval_every`` steps) it follows every chunk, with the chunk's last
     ``elbo``. Returns (state, seconds), timed to a device synchronise."""
+    eng = None if runner is not None else _graph_engine(graph, False)(x.device)
     t0 = time.perf_counter()
     t = 0
     while t < steps:
@@ -503,6 +592,13 @@ def run_mixture(state, x, *, steps: int, eval_every: int, emit: Callable,
             state, mets = runner(state, x, todo)
             t += todo
             emit(t, state, float(mets["elbo"][-1]))
+        elif eng is not None:
+            todo = 1 if t == 0 else min(eval_every - t % eval_every, steps - t)
+            state, mets = eng.run(state, todo, {}, lambda st, rows, g, w: step(st, x),
+                                  key=_x_key(x), generator=generator)
+            t += todo
+            if t % eval_every == 0 or t == 1:
+                emit(t, state, float(mets["elbo"][-1]))
         else:
             state, mets = step(state, x)
             t += 1

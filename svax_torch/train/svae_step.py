@@ -21,6 +21,7 @@ from svax_torch.models.svae import SvaeConfig
 from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
+from svax_torch.train import graph
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -83,17 +84,17 @@ def adam_update(
 
     The same elementwise operations, in the same order, as one ``_foreach``
     call per operation over all the leaves (a dozen kernels a step, not a
-    hundred)."""
+    hundred). The bias corrections are per-step scalars (``graph.divide``):
+    Python floats, or table rows inside a graphed chunk."""
     count = opt.count + 1
     flat = lambda tree: [t for side in tree.values() for ly in side for t in ly.values()]  # noqa: E731
     g, m, v, p = flat(grads), flat(opt.mu), flat(opt.nu), flat(params)
     mu = torch._foreach_add(torch._foreach_mul(g, 1.0 - B1), torch._foreach_mul(m, B1))
     nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, 1.0 - B2), g),
                             torch._foreach_mul(v, B2))
-    bc1 = 1.0 - B1**count
-    bc2 = 1.0 - B2**count
-    step = torch._foreach_div(mu, bc1)
-    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), ADAM_EPS)
+    step = graph.divide(mu, "adam_bias1", lambda c: 1.0 - B1**(c + 1), opt.count, p[0])
+    denom = torch._foreach_add(torch._foreach_sqrt(graph.divide(
+        nu, "adam_bias2", lambda c: 1.0 - B2**(c + 1), opt.count, p[0])), ADAM_EPS)
     step = torch._foreach_div(step, denom)
     if weight_decay > 0.0:  # optax.add_decayed_weights, before the lr
         step = torch._foreach_add(step, torch._foreach_mul(p, weight_decay))
@@ -160,7 +161,10 @@ def make_train_step(
     The noise is ``eps`` when given, else drawn from ``generator`` — or,
     with ``config.fused_combine`` and ``kernel_rng``, inside the combine
     kernel from Philox keyed ``seed`` on stream ``state.step`` (no host
-    sync). Adam first (AdamW with ``weight_decay`` > 0, the reference entry's
+    sync); ``seed`` may be the combine's device word {seed, step}
+    (``combine.key_word``), which a graphed runner passes. The per-step
+    scalars (Adam's bias corrections, a scheduled ρ_t) come from
+    ``graph.scalar``. Adam first (AdamW with ``weight_decay`` > 0, the reference entry's
     ``optax.adamw(lr, weight_decay=wd)``), from the gradient of
     −ELBO/num_total; then CVI from the sufficient statistics of the
     pre-update naturals. ``rho`` is a float or
@@ -214,8 +218,10 @@ def make_train_step(
                 shares + [loss.detach()], data_group)
             stats = type(out.suff_stats)(*fields)
             inc = stats_to_nat(stats)
-            rho_t = float(rho(state.step)) if callable(rho) else float(rho)
-            pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho_t)
+            rho_t, keep = graph.step_size(rho, state.step, state.pgm_nat.dir_nat)
+            pgm_nat = natgrad.cvi_update(state.pgm_nat, prior, inc, rho_t, keep)
+            rho_m = graph.scalar("rho", lambda s: float(rho(s)), state.step,
+                                 loss) if callable(rho) else rho_t
         metrics = {
             "elbo": -loss_sum * config.num_total,
             "recon": recon,
@@ -223,7 +229,8 @@ def make_train_step(
             "global_kl": out.global_kl.detach(),
             "neg_loss": -(recon - local) / config.num_total,
             # A fill on the device: a tensor copied from the host would sync.
-            "rho": torch.full((), rho_t, dtype=loss.dtype, device=loss.device),
+            "rho": rho_m if torch.is_tensor(rho_m) else torch.full(
+                (), rho_m, dtype=loss.dtype, device=loss.device),
         }
         new_state = SvaeTrainState(
             nn_params=nn_params, opt_state=opt_state, pgm_nat=pgm_nat,

@@ -50,6 +50,7 @@ import torch
 from svax_torch.models.svae import SvaeConfig
 from svax_torch.pgm import gmm
 from svax_torch.pgm.gmm import GmmNat
+from svax_torch.train import graph as cuda_graph
 from svax_torch.train import loop, svae_step
 from svax_torch.train.checkpoint import Checkpointer
 from svax_torch.train.metrics import JsonlLogger
@@ -151,6 +152,9 @@ class Trainer:
         self.mesh = None  # parallel.mesh.Mesh of a sharded fit
         self.rank = 0
         self.engine: str | None = None  # the engine fit() ran: "step" or "kernel"
+        # How fit() ran the step engine's chunks: graph.route's "graphed" or
+        # "eager (reason)"; a kernel engine's chunk is one launch already.
+        self.graph: str | None = None
         # Filled by fit() when an eval hook and a test set are present: the
         # time-to-target summary and a host snapshot of the best state.
         self.best: dict | None = None
@@ -248,6 +252,8 @@ class Trainer:
         self._chunk = chunk = tc.scan_chunk or min(max(tc.eval_every, 1), 100)
         runner = self.make_kernel_runner() if tc.engine != "step" else None
         self.engine = "step" if runner is None else "kernel"
+        self.graph = (cuda_graph.route(x_train.device, self.mesh is not None)
+                      if runner is None else cuda_graph.KERNEL_CHUNK)
         if runner is None:
             runner = self.make_step_runner()
         evaluate = self.make_eval()

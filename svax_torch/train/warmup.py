@@ -76,16 +76,17 @@ def reseed_from_encoder(state, x: torch.Tensor, prior: GmmNat, *, seed: int = 0,
 def vae_warmup_reseed(state, x: torch.Tensor, config, prior: GmmNat, *, lr: float,
                       steps: int = 1000, batch_size: int = 0, scan_chunk: int = 100,
                       seed: int = 0, engine: str = "kernel", pseudo_counts: float = 5.0,
-                      cov_scale: float = 0.0):
+                      cov_scale: float = 0.0, graph: bool | None = None):
     """Phase-1 warmup (ρ = 0) then the k-means++ reseed; returns (state, info).
 
     ``batch_size=0`` trains full-batch; ``engine`` is the per-step runner's
     (``loop.make_step_runner``), which trains the SMM prior when
     ``config.dof`` > 0. The reseed's k-means++ is seeded ``seed``;
-    ``pseudo_counts`` and ``cov_scale`` are ``reseed_from_encoder``'s."""
+    ``pseudo_counts`` and ``cov_scale`` are ``reseed_from_encoder``'s;
+    ``graph`` is the runner's (a CUDA graph on the card by default)."""
     if steps > 0:
         runner = loop.make_step_runner(config, prior, lr=lr, rho=0.0,
-                                       batch_size=batch_size, engine=engine)
+                                       batch_size=batch_size, engine=engine, graph=graph)
         done = 0
         while done < steps:
             todo = min(scan_chunk, steps - done)

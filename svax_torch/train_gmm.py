@@ -75,6 +75,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--engine", choices=["kernel", "plain"], default="kernel")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--plot", default="", help="write the cluster plot (PNG) here")
+    p.add_argument("--graph", action=argparse.BooleanOptionalAction, default=True,
+                   help="plain engine on CUDA: replay the steps between two rows as one "
+                        "captured step (a CUDA graph); --no-graph runs them eagerly "
+                        "(bit-equal)")
 
 
 def setup(args, x_train_np: np.ndarray, *, fused: bool = False):
@@ -196,6 +200,7 @@ def _train(args, dmesh, rank: int) -> dict:
     from svax_torch.data.pinwheel import load_pinwheel
     from svax_torch.models import evaluation, gmm_baseline
     from svax_torch.pgm import gmm
+    from svax_torch.train import graph as cuda_graph
     from svax_torch.train.loop import make_mixture_runner, run_mixture
     from svax_torch.train.metrics import JsonlLogger
 
@@ -214,10 +219,13 @@ def _train(args, dmesh, rank: int) -> dict:
             raise ValueError(f"--dp: a batch of {batch} does not split over {world} ranks")
         mine = slice(dmesh.data_idx * (batch // world), (dmesh.data_idx + 1) * (batch // world))
         x_mine = x_train[mine] if batch == n else x_train
+    graph = (cuda_graph.route(device, dmesh is not None, None if args.graph else False)
+             if args.engine == "plain" else cuda_graph.KERNEL_CHUNK)
     if rank == 0:
         print(f"device={device} n={n} batch={batch} K={args.num_components} "
               f"engine={args.engine}{' fused-kernel' if args.fused_kernel else ''} "
-              f"unroll={args.unroll}{f' dp world_size={world}' if args.dp else ''}")
+              f"unroll={args.unroll}{f' dp world_size={world}' if args.dp else ''} "
+              f"graph={graph}")
 
     rows = []
     logger = JsonlLogger((args.logfile or None) if rank == 0 else None, echo=rank == 0)
@@ -238,10 +246,12 @@ def _train(args, dmesh, rank: int) -> dict:
         step = gmm_baseline.make_train_step(
             prior, rho_schedule(args.rho, args.rho_decay), num_total=n,
             fused=args.fused_kernel, data_group=None if dmesh is None else dmesh.data_group)
+        gen = None
         if batch < n:
             gen = torch.Generator(device=device).manual_seed(args.seed + 1)
             step = minibatch_step(step, x_train, batch, gen, part=mine)
-        kw = {"step": step}
+        kw = {"step": step, "generator": gen,
+              "graph": False if dmesh is not None or not args.graph else None}
     state, seconds = run_mixture(state, x_mine, steps=args.steps,
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds

@@ -49,6 +49,7 @@ def main(argv: list[str] | None = None) -> dict:
     import torch
 
     from svax_torch.models import smm_baseline
+    from svax_torch.train import graph as cuda_graph
     from svax_torch.train.loop import make_mixture_runner, run_mixture
     from svax_torch.train_gmm import minibatch_step
 
@@ -61,8 +62,10 @@ def main(argv: list[str] | None = None) -> dict:
     n = x_train.shape[0]
     batch = args.batch_size if 0 < args.batch_size < n else n
     state = smm_baseline.SmmTrainState(nat=nat, step=0)
+    graph = (cuda_graph.route(device, graph=None if args.graph else False)
+             if args.engine == "plain" else cuda_graph.KERNEL_CHUNK)
     print(f"device={device} n={n} batch={batch} K={args.num_components} dof={args.dof} "
-          f"engine={args.engine} unroll={args.unroll}")
+          f"engine={args.engine} unroll={args.unroll} graph={graph}")
 
     rows = []
 
@@ -75,10 +78,11 @@ def main(argv: list[str] | None = None) -> dict:
                                             unroll=args.unroll)}
     else:
         step = smm_baseline.make_train_step(prior, args.rho, num_total=n, dof=args.dof)
+        gen = None
         if batch < n:
             gen = torch.Generator(device=device).manual_seed(args.seed + 1)
             step = minibatch_step(step, x_train, batch, gen)
-        kw = {"step": step}
+        kw = {"step": step, "generator": gen, "graph": None if args.graph else False}
     state, seconds = run_mixture(state, x_train, steps=args.steps,
                                  eval_every=args.eval_every, emit=emit, **kw)
     rate = args.steps / seconds

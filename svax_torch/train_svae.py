@@ -14,7 +14,7 @@ decoder_mlp and row-sum CUDA kernels).
         [--fused-decoder] [--remat-decoder] [--eval-every N] [--dp]
         [--smm-dof DOF [--smm-iters R] [--smm-envelope-grads]]
         [--checkpoint-dir DIR [--resume]] [--logfile PATH] [--debug-nans]
-        [--bundle-dir DIR]
+        [--bundle-dir DIR] [--[no-]graph]
 
 Mirrors experiments/train_svae.py: the workload flags take the reference
 entry's defaults (pinwheel, K = 10, latent d = 2, S = 4, 50-50, 2,000 full-
@@ -262,6 +262,10 @@ def parse_args(argv: list[str] | None = None):
     p.add_argument("--debug-nans", action="store_true",
                    help="anomaly mode, and a finite check of the state and the row "
                         "after every chunk")
+    p.add_argument("--graph", action=argparse.BooleanOptionalAction, default=True,
+                   help="on CUDA, replay each chunk of the per-step engine as one "
+                        "captured train step (a CUDA graph); --no-graph runs the eager "
+                        "loop (graphed and eager are bit-equal)")
     p.add_argument("--bundle-dir", default="",
                    help="write a serving bundle here at the end of training "
                         "(svax_torch.serve.load_bundle restores it with no flags)")
@@ -318,6 +322,7 @@ def _train(args, p, device, world, data_group, rank) -> dict:
     from svax_torch.models import evaluation
     from svax_torch.models.svae import SvaeConfig
     from svax_torch.pgm import gmm
+    from svax_torch.train import graph as cuda_graph
     from svax_torch.train import svae_step, warmup
     from svax_torch.train.checkpoint import Checkpointer
     from svax_torch.train.loop import (PER_STEP, choose_kernel, kernel_unsupported_reason,
@@ -422,7 +427,8 @@ def _train(args, p, device, world, data_group, rank) -> dict:
         runner = make_step_runner(config, prior, lr=args.lr, rho=args.rho,
                                   rho_decay=rho_decay, batch_size=batch, engine=engine,
                                   replace=not per_step_rows, data_group=data_group,
-                                  aug_noise=args.aug_noise, weight_decay=args.weight_decay)
+                                  aug_noise=args.aug_noise, weight_decay=args.weight_decay,
+                                  graph=None if args.graph else False)
     else:
         runner = make_runner(config, prior, lr=args.lr, rho=args.rho,
                              rho_decay=rho_decay, batch_size=batch,
@@ -452,8 +458,10 @@ def _train(args, p, device, world, data_group, rank) -> dict:
     # estimator (the combine also needs the diagonal head and zero jitter,
     # the decoder tanh nets: models.svae.forward).
     weighted = config.recon_mode == "weighted"
+    graphed = (cuda_graph.route(device, data_group is not None, None if args.graph else False)
+               if kernel == PER_STEP else cuda_graph.KERNEL_CHUNK)
     show(json.dumps({"config": args.config or None, "kernel": kernel, "engine": args.engine,
-                      "why": why, "fused_combine": kernel == PER_STEP and
+                      "why": why, "graph": graphed, "fused_combine": kernel == PER_STEP and
                       engine == "kernel" and config.fused_combine and weighted
                       and config.encoder_head == "diag" and config.jitter == 0.0,
                       "fused_mlp_decoder": engine == "kernel" and weighted and
@@ -478,7 +486,7 @@ def _train(args, p, device, world, data_group, rank) -> dict:
         state, warm_info = warmup.vae_warmup_reseed(
             state, x_train, config, prior, lr=args.lr, steps=warmup_steps,
             batch_size=batch, scan_chunk=args.scan_chunk or 100, seed=args.seed,
-            engine=engine)
+            engine=engine, graph=None if args.graph else False)
         warm_info["seconds"] = time.perf_counter() - t_warm
         show(f"warmup {warmup_steps} steps + k-means++ reseed "
               f"({warm_info['seconds']:.1f}s): seed occupancy "

@@ -9,6 +9,12 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda_mixture.py -m requires_cuda --noconftest
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -174,10 +180,10 @@ def test_estep_matches_plain(dev, n, k, d):
     assert torch.equal(ev, ev2)
 
 
-@pytest.mark.parametrize("n,k,d", [(400, 10, 2), (65536, 128, 10)])
-def test_estep_launches_per_call(dev, n, k, d):
-    """One kernel a call at the pinwheel shape (the ticket's last block adds
-    the partials), as the plan says; at the design shape the plan's count."""
+def profiled_estep_kernels(n: int, k: int, d: int) -> dict:
+    """One call of the kernel under torch.profiler on cuda:0 (after one
+    unprofiled call): the device kernels it ran and the plan's count."""
+    dev = torch.device("cuda", 0)
     x, exp = _estep_inputs(dev, n, k, d)
     estep.e_step_stats_fused(x, exp)
     torch.cuda.synchronize()
@@ -188,7 +194,31 @@ def test_estep_launches_per_call(dev, n, k, d):
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     cap = estep.card_capacity(x.device.index, d, k)
-    want = estep.launches_per_call(n, d, k, cap)
+    return {"kernels": kernels, "want": estep.launches_per_call(n, d, k, cap)}
+
+
+@pytest.mark.parametrize("n,k,d", [(400, 10, 2), (65536, 128, 10)])
+def test_estep_launches_per_call(dev, n, k, d):
+    """One kernel a call at the pinwheel shape (the ticket's last block adds
+    the partials), as the plan says; at the design shape the plan's count.
+    The profile is taken in a fresh child process (as chip_smoke's
+    ``timed_fresh``): late in a long process torch.profiler has read no
+    device events at all."""
+    code = ("import importlib.util, json, sys\n"
+            "spec = importlib.util.spec_from_file_location('cuda_mixture', sys.argv[1])\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "got = mod.profiled_estep_kernels(*map(int, sys.argv[2:]))\n"
+            "print('RESULT ' + json.dumps(got))\n")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    out = subprocess.run([sys.executable, "-c", code, __file__, str(n), str(k), str(d)],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads([ln for ln in out.stdout.splitlines()
+                      if ln.startswith("RESULT ")][-1][len("RESULT "):])
+    kernels, want = got["kernels"], got["want"]
     assert len(kernels) == want and all("estep" in name for name in kernels), kernels
     if n == 400:
         assert want == 1

@@ -36,6 +36,7 @@ from svax.train.loop import megakernel_unsupported_reason
 from svax_torch import configs, evaluate, train_smm, train_svae
 from svax_torch.models.svae import SvaeConfig
 from svax_torch.ops import flexstep, tinystep
+from svax_torch.train import graph as cuda_graph
 from svax_torch.train import loop
 
 torch.set_num_threads(1)
@@ -192,24 +193,28 @@ def test_free_form_runs_and_weight_decay_takes_the_per_step_engine(monkeypatch):
 
 # Each named config's first line as the entry printed it before the
 # free-form flags (mnist-svae at 16-16, bigk-dp at K = 6, 16-16, batch 64;
-# one thread).
+# one thread), with the "graph" route the graphed runners added.
 NAMED_FIRST = {
     "pinwheel-svae": dict(config="pinwheel-svae", kernel="tinystep", why=None,
+                          graph=cuda_graph.KERNEL_CHUNK,
                           fused_combine=False, fused_mlp_decoder=False, nn_precision="default",
                           nn_compute_dtype="float32", n=400, d_in=2, batch=400,
                           synthetic=False, init_test_elbo_per_point=-77.47525787353516),
-    "auto-svae": dict(config="auto-svae", kernel="flexstep", why=None, fused_combine=False,
+    "auto-svae": dict(config="auto-svae", kernel="flexstep", why=None,
+                      graph=cuda_graph.KERNEL_CHUNK, fused_combine=False,
                       fused_mlp_decoder=False, nn_precision="default",
                       nn_compute_dtype="float32", n=352, d_in=8, batch=64, synthetic=True,
                       init_test_elbo_per_point=-16.844181060791016),
     "mnist-svae": dict(config="mnist-svae", kernel="per-step",
                        why="fits neither kernel: the tinystep kernel needs latent d = 2 "
                            "(got 8); the flexstep kernel needs 2 <= latent d <= 6 (got 8)",
-                       fused_combine=True, fused_mlp_decoder=False, nn_precision="high",
+                       graph=cuda_graph.CPU_EAGER, fused_combine=True,
+                       fused_mlp_decoder=False, nn_precision="high",
                        nn_compute_dtype="bfloat16", n=6000, d_in=784, batch=256,
                        synthetic=True, init_test_elbo_per_point=-550.3582153320312),
     "bigk-dp": dict(config="bigk-dp", kernel="per-step", why=loop.SINGLE_DEVICE,
-                    fused_combine=True, fused_mlp_decoder=True, nn_precision="high",
+                    graph=cuda_graph.CPU_EAGER, fused_combine=True,
+                    fused_mlp_decoder=True, nn_precision="high",
                     nn_compute_dtype="bfloat16", n=6000, d_in=784, batch=64, synthetic=True,
                     init_test_elbo_per_point=-552.9021606445312),
 }
