@@ -110,10 +110,13 @@ L. the training harness and the serving layer (``train.trainer``,
    IW bound, impute in both modes keeping observed pixels bit for bit,
    finite ``generate(12)``; (6) ``export_serving`` at buckets (32, 512) on
    ``cuda``, served by a fresh process whose import of the model modules
-   raises: encode, reconstruct and impute within 1e-6 of the live server,
-   score and components bit-equal; the ms a step of each resume leg and
-   each endpoint's live and exported latency at each bucket, beside the
-   card line;
+   raises (the graph engine ``train.graph`` alone allowed): encode,
+   reconstruct and impute within 1e-6 of the live server, score and
+   components bit-equal; both tiers' endpoints replayed as CUDA graphs
+   (the default on the card) bit-equal to ``graph=False`` at 32, 512 and
+   1024 rows (two pieces at the top bucket); the ms a step of each resume
+   leg and each endpoint's live and exported latency at each bucket,
+   graphed and eager in turns, beside the card line;
 E. the fused MLP-decoder kernels against their plain version at the bigk
    (S=1, N=1024, K=100, d=10, 200-200, D=784), mnist (N=256, K=10, d=8)
    and a ragged shape (N=37, K=7, d=3, 24-40, D=50), and at one rank's
@@ -287,13 +290,16 @@ P. slice L, the demos, on the card (tinystep's f32 mode, GMM and SMM
    pinwheel leg at ``--quick`` and its mnist leg at 20 warmup + 20 steps
    (the per-step engine), both at 3 impute rounds (the demo's 10 cut), every
    fill finite and the exported tier within phase L's 1e-6 of the live one,
-   both decode rules; the launches, counted
+   both decode rules; the latent demo's online rules run as a CUDA graph
+   (its printed route), and both rules over 200 steps graphed against the
+   eager loop (``measure_graphs.online_routes``): the naturals and E[u]
+   bit-equal, ms a step; the launches, counted
    around the phase, join tinystep's f32 and SMM rows of the kernels line;
 Q. the graphed runners (``train.graph``; phases D, F, K, L, N, O and P
    above already run them, the default on CUDA): mnist-svae and bigk-dp
-   at their configs' full widths for 200 steps each, the full recognition
-   head at mnist width (the plain combine) for 20 and the comparison's
-   pinwheel VAE for 500, each in a chunk of 3/4 and a shorter one of the
+   at their configs' full widths for 100 steps each, the full recognition
+   head at mnist width (the plain combine) for 10 and the comparison's
+   pinwheel VAE for 200, each in a chunk of 3/4 and a shorter one of the
    rest (one capture replayed), graphed against the eager loop
    (``graph=False``) in turns (``measure_graphs.equal_routes``): the final
    states and every metric bit-equal; each route's steps/s (the graph's
@@ -301,6 +307,14 @@ Q. the graphed runners (``train.graph``; phases D, F, K, L, N, O and P
    device memory the capture reserved; then each route's wall, device time
    a step and idle share from one short profile of every path on each
    route in one fresh process (``timed_fresh``: ``measure_graphs.profile_smoke``);
+   and the held-out evaluation (``svae_step.make_eval_fn``, one captured
+   call, ``train.graph.CallGraph``) on the kernel engine at mnist-svae,
+   bigk-dp and the big-K f32 config (``--fused-decoder``), 3 calls on the
+   test set with the state 10 graphed steps on between calls
+   (``measure_graphs.eval_routes``): the four terms bit-equal to the
+   eager call, the combine forward, the decoder_mlp forward (bigk-dp) and
+   the row-sum forward (big-K f32) launched inside the graph once a call,
+   as many times as eagerly; those launches join the kernels line;
 9. prints the kernels line — per kernel its launches on its main path, its
    error against the plain version, its time and the plain version's, and
    ``bound_ms``, the least time the card could take for the same work (the
@@ -2020,11 +2034,14 @@ import importlib.abc, json, sys, time
 
 BLOCKED = ("svax_torch.models", "svax_torch.nets", "svax_torch.pgm", "svax_torch.train",
            "svax_torch.ops", "svax_torch.expfam")
+# The graph engine (torch alone) replays the programs on the card.
+ALLOWED = ("svax_torch.train", "svax_torch.train.graph")
 
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.startswith(BLOCKED) or name == "jax" or name.startswith("jax."):
+        if (name.startswith(BLOCKED) and name not in ALLOWED) or name == "jax" or \\
+                name.startswith("jax."):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -2033,45 +2050,48 @@ sys.meta_path.insert(0, Block())
 import numpy as np
 from svax_torch import serve
 
-srv = serve.load_exported(sys.argv[1])
+servers = {"graphed": serve.load_exported(sys.argv[1]),
+           "eager": serve.load_exported(sys.argv[1], graph=False)}
 data = np.load(sys.argv[2])
-out, lat = {}, {}
-for b in srv._buckets:
+out, lat, equal = {}, {"graphed": {}, "eager": {}}, {}
+
+
+def answers(got):
+    return got.items() if isinstance(got, dict) else [("", got)]
+
+
+for b in (*servers["graphed"]._buckets, 2 * servers["graphed"]._buckets[-1]):
     x, mask = data[f"x{b}"], data[f"mask{b}"]
-    calls = {"encode": lambda: srv.encode(x), "reconstruct": lambda: srv.reconstruct(x),
-             "impute": lambda: srv.impute(x, mask), "score": lambda: srv.score(x, seed=3)}
-    for name, call in calls.items():
-        got = call()
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            call()
-            times.append(time.perf_counter() - t0)
-        lat[f"{name}_{b}"] = sorted(times)[2] * 1e3
-        for key, value in (got.items() if isinstance(got, dict) else [("", got)]):
-            out[f"{name}_{b}_{key}"] = value
+    calls = {route: {"encode": lambda s=s: s.encode(x),
+                     "reconstruct": lambda s=s: s.reconstruct(x),
+                     "impute": lambda s=s: s.impute(x, mask),
+                     "score": lambda s=s: s.score(x, seed=3)}
+             for route, s in servers.items()}
+    for name in calls["graphed"]:
+        got = {route: c[name]() for route, c in calls.items()}
+        equal[f"{name}_{b}"] = all(np.array_equal(v, dict(answers(got["eager"]))[k])
+                                   for k, v in answers(got["graphed"]))
+        if b in servers["graphed"]._buckets:
+            for route in ("eager", "graphed", "graphed", "eager"):
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    calls[route][name]()
+                    times.append(time.perf_counter() - t0)
+                lat[route].setdefault(f"{name}_{b}", []).append(sorted(times)[2] * 1e3)
+            for key, value in answers(got["graphed"]):
+                out[f"{name}_{b}_{key}"] = value
 np.savez(sys.argv[3], **out)
 try:
     import svax_torch.models
     blocked = False
 except ImportError:
     blocked = True
-print("RESULT " + json.dumps({"latency_ms": lat, "models_blocked": blocked,
-                              "device": str(srv.device)}))
+print("RESULT " + json.dumps({"latency_ms": lat, "equal": equal, "models_blocked": blocked,
+                              "device": str(servers["graphed"].device),
+                              "routes": {r: s.route for r, s in servers.items()},
+                              "captures": servers["graphed"].graphs.captures}))
 """
-
-
-def _median_ms(call, repeats: int = 5) -> float:
-    """Median wall milliseconds of ``call()`` after one warm call (every
-    endpoint returns host arrays, so the time includes the device's work and
-    the copy back)."""
-    call()
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        call()
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2] * 1e3
 
 
 def _same_state(path_a: Path, path_b: Path) -> bool:
@@ -2100,6 +2120,7 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
 
     from svax_torch import serve, train_svae
     from svax_torch.data import load_dataset, load_mnist
+    from svax_torch.measure_graphs import median_ms
     from svax_torch.data.pinwheel import load_pinwheel
     from svax_torch.models import evaluation
     from svax_torch.models.gmm_baseline import GmmTrainState
@@ -2289,25 +2310,41 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
           f"map keep the observed pixels bit for bit; generate(12) finite; {card}",
           flush=True)
 
-    # 6. the exported tier, served by a fresh child without the model modules
+    # 6. the exported tier, served by a fresh child without the model modules;
+    # both tiers graphed (the default on the card) against eager, bit for bit
     live = serve.load_bundle(served["bundle"], buckets=(32, 512), device="cuda")
+    live_eager = serve.load_bundle(served["bundle"], buckets=(32, 512), device="cuda",
+                                   graph=False)
+    assert live.route == "graphed" and live_eager.route.startswith("eager"), live.route
     t0 = time.perf_counter()
     serve.export_serving(live, work / "exported", buckets=(32, 512))
     t_export = time.perf_counter() - t0
     inputs, want = {}, {}
-    lat_live = {}
-    for b in (32, 512):
-        x = x_test[:b]
+    lat_live = {"eager": {}, "graphed": {}}
+    for b in (32, 512, 1024):  # 1024: two pieces at the top bucket, one graph
+        x = np.concatenate([x_test, x_test])[:b]
         m = np.ones_like(x)
         m[:, 392:] = 0.0
         inputs[f"x{b}"], inputs[f"mask{b}"] = x, m
-        calls = {"encode": lambda: live.encode(x), "reconstruct": lambda: live.reconstruct(x),
-                 "impute": lambda: live.impute(x, m), "score": lambda: live.score(x, seed=3)}
-        for name, call in calls.items():
-            got = call()
-            for key, value in (got.items() if isinstance(got, dict) else [("", got)]):
-                want[f"{name}_{b}_{key}"] = value
-            lat_live[f"{name}_{b}"] = _median_ms(call)
+        calls = {srv.route: {"encode": lambda s=srv: s.encode(x),
+                             "reconstruct": lambda s=srv: s.reconstruct(x),
+                             "impute": lambda s=srv: s.impute(x, m),
+                             "score": lambda s=srv: s.score(x, seed=3)}
+                 for srv in (live, live_eager)}
+        graphed, eager = calls[live.route], calls[live_eager.route]
+        for name, call in graphed.items():
+            got, ref = call(), eager[name]()
+            pairs = got.items() if isinstance(got, dict) else [("", got)]
+            for key, value in pairs:
+                assert np.array_equal(value, ref[key] if key else ref), \
+                    f"phase L: live {name} at {b} rows: graphed differs from eager ({key})"
+                if b < 1024:
+                    want[f"{name}_{b}_{key}"] = value
+            if b < 1024:
+                for route, c in (("eager", eager), ("graphed", graphed),
+                                 ("graphed", graphed), ("eager", eager)):
+                    lat_live[route].setdefault(f"{name}_{b}", []).append(
+                        median_ms(c[name]))
     np.savez(work / "inputs.npz", **inputs)
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", _EXPORTED_CHILD, str(work / "exported"),
@@ -2321,6 +2358,9 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
                         if ln.startswith("RESULT ")][-1][len("RESULT "):])
     t_child = time.perf_counter() - t0
     assert child["models_blocked"] and child["device"].startswith("cuda"), child
+    assert child["routes"]["graphed"] == "graphed", child["routes"]
+    assert all(child["equal"].values()), \
+        f"phase L: exported graphed differs from eager: {child['equal']}"
     answers = np.load(work / "answers.npz")
     assert set(answers.files) == set(want), (sorted(answers.files), sorted(want))
     worst = 0.0
@@ -2333,12 +2373,22 @@ def harness_phase(card: str, served: dict, work: Path) -> None:
             worst = max(worst, float(np.abs(got - value).max()))
     print(f"phase L: export_serving at buckets (32, 512) on {live.device} in {t_export:.1f} "
           f"s; a fresh process without svax_torch.models served them ({t_child:.1f} s with "
-          f"its start and loads): encode, reconstruct, impute within {worst:.3e} of the live server, "
-          f"score and components bit-equal; {card}", flush=True)
+          f"its start, loads and {child['captures']} captures): encode, reconstruct, impute "
+          f"within {worst:.3e} of the live server, score and components bit-equal; both "
+          f"tiers graphed == eager bit for bit at 32, 512 and 1024 rows (two pieces); "
+          f"live graphs: {live.graphs.captures} captures, {live.graphs.pool_bytes} bytes "
+          f"reserved; {card}", flush=True)
+
+    def turns(v):
+        return "/".join(f"{t:.3f}" for t in v)
+
     for b in (32, 512):
-        print(f"phase L: latency ms at bucket {b} (median of 5, host arrays back), live / "
-              f"exported: " + ", ".join(
-                  f"{name} {lat_live[f'{name}_{b}']:.3f} / {child['latency_ms'][f'{name}_{b}']:.3f}"
+        print(f"phase L: latency ms at bucket {b} (median of 5, host arrays back, in turns), "
+              f"live graphed | eager, exported graphed | eager: " + ", ".join(
+                  f"{name} {turns(lat_live['graphed'][f'{name}_{b}'])} | "
+                  f"{turns(lat_live['eager'][f'{name}_{b}'])}, "
+                  f"{turns(child['latency_ms']['graphed'][f'{name}_{b}'])} | "
+                  f"{turns(child['latency_ms']['eager'][f'{name}_{b}'])}"
                   for name in ("encode", "reconstruct", "impute", "score"))
               + f"; {card}", flush=True)
     print(f"phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2882,8 +2932,10 @@ IMPUTE_ITERS = 3  # phase P's impute rounds (the demo's default is 10)
 def demos_phase(card: str) -> dict:
     """P. slice L's demos (docstring); returns the launches {"tinystep",
     "tinystep_smm"}."""
+    import torch
+
     from svax_torch import anomaly_demo, impute_demo, latent_contamination_demo
-    from svax_torch import robustness_demo
+    from svax_torch import measure_graphs, robustness_demo
     from svax_torch.ops import tinystep
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_P"
@@ -2935,6 +2987,17 @@ def demos_phase(card: str) -> dict:
           + f"; {card}", flush=True)
     assert lc["smm_win_nats"] > 0.0, lc["smm_win_nats"]
     assert e_u["outlier_rows"] < e_u["clean_rows"], e_u
+    assert lc["online_graph"] == "graphed", lc["online_graph"]
+    # ... and its online rules graphed against the eager loop, bit for bit
+    for rule, r in measure_graphs.online_routes(torch.device("cuda", 0), steps=200).items():
+        assert r["equal"], f"phase P: the graphed {rule} online rule differs from the eager loop"
+        assert r["captures"] == 1, (rule, r)
+        print(f"phase P: latent demo's {rule} online rule, 200 steps at the demo's defaults: "
+              f"graphed == eager bit for bit (naturals and E[u]); ms a step eager "
+              + "/".join(f"{v:.4f}" for v in r["eager_ms"]) + ", graphed "
+              + "/".join(f"{v:.4f}" for v in r["graphed_ms"])
+              + f" (in turns); capture {r['capture_s']:.3f} s, {r['pool_bytes']} bytes "
+              f"reserved; {card}", flush=True)
 
     # (4) the impute endpoint: pinwheel at --quick, mnist at 20 + 20 steps,
     # 3 impute rounds (the demo's 10 cut: the exported tier's trace and load
@@ -2968,14 +3031,25 @@ def demos_phase(card: str) -> dict:
     return counts
 
 
-def graphs_phase(card: str) -> None:
-    """Q. the graphed runners against the eager loop (docstring)."""
+# Phase Q's evaluation paths and the launch counters each must show inside
+# its graph: the combine forward (in-kernel ε), the decoder_mlp forward
+# (bigk-dp) and the row-sum forward in its bf16-operand mode (the big-K f32
+# config at "high", --fused-decoder).
+EVAL_KERNELS = {"mnist-svae": ("combine.launches",),
+                "bigk-dp": ("combine.launches", "decoder_mlp.launches"),
+                "bigk-f32": ("combine.launches", "decoder.bf16_launches")}
+
+
+def graphs_phase(card: str) -> dict:
+    """Q. the graphed runners against the eager loop, then the graphed
+    held-out evaluation against the eager call (docstring); returns the
+    graphed evaluations' launches {"module.counter": n}."""
     import torch
 
     from svax_torch import measure_graphs as mg
 
     dev = torch.device("cuda", 0)
-    steps = {"mnist-svae": 200, "bigk-dp": 200, "full-head": 20, "vae": 500}
+    steps = {"mnist-svae": 100, "bigk-dp": 100, "full-head": 10, "vae": 200}
     for path, n in steps.items():
         t0 = time.perf_counter()
         eq = mg.equal_routes(dev, path, (n - n // 4, n // 4))
@@ -2986,6 +3060,24 @@ def graphs_phase(card: str) -> None:
               f"{eq['eager']:.1f} ({n} steps), graphed {eq['graphed']:.1f} (the {n // 4} after "
               f"the capture); capture {eq['capture_s']:.3f} s, {eq['pool_bytes']} bytes "
               f"reserved; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    launches: dict = {}
+    for path, kernels in EVAL_KERNELS.items():
+        t0 = time.perf_counter()
+        r = mg.eval_routes(dev, path, calls=3)
+        assert r["route"] == "graphed", (path, r["route"])
+        assert r["equal"], f"phase Q: {path}: the graphed evaluation differs from the eager call"
+        assert r["counts_equal"] and r["captures"] == 1, (path, r)
+        for name in kernels:
+            assert r["launches"].get(name, 0) == 3, (path, name, r["launches"])
+        for name in kernels:
+            launches[name] = launches.get(name, 0) + r["launches"][name]
+        print(f"phase Q: evaluation {path} (make_eval_fn on the kernel engine, the test set): "
+              f"graphed == eager bit for bit over 3 calls, the state 10 graphed steps on "
+              f"between calls; launches inside the graph equal the eager call's ("
+              + ", ".join(f"{k} {r['launches'][k]}" for k in kernels)
+              + f"); ms a call eager {r['eager_ms']:.3f}, graphed {r['graphed_ms']:.3f} (host "
+              f"read included); capture {r['capture_s']:.3f} s, {r['pool_bytes']} bytes "
+              f"reserved; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
     got = timed_fresh("profile_smoke", module="measure_graphs")
     for route, profs in got.items():
         for path, prof in profs.items():
@@ -2993,6 +3085,7 @@ def graphs_phase(card: str) -> None:
                   f"fresh process): {prof['steps_per_s']:.1f} steps/s, wall "
                   f"{prof['wall_ms']:.4f} ms, device {prof['device_ms']:.4f} ms a step, idle "
                   f"share {100 * prof['idle']:.1f}%; {card}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -3249,9 +3342,13 @@ def main() -> int:
     launches += demos["tinystep"]
     smm_kernel["launches"] += demos["tinystep_smm"]
 
-    # Q. the graphed runners against the eager loop
-    graphs_phase(card)
+    # Q. the graphed runners and the graphed evaluation against eager; the
+    # evaluations' launches inside their graphs join the line
+    evals = graphs_phase(card)
     print(f"phase Q done at {elapsed()}", flush=True)
+    combine_kernels[0]["launches"] += evals["combine.launches"]
+    decoder_kernels[0]["launches"] += evals["decoder_mlp.launches"]
+    rowsum_kernels[2]["launches"] += evals["decoder.bf16_launches"]
 
     # 9. result
     print(json.dumps({"kernels": [{

@@ -20,8 +20,9 @@
    responsibilities and latent moments) and the SMM rule (``smm_online``:
    the u–z combine with u-weighted moments, dof ``--dof``; E[u] =
    (a₀ + d/2)/(b₀ + Q/2) downweights a large latent quadratic Q). The
-   online loop runs on the device; the SMM rule's per-step E[u] is stacked
-   there and read once.
+   online loop runs on the device — on the card one captured step replayed
+   as a CUDA graph (``run_online``) — and the SMM rule's per-step E[u] is
+   stacked there and read once.
 4. Score the CLEAN held-out set under each adapted PGM with the same frozen
    nets and the same importance-weighted bound (``--iw-samples``, one
    generator seed for every row): the pretrained naturals, both rules on
@@ -121,14 +122,30 @@ def smm_online(nat, xb: torch.Tensor, *, nn: dict, prior, config, rho: float,
 
 
 @torch.no_grad()
-def run_online(rule, nat0, stream: torch.Tensor):
+def run_online(rule, nat0, stream: torch.Tensor, engine=None):
     """``rule(nat, xb)`` over the (T, batch, 2) ``stream`` from ``nat0``:
-    (final naturals, the T rule outputs stacked on the device)."""
+    (final naturals, the T rule outputs stacked on the device).
+
+    ``engine`` (a ``train.graph.ChunkGraph``) captures
+    one step — the naturals the state, the stream the stacked input, the
+    rule's output the metric — and replays it T times, as the reference's
+    ``jax.jit(lax.scan)`` runs the rule (latent_contamination_demo.py:182);
+    None runs the eager loop."""
+    if engine is not None:
+        nat, mets = engine.run(nat0, stream.shape[0], {"xb": stream},
+                               lambda st, rows, g, w: _metric(rule(st, rows["xb"])),
+                               key=(rule,))
+        return nat, mets["aux"]
     nat, aux = nat0, []
     for xb in stream:
         nat, a = rule(nat, xb)
         aux.append(a)
     return nat, torch.stack(aux)
+
+
+def _metric(out):
+    nat, aux = out
+    return nat, {"aux": aux}
 
 
 def parse_args(argv=None):
@@ -169,6 +186,7 @@ def main(argv: list[str] | None = None) -> dict:
     from svax_torch.models import evaluation
     from svax_torch.models.svae import SvaeConfig
     from svax_torch.pgm import gmm
+    from svax_torch.train import graph as cuda_graph
     from svax_torch.train import loop, svae_step
     from svax_torch.utils.runs import port_artifact, write_json
 
@@ -209,10 +227,14 @@ def main(argv: list[str] | None = None) -> dict:
                   scale=float(config.num_total) / args.batch)
     gmm_rule = partial(gmm_online, **common)
     smm_rule = partial(smm_online, **common, dof=args.dof, smm_iters=args.smm_iters)
-    nat_gmm, _ = run_online(gmm_rule, nat0, contam)
-    nat_smm, e_u_tr = run_online(smm_rule, nat0, contam)
-    nat_gmm_clean, _ = run_online(gmm_rule, nat0, clean)
-    nat_smm_clean, _ = run_online(smm_rule, nat0, clean)
+    # One engine a rule (a CUDA graph on the card): the clean stream replays
+    # the contaminated one's graph.
+    online_route = cuda_graph.route(device)
+    engines = {rule: cuda_graph.engines(None)(device) for rule in (gmm_rule, smm_rule)}
+    nat_gmm, _ = run_online(gmm_rule, nat0, contam, engines[gmm_rule])
+    nat_smm, e_u_tr = run_online(smm_rule, nat0, contam, engines[smm_rule])
+    nat_gmm_clean, _ = run_online(gmm_rule, nat0, clean, engines[gmm_rule])
+    nat_smm_clean, _ = run_online(smm_rule, nat0, clean, engines[smm_rule])
     # Mechanism: mean E[u] on clean and outlier stream rows over the second
     # half of the online phase (one host read).
     e_u_tr = e_u_tr.cpu().numpy()[args.online_steps // 2:]
@@ -249,9 +271,10 @@ def main(argv: list[str] | None = None) -> dict:
     }
     print(json.dumps(results, indent=1), flush=True)
     print("seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
+    print(f"online route: {online_route}", flush=True)
     if args.json:
         write_json(args.json, results)
-    return {**results, "kernel": kernel, "seconds": seconds}
+    return {**results, "kernel": kernel, "seconds": seconds, "online_graph": online_route}
 
 
 if __name__ == "__main__":

@@ -329,6 +329,14 @@ def check_recon_mode(config: SvaeConfig, comp_group=None) -> None:
                          "not compose with component parallelism — use 'weighted'.")
 
 
+def fused_combine_runs(config: SvaeConfig) -> bool:
+    """Whether ``forward`` runs the fused combine: ``config.fused_combine``
+    with weighted reconstruction, zero jitter and the diagonal head
+    (svax/models/svae.py:412-418)."""
+    return (config.fused_combine and config.recon_mode != "sampled" and config.jitter == 0.0
+            and config.encoder_head == "diag")
+
+
 def forward(
     nn_params: dict,
     pgm_nat: GmmNat,
@@ -379,8 +387,7 @@ def forward(
     exp = gmm.expected_params(pgm_nat, comp_group)
     pot_h, pot_p = nets.encoder_apply(nn_params["encoder"], x, config.activation,
                                       config.nn_precision, config.encoder_head)
-    use_fused_combine = (config.fused_combine and not sampled and config.jitter == 0.0
-                         and pot_p.ndim == 2)
+    use_fused_combine = fused_combine_runs(config)
     if use_fused_combine:
         from svax_torch.ops import combine
 

@@ -201,6 +201,12 @@ def _spawned(fn, rank, world, device, backend, init_method, args, results):
         # Pickled here, by value: the queue's own pickler would share tensors'
         # memory with this process, which exits next.
         out = pickle.dumps(fn(rank, world, dev, *args))
+        # No rank closes its connections before every rank has joined: gloo's
+        # rendezvous ends on one rank when its own side of each pair is
+        # connected, and a rank that tears down then (a ``fn`` without
+        # collectives) closes a pair whose peer is still reading the
+        # handshake ("Connection closed by peer" there).
+        dist.barrier()
         dist.destroy_process_group()
         results.put((rank, True, out))
     except Exception:  # reported to the parent, which raises

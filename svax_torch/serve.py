@@ -7,11 +7,19 @@ bundles, a bucketed batching server, and its exported tier.
   the caller.
 * **Bucketed batching.** Every request is padded up to a fixed bucket
   ladder, so an endpoint sees at most ``len(buckets)`` input shapes (the
-  shapes an exported artifact, or a later captured CUDA graph, is made
-  for); requests above the top bucket are cut into top-bucket pieces. Every
+  shapes an exported artifact or a captured CUDA graph is made for);
+  requests above the top bucket are cut into top-bucket pieces. Every
   endpoint is row-independent, so padding rows are computed and dropped
   without touching real ones. The whole answer leaves the device in one
   copy.
+* **CUDA graphs.** On the card each endpoint's body — live, or an exported
+  program's ``module()`` — is captured as a CUDA graph per (endpoint,
+  bucket, static arguments) at the first request that reaches it
+  (``train.graph.CallGraph``; the reference jits each endpoint once per
+  bucket shape) and replayed; padding, the host-to-device copy, the cut of
+  the padding rows and the one device-to-host copy stay outside the graph.
+  ``graph=False`` keeps every operation dispatched from the host;
+  ``server.route`` says which route serves.
 * **Exported tier.** ``export_serving`` traces every endpoint × bucket with
   ``torch.export`` — the weights become the program's constants — and
   saves it with ``torch.export.save``, so ``load_exported`` serves from the
@@ -138,10 +146,10 @@ def save_bundle(directory: str | Path, state, spec: ModelSpec) -> None:
 
 
 def load_bundle(directory: str | Path, buckets=_DEFAULT_BUCKETS,
-                device="cuda") -> "SvaeServer":
-    """Rebuild a server on ``device`` from ``save_bundle``'s output; raises
-    for a missing state, a spec the port cannot serve, or ``cuda`` without
-    a card."""
+                device="cuda", graph: bool | str | None = None) -> "SvaeServer":
+    """Rebuild a server on ``device`` from ``save_bundle``'s output (``graph``
+    as ``SvaeServer``'s); raises for a missing state, a spec the port cannot
+    serve, or ``cuda`` without a card."""
     from svax_torch.train import svae_step
     from svax_torch.train.checkpoint import Checkpointer
 
@@ -159,7 +167,8 @@ def load_bundle(directory: str | Path, buckets=_DEFAULT_BUCKETS,
         torch.Generator(device=device).manual_seed(0), spec.input_dim, spec.to_config(),
         spec.make_prior(device), spec.encoder_hidden, spec.decoder_hidden)
     state, _, _ = ckpt.restore_or(template)
-    return SvaeServer(state.nn_params, state.pgm_nat, spec, buckets=buckets, device=device)
+    return SvaeServer(state.nn_params, state.pgm_nat, spec, buckets=buckets, device=device,
+                      graph=graph)
 
 
 def _rows(x) -> torch.Tensor:
@@ -207,6 +216,35 @@ def _to_host(tree):
     return unflatten(tree, out)
 
 
+def _graphed(graphs, name: str, fn):
+    """``fn`` through the one-call graphs ``graphs`` (None: ``fn`` itself),
+    keyed by the endpoint ``name``; its arguments' shapes and its constant
+    arguments (impute's rounds and mode) key the capture too."""
+    if graphs is None:
+        return fn
+    return lambda *args: graphs.run(args, lambda a: fn(*a), key=(name,))
+
+
+# ``train.graph``'s texts for the eager routes, kept here so that serving
+# from artifacts on the CPU imports nothing of ``train``.
+_ASKED_EAGER = "eager (asked for: graph=False, an entry's --no-graph)"
+_CPU_EAGER = "eager (CPU tensors: a CUDA graph needs the card)"
+
+
+def _graph_engine(device: torch.device, graph) -> tuple:
+    """(route, the owner's ``train.graph.CallGraph`` or None for the eager
+    route) for ``graph`` on ``device``, as ``train.graph.engines`` gives
+    them."""
+    if graph is False:
+        return _ASKED_EAGER, None
+    if graph is None and device.type != "cuda":
+        return _CPU_EAGER, None
+    from svax_torch.train import graph as cuda_graph
+
+    return (cuda_graph.route(device, graph=graph),
+            cuda_graph.engines(graph, kind=cuda_graph.CallGraph)(device))
+
+
 def _bucketed_dispatch(buckets, fn, x, *args, device):
     """Pad to the bucket ladder; cut requests above the top bucket.
 
@@ -248,19 +286,23 @@ def _seeded_score(fn, num_samples: int, k: int, d: int, seed: int, device):
 def _sin_posterior(pot_h: torch.Tensor, pot_p: torch.Tensor, exp):
     """The SIN combine's posterior (``models.svae.sin_combine``'s μ̃, chol J̃,
     log r̃ and log|J̃|; no Σ̃) from ``torch.linalg``'s batched Cholesky and
-    solve — one operation each, where the training path's entry-unrolled
-    forms trace to thousands of graph nodes at d = 8, which an exported
-    program carries in its size and its trace and load times.
+    two triangular solves — a few operations, where the training path's
+    entry-unrolled forms trace to thousands of graph nodes at d = 8, which
+    an exported program carries in its size and its trace and load times.
     ``cholesky_ex`` leaves the factorisation's status on the device (no
-    host sync a call). ``pot_p`` is the diagonal (N, d) or the full
-    (N, d, d) precision."""
+    host sync a call); ``torch.cholesky_solve`` is not used because on
+    CUDA its batched solve (MAGMA's) allocates device memory itself, which
+    a CUDA graph's capture cannot hold. ``pot_p`` is the diagonal (N, d)
+    or the full (N, d, d) precision."""
     from svax_torch.models.svae import SinPosterior
 
     pot_prec = pot_p if pot_p.ndim == pot_h.ndim + 1 else torch.diag_embed(pot_p)
     prec = pot_prec[:, None] + exp.prec[None]  # (N, K, d, d)
     h = pot_h[:, None, :] + exp.prec_mean[None]  # (N, K, d)
     chol = torch.linalg.cholesky_ex(prec).L
-    mean = torch.cholesky_solve(h[..., None], chol)[..., 0]
+    mean = torch.linalg.solve_triangular(
+        chol.mT, torch.linalg.solve_triangular(chol, h[..., None], upper=False),
+        upper=True)[..., 0]
     logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
     log_rho = (exp.log_pi[None] + 0.5 * exp.logdet[None] - 0.5 * exp.quad[None]
                + 0.5 * (mean * h).sum(dim=-1) - 0.5 * logdet)
@@ -360,10 +402,14 @@ class SvaeServer:
 
     Every endpoint takes numpy or tensor input of shape (n, input_dim) for
     any n ≥ 1 and returns numpy arrays of the same leading length, computed
-    on padded buckets (``_bucketed_dispatch``)."""
+    on padded buckets (``_bucketed_dispatch``). On CUDA every endpoint but
+    ``generate`` replays one CUDA graph per (endpoint, bucket, static
+    arguments), captured at its first request; ``graph`` False keeps the
+    eager route, ``"body"`` runs the captured bodies without a graph (the
+    CPU tests' check), and ``route`` says which serves."""
 
     def __init__(self, nn_params: dict, pgm_nat, spec: ModelSpec,
-                 buckets=_DEFAULT_BUCKETS, device=None):
+                 buckets=_DEFAULT_BUCKETS, device=None, graph: bool | str | None = None):
         spec.check_supported()
         self.device = _device(device if device is not None else pgm_nat.dir_nat.device)
         move = lambda t: t.detach().to(device=self.device, dtype=torch.float32)  # noqa: E731
@@ -373,6 +419,8 @@ class SvaeServer:
         self.config = spec.to_config()
         self._buckets = tuple(sorted(buckets))
         self._fns = _model_fns(self._nn, self._nat, spec)
+        self.route, self.graphs = _graph_engine(self.device, graph)
+        self._served = {name: _graphed(self.graphs, name, fn) for name, fn in self._fns.items()}
 
     def _batched(self, fn, x, *args):
         with torch.inference_mode():
@@ -381,17 +429,17 @@ class SvaeServer:
     def encode(self, x) -> dict:
         """Structured posterior: z_mean (n, d), responsibilities (n, K),
         hard component (n,)."""
-        return self._batched(self._fns["encode"], x)
+        return self._batched(self._served["encode"], x)
 
     def reconstruct(self, x) -> np.ndarray:
         """The decoder at the posterior-mean latent: Gaussian mean or
         Bernoulli pixel probabilities, (n, input_dim)."""
-        return self._batched(self._fns["reconstruct"], x)
+        return self._batched(self._served["reconstruct"], x)
 
     def score(self, x, seed: int = 0, num_samples: int = 100) -> np.ndarray:
         """Per-point importance-weighted log-likelihood bound, (n,); the
         draws come from ``torch.Generator(device).manual_seed(seed)``."""
-        return self._batched(_seeded_score(self._fns["score"], num_samples,
+        return self._batched(_seeded_score(self._served["score"], num_samples,
                                            self.spec.num_components, self.spec.latent_dim,
                                            seed, self.device), x)
 
@@ -410,7 +458,7 @@ class SvaeServer:
         Gaussian likelihood, pixel probabilities for a Bernoulli one."""
         if mode not in ("mean", "map"):
             raise ValueError(f"mode must be 'mean' or 'map', got {mode!r}")
-        return self._batched(self._fns["impute"], _pack_masked(x, mask), num_iters,
+        return self._batched(self._served["impute"], _pack_masked(x, mask), num_iters,
                              mode == "map")
 
     def generate(self, num: int, seed: int = 0, sample_params: bool = False):
@@ -498,10 +546,12 @@ def export_serving(server: SvaeServer, directory: str | Path, buckets=None,
     return manifest
 
 
-def load_exported(directory: str | Path, device=None) -> "ExportedServer":
+def load_exported(directory: str | Path, device=None,
+                  graph: bool | str | None = None) -> "ExportedServer":
     """Serve from ``export_serving``'s artifacts alone (no model code), on
-    ``device`` (default: the device they were traced on)."""
-    return ExportedServer(Path(directory), device)
+    ``device`` (default: the device they were traced on); ``graph`` as
+    ``SvaeServer``'s."""
+    return ExportedServer(Path(directory), device, graph)
 
 
 class ExportedServer:
@@ -511,9 +561,12 @@ class ExportedServer:
     bucket ladder through ``_bucketed_dispatch``); each call runs a saved
     program. A program traced on one device is moved to another only on
     request, and only to one of the manifest's platforms; ``cuda`` without
-    a card raises."""
+    a card raises. On CUDA each program's ``module()`` is captured as a CUDA
+    graph at its first call and replayed (``graph`` and ``route`` as
+    ``SvaeServer``'s): the counterpart of the reference's compiled
+    artifacts."""
 
-    def __init__(self, directory: str | Path, device=None):
+    def __init__(self, directory: str | Path, device=None, graph: bool | str | None = None):
         directory = Path(directory)
         manifest = json.loads((directory / _EXPORT_MANIFEST).read_text())
         traced_on = torch.device(manifest["device"])
@@ -537,9 +590,10 @@ class ExportedServer:
 
                     program = move_to_device_pass(program, self.device)
                 self._arts[name][int(b)] = program.module()
+        self.route, self.graphs = _graph_engine(self.device, graph)
 
     def _call(self, name, x, *args):
-        return self._arts[name][x.shape[0]](x, *args)
+        return _graphed(self.graphs, name, self._arts[name][x.shape[0]])(x, *args)
 
     def _dispatch(self, fn, x):
         with torch.inference_mode():

@@ -20,11 +20,18 @@ capture's one call makes is added once a replay.
 
 ``ChunkGraph(graphed=False)`` runs the same captured callable eagerly, T
 calls a chunk without a graph: the CPU tests' check on what a replay does.
+
+``CallGraph`` is the counterpart of a ``jax.jit``-compiled call that is not
+a train step (the held-out evaluation, a server's endpoint at one bucket,
+an exported program): one call captured per key (the inputs' shapes,
+dtypes and devices and the caller's static arguments), replayed on static
+copies of the inputs, its outputs cloned out of the graph. The graphs one
+``CallGraph`` holds share one memory pool.
 """
 
 from __future__ import annotations
 
-import importlib
+import sys
 import time
 from typing import Callable
 
@@ -35,6 +42,9 @@ COUNTED = ("combine", "decoder", "decoder_mlp", "estep")
 # Eager warm-up calls on a side stream before a capture (PyTorch's rule for
 # a captured backward), on a throw-away copy of the state.
 WARMUP_CALLS = 3
+# A one-call graph's warm-up: its calls run no backward, and one eager call
+# loads their kernels and libraries and fills the allocator's blocks.
+CALL_WARMUPS = 1
 # The smallest chunk a graph's static stacks hold (the entries' chunks are
 # at most 1000 steps); a longer chunk recaptures with stacks twice as long.
 # Stacks whose rows would pass STACK_BYTES at MIN_ROWS (injected ε at full
@@ -50,19 +60,48 @@ KERNEL_CHUNK = "eager (a whole-step kernel: one launch a chunk already)"
 
 
 ASKED_EAGER = "eager (asked for: graph=False, an entry's --no-graph)"
+# An owner's graph=BODY: the captured callable run without a graph, on any
+# device (the CPU tests' check on a replay; on the card, a bisection aid).
+BODY = "body"
+BODY_ROUTE = "body (the captured call run without a graph)"
 
 
 def route(device, sharded: bool = False, graph: bool | str | None = None) -> str:
-    """How a per-step runner runs its chunks on ``device``: ``GRAPHED``
-    (the default on CUDA), or eager with the reason — CPU tensors, a
-    sharded step, or an explicit ``graph=False``. The entries print it."""
+    """How a runner, an evaluation or a server runs on ``device``:
+    ``GRAPHED`` (the default on CUDA), ``BODY_ROUTE`` for ``graph=BODY``,
+    or eager with the reason — CPU tensors, a sharded step, or an explicit
+    ``graph=False``. The entries print it."""
     if graph is False:
         return ASKED_EAGER
+    if graph == BODY:
+        return BODY_ROUTE
     if torch.device(device).type != "cuda":
         return CPU_EAGER
     if sharded:
         return SHARDED_EAGER
     return GRAPHED
+
+
+def engines(graph: bool | str | None, sharded: bool = False, kind=None) -> Callable:
+    """An owner's graph engines for its ``graph`` argument, as a function of
+    the device: a ``kind`` (``ChunkGraph`` by default, or ``CallGraph``)
+    per device, or None for the eager route. None (the default) is a graph
+    on CUDA tensors of an unsharded owner, ``BODY`` the captured callable
+    run without a graph on any device, False the eager route."""
+    if graph not in (None, False, BODY):
+        raise ValueError(f"unknown graph {graph!r} (None|False|{BODY!r})")
+    kind = ChunkGraph if kind is None else kind
+    made: dict = {}
+
+    def engine(device):
+        if route(device, sharded, graph) not in (GRAPHED, BODY_ROUTE):
+            return None
+        key = str(torch.device(device))
+        if key not in made:
+            made[key] = kind(graphed=graph is None)
+        return made[key]
+
+    return engine
 
 
 class Tick(int):
@@ -198,12 +237,21 @@ def _is_int(v) -> bool:
 # ------------------------------------------------------- launch counters
 
 
+def _counted_modules():
+    """The modules of ``COUNTED`` that this process has imported: a module
+    not imported yet launched nothing, and serving from exported programs
+    imports none of them."""
+    for mod in COUNTED:
+        m = sys.modules.get(f"svax_torch.ops.{mod}")
+        if m is not None:
+            yield mod, m
+
+
 def launch_counts() -> dict:
     """Every kernel launch counter of ``COUNTED``: the ints named
     ``*launches*`` and the dicts named ``*_paths``, by (module, name)."""
     out = {}
-    for mod in COUNTED:
-        m = importlib.import_module(f"svax_torch.ops.{mod}")
+    for mod, m in _counted_modules():
         for name, v in vars(m).items():
             if ("launches" in name and _is_int(v)) or (name.endswith("_paths")
                                                        and isinstance(v, dict)):
@@ -212,20 +260,24 @@ def launch_counts() -> dict:
 
 
 def count_increase(before: dict, after: dict) -> dict:
-    """What the counters rose by from ``before`` to ``after``."""
+    """What the counters rose by from ``before`` to ``after`` (a module
+    imported in between counts from 0)."""
     inc = {}
     for key, v in after.items():
         if isinstance(v, dict):
-            old = before[key]
+            old = before.get(key, {})
             inc[key] = {p: n - old.get(p, 0) for p, n in v.items() if n != old.get(p, 0)}
-        elif v != before[key]:
-            inc[key] = v - before[key]
+        elif v != before.get(key, 0):
+            inc[key] = v - before.get(key, 0)
     return inc
 
 
 def restore_counts(saved: dict) -> None:
-    for (mod, name), v in saved.items():
-        m = importlib.import_module(f"svax_torch.ops.{mod}")
+    """Set the counters back to ``saved``; those of a module imported since
+    go back to 0, as they were at its import."""
+    for (mod, name), v in launch_counts().items():
+        m = sys.modules[f"svax_torch.ops.{mod}"]
+        v = saved.get((mod, name), {} if isinstance(v, dict) else 0)
         if isinstance(v, dict):
             getattr(m, name).clear()
             getattr(m, name).update(v)
@@ -236,13 +288,51 @@ def restore_counts(saved: dict) -> None:
 def add_counts(inc: dict, times: int) -> None:
     """Add ``times`` × each increase to the counters (a chunk's replays)."""
     for (mod, name), v in inc.items():
-        m = importlib.import_module(f"svax_torch.ops.{mod}")
+        m = sys.modules[f"svax_torch.ops.{mod}"]
         if isinstance(v, dict):
             paths = getattr(m, name)
             for p, n in v.items():
                 paths[p] = paths.get(p, 0) + n * times
         else:
             setattr(m, name, getattr(m, name) + v * times)
+
+
+def capture(body: Callable, device, *, warm: Callable | None = None,
+            reload: Callable | None = None, generator: torch.Generator | None = None,
+            pool=None, warmups: int = WARMUP_CALLS) -> tuple:
+    """Capture one call of ``body()`` as a CUDA graph on ``device``: first
+    ``warmups`` eager calls of ``warm`` (``body`` by default) on a side
+    stream, then ``reload()`` (what the warm-up changed), then the capture,
+    with ``generator`` registered and into the memory pool ``pool`` (None:
+    the graph's own). The launch counters are left as before the warm-up.
+    Returns (graph, what the captured call returned, the counters' increase
+    that one replay makes, seconds, the device memory the capture
+    reserved). A capture that fails raises."""
+    t0 = time.perf_counter()
+    before = launch_counts()
+    warm = body if warm is None else warm
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmups):
+            warm()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if reload is not None:
+        reload()
+    counted = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None and hasattr(graph, "register_generator_state"):
+        graph.register_generator_state(generator)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()  # as the capture's own set-up does, so that the
+    reserved = torch.cuda.memory_reserved(device)  # pool's growth is counted
+    with torch.cuda.graph(graph, pool=pool):
+        out = body()
+    torch.cuda.synchronize(device)
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    increase = count_increase(counted, launch_counts())
+    restore_counts(before)
+    return graph, out, increase, time.perf_counter() - t0, pool_bytes
 
 
 # ------------------------------------------------------------ the engine
@@ -361,33 +451,19 @@ class ChunkGraph:
             self.deltas = None
             self.increase = None
             return
-        t0 = time.perf_counter()
-        before = launch_counts()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
         scratch = torch.Generator(device=device).manual_seed(0)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self.tables.ctr.zero_()  # row 0: the rows past the chunk are not filled
-                self._body(scratch)
-        torch.cuda.current_stream(device).wait_stream(side)
-        self._load(state_leaves, inputs, t_steps, word)
-        warm = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None and hasattr(graph, "register_generator_state"):
-            graph.register_generator_state(generator)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()  # as the capture's own set-up does, so that the
-        reserved = torch.cuda.memory_reserved(device)  # pool's growth is counted
-        with torch.cuda.graph(graph):
-            self._set_deltas(self._body(generator))
-        torch.cuda.synchronize(device)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.increase = count_increase(warm, launch_counts())
-        restore_counts(before)
+
+        def warm():
+            self.tables.ctr.zero_()  # row 0: the rows past the chunk are not filled
+            self._body(scratch)
+
+        graph, deltas, self.increase, self.capture_seconds, self.pool_bytes = capture(
+            lambda: self._body(generator), device, warm=warm,
+            reload=lambda: self._load(state_leaves, inputs, t_steps, word),
+            generator=generator)
+        self._set_deltas(deltas)
         self.graph = graph
         self.captures += 1
-        self.capture_seconds = time.perf_counter() - t0
 
     def run(self, state, t_steps: int, inputs: dict, call: Callable, key=(),
             generator: torch.Generator | None = None, word: tuple[int, int] | None = None):
@@ -417,3 +493,107 @@ class ChunkGraph:
             leaves[i] = state_leaves[i] + self.deltas[i] * t_steps
         mets = {name: buf[:t_steps].clone() for name, buf in self.out.items()}
         return unflatten(spec, leaves), mets
+
+
+def _frozen_spec(spec):
+    """``flatten``'s structure as a hashable key."""
+    if spec is None:
+        return None
+    kind, keys, kids = spec
+    return (kind, None if keys is None else tuple(keys), tuple(map(_frozen_spec, kids)))
+
+
+def _signature(v) -> tuple:
+    """What a capture freezes of one input leaf: a tensor's shape, dtype
+    and device, any other leaf's value."""
+    if torch.is_tensor(v):
+        return (tuple(v.shape), v.dtype, v.device)
+    return ("constant", v)
+
+
+class _Captured:
+    """One key's static inputs, its graph (None on the body route) and its
+    static outputs."""
+
+    def __init__(self, static: list, tensor_at: list, view):
+        self.static, self.tensor_at, self.view = static, tensor_at, view
+        self.graph = None
+        self.out = None
+        self.increase: dict = {}
+
+
+class CallGraph:
+    """One call captured per key and replayed: ``run(inputs, call, key)`` →
+    ``call(inputs)``.
+
+    ``inputs`` is a tree of tensors and constants (``flatten``'s), ``call``
+    a function of such a tree that returns a tree of tensors with no host
+    read (a capture cannot hold one). A capture freezes the tensors' shapes,
+    dtypes and devices, the constant leaves and ``key`` (the caller's
+    static arguments and which call it is): a run at a new combination
+    captures anew, as ``jax.jit`` retraces, after ``CALL_WARMUPS`` eager
+    calls on a side stream. Each run copies the inputs into the key's
+    static buffers, replays, adds the capture's launch-counter increase
+    once, and returns clones of the static outputs: the next replay
+    overwrites them (a request above a server's top bucket replays one
+    graph once a piece). Every graph shares the owner's memory pool
+    (``torch.cuda.graph_pool_handle()``), which is safe because each run
+    clones its outputs before the next replay.
+
+    ``graphed=False`` runs ``call`` on the static buffers without a graph
+    and copies its result into static outputs, which are cloned out as a
+    replay's are: the CPU tests' check on the replay route. A capture or a
+    replay that fails raises.
+
+    Attributes read by the measurements: ``captures``, ``capture_seconds``
+    (the last capture's, warm-up included) and ``pool_bytes`` (the device
+    memory the captures reserved, summed)."""
+
+    def __init__(self, graphed: bool = True):
+        self.graphed = graphed
+        self.calls: dict = {}
+        self.pool = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+
+    def _build(self, leaves: list, spec, call: Callable) -> _Captured:
+        tensor_at = [i for i, v in enumerate(leaves) if torch.is_tensor(v)]
+        static = [leaves[i].clone() for i in tensor_at]
+        view = list(leaves)
+        for j, i in enumerate(tensor_at):
+            view[i] = static[j]
+        got = _Captured(static, tensor_at, unflatten(spec, view))
+        if not self.graphed:
+            return got
+        device = static[0].device
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        got.graph, got.out, got.increase, self.capture_seconds, pool_bytes = capture(
+            lambda: call(got.view), device, pool=self.pool, warmups=CALL_WARMUPS)
+        self.pool_bytes += pool_bytes
+        self.captures += 1
+        return got
+
+    def run(self, inputs, call: Callable, key=()):
+        leaves, spec = flatten(inputs)
+        frozen = (key, _frozen_spec(spec), tuple(_signature(v) for v in leaves))
+        got = self.calls.get(frozen)
+        if got is None:
+            got = self.calls[frozen] = self._build(leaves, spec, call)
+        elif got.static:
+            torch._foreach_copy_(got.static, [leaves[i] for i in got.tensor_at])
+        if self.graphed:
+            got.graph.replay()
+            add_counts(got.increase, 1)
+        else:
+            out = call(got.view)
+            if got.out is None:
+                got.out = out
+            else:
+                out_leaves = [v for v in flatten(out)[0] if torch.is_tensor(v)]
+                torch._foreach_copy_([v for v in flatten(got.out)[0] if torch.is_tensor(v)],
+                                     out_leaves)
+        out_leaves, out_spec = flatten(got.out)
+        return unflatten(out_spec, [v.clone() if torch.is_tensor(v) else v
+                                    for v in out_leaves])

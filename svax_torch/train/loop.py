@@ -35,7 +35,7 @@ from svax_torch.train import svae_step
 PER_STEP = "per-step"
 # make_step_runner's / make_batch_runner's graph="body": the captured step
 # run T times a chunk without a graph (the CPU tests' check on a replay).
-BODY = "body"
+BODY = cuda_graph.BODY
 FLEXSTEP_GMM_ONLY = ("the flexstep kernel implements the GMM prior only "
                      "(dof > 0 is the Student-t mixture prior)")
 SINGLE_DEVICE = "the whole-train-step kernels are single-device (no data/component sharding)"
@@ -336,29 +336,6 @@ def minibatch_indices(gen: torch.Generator, n: int, m: int, t_steps: int,
     return torch.argsort(keys, dim=1, stable=True)[:, :m]
 
 
-def _graph_engine(graph, sharded: bool):
-    """The runner's ``graph.ChunkGraph`` for its ``graph`` argument, or None
-    for the eager loop: None (the default) is a graph on CUDA tensors of an
-    unsharded step, ``BODY`` the captured callable run without a graph,
-    False the eager loop. Returns a function of x's device."""
-    if graph not in (None, False, BODY):
-        raise ValueError(f"unknown graph {graph!r} (None|False|{BODY!r})")
-    engines: dict = {}
-
-    def engine(device) -> cuda_graph.ChunkGraph | None:
-        if graph is False:
-            return None
-        replay = graph is None
-        if replay and cuda_graph.route(device, sharded) != cuda_graph.GRAPHED:
-            return None
-        key = str(device)
-        if key not in engines:
-            engines[key] = cuda_graph.ChunkGraph(graphed=replay)
-        return engines[key]
-
-    return engine
-
-
 def _x_key(x: torch.Tensor) -> tuple:
     """What a graph froze of the data it indexes: its storage and layout."""
     return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
@@ -396,7 +373,7 @@ def make_batch_runner(step: Callable, *, batch_size: int = 0, seed: int = 0,
     ``make_step_runner``'s), equal to the eager loop bit for bit; the
     runner's ``engine(device)`` is its graph engine (None: eager)."""
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
-    engine = _graph_engine(graph, data_group is not None)
+    engine = cuda_graph.engines(graph, data_group is not None)
 
     def runner(state, x, t_steps: int):
         n = x.shape[0]
@@ -499,7 +476,7 @@ def make_step_runner(config, prior, *, lr: float, rho: float, rho_decay: float =
                                                   weight_decay=weight_decay), aug_noise)
     sharded = data_group is not None or comp_group is not None
     ndata, data_idx = mesh.size(data_group), mesh.index(data_group)
-    engine = _graph_engine(graph, sharded)
+    engine = cuda_graph.engines(graph, sharded)
 
     def runner(state, x, t_steps: int, seed: int = 0, eps=None):
         n = x.shape[0]
@@ -583,7 +560,7 @@ def run_mixture(state, x, *, steps: int, eval_every: int, emit: Callable,
     minibatches from (registered with the graph). With ``runner`` (chunks
     of ``eval_every`` steps) it follows every chunk, with the chunk's last
     ``elbo``. Returns (state, seconds), timed to a device synchronise."""
-    eng = None if runner is not None else _graph_engine(graph, False)(x.device)
+    eng = None if runner is not None else cuda_graph.engines(graph)(x.device)
     t0 = time.perf_counter()
     t = 0
     while t < steps:

@@ -22,6 +22,7 @@ from svax_torch.parallel import mesh
 from svax_torch.pgm import gmm, natgrad
 from svax_torch.pgm.gmm import GmmNat
 from svax_torch.train import graph
+from svax_torch.train.graph import CallGraph, engines as graph_engines, route as graph_route
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -249,21 +250,53 @@ def rho_schedule(rho0: float, decay: float = 0.0) -> float | Callable:
     return lambda t: rho0 / (1.0 + decay * t)
 
 
-def make_eval_fn(config: SvaeConfig, prior: GmmNat) -> Callable:
+def kernel_draws_eps(config: SvaeConfig) -> bool:
+    """Whether ``model_for(config).forward`` given a seed and no ε draws its
+    ε inside the combine kernel: the GMM prior's fused combine
+    (``svae.fused_combine_runs``) with ``kernel_rng``; otherwise it draws
+    from its generator."""
+    return config.dof <= 0.0 and config.kernel_rng and svae.fused_combine_runs(config)
+
+
+def eval_draws(config: SvaeConfig, n: int, generator: torch.Generator | None,
+               device, dtype: torch.dtype) -> dict:
+    """The noise the forward draws at ``n`` points from ``generator`` (the
+    default generator of ``device`` when None), in the encoder's ``dtype``
+    and in the forward's order: ε (S, n, K, d) for the weighted estimator,
+    the Gumbel (S, n, K) and then ε (S, n, d) draws for the sampled one.
+    Returns the forward's keyword arguments that inject them."""
+    s, k, d = config.num_samples, config.num_components, config.latent_dim
+    kw = dict(device=device, dtype=dtype)
+    if config.recon_mode == "sampled":
+        gumbel = svae.gumbel_draws((s, n, k), generator, **kw)
+        return {"sampled_draws": (gumbel, torch.randn((s, n, d), generator=generator, **kw))}
+    return {"eps": torch.randn((s, n, k, d), generator=generator, **kw)}
+
+
+def make_eval_fn(config: SvaeConfig, prior: GmmNat,
+                 graph: bool | str | None = None) -> Callable:
     """Held-out ELBO decomposition at fixed parameters (SURVEY.md §4.4);
     ``evaluate(state, x, eps=None, generator=None, seed=None)`` takes its
-    noise as the train step does, through ``model_for(config).forward``."""
-    model = model_for(config)
+    noise as the train step does, through ``model_for(config).forward``.
 
-    @torch.no_grad()
-    def evaluate(state: SvaeTrainState, x: torch.Tensor,
-                 eps: torch.Tensor | None = None,
-                 generator: torch.Generator | None = None, seed: int | None = None):
+    On CUDA tensors the call is captured as a CUDA graph (``graph.CallGraph``,
+    one capture per x shape and noise route, the reference's
+    ``jax.jit(make_eval_fn(...))``) and replayed on static copies of the
+    state's nets and naturals and of x. Noise drawn from a generator is
+    drawn before the replay, in the forward's order (``eval_draws``), and
+    injected; the combine kernel's in-kernel ε reads its Philox key
+    {seed, state.step} from a device word (``ops.combine.key_word``), so
+    the replay equals the eager call bit for bit. ``graph`` as the runners'
+    (``graph.engines``): False keeps the eager call on the card, ``BODY``
+    runs the captured callable without a graph; CPU tensors run eager.
+    ``evaluate.route(device)`` is the route's text, ``evaluate.engine(device)``
+    its ``CallGraph`` (None when eager)."""
+    model = model_for(config)
+    engine = graph_engines(graph, kind=CallGraph)
+
+    def forward(nn_params, pgm_nat, x, **noise):
         cfg = config._replace(num_total=x.shape[0])
-        out = model.forward(
-            state.nn_params, state.pgm_nat, prior, x, cfg, eps=eps,
-            generator=generator, seed=seed, step=state.step,
-        )
+        out = model.forward(nn_params, pgm_nat, prior, x, cfg, **noise)
         n = x.shape[0]
         return {
             "elbo_per_point": out.elbo / n,
@@ -272,4 +305,26 @@ def make_eval_fn(config: SvaeConfig, prior: GmmNat) -> Callable:
             "global_kl": out.global_kl,
         }
 
+    @torch.no_grad()
+    def evaluate(state: SvaeTrainState, x: torch.Tensor,
+                 eps: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None, seed: int | None = None):
+        eng = engine(x.device)
+        if eng is None:
+            return forward(state.nn_params, state.pgm_nat, x, eps=eps, generator=generator,
+                           seed=seed, step=state.step)
+        noise: dict = {"eps": eps}
+        if eps is None and seed is not None and kernel_draws_eps(config):
+            from svax_torch.ops import combine
+
+            noise = {"eps": None, "seed": combine.key_word(int(seed), int(state.step),
+                                                           x.device)}
+        elif eps is None:
+            noise = eval_draws(config, x.shape[0], generator, x.device,
+                               state.nn_params["encoder"][-1]["w"].dtype)
+        inputs = {"nn": state.nn_params, "nat": state.pgm_nat, "x": x, "noise": noise}
+        return eng.run(inputs, lambda a: forward(a["nn"], a["nat"], a["x"], **a["noise"]))
+
+    evaluate.engine = engine
+    evaluate.route = lambda device: graph_route(device, graph=graph)
     return evaluate

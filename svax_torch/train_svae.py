@@ -264,8 +264,9 @@ def parse_args(argv: list[str] | None = None):
                         "after every chunk")
     p.add_argument("--graph", action=argparse.BooleanOptionalAction, default=True,
                    help="on CUDA, replay each chunk of the per-step engine as one "
-                        "captured train step (a CUDA graph); --no-graph runs the eager "
-                        "loop (graphed and eager are bit-equal)")
+                        "captured train step and each test evaluation as one captured "
+                        "call (CUDA graphs); --no-graph runs both eagerly (graphed and "
+                        "eager are bit-equal)")
     p.add_argument("--bundle-dir", default="",
                    help="write a serving bundle here at the end of training "
                         "(svax_torch.serve.load_bundle restores it with no flags)")
@@ -439,7 +440,7 @@ def _train(args, p, device, world, data_group, rank) -> dict:
     eval_config = (config if engine == "kernel"
                    else config._replace(fused_combine=False, kernel_rng=False,
                                         fused_mlp_decoder=False, fused_decoder=False))
-    evaluate = svae_step.make_eval_fn(eval_config, prior)
+    evaluate = svae_step.make_eval_fn(eval_config, prior, graph=None if args.graph else False)
     if engine == "kernel" and device.type == "cuda":
         from svax_torch.ops import _build
 
@@ -461,7 +462,8 @@ def _train(args, p, device, world, data_group, rank) -> dict:
     graphed = (cuda_graph.route(device, data_group is not None, None if args.graph else False)
                if kernel == PER_STEP else cuda_graph.KERNEL_CHUNK)
     show(json.dumps({"config": args.config or None, "kernel": kernel, "engine": args.engine,
-                      "why": why, "graph": graphed, "fused_combine": kernel == PER_STEP and
+                      "why": why, "graph": graphed,
+                      "eval_graph": evaluate.route(device), "fused_combine": kernel == PER_STEP and
                       engine == "kernel" and config.fused_combine and weighted
                       and config.encoder_head == "diag" and config.jitter == 0.0,
                       "fused_mlp_decoder": engine == "kernel" and weighted and

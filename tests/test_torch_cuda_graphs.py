@@ -2,6 +2,10 @@
 one captured train step against the eager loop, bit for bit, at the
 configs' full widths; recapture, a shorter last chunk, resume across a
 chunk boundary, the launch counters, and a capture that fails raising.
+The one-call graphs (``graph.CallGraph``) likewise: the held-out
+evaluation at mnist-svae and bigk-dp width on the kernel and plain
+engines, every served endpoint live and exported, and the latent demo's
+online rules, each against its eager route bit for bit.
 
 Every test needs a CUDA device and skips without one. The file imports no
 JAX:
@@ -140,3 +144,74 @@ def test_a_capture_that_fails_raises(dev):
     with pytest.raises(Exception):
         run(state, x, 4)
     assert loop.make_batch_runner(syncing, graph=False)(state, x, 4)[0].step == 4
+
+
+# The kernel launch counters each evaluation path must show inside its
+# graph, once a call (the plain engine's evaluation launches none).
+EVAL_LAUNCHES = {"mnist-svae": ("combine.launches",),
+                 "bigk-dp": ("combine.launches", "decoder_mlp.launches"),
+                 "bigk-f32": ("combine.launches", "decoder.launches", "decoder.bf16_launches"),
+                 "mnist-plain": ()}
+
+
+@pytest.mark.parametrize("path", measure_graphs.EVAL_PATHS)
+def test_graphed_eval_equals_eager(dev, path):
+    """Three calls on the test set with the state (tensors and step) moved
+    10 graphed steps between calls, through the entry's noise (the
+    combine's in-kernel ε keyed {seed, step}, or ε from a fresh generator
+    each call): the four terms bit-equal, one capture, the launch counts
+    of each call equal to the eager call's."""
+    got = measure_graphs.eval_routes(dev, path, calls=3)
+    assert got["route"] == graph.GRAPHED
+    assert got["equal"] and got["counts_equal"], got
+    assert got["captures"] == 1
+    launched = {k for k, v in got["launches"].items() if v}
+    assert launched == set(EVAL_LAUNCHES[path]), got["launches"]
+    assert all(got["launches"][k] == 3 for k in launched), got["launches"]
+
+
+def test_served_endpoints_graphed_equal_eager(dev, tmp_path):
+    """Every endpoint, live and exported, at buckets 32, 512 and 8192 and a
+    request of two 8192-row pieces (one graph replayed twice)."""
+    got = measure_graphs.serve_routes(dev, buckets=(32, 512, 8192), repeats=0,
+                                      work=tmp_path)
+    assert len(got["equal"]) == 2 * 4 * 4
+    assert all(got["equal"].values()), [k for k, v in got["equal"].items() if not v]
+    for tier in ("live", "exported"):
+        assert got["graphs"][tier]["route"] == graph.GRAPHED
+        assert got["graphs"][tier]["captures"] == 4 * 3
+
+
+def test_served_student_t_endpoints_graphed_equal_eager(dev):
+    """The Student-t prior's endpoints, live, at buckets 32 and 512 and a
+    request of two 512-row pieces (its exported programs are held to the
+    live bodies on the CPU: at d = 8 its unrolled solves take minutes to
+    trace)."""
+    got = measure_graphs.serve_routes(dev, buckets=(32, 512), repeats=0, dof=4.0,
+                                      exported=False)
+    assert len(got["equal"]) == 3 * 4
+    assert all(got["equal"].values()), [k for k, v in got["equal"].items() if not v]
+    assert got["graphs"]["live"]["captures"] == 4 * 2
+
+
+def test_online_rules_graphed_equal_eager(dev):
+    """Both online CVI rules over 200 steps: final naturals and the stacked
+    E[u] bit-equal to the eager loop, one capture a rule."""
+    for rule, got in measure_graphs.online_routes(dev, steps=200).items():
+        assert got["equal"], rule
+        assert got["captures"] == 1, rule
+
+
+def test_a_call_capture_that_fails_raises(dev):
+    """A call that reads a value on the host cannot be captured: the
+    one-call graph raises, and never falls back to the eager call."""
+    x = torch.arange(8.0, device=dev)
+
+    def syncing(a):
+        if float(a["x"].sum()) != float(a["x"].sum()):  # a host read
+            raise AssertionError("NaN data")
+        return {"y": a["x"] * 2.0}
+
+    with pytest.raises(Exception):
+        graph.CallGraph().run({"x": x}, syncing)
+    assert torch.equal(graph.CallGraph(graphed=False).run({"x": x}, syncing)["y"], x * 2.0)

@@ -193,7 +193,8 @@ def test_free_form_runs_and_weight_decay_takes_the_per_step_engine(monkeypatch):
 
 # Each named config's first line as the entry printed it before the
 # free-form flags (mnist-svae at 16-16, bigk-dp at K = 6, 16-16, batch 64;
-# one thread), with the "graph" route the graphed runners added.
+# one thread), with the "graph" route the graphed runners added and the
+# "eval_graph" route the graphed evaluation added.
 NAMED_FIRST = {
     "pinwheel-svae": dict(config="pinwheel-svae", kernel="tinystep", why=None,
                           graph=cuda_graph.KERNEL_CHUNK,
@@ -221,7 +222,7 @@ NAMED_FIRST = {
 COMMON_FIRST = dict(engine="kernel", fused_decoder=False, encoder_head="diag",
                     recon_mode="weighted", remat_combine=False, remat_decoder=False,
                     prior="gmm", dof=0.0, smm_iters=2, smm_envelope_grads=False,
-                    world_size=1, data=1, comp=1)
+                    world_size=1, data=1, comp=1, eval_graph=cuda_graph.CPU_EAGER)
 
 
 @pytest.mark.parametrize("name", list(NAMED_FIRST))
